@@ -1,9 +1,9 @@
 """imagenet_models_tpu_torch — the PyTorch/CUDA port of imagenet_models_tpu.
 
 The layout mirrors the JAX package (`core/`, `nn/`, `ops/`, `models/`,
-`ckpt/`, `serving.py`, `train/state.py`), so each module has a counterpart
-there. The JAX package is the reference that this one is tested against; this
-package imports `torch` and never `jax` or `flax`.
+`ckpt/`, `serving.py`, `train/`), so each module has a counterpart there. The
+JAX package is the reference that this one is tested against; this package
+imports `torch` and never `jax`, `flax` or anything of `imagenet_models_tpu`.
 
 Hot kernels are written by hand for Hopper (`csrc/`) and built at first use on
 a machine with `nvcc`. On CPU tensors every kernel wrapper runs its plain

@@ -1,23 +1,151 @@
 """Weights into the port: JAX variables or reference `.pth.tar` files.
 
-There is one converter, the JAX package's own (jax-free) torch exporter:
-`ckpt/torch_convert.py:export_torch_state_dict` with the model family's
-`ckpt/reverse_rules.py:reverse_translator`. Port modules use the reference's
-torch names and layouts, so its output loads into them with `strict=True`.
+The port keeps its own copy of the JAX package's torch exporter
+(`ckpt/torch_convert.py`: the pytree flatten, the Flax -> torch tensor
+transform, `export_torch_state_dict`, `load_torch_checkpoint`) and of the
+reverse name rules of the ported families (`ckpt/reverse_rules.py`:
+`convnext_*`, `map_convnext_*`). It imports nothing of the JAX package. Port
+modules use the reference's torch names and layouts, so the exported
+state_dict loads into them with `strict=True`. The rules of families not yet
+ported come with their slices.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import fnmatch
+import re
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from imagenet_models_tpu.ckpt.reverse_rules import reverse_translator
-from imagenet_models_tpu.ckpt.torch_convert import (
-    export_torch_state_dict,
-    load_torch_checkpoint,
-)
+
+def flatten_dict(d: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """Nested dict -> {'a/b/c': leaf}."""
+    out = {}
+    for k, v in d.items():
+        p = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(flatten_dict(v, p))
+        else:
+            out[p] = v
+    return out
+
+
+def unflatten_dict(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """{'a/b/c': leaf} -> nested dict."""
+    out: Dict[str, Any] = {}
+    for path, v in flat.items():
+        parts = path.split("/")
+        cur = out
+        for p in parts[:-1]:
+            cur = cur.setdefault(p, {})
+        cur[parts[-1]] = v
+    return out
+
+
+class ReverseTranslator:
+    """Ordered regex rewrites from a Flax module path to a torch dotted key."""
+
+    def __init__(self, rules: Sequence[Tuple[str, str]]):
+        self.rules = [(re.compile(p), r) for p, r in rules]
+
+    def __call__(self, path: str) -> str:
+        path = path.replace("/", ".")
+        for pat, rep in self.rules:
+            path = pat.sub(rep, path)
+        return path
+
+
+# the MAP head library's Flax names -> torch names (inverse of the JAX
+# package's MAP_HEAD_RULES)
+MAP_HEAD_REVERSE: List[Tuple[str, str]] = [
+    (r"mmcap\.mmcap_(\d+)", r"mmcap.mmcap.\1"),
+    (r"attention_(\d+)\.", r"attention.\1."),
+    (r"self_dt_heads_(\d+)", r"self_dt_heads.\1"),
+    (r"\bheads_(\d+)", r"heads.\1"),
+    (r"(ch_reduction|concat_conv|channel_convertor|gram_contraction|gram_embedding)\.conv\b", r"\1.0"),
+    (r"(ch_reduction|concat_conv|channel_convertor|gram_contraction|gram_embedding)\.bn\b", r"\1.1"),
+    (r"bp_reduction\b(?!\.)", "bp_reduction.0"),
+    (r"bp_bn\b", "bp_reduction.1"),
+    (r"norm_(\d+)$", r"norm.\1"),
+    (r"head_(\d+)$", r"head.\1"),
+]
+
+CONVNEXT_REVERSE: List[Tuple[str, str]] = [
+    (r"downsample_layers_0_conv", "downsample_layers.0.0"),
+    (r"downsample_layers_0_norm", "downsample_layers.0.1"),
+    (r"downsample_layers_(\d+)_norm", r"downsample_layers.\1.0"),
+    (r"downsample_layers_(\d+)_conv", r"downsample_layers.\1.1"),
+    (r"stages_(\d+)_blocks_(\d+)\.", r"stages.\1.\2."),
+] + MAP_HEAD_REVERSE
+
+_REVERSE: Dict[str, List[Tuple[str, str]]] = {
+    "convnext_*": CONVNEXT_REVERSE,
+    "map_convnext_*": CONVNEXT_REVERSE,
+}
+
+
+def reverse_translator(model_name: str) -> ReverseTranslator:
+    for pattern, rules in _REVERSE.items():
+        if fnmatch.fnmatch(model_name, pattern):
+            return ReverseTranslator(rules)
+    raise KeyError(f"no reverse conversion rules for {model_name}")
+
+
+def _to_torch(fval: np.ndarray, path: str) -> np.ndarray:
+    """A Flax leaf in the torch layout: conv HWIO -> OIHW, Dense (I, O) -> (O, I),
+    GroupedDense (g, I/g, O/g) -> grouped 1x1 conv (O, I/g, 1, 1)."""
+    if path.endswith("kernel"):
+        if fval.ndim == 4:
+            return np.transpose(fval, (3, 2, 0, 1))
+        if fval.ndim == 3:
+            g, i, o = fval.shape
+            return np.transpose(fval, (0, 2, 1)).reshape(g * o, i)[:, :, None, None]
+        if fval.ndim == 2:
+            return np.transpose(fval, (1, 0))
+    # NHWC spatial parameter (PiT pos_embed) back to torch NCHW
+    if path.endswith("pos_embed") and fval.ndim == 4:
+        return np.transpose(fval, (0, 3, 1, 2))
+    return fval
+
+
+_LEAF_TO_SUFFIX = {"kernel": "weight", "scale": "weight", "bias": "bias",
+                   "mean": "running_mean", "var": "running_var"}
+
+
+def export_torch_state_dict(variables: Dict[str, Any],
+                            translate_back: Callable[[str], str]) -> Dict[str, np.ndarray]:
+    """Flax variables ({'params': ..., 'batch_stats': ...}) -> torch-layout
+    state_dict with numpy values."""
+    out: Dict[str, np.ndarray] = {}
+    for col in ("params", "batch_stats"):
+        for path, val in flatten_dict(variables.get(col, {})).items():
+            parts = path.split("/")
+            suffix = _LEAF_TO_SUFFIX.get(parts[-1])
+            tbase = translate_back("/".join(parts[:-1]) if suffix else path)
+            out[f"{tbase}.{suffix}" if suffix else tbase] = _to_torch(np.asarray(val), path)
+    return out
+
+
+def load_torch_checkpoint(path: str, use_ema: bool = False) -> Dict[str, np.ndarray]:
+    """Read a reference .pth.tar / .pth checkpoint into numpy arrays (the
+    'state_dict' / 'state_dict_ema' / 'model' wrappers and the DDP `module.`
+    prefix are unwrapped)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict):
+        if use_ema and "state_dict_ema" in ckpt:
+            ckpt = ckpt["state_dict_ema"]
+        elif "state_dict" in ckpt:
+            ckpt = ckpt["state_dict"]
+        elif "model" in ckpt and isinstance(ckpt["model"], dict):
+            ckpt = ckpt["model"]
+    out = {}
+    for k, v in ckpt.items():
+        k = k[7:] if k.startswith("module.") else k
+        out[k] = v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
+    return out
+
 
 # Reference keys with no counterpart in the port's state_dict: torch BN's
 # step counter, and the triu-index buffer the port keeps non-persistent.

@@ -46,8 +46,19 @@ def default_cfg(name: str) -> Dict[str, Any]:
     return base
 
 
+def resolve_device(device: Optional[torch.device | str] = None) -> torch.device:
+    """The device an entry point builds on: `device` when given, else the
+    current CUDA device. Raises when CUDA is asked for (or defaulted to) and
+    absent: nothing is quietly built on the CPU; pass device="cpu" for that."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: the port runs on the GPU by default; "
+                           "pass device='cpu' to build on the CPU")
+    return dev
+
+
 def create_model(model_name: str, device: Optional[torch.device | str] = None, **kwargs):
-    """Build `model_name` and move it to `device`.
+    """Build `model_name` on `device` (the GPU when None).
 
     kwargs go to the factory (num_classes, dtype, drop_path_rate, generator,
     ...); Nones are stripped, as timm does. The module is built and
@@ -57,11 +68,9 @@ def create_model(model_name: str, device: Optional[torch.device | str] = None, *
     if model_name not in _REGISTRY:
         raise KeyError(
             f"Unknown model {model_name!r}. Known: {', '.join(sorted(_REGISTRY))}")
+    dev = resolve_device(device)
     kwargs = {k: v for k, v in kwargs.items() if v is not None}
-    model = _REGISTRY[model_name](**kwargs)
-    if device is not None:
-        model = model.to(device)
-    return model
+    return _REGISTRY[model_name](**kwargs).to(dev)
 
 
 def list_models(filter: str = "") -> List[str]:

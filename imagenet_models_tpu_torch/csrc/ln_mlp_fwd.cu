@@ -6,9 +6,10 @@
 //
 // Numerics (the Pallas kernel's): LayerNorm with fp32 statistics (two-pass
 // mean and variance, eps given); LN'd tokens cast to bf16; first product in
-// bf16 with fp32 accumulation, + b1 in fp32; exact GELU in fp32 (erff), cast
-// to bf16; second product with fp32 accumulation, + b2, * gamma in fp32; one
-// final cast to bf16.
+// bf16 with fp32 accumulation, + b1 in fp32; GELU in fp32, cast to bf16 (exact
+// erff at eval, the minimax erf fit in training: two instances); second
+// product with fp32 accumulation, + b2, * gamma in fp32; one final cast to
+// bf16.
 //
 // What bounds it on the H100. Per token the kernel reads and writes C bf16
 // values but does 16*C*C flops (two C x 4C products), so at every ConvNeXt
@@ -37,23 +38,11 @@
 //     are not stored on the way out.
 // wgmma, TMA and persistent blocks are left for later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-
-#include <cstddef>
-#include <cstdint>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "ln_mlp_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr size_t kMaxSmem = 232448;  // 227 KB per block on sm_90
-
-__host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) & ~size_t(127); }
+using namespace imt;
 
 // Shared-memory plan, identical on host and device. Region 0 holds the LN'd
 // tile and both weight chunks during the loop and the fp32 output tile in the
@@ -85,55 +74,6 @@ __host__ __device__ inline Layout make_layout(int C, int T, int HC, int ksplit) 
   return L;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ void unpack8(const uint4& u, float* f) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(p[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
-}
-
-__device__ __forceinline__ uint4 pack8(const float* f) {
-  uint4 u;
-  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return u;
-}
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-constexpr int kMaxSegs = 4;  // 16-byte segments of a row per lane: C <= 1024
-
-// Warp grid of the first product for T tokens and HC hidden units: MT1 x NT1
-// fragments per warp on a WM1 x WN1 grid, and the C reduction split KS ways
-// over the warps left over (the partial sums meet in shared memory).
-template <int T, int HC, int MT1, int NT1>
-struct Grid1 {
-  static constexpr int WM1 = T / 16 / MT1, WN1 = HC / 16 / NT1;
-  static constexpr int KS = kWarps / (WM1 * WN1);
-  static_assert(WM1 * MT1 == T / 16 && WN1 * NT1 == HC / 16 && KS * WM1 * WN1 == kWarps,
-                "first-product warp grid");
-};
-
 // T tokens per block, HC hidden units per chunk. Both products run on
 // register-blocked warp tiles: per k-step a warp loads its A and B fragments
 // once and issues every mma between them.
@@ -143,7 +83,7 @@ struct Grid1 {
 //  * second product, (T/16) x (C/16) fragments: a WM2 x WN2 warp grid, MT2 row
 //    blocks and up to NT2 column blocks per warp (C/16 need not split evenly);
 //    these accumulators live across the whole hidden loop.
-template <int T, int HC, int MT1, int NT1, int MT2, int NT2, int MINB>
+template <int T, int HC, int MT1, int NT1, int MT2, int NT2, int MINB, bool FAST>
 __global__ void __launch_bounds__(kThreads, MINB)
 ln_mlp_fwd_kernel(const bf16* __restrict__ h, const float* __restrict__ ln_s,
                   const float* __restrict__ ln_b, const bf16* __restrict__ w1,
@@ -307,13 +247,13 @@ ln_mlp_fwd_kernel(const bf16* __restrict__ h, const float* __restrict__ ln_s,
     if (j + 1 < nchunks) load_w1(j + 1);
     cp_commit();
 
-    // + b1, exact GELU in fp32, cast to bf16
+    // + b1, GELU in fp32, cast to bf16
     for (int i = tid; i < T * HC; i += kThreads) {
       const int t = i / HC, c = i - t * HC;
       float v = b1[j * HC + c];
 #pragma unroll
       for (int s = 0; s < KS; ++s) v += Hf[s * T * L.ldh + t * L.ldh + c];
-      Gs[t * L.ldg + c] = __float2bfloat16(0.5f * v * (1.f + erff(v * 0.70710678118654752f)));
+      Gs[t * L.ldg + c] = __float2bfloat16(gelu<FAST>(v));
     }
     cp_wait<1>();  // W2 chunk j has landed (W1 chunk j+1 may still be in flight)
     __syncthreads();
@@ -361,7 +301,7 @@ ln_mlp_fwd_kernel(const bf16* __restrict__ h, const float* __restrict__ ln_s,
   }
 }
 
-template <int T, int HC, int MT1, int NT1, int MT2, int NT2, int MINB>
+template <int T, int HC, int MT1, int NT1, int MT2, int NT2, int MINB, bool FAST>
 cudaError_t launch(const bf16* h, const float* ln_s, const float* ln_b, const bf16* w1,
                    const float* b1, const bf16* w2, const float* b2, const float* gamma,
                    bf16* out, long long n, int C, int hidden, float eps, cudaStream_t stream) {
@@ -370,7 +310,7 @@ cudaError_t launch(const bf16* h, const float* ln_s, const float* ln_b, const bf
   if ((C / 16 + WN2 - 1) / WN2 > NT2 || hidden % HC) return cudaErrorInvalidValue;
   const Layout L = make_layout(C, T, HC, KS);
   if (L.total > kMaxSmem) return cudaErrorInvalidValue;
-  auto kern = ln_mlp_fwd_kernel<T, HC, MT1, NT1, MT2, NT2, MINB>;
+  auto kern = ln_mlp_fwd_kernel<T, HC, MT1, NT1, MT2, NT2, MINB, FAST>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(L.total));
   if (e != cudaSuccess) return e;
@@ -379,6 +319,18 @@ cudaError_t launch(const bf16* h, const float* ln_s, const float* ln_b, const bf
   kern<<<static_cast<unsigned>(blocks), kThreads, L.total, stream>>>(
       h, ln_s, ln_b, w1, b1, w2, b2, gamma, out, n, C, hidden, eps);
   return cudaGetLastError();
+}
+
+template <bool FAST>
+cudaError_t dispatch(const bf16* h, const float* ln_s, const float* ln_b, const bf16* w1,
+                     const float* b1, const bf16* w2, const float* b2, const float* gamma,
+                     bf16* out, long long n, int C, int hidden, float eps, cudaStream_t st) {
+  // <T, HC, first-product tile MT1 x NT1, second-product tile MT2 x NT2, min blocks/SM, GELU>
+  if (C <= 128) return launch<64, 64, 1, 2, 1, 4, 2, FAST>(h, ln_s, ln_b, w1, b1, w2, b2, gamma, out, n, C, hidden, eps, st);
+  if (C <= 256) return launch<64, 64, 1, 2, 2, 4, 2, FAST>(h, ln_s, ln_b, w1, b1, w2, b2, gamma, out, n, C, hidden, eps, st);
+  if (C <= 384) return launch<64, 64, 2, 2, 4, 3, 1, FAST>(h, ln_s, ln_b, w1, b1, w2, b2, gamma, out, n, C, hidden, eps, st);
+  if (C <= 768) return launch<32, 32, 2, 2, 2, 6, 1, FAST>(h, ln_s, ln_b, w1, b1, w2, b2, gamma, out, n, C, hidden, eps, st);
+  return launch<16, 32, 1, 2, 1, 8, 1, FAST>(h, ln_s, ln_b, w1, b1, w2, b2, gamma, out, n, C, hidden, eps, st);
 }
 
 }  // namespace
@@ -392,28 +344,20 @@ int imt_ln_mlp_fwd_supported(int C, int hidden) {
 }
 
 // h (n, C) bf16, w1 (hidden, C) bf16, w2 (C, hidden) bf16, vectors fp32,
-// out (n, C) bf16; all contiguous and 16-byte aligned. Launches on `stream`
+// out (n, C) bf16; all contiguous and 16-byte aligned. gelu_fast selects the
+// training GELU (the minimax erf fit) over exact erf. Launches on `stream`
 // and returns the launch status (a cudaError_t; 0 is success).
 int imt_ln_mlp_fwd_bf16(const void* h, const void* ln_s, const void* ln_b, const void* w1,
                         const void* b1, const void* w2, const void* b2, const void* gamma,
-                        void* out, long long n, int C, int hidden, float eps, void* stream) {
+                        void* out, long long n, int C, int hidden, float eps, int gelu_fast,
+                        void* stream) {
   if (!imt_ln_mlp_fwd_supported(C, hidden) || n <= 0) return cudaErrorInvalidValue;
-  const auto* hp = static_cast<const bf16*>(h);
-  const auto* w1p = static_cast<const bf16*>(w1);
-  const auto* w2p = static_cast<const bf16*>(w2);
-  const auto* sp = static_cast<const float*>(ln_s);
-  const auto* bp = static_cast<const float*>(ln_b);
-  const auto* b1p = static_cast<const float*>(b1);
-  const auto* b2p = static_cast<const float*>(b2);
-  const auto* gp = static_cast<const float*>(gamma);
-  auto* op = static_cast<bf16*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  // <T, HC, first-product tile MT1 x NT1, second-product tile MT2 x NT2, min blocks/SM>
-  if (C <= 128) return launch<64, 64, 1, 2, 1, 4, 2>(hp, sp, bp, w1p, b1p, w2p, b2p, gp, op, n, C, hidden, eps, st);
-  if (C <= 256) return launch<64, 64, 1, 2, 2, 4, 2>(hp, sp, bp, w1p, b1p, w2p, b2p, gp, op, n, C, hidden, eps, st);
-  if (C <= 384) return launch<64, 64, 2, 2, 4, 3, 1>(hp, sp, bp, w1p, b1p, w2p, b2p, gp, op, n, C, hidden, eps, st);
-  if (C <= 768) return launch<32, 32, 2, 2, 2, 6, 1>(hp, sp, bp, w1p, b1p, w2p, b2p, gp, op, n, C, hidden, eps, st);
-  return launch<16, 32, 1, 2, 1, 8, 1>(hp, sp, bp, w1p, b1p, w2p, b2p, gp, op, n, C, hidden, eps, st);
+  auto* f = gelu_fast ? &dispatch<true> : &dispatch<false>;
+  return f(static_cast<const bf16*>(h), static_cast<const float*>(ln_s),
+           static_cast<const float*>(ln_b), static_cast<const bf16*>(w1),
+           static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+           static_cast<const float*>(b2), static_cast<const float*>(gamma),
+           static_cast<bf16*>(out), n, C, hidden, eps, static_cast<cudaStream_t>(stream));
 }
 
 const char* imt_cuda_error_string(int err) {

@@ -1,5 +1,4 @@
-"""ConvNeXt backbone + MAP head, eval path. Port of
-imagenet_models_tpu/models/convnext.py.
+"""ConvNeXt backbone + MAP head. Port of imagenet_models_tpu/models/convnext.py.
 
 Attribute names and parameter shapes are the reference's torch ones
 (`downsample_layers.0.0`, `stages.0.0.pwconv1.weight` as (4C, C),
@@ -10,6 +9,10 @@ view and the LN+MLP kernel sees (N, C) rows, with no copies between.
 
 Compute dtype: fp32 parameters cast to `dtype` at use (the JAX `dtype=`
 attribute); the residual stream keeps the compute dtype.
+
+Modes: a built model is in eval mode, as the JAX forward's default
+`training=False`; `model.train()` gives JAX's `training=True` forward (the
+kernels' fast GELU, stochastic depth, and the head's training behaviour).
 """
 
 from __future__ import annotations
@@ -49,13 +52,14 @@ class ConvNeXtBlock(nn.Module):
         self.drop_path = DropPath(drop_path)
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor, use_kernel: Optional[bool] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_kernel: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         xc = x if self.compute_dtype is None else x.to(self.compute_dtype)
         branch = convnext_block_apply(
             xc, self.dwconv.weight, self.dwconv.bias, self.norm.weight, self.norm.bias,
             self.pwconv1.weight, self.pwconv1.bias, self.pwconv2.weight, self.pwconv2.bias,
-            self.gamma, eps=self.norm.eps, use_kernel=use_kernel)
-        return x + self.drop_path(branch).to(x.dtype)
+            self.gamma, eps=self.norm.eps, use_kernel=use_kernel, training=self.training)
+        return x + self.drop_path(branch, generator).to(x.dtype)
 
 
 class ConvNeXt(nn.Module):
@@ -107,14 +111,15 @@ class ConvNeXt(nn.Module):
             with torch.no_grad():
                 self.head.weight.mul_(head_init_scale)
                 self.head.bias.mul_(head_init_scale)
-        # eval by default, as the JAX forward's training=False; train mode is
-        # not ported yet
         self.eval()
 
     def forward(self, x: torch.Tensor, pre_logits: bool = False,
-                use_kernel: Optional[bool] = None):
+                use_kernel: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None):
         """x: NHWC float images. Eval output: a tuple of per-group logits for
-        the mmcap head, a logits tensor for the avg head."""
+        the mmcap head, a logits tensor for the avg head; in training the
+        mmcap head gives (org, avg) pairs. `generator` (on x's device) draws
+        the stochastic-depth masks."""
         dt = self.compute_dtype
         features = []
         for i, (ds, stage) in enumerate(zip(self.downsample_layers, self.stages)):
@@ -126,7 +131,7 @@ class ConvNeXt(nn.Module):
                 norm, conv = ds
                 x = conv2d_nhwc(norm(x), conv.weight, conv.bias, stride=2, dtype=dt)
             for blk in stage:
-                x = blk(x, use_kernel=use_kernel)
+                x = blk(x, use_kernel=use_kernel, generator=generator)
             features.append(x)
         if self.global_pool == "mmcap":
             return self.head(features, pre_logits=pre_logits)

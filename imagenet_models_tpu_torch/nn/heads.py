@@ -1,10 +1,12 @@
-"""MAP head library, eval path: Gram-token seeded multi-token class-attention
-pooling. Port of imagenet_models_tpu/nn/heads.py.
+"""MAP head library: Gram-token seeded multi-token class-attention pooling.
+Port of imagenet_models_tpu/nn/heads.py.
 
 Inputs are channels-last, as in the JAX package. Module and parameter names
 are the reference's torch names (`mmcap.mmcap.0.gram_token_extraction...`),
 so a state_dict exported from the JAX package loads with `strict=True`.
-`Head`, `SplitNormHead`, `NormMlpHead` and the training outputs of `MAPHead`
+Under `module.train()` the head runs as JAX's `training=True`: batch
+statistics in its BatchNorms, its dropouts, the fast GELU, and `MAPHead`
+returns (org, avg) logit pairs. `Head`, `SplitNormHead` and `NormMlpHead`
 come with later slices.
 """
 
@@ -42,12 +44,42 @@ def triu_flat_index(c: int) -> torch.Tensor:
     return iu[0] * c + iu[1]
 
 
+def triu_gather_tables(c: int, device=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(index, inverse, mask) of the upper-triangle gather from a flat (c*c)
+    Gram: `index` picks the triangle; `inverse` maps each of the c*c entries
+    to its place in the triangle (0 where it has none) and `mask` is 1 where
+    it has one."""
+    index = triu_flat_index(c)
+    inverse = torch.zeros(c * c, dtype=torch.long)
+    inverse[index] = torch.arange(index.numel())
+    mask = torch.zeros(c * c)
+    mask[index] = 1.0
+    return index.to(device), inverse.to(device), mask.to(device)
+
+
+class _TriuTake(torch.autograd.Function):
+    """Upper-triangle gather whose backward is a gather by the inverse index
+    times a 0/1 mask, as JAX's custom VJP (nn/heads.py:52-79), instead of
+    autograd's scatter-add into the (B, c*c) Gram gradient."""
+
+    @staticmethod
+    def forward(ctx, gflat, index, inverse, mask):
+        ctx.save_for_backward(inverse, mask)
+        return gflat[:, index]
+
+    @staticmethod
+    def backward(ctx, d):
+        inverse, mask = ctx.saved_tensors
+        return d[:, inverse] * mask.to(d.dtype), None, None, None
+
+
 def gram_triu_normalize(x: torch.Tensor, scale: float, interleave: int = 1,
-                        index: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        triu: Optional[Tuple[torch.Tensor, ...]] = None) -> torch.Tensor:
     """Gram matrix -> upper triangle -> L2-normalize (nn/heads.py:82-121).
 
     x: (B, N, C) tokens. Returns fp32 (B, C*(C+1)//2), L2-normalized and
-    optionally token-interleaved for a following grouped projection.
+    optionally token-interleaved for a following grouped projection. `triu`
+    is `triu_gather_tables(C)`, made here when not given.
 
     bf16 tokens: the product runs on fp32 copies, so every bf16*bf16 product
     is exact and the Gram comes out in fp32, as JAX's
@@ -63,9 +95,9 @@ def gram_triu_normalize(x: torch.Tensor, scale: float, interleave: int = 1,
     else:
         xf = x.float() * scale
         gram = torch.bmm(xf.transpose(1, 2), xf)  # (B, C, C)
-    if index is None:
-        index = triu_flat_index(c).to(x.device)
-    flat = gram.reshape(b, c * c)[:, index]
+    if triu is None:
+        triu = triu_gather_tables(c, x.device)
+    flat = _TriuTake.apply(gram.reshape(b, c * c), *triu)
     norm = flat.square().sum(-1, keepdim=True).sqrt()
     flat = flat / norm.clamp_min(1e-12)
     if interleave > 1:
@@ -91,14 +123,19 @@ class GramToken(nn.Module):
         self.bp_reduction = nn.Sequential(
             GroupedDense(gram_dim, feats, groups=num_groups, bias=False, dtype=dtype),
             BatchNorm(feats, dtype=dtype))
-        # the reference's triu index buffer; the JAX export drops it
-        self.register_buffer("bp_index", triu_flat_index(bp_dim), persistent=False)
+        # the reference's triu index buffer (the JAX export drops it), and the
+        # tables of its scatter-free backward
+        index, inverse, mask = triu_gather_tables(bp_dim)
+        self.register_buffer("bp_index", index, persistent=False)
+        self.register_buffer("bp_inverse", inverse, persistent=False)
+        self.register_buffer("bp_mask", mask, persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.ch_reduction(x)
         b, hh, ww, c = h.shape
         flat = gram_triu_normalize(h.reshape(b, hh * ww, c), scale=1.0 / (hh * ww),
-                                   interleave=self.num_tokens, index=self.bp_index)
+                                   interleave=self.num_tokens,
+                                   triu=(self.bp_index, self.bp_inverse, self.bp_mask))
         flat = self.bp_reduction(flat)
         # token t takes channels [t::nt] in out_dim-major order
         return flat.reshape(b, self.out_dim, self.num_tokens).transpose(1, 2)
@@ -109,7 +146,8 @@ class ClassAttention(nn.Module):
     (nn/heads.py:163-228)."""
 
     def __init__(self, in_dim: int, dim: int, num_heads: int = 8, qkv_bias: bool = True,
-                 qk_scale: Optional[float] = None, n_tokens: int = 1, embed_dim: int = 128,
+                 qk_scale: Optional[float] = None, attn_drop: float = 0.0,
+                 proj_drop: float = 0.0, n_tokens: int = 1, embed_dim: int = 128,
                  interactive: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         e = embed_dim
@@ -131,6 +169,8 @@ class ClassAttention(nn.Module):
             self.w1 = Dense(num_heads, num_heads, dtype=dtype)
             self.w2 = Dense(num_heads, num_heads, dtype=dtype)
         self.proj = Dense(e, dim, dtype=dtype)
+        self.attn_drop = nn.Dropout(attn_drop)
+        self.proj_drop = nn.Dropout(proj_drop)
 
     def _heads(self, t: torch.Tensor) -> torch.Tensor:
         b, n, _ = t.shape
@@ -155,18 +195,19 @@ class ClassAttention(nn.Module):
         attn = torch.softmax(attn.float(), dim=-1).to(attn.dtype)
         if self.interactive:  # post-softmax additive mixing, not re-normalized
             attn = self._mix(attn, self.w2)
-        out = torch.matmul(attn, v)
+        out = torch.matmul(self.attn_drop(attn), v)
         b = out.shape[0]
         out = out.transpose(1, 2).reshape(b, self.n_tokens, self.embed_dim)
-        return self.proj(out)
+        return self.proj_drop(self.proj(out))
 
 
 class CABlock(nn.Module):
     """Class-attention block: CA + grouped MLP with pre-norms (nn/heads.py:231-269)."""
 
     def __init__(self, in_dim: int, dim: int, num_heads: int = 32, mlp_ratio: float = 4.0,
-                 groups: int = 2, qkv_bias: bool = True, act: Callable = gelu,
-                 n_tokens: int = 1, ca_dim: Optional[int] = None, interactive: bool = False,
+                 groups: int = 2, qkv_bias: bool = True, drop: float = 0.05,
+                 attn_drop: float = 0.05, act: Callable = gelu, n_tokens: int = 1,
+                 ca_dim: Optional[int] = None, interactive: bool = False,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dim_mismatch = in_dim != dim
@@ -176,10 +217,12 @@ class CABlock(nn.Module):
         else:
             self.norm1 = LayerNorm(dim, dtype=dtype)
         self.attn = ClassAttention(in_dim, dim, num_heads=num_heads, qkv_bias=qkv_bias,
-                                   n_tokens=n_tokens, embed_dim=ca_dim or dim,
-                                   interactive=interactive, dtype=dtype)
+                                   attn_drop=attn_drop, proj_drop=drop, n_tokens=n_tokens,
+                                   embed_dim=ca_dim or dim, interactive=interactive,
+                                   dtype=dtype)
         self.norm2 = LayerNorm(dim, dtype=dtype)
-        self.mlp = GroupConvMlp(dim, int(dim * mlp_ratio), act=act, groups=groups, dtype=dtype)
+        self.mlp = GroupConvMlp(dim, int(dim * mlp_ratio), act=act, drop=drop, groups=groups,
+                                dtype=dtype)
 
     def forward(self, x: Tuple[torch.Tensor, torch.Tensor]):
         x_cls, x_img = x
@@ -198,7 +241,8 @@ class CAP(nn.Module):
 
     def __init__(self, last_dim: int = 1024, num_heads: int = 8, mlp_ratio: float = 4.0,
                  mlp_groups: int = 2, n_layers: int = 1, n_tokens: int = 1,
-                 distill_tokens: int = 0, self_distill_token: bool = False,
+                 distill_tokens: int = 0, attn_drop: float = 0.0,
+                 self_distill_token: bool = False,
                  act: Callable = gelu, gram: bool = False, gram_group: int = 8,
                  bp_groups: int = 1, gram_dim: Optional[int] = None, bp_dim: int = 192,
                  ca_dim: Optional[int] = None, interactive: bool = False,
@@ -220,8 +264,8 @@ class CAP(nn.Module):
             self.x_cls = nn.Parameter(torch.zeros(1, cls_tokens, last_dim))
         self.attention = nn.ModuleList(
             CABlock(gram_dim, last_dim, num_heads=num_heads, mlp_ratio=mlp_ratio,
-                    groups=mlp_groups, act=act, n_tokens=self.all_tokens, ca_dim=ca_dim,
-                    interactive=interactive, dtype=dtype)
+                    groups=mlp_groups, attn_drop=attn_drop, act=act, n_tokens=self.all_tokens,
+                    ca_dim=ca_dim, interactive=interactive, dtype=dtype)
             for _ in range(n_layers))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -266,6 +310,7 @@ class MAP(nn.Module):
                  gram_dim: Optional[int] = None, num_heads: int = 8, mlp_ratio: float = 2.0,
                  mlp_groups: int = 1, n_layers: int = 1, n_tokens: int = 1,
                  distill_tokens: int = 0, self_distill_token: bool = False,
+                 attn_drop: float = 0.0,
                  act: Callable = gelu, ca_dim: Optional[int] = None, n_groups: int = 1,
                  interactive: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -279,7 +324,8 @@ class MAP(nn.Module):
         self.mmcap = nn.ModuleList(
             CAP(last_dim=last_dim, num_heads=num_heads, mlp_ratio=mlp_ratio,
                 mlp_groups=mlp_groups, n_layers=n_layers, n_tokens=n_tokens,
-                distill_tokens=distill_tokens, self_distill_token=self_distill_token,
+                distill_tokens=distill_tokens, attn_drop=attn_drop,
+                self_distill_token=self_distill_token,
                 act=act, gram=gram, gram_group=gram_group, bp_groups=bp_groups,
                 gram_dim=gram_dim, bp_dim=bp_dim, ca_dim=ca_dim, interactive=interactive,
                 dtype=dtype)
@@ -324,14 +370,17 @@ class NormHead(nn.Module):
 
 
 class MAPHead(nn.Module):
-    """MAP + per-group heads (+ per-group self-distill heads), eval outputs
-    (nn/heads.py:501-611): a tuple of `n_groups` logits, from the org heads,
-    or from the self-distill heads in `light` mode."""
+    """MAP + per-group heads (+ per-group self-distill heads) (nn/heads.py:501-611).
+
+    Eval output: a tuple of `n_groups` logits, from the org heads, or from the
+    self-distill heads in `light` mode. Training output with self-distill: a
+    tuple of (org, avg) logit pairs."""
 
     def __init__(self, channels: Sequence[int] = (64, 256, 512, 1024, 2048),
                  last_dim: int = 512, num_heads: int = 8, multi_scale_level: int = 3,
                  n_tokens: int = 3, n_groups: int = 4, self_distill_token: bool = True,
-                 distill_tokens: int = 0, gram: bool = False, gram_group: int = 8,
+                 distill_tokens: int = 0, attn_drop: float = 0.05, gram: bool = False,
+                 gram_group: int = 8,
                  bp_groups: int = 1, bp_dim: int = 192, gram_dim: Optional[int] = None,
                  mlp_ratio: float = 4.0, mlp_groups: int = 2, num_classes: int = 1000,
                  head_fn: str = "norm", act: Callable = relu, non_linearity: Callable = relu,
@@ -350,8 +399,8 @@ class MAPHead(nn.Module):
                          gram_dim=gram_dim, num_heads=num_heads, mlp_ratio=mlp_ratio,
                          mlp_groups=mlp_groups, n_tokens=n_tokens,
                          distill_tokens=distill_tokens, self_distill_token=self_distill_token,
-                         act=act, ca_dim=ca_dim, n_groups=n_groups, interactive=interactive,
-                         dtype=dtype)
+                         attn_drop=attn_drop, act=act, ca_dim=ca_dim, n_groups=n_groups,
+                         interactive=interactive, dtype=dtype)
         # without self-distill the org head reads the whole pool
         head_in = self.out_ch if self_distill_token else last_dim * (n_tokens + distill_tokens)
         self.heads = nn.ModuleList(
@@ -370,8 +419,16 @@ class MAPHead(nn.Module):
         for i, pool in enumerate(pools):
             if not self.self_distill_token:
                 output.append(self.heads[i](pool, pre_logits=pre_logits))
+                continue
+            org = pool[:, : self.out_ch]
+            avg = pool[:, self.out_ch + self.dst_ch:]
+            if self.training:  # (org, avg) pairs, (org, distill, avg) with distill tokens
+                pair = [self.heads[i](org, pre_logits=pre_logits), self.self_dt_heads[i](avg)]
+                if self.dst_ch:
+                    pair.insert(1, self.distill_heads[i](pool[:, self.out_ch: self.out_ch + self.dst_ch]))
+                output.append(tuple(pair))
             elif self.light:
-                output.append(self.self_dt_heads[i](pool[:, self.out_ch + self.dst_ch:]))
+                output.append(self.self_dt_heads[i](avg))
             else:
-                output.append(self.heads[i](pool[:, : self.out_ch], pre_logits=pre_logits))
+                output.append(self.heads[i](org, pre_logits=pre_logits))
         return tuple(output)

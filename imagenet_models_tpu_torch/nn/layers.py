@@ -1,6 +1,8 @@
 """Common NN building blocks on channels-last (NHWC) tensors.
 
-Port of imagenet_models_tpu/nn/layers.py, the parts the eval path uses.
+Port of imagenet_models_tpu/nn/layers.py, the parts the ConvNeXt and MAP-head
+paths use, in eval and in training (`module.train()` is JAX's
+`training=True`: batch statistics, dropout, stochastic depth, fast GELU).
 Parameters keep the reference's torch layouts (Conv2d (O, I/g, kh, kw),
 Linear (O, I)), so a state_dict exported from the JAX package loads with
 `strict=True`. Activations stay NHWC as in the JAX package: a contiguous
@@ -15,16 +17,36 @@ its input and parameter dtypes, as flax does.
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from imagenet_models_tpu_torch.ops.convnext_block import FastGelu
+
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact-erf GELU (torch nn.GELU's default; nn/layers.py:27)."""
     return F.gelu(x)
+
+
+def gelu_fast(x: torch.Tensor) -> torch.Tensor:
+    """GELU with the single-segment minimax erf fit of the LN+MLP kernels,
+    z*P8((z/2.75)^2) clamped at |z| = 2.75 (total error <= 1.3e-4), in fp32
+    and cast back (nn/layers.py:43-51): the training GELU of the head. The
+    same autograd function as the blocks' plain path, so one backward serves
+    both."""
+    return FastGelu.apply(x.float()).to(x.dtype)
+
+
+def resolve_act(act: Callable, deterministic: bool) -> Callable:
+    """The activation for a mode: the exact GELU becomes `gelu_fast` in
+    training (deterministic=False); any other activation is returned as is
+    (nn/layers.py:54-61)."""
+    if act is gelu and not deterministic:
+        return gelu_fast
+    return act
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:
@@ -102,14 +124,18 @@ class LayerNorm(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """BatchNorm over every axis but the last, eval mode (running statistics).
+    """BatchNorm over every axis but the last (nn/layers.py:BatchNorm).
 
-    Matches nn/layers.py:BatchNorm's eval branch (:184-185, :244-247): eps
-    1e-5, `(x - mean) * rsqrt(var + eps) * scale + bias` in fp32, then a cast
-    to `dtype` (or the input dtype). The parameter and buffer names are torch
-    BatchNorm's; `num_batches_tracked` is not kept, as the JAX export has no
-    such leaf. Train-mode statistics come with the train-step port.
+    eps 1e-5; `(x - mean) * rsqrt(var + eps) * scale + bias` in fp32, then a
+    cast to `dtype` (or the input dtype). Eval uses the running statistics.
+    Training uses the batch's fp32 mean and E[x^2] (var = E[x^2] - mean^2,
+    clamped at 0) and updates the running statistics with momentum 0.9 and
+    the unbiased variance (:226-247, the branch without split-BN or SyncBN).
+    The parameter and buffer names are torch BatchNorm's;
+    `num_batches_tracked` is not kept, as the JAX export has no such leaf.
     """
+
+    momentum = 0.9
 
     def __init__(self, dim: int, eps: float = 1e-5, dtype: Optional[torch.dtype] = None):
         super().__init__()
@@ -121,24 +147,47 @@ class BatchNorm(nn.Module):
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
         if self.training:
-            raise NotImplementedError("train-mode BatchNorm is not ported yet; call .eval()")
-        inv = torch.rsqrt(self.running_var.float() + self.eps) * self.weight.float()
-        y = (x.float() - self.running_mean.float()) * inv + self.bias.float()
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(dim=axes)
+            var = torch.clamp(xf.square().mean(dim=axes) - mean.square(), min=0.0)
+            n = x.numel() // x.shape[-1]
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * (var * (n / max(n - 1, 1))))
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        inv = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean) * inv + self.bias.float()
         return y.to(self.compute_dtype or x.dtype)
 
 
 class DropPath(nn.Module):
-    """Stochastic depth: identity at eval (nn/layers.py:DropPath)."""
+    """Stochastic depth per sample (nn/layers.py:82-101): in training each
+    sample's branch is kept with probability 1 - rate and scaled by
+    1/(1 - rate), from `generator` (on x's device) when given."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError("train-mode DropPath is not ported yet; call .eval()")
-        return x
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = torch.rand(shape, generator=generator, device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def grouped_weights(module: nn.Module) -> Dict[str, int]:
+    """{parameter name: group count} of the `GroupedDense` weights under
+    `module`: their JAX leaf is (g, I/g, O/g), not the torch (O, I/g, 1, 1)."""
+    return {f"{name}.weight" if name else "weight": m.groups
+            for name, m in module.named_modules() if isinstance(m, GroupedDense)}
 
 
 def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
@@ -181,21 +230,23 @@ class GroupedDense(nn.Module):
 
 
 class GroupConvMlp(nn.Module):
-    """Grouped MLP with a channel shuffle between the layers (nn/layers.py:318-344)."""
+    """Grouped MLP with a channel shuffle between the layers, dropout after
+    the activation (nn/layers.py:318-344)."""
 
     def __init__(self, in_features: int, hidden_features: Optional[int] = None,
                  out_features: Optional[int] = None, act: Callable = relu,
-                 groups: int = 1, dtype: Optional[torch.dtype] = None):
+                 drop: float = 0.0, groups: int = 1, dtype: Optional[torch.dtype] = None):
         super().__init__()
         hidden = hidden_features or in_features
         out = out_features or in_features
         self.fc1 = GroupedDense(in_features, hidden, groups=groups, dtype=dtype)
         self.fc2 = GroupedDense(hidden, out, groups=groups, dtype=dtype)
         self.act = act
+        self.drop = nn.Dropout(drop)
         self.groups = groups
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.act(self.fc1(x))
+        x = self.drop(resolve_act(self.act, not self.training)(self.fc1(x)))
         return self.fc2(channel_shuffle(x, self.groups))
 
 
@@ -219,7 +270,7 @@ class ConvNormAct(nn.Sequential):
                         padding=conv.padding[0], groups=conv.groups,
                         dtype=self.compute_dtype)
         x = self[1](x)
-        return x if self.act is None else self.act(x)
+        return x if self.act is None else resolve_act(self.act, not self.training)(x)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,11 @@
 """Build and load the package's CUDA kernels.
 
-Each kernel is one `csrc/*.cu` file with a plain C interface. It is compiled
-with `nvcc` for sm_90a into a shared library at first use and loaded with
-`ctypes`; nothing is compiled or loaded when this module is imported. The
-library's file name carries a hash of the source and the flags, so an edited
-source is never served a stale build. Builds go to `_build/` beside this
-package's `csrc/` (listed in .gitignore).
+Each kernel is one `csrc/*.cu` file with a plain C interface (shared device
+helpers in `csrc/*.cuh`). It is compiled with `nvcc` for sm_90a into a shared
+library at first use and loaded with `ctypes`; nothing is compiled or loaded
+when this module is imported. The library's file name carries a hash of the
+sources and the flags, so an edited source is never served a stale build.
+Builds go to `_build/` beside this package's `csrc/` (listed in .gitignore).
 """
 
 from __future__ import annotations
@@ -19,11 +19,13 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+KERNELS = ("ln_mlp_fwd", "ln_mlp_bwd")
 
 
 @dataclass(frozen=True)
@@ -44,38 +46,81 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all(names: Sequence[str] = KERNELS) -> Dict[str, Build]:
+    """Compile `csrc/<name>.cu` into `_build/lib<name>-<hash>.so` for each name
+    whose library does not exist yet, one nvcc process per source, all started
+    together. Raises with nvcc's output if any build fails."""
+    builds: Dict[str, Build] = {}
+    running = {}
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            builds[name] = Build(out, 0.0, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, out, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, out, tmp, t0) in running.items():
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed on csrc/{name}.cu (exit {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)
+        builds[name] = Build(out, seconds, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return builds
+
+
 def build(name: str) -> Build:
-    """Compile `csrc/<name>.cu` into `_build/lib<name>-<hash>.so`, unless that exists."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
-    if out.exists():
-        return Build(out, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n{log}")
-    os.replace(tmp, out)
-    return Build(out, seconds, log)
+    """Compile one kernel's library, unless it exists."""
+    return build_all([name])[name]
 
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
+def _load(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build(name).path))
+    lib.imt_cuda_error_string.argtypes = [_I]
+    lib.imt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 @functools.cache
 def ln_mlp_fwd_library() -> ctypes.CDLL:
     """The LN+MLP forward kernel's library, built on first call."""
-    lib = ctypes.CDLL(str(build("ln_mlp_fwd").path))
-    lib.imt_ln_mlp_fwd_bf16.argtypes = [_P] * 9 + [_LL, _I, _I, _F, _P]
+    lib = _load("ln_mlp_fwd")
+    lib.imt_ln_mlp_fwd_bf16.argtypes = [_P] * 9 + [_LL, _I, _I, _F, _I, _P]
     lib.imt_ln_mlp_fwd_bf16.restype = _I
     lib.imt_ln_mlp_fwd_supported.argtypes = [_I, _I]
     lib.imt_ln_mlp_fwd_supported.restype = _I
-    lib.imt_cuda_error_string.argtypes = [_I]
-    lib.imt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def ln_mlp_bwd_library() -> ctypes.CDLL:
+    """The LN+MLP backward kernel's library (kernel 2), built on first call."""
+    lib = _load("ln_mlp_bwd")
+    lib.imt_ln_mlp_bwd_supported.argtypes = [_I, _I]
+    lib.imt_ln_mlp_bwd_supported.restype = _I
+    lib.imt_ln_mlp_bwd_workspace_bytes.argtypes = [_LL, _I, _I]
+    lib.imt_ln_mlp_bwd_workspace_bytes.restype = _LL
+    lib.imt_ln_mlp_bwd_dx_bf16.argtypes = [_P] * 14 + [_LL, _I, _I, _F, _I, _P]
+    lib.imt_ln_mlp_bwd_dx_bf16.restype = _I
+    lib.imt_ln_mlp_bwd_wgrad_bf16.argtypes = [_P] * 10 + [_LL, _I, _I, _P]
+    lib.imt_ln_mlp_bwd_wgrad_bf16.restype = _I
     return lib

@@ -1,23 +1,32 @@
 """ConvNeXt block compute: depthwise 7x7 conv, then the fused LayerNorm ->
-Dense(4C) -> GELU -> Dense(C) -> layer-scale.
+Dense(4C) -> GELU -> Dense(C) -> layer-scale, forward and backward.
 
-Port of imagenet_models_tpu/ops/convnext_block.py, eval path. The depthwise
-conv stays with the framework (`F.conv2d`, as it is XLA's in JAX). The LN+MLP
-is a hand-written CUDA kernel (`csrc/ln_mlp_fwd.cu`, wrapper
-`fused_ln_mlp`) beside its plain-PyTorch twin `plain_ln_mlp`, which has the
-kernel's numerics.
+Port of imagenet_models_tpu/ops/convnext_block.py. The depthwise conv stays
+with the framework (`F.conv2d`, as it is XLA's in JAX). The LN+MLP is two
+hand-written CUDA kernels: the forward (`csrc/ln_mlp_fwd.cu`, wrapper
+`fused_ln_mlp`) and the backward (`csrc/ln_mlp_bwd.cu`, wrapper
+`fused_ln_mlp_bwd`), joined by the autograd function `LnMlpFunction`. Beside
+them are their plain-PyTorch twins `plain_ln_mlp` and `plain_ln_mlp_bwd`,
+which have the kernels' numerics.
 
-Dispatch rule: a CPU tensor goes to the twin; a CUDA tensor goes to the
-kernel, or raises. There is no fallback from the kernel to the twin.
-`use_kernel=False` runs the twin on any device, to compare against.
+GELU: "exact" (erf) at eval, "fast" (the single-segment minimax fit of erf,
+and of the GELU derivative in the backward) in training, as
+`resolve_gelu_impl` picks it.
+
+Dispatch rule: a CPU tensor goes to the twin, with autograd through it (JAX's
+CPU path is autodiff of its plain ops); a CUDA tensor goes to the kernels, or
+raises. There is no fallback from a kernel to a twin. `use_kernel=False` runs
+the twin on any device, to compare against.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+GELU_IMPLS = ("exact", "fast")
 
 
 def dw_conv7(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor) -> torch.Tensor:
@@ -29,79 +38,240 @@ def dw_conv7(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor) -> torch.T
     return y.permute(0, 2, 3, 1)
 
 
+def _horner(t: torch.Tensor, coefs) -> torch.Tensor:
+    r = torch.full_like(t, coefs[-1])
+    for c in coefs[-2::-1]:
+        r = r * t + c
+    return r
+
+
+# Single-segment odd minimax fits (ops/convnext_block.py:111-129):
+#   erf(z) ~ z*P8((z/2.75)^2) on |z| <= 2.75, clamped beyond (max err 1.3e-4);
+#   gelu'(x) - 0.5 ~ x*Q10((x/5)^2) on |x| <= 5, clamped (max err 1.9e-4).
+_ERF_F8 = (1.128179019700242, -2.833873458377666, 6.288517611119356,
+           -10.440794928636649, 12.424005344159935, -9.860067339137903,
+           4.602827094685715, -0.9452048310751889)
+_GG_F10 = (0.7970334043621504, -6.5780944269226085, 35.6419098348847,
+           -127.98971343596055, 315.66741178811344, -535.3888724157551,
+           610.367501707186, -444.740199037125, 186.4500761464462,
+           -34.12709029923767)
+
+
+def erf_fast(z: torch.Tensor) -> torch.Tensor:
+    a = torch.clamp(z.abs(), max=2.75)
+    return torch.sign(z) * (a * _horner(torch.square(a * (1.0 / 2.75)), _ERF_F8))
+
+
+def gelu_grad_fast(x: torch.Tensor) -> torch.Tensor:
+    a = torch.clamp(x.abs(), max=5.0)
+    return 0.5 + torch.sign(x) * (a * _horner(torch.square(a * (1.0 / 5.0)), _GG_F10))
+
+
+def _erf_poly(x: torch.Tensor) -> torch.Tensor:
+    """Abramowitz & Stegun 7.1.26 erf, |err| < 1.5e-7 (ops/convnext_block.py:31-39)."""
+    a = x.abs()
+    t = 1.0 / (1.0 + 0.3275911 * a)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (1.421413741
+                + t * (-1.453152027 + t * 1.061405429))))
+    return torch.sign(x) * (1.0 - poly * torch.exp(-a * a))
+
+
+def gelu_grad(x: torch.Tensor) -> torch.Tensor:
+    """d/dx of the exact-erf GELU, with the A&S erf (ops/convnext_block.py:365-369)."""
+    return (0.5 * (1.0 + _erf_poly(x * 2.0 ** -0.5))
+            + x * 0.3989422804014327 * torch.exp(-0.5 * x * x))
+
+
+def resolve_gelu_impl(training: bool) -> str:
+    """The kernels' GELU: the fast fit in training, exact erf at eval
+    (ops/convnext_block.py:145)."""
+    return "fast" if training else "exact"
+
+
+class FastGelu(torch.autograd.Function):
+    """0.5 * x * (1 + erf_fast(x / sqrt 2)), whose backward is the derivative
+    of the same polynomial computed from x alone: autograd of the Horner chain
+    would keep a dozen (N, 4C) fp32 temporaries per block, more than the
+    card holds for the plain path's train step at B=128."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return 0.5 * x * (1.0 + erf_fast(x * 2.0 ** -0.5))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        z = x * 2.0 ** -0.5
+        a = torch.clamp(z.abs(), max=2.75)
+        u = torch.square(a * (1.0 / 2.75))
+        p = _horner(u, _ERF_F8)
+        dp = _horner(u, _ERF_F8_DERIV)
+        erf = torch.sign(z) * (a * p)
+        derf = torch.where(z.abs() <= 2.75, p + 2.0 * u * dp, torch.zeros_like(p))
+        return g * (0.5 * (1.0 + erf) + 0.5 * x * derf * 2.0 ** -0.5)
+
+
+_ERF_F8_DERIV = tuple(k * c for k, c in enumerate(_ERF_F8))[1:]
+
+
+def _gelu(x: torch.Tensor, impl: str) -> torch.Tensor:
+    if impl == "exact":
+        return F.gelu(x)
+    return FastGelu.apply(x)
+
+
+def _gelu_grad(x: torch.Tensor, impl: str) -> torch.Tensor:
+    return gelu_grad(x) if impl == "exact" else gelu_grad_fast(x)
+
+
+def _check_gelu(impl: str) -> None:
+    if impl not in GELU_IMPLS:
+        raise ValueError(f"gelu_impl must be one of {GELU_IMPLS}, got {impl!r}")
+
+
 def plain_ln_mlp(h: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma,
-                 eps: float = 1e-6) -> torch.Tensor:
+                 eps: float = 1e-6, gelu_impl: str = "exact") -> torch.Tensor:
     """LN -> MLP -> layer-scale in plain PyTorch, with the kernel's numerics.
 
     h (..., C); w1 (4C, C) and w2 (C, 4C) in torch Linear layout; vectors fp32.
     LN statistics in fp32, the LN'd tokens cast to h.dtype; both products on
     fp32 copies of h.dtype operands, so products are exact and sums fp32 (TF32
-    must be off on a GPU); b1 and exact GELU in fp32, a cast to h.dtype; b2
+    must be off on a GPU); b1 and the GELU in fp32, a cast to h.dtype; b2
     and gamma in fp32, one final cast. In fp32 the casts vanish and this is
     JAX's `plain_ln_mlp` (ops/convnext_block.py:254-268).
     """
+    _check_gelu(gelu_impl)
     dt = h.dtype
     hf = h.float()
     mu = hf.mean(dim=-1, keepdim=True)
     var = (hf - mu).square().mean(dim=-1, keepdim=True)
     t = ((hf - mu) * torch.rsqrt(var + eps) * ln_s.float() + ln_b.float()).to(dt)
     pre = F.linear(t.float(), w1.to(dt).float(), b1.float())
-    hid = F.gelu(pre).to(dt)
+    hid = _gelu(pre, gelu_impl).to(dt)
     out = F.linear(hid.float(), w2.to(dt).float(), b2.float())
     return (out * gamma.float()).to(dt)
 
 
-def fused_ln_mlp(h: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma,
-                 eps: float = 1e-6) -> torch.Tensor:
-    """The CUDA LN+MLP forward kernel on (N, C) bf16 tokens.
+def plain_ln_mlp_bwd(h: torch.Tensor, g: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma,
+                     eps: float = 1e-6, gelu_impl: str = "exact") -> Tuple[torch.Tensor, ...]:
+    """The LN+MLP backward in plain PyTorch: the twin of the TPU kernel's
+    `_bwd_kernel` (ops/convnext_block.py:372-453) and of `csrc/ln_mlp_bwd.cu`.
 
-    Replaces `_fused_ln_mlp_pallas` (ops/convnext_block.py:341). Weights in
-    torch Linear layout, (4C, C) and (C, 4C), cast to bf16 here as JAX casts
-    them to h.dtype; vectors fp32. Raises on anything the kernel does not
-    take, including CPU tensors and inputs that need a gradient (the backward
-    kernel is not ported yet). `fused_ln_mlp.launches` counts launches.
+    Recomputes the forward from `h`, pulls the cotangent `g` back through
+    layer-scale, Dense(C), GELU, Dense(4C) and LN. Returns (dx, dln_s, dln_b,
+    dw1, db1, dw2, db2, dgamma), weights in torch Linear layout. The tokens,
+    the GELU output and both pre-activation gradients are rounded to h.dtype
+    as the kernel rounds them; every product runs on fp32 copies, so it is
+    exact with fp32 sums; the GELU derivative is the fit's (`gelu_grad`,
+    `gelu_grad_fast`), not autograd of the forward polynomial. The CUDA kernel
+    takes dw2 as gamma * (g^T hmid_c), which differs from dpre2_c^T hmid_c
+    here by the bf16 rounding of dpre2, and dgamma from that same product.
     """
+    _check_gelu(gelu_impl)
+    dt = h.dtype
+    shape = h.shape
+    hf = h.reshape(-1, shape[-1]).float()
+    gf = g.reshape(-1, shape[-1]).float()
+    s = ln_s.float()
+    mu = hf.mean(dim=-1, keepdim=True)
+    var = (hf - mu).square().mean(dim=-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (hf - mu) * rstd
+    tokens = (xhat * s + ln_b.float()).to(dt).float()
+    w1f = w1.to(dt).float()
+    w2f = w2.to(dt).float()
+    pre1 = F.linear(tokens, w1f, b1.float())
+    hmid_c = _gelu(pre1, gelu_impl).to(dt).float()
+    pre2 = F.linear(hmid_c, w2f, b2.float())
+
+    dgamma = (gf * pre2).sum(0)
+    dpre2 = gf * gamma.float()
+    db2 = dpre2.sum(0)
+    dpre2_c = dpre2.to(dt).float()
+    dw2 = dpre2_c.t() @ hmid_c
+    dpre1 = (dpre2_c @ w2f) * _gelu_grad(pre1, gelu_impl)
+    db1 = dpre1.sum(0)
+    dpre1_c = dpre1.to(dt).float()
+    dw1 = dpre1_c.t() @ tokens
+    dln = dpre1_c @ w1f
+    dln_s = (dln * xhat).sum(0)
+    dln_b = dln.sum(0)
+    dxhat = dln * s
+    m1 = dxhat.mean(dim=-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(dim=-1, keepdim=True)
+    dx = (rstd * (dxhat - m1 - xhat * m2)).to(dt).reshape(shape)
+    return (dx, dln_s.to(ln_s.dtype), dln_b.to(ln_b.dtype), dw1.to(w1.dtype),
+            db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b2.dtype), dgamma.to(gamma.dtype))
+
+
+def _check_tokens(name: str, h: torch.Tensor) -> None:
     if not h.is_cuda:
-        raise ValueError("fused_ln_mlp needs CUDA tensors; CPU tensors go to plain_ln_mlp")
+        raise ValueError(f"{name} needs CUDA tensors; CPU tensors go to the plain twin")
     if h.dtype != torch.bfloat16:
-        raise TypeError(f"fused_ln_mlp takes bf16 tokens, got {h.dtype}")
+        raise TypeError(f"{name} takes bf16 tokens, got {h.dtype}")
     if h.dim() != 2 or not h.is_contiguous():
-        raise ValueError(f"fused_ln_mlp takes contiguous (N, C) tokens, got {tuple(h.shape)}")
-    n, c = h.shape
+        raise ValueError(f"{name} takes contiguous (N, C) tokens, got {tuple(h.shape)}")
+
+
+def _kernel_operands(name: str, h: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma):
+    """Weights in bf16 and vectors in fp32, contiguous, checked against h."""
+    c = h.shape[1]
     hidden = w1.shape[0]
     if w1.shape != (hidden, c) or w2.shape != (c, hidden):
         raise ValueError(f"weights {tuple(w1.shape)}, {tuple(w2.shape)} do not fit C={c}")
-    params = (ln_s, ln_b, w1, b1, w2, b2, gamma)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (h,) + params):
-        raise NotImplementedError(
-            "the LN+MLP backward kernel is not ported yet; run under torch.no_grad()")
-    if any(t.device != h.device for t in params):
-        raise ValueError("fused_ln_mlp: all tensors must be on one device")
-    from imagenet_models_tpu_torch.ops._kernels import ln_mlp_fwd_library
-
-    lib = ln_mlp_fwd_library()
-    if not lib.imt_ln_mlp_fwd_supported(c, hidden):
-        raise ValueError(f"fused_ln_mlp does not take C={c}, hidden={hidden}")
+    if any(t.device != h.device for t in (ln_s, ln_b, w1, b1, w2, b2, gamma)):
+        raise ValueError(f"{name}: all tensors must be on one device")
     w1 = w1.to(torch.bfloat16).contiguous()
     w2 = w2.to(torch.bfloat16).contiguous()
     vecs = [v.float().contiguous() for v in (ln_s, ln_b, b1, b2, gamma)]
     for v, size in zip(vecs, (c, c, hidden, c, c)):
         if v.numel() != size:
             raise ValueError(f"vector of {v.numel()} values where {size} are needed")
+    return w1, w2, vecs
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.imt_cuda_error_string(err).decode()}")
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def fused_ln_mlp(h: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma,
+                 eps: float = 1e-6, gelu_impl: str = "exact") -> torch.Tensor:
+    """The CUDA LN+MLP forward kernel on (N, C) bf16 tokens.
+
+    Replaces `_fused_ln_mlp_pallas` (ops/convnext_block.py:341). Weights in
+    torch Linear layout, (4C, C) and (C, 4C), cast to bf16 here as JAX casts
+    them to h.dtype; vectors fp32. Raises on anything the kernel does not
+    take, including CPU tensors. `fused_ln_mlp.launches` counts launches.
+    """
+    _check_gelu(gelu_impl)
+    _check_tokens("fused_ln_mlp", h)
+    w1, w2, (s, b, bb1, bb2, g) = _kernel_operands("fused_ln_mlp", h, ln_s, ln_b, w1, b1,
+                                                   w2, b2, gamma)
+    from imagenet_models_tpu_torch.ops._kernels import ln_mlp_fwd_library
+
+    lib = ln_mlp_fwd_library()
+    n, c = h.shape
+    hidden = w1.shape[0]
+    if not lib.imt_ln_mlp_fwd_supported(c, hidden):
+        raise ValueError(f"fused_ln_mlp does not take C={c}, hidden={hidden}")
     out = torch.empty_like(h)
-    if any(t.data_ptr() % 16 for t in (h, w1, w2, out)):
+    if not _aligned(h, w1, w2, out):
         raise ValueError("fused_ln_mlp needs 16-byte aligned tokens and weights")
     if n == 0:
         return out
-    s, b, bb1, bb2, g = vecs
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = lib.imt_ln_mlp_fwd_bf16(
             h.data_ptr(), s.data_ptr(), b.data_ptr(), w1.data_ptr(), bb1.data_ptr(),
             w2.data_ptr(), bb2.data_ptr(), g.data_ptr(), out.data_ptr(),
-            n, c, hidden, float(eps), stream)
-    if err != 0:
-        raise RuntimeError(f"ln_mlp_fwd launch failed: {lib.imt_cuda_error_string(err).decode()}")
+            n, c, hidden, float(eps), int(gelu_impl == "fast"), stream)
+    _raise_on(lib, err, "ln_mlp_fwd")
     fused_ln_mlp.launches += 1
     return out
 
@@ -109,26 +279,136 @@ def fused_ln_mlp(h: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma,
 fused_ln_mlp.launches = 0
 
 
+def ln_mlp_bwd_dx(h: torch.Tensor, g: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma,
+                  eps: float = 1e-6, gelu_impl: str = "exact"):
+    """Half (a) of kernel 2: recompute the forward per token tile, write dx
+    and the bf16 operands of the weight-grad products (tok, hmid_c, dpre1_c),
+    and one row of partial vector sums per block into a workspace. Returns
+    (dx, scratch): scratch is what half (b) takes, those three and the
+    workspace with the cotangent, the bf16 w2 and the fp32 gamma."""
+    _check_gelu(gelu_impl)
+    _check_tokens("fused_ln_mlp_bwd", h)
+    _check_tokens("fused_ln_mlp_bwd", g)
+    if g.shape != h.shape or g.device != h.device:
+        raise ValueError(f"cotangent {tuple(g.shape)} does not match tokens {tuple(h.shape)}")
+    w1, w2, (s, b, bb1, bb2, gm) = _kernel_operands("fused_ln_mlp_bwd", h, ln_s, ln_b, w1,
+                                                    b1, w2, b2, gamma)
+    from imagenet_models_tpu_torch.ops._kernels import ln_mlp_bwd_library
+
+    lib = ln_mlp_bwd_library()
+    n, c = h.shape
+    hidden = w1.shape[0]
+    if n == 0 or not lib.imt_ln_mlp_bwd_supported(c, hidden):
+        raise ValueError(f"fused_ln_mlp_bwd does not take N={n}, C={c}, hidden={hidden}")
+    dx = torch.empty_like(h)
+    tok = torch.empty_like(h)
+    hmid = torch.empty(n, hidden, dtype=torch.bfloat16, device=h.device)
+    dpre1 = torch.empty_like(hmid)
+    workspace = torch.empty(lib.imt_ln_mlp_bwd_workspace_bytes(n, c, hidden),
+                            dtype=torch.uint8, device=h.device)
+    if not _aligned(h, g, w1, w2, dx, tok, hmid, dpre1, workspace):
+        raise ValueError("fused_ln_mlp_bwd needs 16-byte aligned tokens and weights")
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = lib.imt_ln_mlp_bwd_dx_bf16(
+            h.data_ptr(), g.data_ptr(), s.data_ptr(), b.data_ptr(), w1.data_ptr(),
+            bb1.data_ptr(), w2.data_ptr(), bb2.data_ptr(), gm.data_ptr(), dx.data_ptr(),
+            tok.data_ptr(), hmid.data_ptr(), dpre1.data_ptr(), workspace.data_ptr(), n, c,
+            hidden, float(eps), int(gelu_impl == "fast"), stream)
+    _raise_on(lib, err, "ln_mlp_bwd_dx")
+    return dx, (tok, hmid, dpre1, g, w2, gm, workspace)
+
+
+def ln_mlp_bwd_wgrad(scratch) -> Tuple[torch.Tensor, ...]:
+    """Half (b) of kernel 2: dW1 = dpre1_c^T tok and G = g^T hmid_c as tiled
+    products over token slices, then the slices' partials and the vector
+    partial rows of half (a) summed in a fixed order; dW2 = gamma * G, and
+    dgamma gains sum_j W2 * G (pre2 is never formed). Returns fp32 (dln_s,
+    dln_b, dw1, db1, dw2, db2, dgamma)."""
+    from imagenet_models_tpu_torch.ops._kernels import ln_mlp_bwd_library
+
+    lib = ln_mlp_bwd_library()
+    tok, hmid, dpre1, g, w2, gamma, workspace = scratch
+    n, c = tok.shape
+    hidden = hmid.shape[1]
+    dw1 = torch.empty(hidden, c, dtype=torch.float32, device=tok.device)
+    dw2 = torch.empty(c, hidden, dtype=torch.float32, device=tok.device)
+    vecs = torch.empty(hidden + 4 * c, dtype=torch.float32, device=tok.device)
+    with torch.cuda.device(tok.device):
+        stream = torch.cuda.current_stream(tok.device).cuda_stream
+        err = lib.imt_ln_mlp_bwd_wgrad_bf16(
+            tok.data_ptr(), hmid.data_ptr(), dpre1.data_ptr(), g.data_ptr(), w2.data_ptr(),
+            gamma.data_ptr(), workspace.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
+            vecs.data_ptr(), n, c, hidden, stream)
+    _raise_on(lib, err, "ln_mlp_bwd_wgrad")
+    db1, db2, dgamma, dln_s, dln_b = torch.split(vecs, [hidden, c, c, c, c])
+    return dln_s, dln_b, dw1, db1, dw2, db2, dgamma
+
+
+def fused_ln_mlp_bwd(h: torch.Tensor, g: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma,
+                     eps: float = 1e-6, gelu_impl: str = "exact") -> Tuple[torch.Tensor, ...]:
+    """Kernel 2, the CUDA LN+MLP backward, on (N, C) bf16 tokens and cotangent.
+
+    Replaces `_fused_ln_mlp_bwd_pallas` (ops/convnext_block.py:474). Returns
+    (dx, dln_s, dln_b, dw1, db1, dw2, db2, dgamma) as `plain_ln_mlp_bwd` does:
+    each gradient in its input's dtype (the kernel sums in fp32), weights in
+    torch Linear layout. Raises on anything the kernel does not take.
+    `fused_ln_mlp_bwd.launches` counts calls that launched it.
+    """
+    dx, scratch = ln_mlp_bwd_dx(h, g, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, gelu_impl)
+    grads = ln_mlp_bwd_wgrad(scratch)
+    fused_ln_mlp_bwd.launches += 1
+    params = (ln_s, ln_b, w1, b1, w2, b2, gamma)
+    return (dx,) + tuple(d.to(p.dtype) for d, p in zip(grads, params))
+
+
+fused_ln_mlp_bwd.launches = 0
+
+
+class LnMlpFunction(torch.autograd.Function):
+    """The LN+MLP on CUDA: forward kernel, and kernel 2 as its backward.
+
+    Saves only the inputs, as JAX's custom VJP does (ops/convnext_block.py:
+    526-529); the backward recomputes the forward, so nothing of the (N, 4C)
+    hidden is kept between the two.
+    """
+
+    @staticmethod
+    def forward(ctx, h, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, gelu_impl):
+        ctx.save_for_backward(h, ln_s, ln_b, w1, b1, w2, b2, gamma)
+        ctx.eps, ctx.gelu_impl = eps, gelu_impl
+        return fused_ln_mlp(h, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, gelu_impl)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, ln_s, ln_b, w1, b1, w2, b2, gamma = ctx.saved_tensors
+        return fused_ln_mlp_bwd(h, g.contiguous(), ln_s, ln_b, w1, b1, w2, b2, gamma,
+                                ctx.eps, ctx.gelu_impl) + (None, None)
+
+
 def ln_mlp(h: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma, eps: float = 1e-6,
-           use_kernel: Optional[bool] = None) -> torch.Tensor:
-    """LN+MLP+scale on (..., C) tokens: the kernel for CUDA tensors, the twin
+           use_kernel: Optional[bool] = None, gelu_impl: str = "exact") -> torch.Tensor:
+    """LN+MLP+scale on (..., C) tokens: the kernels for CUDA tensors, the twin
     for CPU tensors; `use_kernel` forces one (mirrors JAX's `use_pallas`)."""
     if use_kernel is None:
         use_kernel = h.is_cuda
     if not use_kernel:
-        return plain_ln_mlp(h, ln_s, ln_b, w1, b1, w2, b2, gamma, eps)
+        return plain_ln_mlp(h, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, gelu_impl)
     shape = h.shape
-    out = fused_ln_mlp(h.reshape(-1, shape[-1]).contiguous(), ln_s, ln_b, w1, b1, w2,
-                       b2, gamma, eps)
+    out = LnMlpFunction.apply(h.reshape(-1, shape[-1]).contiguous(), ln_s, ln_b, w1, b1, w2,
+                              b2, gamma, eps, gelu_impl)
     return out.reshape(shape)
 
 
 def convnext_block_apply(x: torch.Tensor, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2,
                          gamma: Optional[torch.Tensor], eps: float = 1e-6,
-                         use_kernel: Optional[bool] = None) -> torch.Tensor:
+                         use_kernel: Optional[bool] = None,
+                         training: bool = False) -> torch.Tensor:
     """The pre-residual ConvNeXt branch on NHWC `x` (ops/convnext_block.py:605-638):
-    depthwise 7x7, then LN+MLP+scale by the dispatch rule of `ln_mlp`."""
+    depthwise 7x7, then LN+MLP+scale by the dispatch rule of `ln_mlp`, with
+    the GELU of `resolve_gelu_impl(training)`."""
     if gamma is None:
         gamma = torch.ones(x.shape[-1], device=x.device)
     h = dw_conv7(x, dw_w, dw_b)
-    return ln_mlp(h, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, use_kernel=use_kernel)
+    return ln_mlp(h, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, use_kernel=use_kernel,
+                  gelu_impl=resolve_gelu_impl(training))

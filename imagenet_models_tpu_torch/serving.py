@@ -23,12 +23,12 @@ def make_serving_fn(model: torch.nn.Module, mean: Sequence[float] = IMAGENET_MEA
     Input contract: images already resized and center-cropped to the model's
     eval geometry on the host; `(x/255 - mean)/std` happens here.
     """
-    model.eval()
 
     def fn(images_u8: torch.Tensor) -> torch.Tensor:
         if images_u8.dtype != torch.uint8 or images_u8.dim() != 4:
             raise ValueError(f"expected uint8 NHWC images, got {images_u8.dtype} "
                              f"{tuple(images_u8.shape)}")
+        model.eval()  # a train step in between leaves the model in train mode
         m = torch.tensor(mean, dtype=torch.float32, device=images_u8.device)
         s = torch.tensor(std, dtype=torch.float32, device=images_u8.device)
         with torch.inference_mode():

@@ -89,7 +89,7 @@ def test_tiny_map_convnext_bf16_compute():
 def test_map_convnext_tiny_structure():
     """47.83M params; the state_dict's keys and shapes are the JAX export's,
     and that export loads with strict=True."""
-    model = create_model("map_convnext_tiny")
+    model = create_model("map_convnext_tiny", device="cpu")
     assert sum(p.numel() for p in model.parameters()) == 47_833_760
     jm = jax_create_model("map_convnext_tiny")
     shapes = init_shapes(jm, jnp.zeros((1, 224, 224, 3)), training=False)
@@ -109,7 +109,7 @@ def test_map_convnext_tiny_logits_64px():
     x = _images(2, 64, seed=2)
     with highest():
         ref = _apply(jm, variables, x)
-    tm = load_port(create_model("map_convnext_tiny"), variables)
+    tm = load_port(create_model("map_convnext_tiny", device="cpu"), variables)
     with torch.no_grad():
         got = tm(torch.from_numpy(x))
     assert len(got) == len(ref) == 4

@@ -136,8 +136,10 @@ def test_kernel_wrapper_refuses_what_it_cannot_take_on_cuda():
     args = [t.cuda() for t in _torch_args(_args(96, 50, seed=6), torch.bfloat16)]
     with pytest.raises(TypeError, match="bf16"):
         tcb.ln_mlp(args[0].float(), *args[1:])
-    with pytest.raises(NotImplementedError, match="backward"):
-        tcb.ln_mlp(*args[:3], args[3].requires_grad_(), *args[4:])
+    # an input that needs a gradient goes through the autograd function of
+    # the forward and backward kernels
+    out = tcb.ln_mlp(*args[:3], args[3].requires_grad_(), *args[4:])
+    assert out.grad_fn is not None
     wide = [t.cuda() for t in _torch_args(_args(1040, 8, seed=6), torch.bfloat16)]
     with torch.no_grad(), pytest.raises(ValueError, match="C=1040"):
         tcb.ln_mlp(*wide)
