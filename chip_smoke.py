@@ -3,34 +3,52 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths at full width on the card, through the
-entry points a user calls, with random weights from a fixed seed: the
-map_convnext_tiny serving forward (`create_model`, `serving.make_serving_fn`,
-`train.state.make_eval_step`) and its train step (`train.state.
-create_train_state` / `make_train_step` with bench.py's recipe: timm LAMB lr
-5e-3 wd 0.05, BCE on dense targets, dec_lam -0.8, EMA 0.9999). Phases:
+Drives the port's main paths at full width on the card, through the entry
+points a user calls, with random weights from a fixed seed: map_convnext_tiny
+serving (`create_model`, `serving.make_serving_fn`, `train.state.
+make_eval_step`) and its train step (`train.state.create_train_state` /
+`make_train_step` with bench.py's recipe: timm LAMB lr 5e-3 wd 0.05, BCE on
+dense targets, dec_lam -0.8, EMA 0.9999); then map_maxvit_tiny_tf_224 serving
+and its train step (the maxvit_tiny recipe: LAMB lr 8e-3 wd 0.05, clip 1.0 by
+norm, BCE with smoothing 0.1, drop-path 0.2, dec_lam -0.8, no EMA). Phases:
 
 1. device: the card's name and power limit;
-2. build: compile every CUDA kernel of both paths from `csrc/`, one nvcc per
-   source, all started together;
-3. kernels: each kernel against its plain-PyTorch twin at the shapes the
+2. build: compile every CUDA kernel from `csrc/`, one nvcc per source, all
+   started together;
+3. kernels 1 and 2: each against its plain-PyTorch twin at the shapes the
    paths give it (the four stage shapes of B=64 and a ragged N=152, and
    those of B=128 for the training kernels): the LN+MLP forward with exact
    and with fast GELU, and the backward (kernel 2) with both, every output;
    times in turns (twin, kernel, kernel, twin) from CUDA events, the forward
    at B=64 (both GELUs) and the training kernels at B=128;
-4. serving: four uint8 requests of 32 images through the kernel path, with
-   launch counts per request, logits checked against the plain path, and one
-   eval step;
-5. throughput: eval img/s at B=256, kernel path and plain path in turns;
-6. train: six steps at B=128, 224 px, on the kernel path (18 forward and 18
-   backward launches each, finite loss and grad norm, the EMA shadow moves),
-   and one step from a deep copy of the first state on the plain path, whose
-   loss, grad norm and gradients (by stage and block parameter) must agree
-   with the kernel path's first step, both paths' gradients held against
-   those of an fp32 model with the same weights;
-7. train throughput: train img/s at B=128, kernel and plain path in turns;
-8. profile: torch.profiler's top device rows of one train step.
+4. ConvNeXt serving: four uint8 requests of 32 images through the kernel
+   path, with launch counts per request, logits checked against the plain
+   path, and one eval step;
+5. ConvNeXt throughput: eval img/s at B=256, kernel path and plain path in
+   turns;
+6. ConvNeXt train: six steps at B=128, 224 px, on the kernel path (18
+   forward and 18 backward launches each, finite loss and grad norm, the EMA
+   shadow moves), and one step from a deep copy of the first state on the
+   plain path, whose loss, grad norm and gradients (by stage and block
+   parameter) must agree with the kernel path's first step, both paths'
+   gradients held against those of an fp32 model with the same weights;
+7. ConvNeXt train throughput (kernel and plain path in turns) and a
+   torch.profiler profile of one train step;
+8. kernels 3 and 4 (partition attention): against their twins at the three
+   B=128 stage shapes of the MaxViT train step, block and grid, every output
+   (out; dqkv, dbias), at T = 144 and 256 and on non-square maps; times per
+   launch in turns at B=128 beside the bound, the plain twin, and
+   F.scaled_dot_product_attention on windows partitioned beforehand (the
+   partition copies timed apart); kernel 3 beside the eval composition at
+   the B=256 stage shapes;
+9. MaxViT serving: four requests (eval takes the composition: no kernel
+   launch), logits against the plain path and an fp32 model, one eval step,
+   eval img/s at B=256;
+10. MaxViT train: six steps at B=128 on the kernel path (18 launches of each
+   kernel per step, finite metrics, the loss falls on a fixed batch), one
+   plain-path step from a deep copy of the first state with the same
+   drop-path and dropout draws, checked as in phase 6; train img/s of both
+   paths in turns, and a profile of one train step.
 
 Any failure raises and exits non-zero. The last lines are a JSON summary of
 the kernels, the card's name and power limit, and
@@ -45,6 +63,7 @@ import copy
 import importlib
 import json
 import pkgutil
+import re
 import subprocess
 import sys
 import time
@@ -89,12 +108,27 @@ TRAIN_GNORM_RTOL = 1e-3
 # plain path's distance (measured at most 1.05).
 TRAIN_GRAD_RTOL = 0.08
 TRAIN_GRAD_ACC = 1.25
-BLOCK_KINDS = ("norm.weight", "norm.bias", "pwconv1.weight", "pwconv1.bias", "pwconv2.weight",
-               "pwconv2.bias", "gamma", "dwconv.weight", "dwconv.bias")
 REQUESTS, REQUEST_BATCH, IMG = 4, 32, 224
 BENCH_BATCH, BENCH_ITERS = 256, 10
 TRAIN_BATCH, TRAIN_STEPS = 128, 6
 TRAIN_WARMUP, TRAIN_ITERS = 2, 5
+MAXVIT = "map_maxvit_tiny_tf_224"
+PS = (7, 7)  # its windows and grid at 224 px
+# (map side, C, heads) of the stages that take kernels 3 and 4 at 224 px (the
+# 7x7 stage 3 is a single window and takes the composition), and the launches
+# of each kernel they give one train step: a block and a grid attention per
+# block, in 2, 2 and 5 blocks
+MAXVIT_STAGES = ((56, 64, 2), (28, 128, 4), (14, 256, 8))
+MAXVIT_STAGE_LAUNCHES = (4, 4, 10)
+MAXVIT_LAUNCHES = sum(MAXVIT_STAGE_LAUNCHES)
+MAXVIT_RECIPE = dict(learning_rate=8e-3, weight_decay=0.05, clip_grad=1.0)
+MAXVIT_DROP_PATH = 0.2
+# MBConv's pre_norm bias: a train-mode BatchNorm (norm1) follows the 1x1 conv
+# it feeds, and removes the constant it adds, so its true gradient is zero
+MAXVIT_ZERO_GRAD = ("conv.pre_norm.bias",)
+# bf16 serving logits against an fp32 model with the same weights, through 11
+# bf16 blocks and the head: a loose bound that a wrong route would break
+MAXVIT_FP32_RTOL = 0.25
 # the card's published dense peaks (H100 SXM, NVIDIA's data sheet)
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 OUT_DIR = Path("chiprun_out")
@@ -440,17 +474,31 @@ def rel_l2(got, ref) -> float:
     return (got - ref).norm().item() / max(ref.norm().item(), 1e-30)
 
 
-def compare_grads(kernel, plain, fp32) -> dict:
+def grad_groups(names) -> dict:
+    """{(stage, block parameter): parameter names} over the blocks of every
+    stage: `stages.<s>.<j>.<kind>` (ConvNeXt) or `stages.<s>.blocks.<j>.<kind>`
+    (MaxViT)."""
+    groups = {}
+    for name in names:
+        m = re.match(r"^stages\.(\d+)\.(?:blocks\.)?\d+\.(.+)$", name)
+        if m:
+            groups.setdefault((int(m.group(1)), m.group(2)), []).append(name)
+    return dict(sorted(groups.items()))
+
+
+def compare_grads(kernel, plain, fp32, tag: str = "", zero_kinds=()) -> dict:
     """The first step's gradients by (stage, block parameter) group: kernel
     path against plain path, and both against the fp32 gradients; raises
-    past TRAIN_GRAD_RTOL or TRAIN_GRAD_ACC."""
+    past TRAIN_GRAD_RTOL or TRAIN_GRAD_ACC. Groups of `zero_kinds` have a
+    true gradient of zero and hold rounding noise only: they are not gated,
+    but their fp32 gradient must be below 1e-3 of the median group's."""
     import torch
 
     groups = []
-    for s, kind in [(s, k) for s in range(len(STAGE_DEPTHS)) for k in BLOCK_KINDS]:
-        keys = [k for k in fp32 if k.startswith(f"stages.{s}.") and k.endswith("." + kind)]
+    for (s, kind), keys in grad_groups(fp32).items():
         cat = lambda g: torch.cat([g[k].flatten() for k in keys])
         groups.append({"stage": s, "kind": kind, "leaves": len(keys),
+                       "fp32_norm": cat(fp32).norm().item(),
                        "kernel_vs_plain": rel_l2(cat(kernel), cat(plain)),
                        "kernel_vs_fp32": rel_l2(cat(kernel), cat(fp32)),
                        "plain_vs_fp32": rel_l2(cat(plain), cat(fp32))})
@@ -458,10 +506,19 @@ def compare_grads(kernel, plain, fp32) -> dict:
     whole = {"kernel_vs_plain": rel_l2(cat(kernel), cat(plain)),
              "kernel_vs_fp32": rel_l2(cat(kernel), cat(fp32)),
              "plain_vs_fp32": rel_l2(cat(plain), cat(fp32))}
-    apart = max(groups, key=lambda g: g["kernel_vs_plain"])
-    ratio = max(groups, key=lambda g: g["kernel_vs_fp32"] / g["plain_vs_fp32"])
+    zero = [g for g in groups if g["kind"] in zero_kinds]
+    groups_gated = [g for g in groups if g["kind"] not in zero_kinds]
+    median = sorted(g["fp32_norm"] for g in groups_gated)[len(groups_gated) // 2]
+    if zero:
+        worst = max(g["fp32_norm"] for g in zero)
+        log(f"[{tag}train] {len(zero)} groups with a true gradient of zero ({', '.join(zero_kinds)}) "
+            f"not gated: fp32 norm at most {worst:.3g} against a median group's {median:.3g}")
+        if not worst <= 1e-3 * median:
+            raise AssertionError(f"a group taken for zero-gradient is not: {zero}")
+    apart = max(groups_gated, key=lambda g: g["kernel_vs_plain"])
+    ratio = max(groups_gated, key=lambda g: g["kernel_vs_fp32"] / g["plain_vs_fp32"])
     worst_ratio = ratio["kernel_vs_fp32"] / ratio["plain_vs_fp32"]
-    log(f"[train] first step's gradients, {len(groups)} (stage, block parameter) groups, L2 "
+    log(f"[{tag}train] first step's gradients, {len(groups_gated)} (stage, block parameter) groups, L2 "
         f"relative: kernel vs plain path at most {apart['kernel_vs_plain']:.4g} (stage "
         f"{apart['stage']} {apart['kind']}; tol {TRAIN_GRAD_RTOL}); distance to fp32 kernel / "
         f"plain at most {worst_ratio:.4g} (stage {ratio['stage']} {ratio['kind']}: "
@@ -565,7 +622,9 @@ def train():
     return (state, step), (plain_state, plain_step), images, targets, launches, check
 
 
-def train_throughput(kernel, plain, images, targets, card: str):
+def train_throughput(kernel, plain, images, targets, card: str, what: str):
+    """Train img/s of both paths in turns (plain, kernel, kernel, plain) after
+    TRAIN_WARMUP steps each; `what` names the model and recipe in the log."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
@@ -578,9 +637,10 @@ def train_throughput(kernel, plain, images, targets, card: str):
         for _ in range(TRAIN_WARMUP):
             fn()
     t = in_turns(fns, TRAIN_ITERS)
-    runs = {k: [TRAIN_BATCH * 1000.0 / ms for ms in v] for k, v in t.items()}
+    batch = images.shape[0]
+    runs = {k: [batch * 1000.0 / ms for ms in v] for k, v in t.items()}
     result = {k: sum(v) / len(v) for k, v in runs.items()}
-    log(f"[train-throughput] map_convnext_tiny train B={TRAIN_BATCH} {IMG}px bf16 (LAMB, EMA): "
+    log(f"[train-throughput] {what} train B={batch} {IMG}px bf16: "
         f"kernel path {result['kernel']:.1f} img/s, plain path {result['plain']:.1f} img/s "
         f"(turns plain,kernel,kernel,plain: {runs['plain'][0]:.1f},{runs['kernel'][0]:.1f},"
         f"{runs['kernel'][1]:.1f},{runs['plain'][1]:.1f}) on {card}; peak memory "
@@ -588,7 +648,7 @@ def train_throughput(kernel, plain, images, targets, card: str):
     return result, runs
 
 
-def profile_step(kernel, images, targets, top: int = 15):
+def profile_step(kernel, images, targets, what: str, top: int = 15):
     """torch.profiler over one kernel-path train step: device time by kernel
     name, and the device's idle share of the span from the step's first
     kernel to its last (the profiler slows the host, so this span is longer
@@ -616,15 +676,353 @@ def profile_step(kernel, images, targets, top: int = 15):
             rows.append({"name": ev.key, "ms": dev_us / 1e3, "count": ev.count})
     rows.sort(key=lambda r: -r["ms"])
     idle = max(0.0, 1 - busy_ms / span_ms)
-    log(f"[profile] one train step: device span {span_ms:.2f} ms, kernels busy {busy_ms:.2f} ms, "
-        f"idle share of the span {idle:.3f}")
+    log(f"[profile] one {what} train step: device span {span_ms:.2f} ms, kernels busy "
+        f"{busy_ms:.2f} ms, idle share of the span {idle:.3f}")
     for r in rows[:top]:
         log(f"[profile]   {r['ms']:9.3f} ms  x{r['count']:<5d} {r['name'][:110]}")
     return {"span_ms": span_ms, "busy_ms": busy_ms, "idle_share": idle, "rows": rows[:40]}
 
 
-def depth_weighted(times, key):
-    return sum(d * r[key] for d, r in zip(STAGE_DEPTHS, times))
+def weighted(times, key, weights):
+    """One forward's or train step's launches: per-launch times weighted by
+    the launches of each stage."""
+    return sum(w * r[key] for w, r in zip(weights, times))
+
+
+# ---------------------------------------------------------------- MaxViT
+
+def attn_args(b, h, w, nh, ps, gen):
+    """Inputs of the partition-attention kernels at a (b, h, w) map of nh
+    heads of 32: qkv bf16 with q scaled by 32**-0.5 as the model scales it,
+    an fp32 bias of 0.1 N(0, 1), and a bf16 cotangent."""
+    import torch
+
+    c, t = 32 * nh, ps[0] * ps[1]
+    qkv = torch.randn(b, h, w, 3 * c, generator=gen, device="cuda")
+    qkv[..., :c] *= 32 ** -0.5
+    bias = 0.1 * torch.randn(nh, t, t, generator=gen, device="cuda")
+    g = torch.randn(b, h, w, c, generator=gen, device="cuda")
+    return qkv.to(torch.bfloat16), bias, g.to(torch.bfloat16)
+
+
+def attn_bound_ms(b, h, w, nh, ps, backward: bool) -> tuple:
+    """The least time of one partition-attention launch: the larger of its
+    products' operations over the bf16 peak and its bytes over the memory
+    rate. Forward: q k^T and p v, 4 T^2 d flops per window and head; qkv
+    read, out written, the bias read. Backward: the recomputed q k^T, p^T g,
+    g v^T, ds k and ds^T q, 10 T^2 d flops; qkv and g read, dqkv written, the
+    bias read and dbias written."""
+    n, c, t = b * h * w, 32 * nh, ps[0] * ps[1]
+    windows = n // t
+    flops = (10 if backward else 4) * windows * nh * t * t * 32
+    nbytes = (14 if backward else 8) * n * c + (2 if backward else 1) * nh * t * t * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def compare_attention(args, part, ps, nh, tag) -> dict:
+    """Kernels 3 and 4 against their twins on the same inputs, every output
+    (out; dqkv, dbias); raises past KERNEL_RTOL."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import partition_attention as pa
+
+    qkv, bias, g = args
+    got = {"out": pa.fused_partition_attention(qkv, bias, part, ps, nh)}
+    got["dqkv"], got["dbias"] = pa.fused_partition_attention_bwd(qkv, bias, g, part, ps, nh)
+    ref = {"out": pa.plain_partition_attention(qkv, bias, part, ps, nh)}
+    ref["dqkv"], ref["dbias"] = pa.plain_partition_attention_bwd(qkv, bias, g, part, ps, nh)
+    torch.cuda.synchronize()
+    ratios, errs = {}, {}
+    for k in got:
+        if got[k].shape != ref[k].shape or got[k].dtype != ref[k].dtype:
+            raise AssertionError(f"partition attention {k} {tag}: {tuple(got[k].shape)} "
+                                 f"{got[k].dtype}, twin {tuple(ref[k].shape)} {ref[k].dtype}")
+        if not torch.isfinite(got[k].float()).all():
+            raise AssertionError(f"partition attention {k} {tag} is not finite")
+        ratios[k] = rel_err(got[k], ref[k])
+        errs[k] = (got[k].float() - ref[k].float()).abs().max().item()
+    log(f"[kernels] partition_attn[{part}] {tag}: max|kernel-twin|/max|twin| "
+        + " ".join(f"{k}={v:.3g}" for k, v in ratios.items()) + f" (tol {KERNEL_RTOL})")
+    bad = [k for k, v in ratios.items() if not v <= KERNEL_RTOL]
+    if bad:
+        raise AssertionError(f"partition attention kernels disagree with their twins {tag} in {bad}")
+    return {"tag": tag, "part": part, "ratios": ratios, "max_abs_err": errs}
+
+
+def library_fns(args, part, ps, nh):
+    """The yardsticks: F.scaled_dot_product_attention with the bias as a
+    float attn_mask, on windows partitioned beforehand, and the autograd
+    backward of that call (dq, dk, dv; the mask gets no gradient); and the
+    partition copies each needs, timed apart: qkv into q, k, v windows and
+    the output back (forward); g into windows and dq, dk, dv back (backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from imagenet_models_tpu_torch.ops.partition_attention import _unwindows, _windows
+
+    qkv, bias, g = args
+    b, h, w, c3 = qkv.shape
+    t = ps[0] * ps[1]
+
+    def split(x):  # (B, H, W, k*C) -> k tensors (N, nh, T, d), contiguous
+        rows = _windows(x, part, ps)
+        k = rows.shape[-1] // (32 * nh)
+        return rows.reshape(rows.shape[0], t, k, nh, 32).permute(2, 0, 3, 1, 4).contiguous().unbind(0)
+
+    def merge(*hs):  # k tensors (N, nh, T, d) -> (B, H, W, k*C)
+        rows = torch.stack(hs, 2).permute(0, 3, 2, 1, 4).reshape(hs[0].shape[0], t, -1)
+        return _unwindows(rows, part, ps, (h, w))
+
+    q, k, v = split(qkv)
+    (gw,) = split(g)
+    mask = bias.to(qkv.dtype)[None]
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    graph = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=1.0)
+    return {
+        "fwd": lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=1.0),
+        "fwd_copies": lambda: (split(qkv), merge(out)),
+        "bwd": lambda: torch.autograd.grad(graph, leaves, gw, retain_graph=True),
+        "bwd_copies": lambda: (split(g), merge(q, k, v)),
+    }
+
+
+def check_attention(card: str):
+    """Kernels 3 and 4 against their twins at the three B=128 stage shapes of
+    the train step (block and grid), at T = 144 and 256 (the 384 and 512 px
+    models) and on a non-square map; per launch at the B=128 shapes, in turns
+    (twin, kernel, kernel, twin), with the bound and the library call; kernel
+    3 beside the eval route's composition at the B=256 stage shapes."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import partition_attention as pa
+    from imagenet_models_tpu_torch.ops import window_attention as wa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    rows = []
+    for b, h, w, nh, ps in [(2, 96, 96, 2, (12, 12)), (1, 128, 128, 2, (16, 16)),
+                            (8, 14, 21, 3, (7, 7)), (4, 21, 14, 2, (7, 7))]:
+        args = attn_args(b, h, w, nh, ps, gen)
+        for part in ("block", "grid"):
+            rows.append(compare_attention(args, part, ps, nh, f"B={b} {h}x{w} T={ps[0] * ps[1]} "
+                                                               f"heads={nh}"))
+    times = {"fwd": [], "bwd": []}
+    for side, c, nh in MAXVIT_STAGES:
+        args = attn_args(TRAIN_BATCH, side, side, nh, PS, gen)
+        stage = {"fwd": [], "bwd": []}
+        for part in ("block", "grid"):
+            rows.append(compare_attention(args, part, PS, nh, f"B={TRAIN_BATCH} {side}x{side} "
+                                                              f"C={c}"))
+            qkv, bias, g = args
+            iters = max(5, min(50, 4_000_000 // (TRAIN_BATCH * side * side)))
+            lib = library_fns(args, part, PS, nh)
+            for which, kern, plain in (
+                    ("fwd", lambda: pa.fused_partition_attention(qkv, bias, part, PS, nh),
+                     lambda: pa.plain_partition_attention(qkv, bias, part, PS, nh)),
+                    ("bwd", lambda: pa.fused_partition_attention_bwd(qkv, bias, g, part, PS, nh),
+                     lambda: pa.plain_partition_attention_bwd(qkv, bias, g, part, PS, nh))):
+                with torch.inference_mode(which == "fwd"):
+                    t = in_turns({"kernel": kern, "plain": plain}, iters)
+                bound, by = attn_bound_ms(TRAIN_BATCH, side, side, nh, PS, which == "bwd")
+                row = {"side": side, "c": c, "heads": nh, "part": part,
+                       "ms": sum(t["kernel"]) / 2, "plain_ms": sum(t["plain"]) / 2,
+                       "library_ms": cuda_ms(lib[which], iters),
+                       "copies_ms": cuda_ms(lib[which + "_copies"], iters),
+                       "bound_ms": bound, "bound_by": by, "turns": t}
+                stage[which].append(row)
+                log(f"[kernels] partition_attn_{which}[{part}] B={TRAIN_BATCH} {side}x{side} C={c}: "
+                    f"kernel {row['ms']:.4f} ms, twin {row['plain_ms']:.4f} ms, bound "
+                    f"{bound:.4f} ms ({by}), SDPA {row['library_ms']:.4f} ms + partition copies "
+                    f"{row['copies_ms']:.4f} ms (twin,kernel,kernel,twin: {t['plain'][0]:.4f},"
+                    f"{t['kernel'][0]:.4f},{t['kernel'][1]:.4f},{t['plain'][1]:.4f})")
+            del lib
+        for which in ("fwd", "bwd"):  # block and grid: one launch of each per block
+            mean = {k: sum(r[k] for r in stage[which]) / 2
+                    for k in ("ms", "plain_ms", "library_ms", "copies_ms", "bound_ms")}
+            times[which].append({**mean, "bound_by": stage[which][0]["bound_by"],
+                                 "rows": stage[which]})
+        del args
+    # the eval route: partition -> composition -> reverse, against kernel 3
+    evals = []
+    with torch.inference_mode():
+        for side, c, nh in MAXVIT_STAGES:
+            qkv, bias, _ = attn_args(BENCH_BATCH, side, side, nh, PS, gen)
+            for part in ("block", "grid"):
+                cut, back = ((wa.window_partition, wa.window_reverse) if part == "block"
+                             else (wa.grid_partition, wa.grid_reverse))
+                comp = lambda: back(wa.slice_attention(cut(qkv, PS), bias, nh), PS, (side, side))
+                t = in_turns({"kernel": lambda: pa.fused_partition_attention(qkv, bias, part,
+                                                                             PS, nh),
+                              "plain": comp}, 10)
+                row = {"side": side, "c": c, "part": part, "kernel_ms": sum(t["kernel"]) / 2,
+                       "composition_ms": sum(t["plain"]) / 2, "turns": t}
+                evals.append(row)
+                log(f"[kernels] eval B={BENCH_BATCH} {side}x{side} C={c} [{part}]: kernel 3 "
+                    f"{row['kernel_ms']:.4f} ms, composition (partition, attention, reverse) "
+                    f"{row['composition_ms']:.4f} ms (composition,kernel,kernel,composition: "
+                    f"{t['plain'][0]:.4f},{t['kernel'][0]:.4f},{t['kernel'][1]:.4f},"
+                    f"{t['plain'][1]:.4f}) on {card}")
+            del qkv, bias
+    return rows, times, evals
+
+
+def serve_maxvit(card: str):
+    """The serving path of map_maxvit_tiny_tf_224: eval takes the composition
+    (the gate), so kernels 3 and 4 are not launched; the logits are held to
+    the plain path's and, loosely, to an fp32 model's with the same weights;
+    one eval step; eval img/s at B=256 in two runs."""
+    import torch
+
+    from imagenet_models_tpu_torch import create_model, default_cfg
+    from imagenet_models_tpu_torch.ops import partition_attention as pa
+    from imagenet_models_tpu_torch.serving import make_serving_fn
+    from imagenet_models_tpu_torch.train.state import make_eval_step
+
+    t0 = time.perf_counter()
+    model = create_model(MAXVIT, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED))
+    if not next(model.parameters()).is_cuda:
+        raise AssertionError("create_model did not build on the GPU by default")
+    log(f"[serving] {MAXVIT} built: {sum(p.numel() for p in model.parameters())} params, bf16 "
+        f"compute, {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    requests = [torch.randint(0, 256, (REQUEST_BATCH, IMG, IMG, 3), generator=gen,
+                              device="cuda", dtype=torch.uint8) for _ in range(REQUESTS)]
+    serve_fn = make_serving_fn(model)
+    pa.fused_partition_attention.launches = pa.fused_partition_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    outputs = [serve_fn(images) for images in requests]
+    torch.cuda.synchronize()
+    launches = pa.fused_partition_attention.launches + pa.fused_partition_attention_bwd.launches
+    log(f"[serving] {REQUESTS} requests of {REQUEST_BATCH} in {time.perf_counter() - t0:.3f} s "
+        f"(first includes warm-up); partition-attention launches: {launches} (eval takes the "
+        f"composition)")
+    if launches:
+        raise AssertionError("the eval forward launched the partition-attention kernels")
+    for logits in outputs:
+        if logits.shape != (REQUEST_BATCH, 1000) or not torch.isfinite(logits).all():
+            raise AssertionError(f"malformed logits {tuple(logits.shape)}")
+    plain = make_serving_fn(model, use_kernel=False)(requests[0])
+    scale = plain.abs().max().item()
+    err = (outputs[0] - plain).abs().max().item()
+    fp32 = create_model(MAXVIT, generator=torch.Generator().manual_seed(SEED))
+    ref = make_serving_fn(fp32)(requests[0])
+    del fp32
+    err32 = (outputs[0] - ref).abs().max().item() / ref.abs().max().item()
+    agree = (outputs[0].argmax(-1) == ref.argmax(-1)).float().mean().item()
+    log(f"[serving] logits vs the plain path: max|diff| {err:.4g} (tol {LOGITS_RTOL * scale:.4g}); "
+        f"vs an fp32 model with the same weights: max|diff|/max|fp32| {err32:.4g} (tol "
+        f"{MAXVIT_FP32_RTOL}), top-1 agreement {agree:.3f}")
+    if not (err <= LOGITS_RTOL * scale and err32 <= MAXVIT_FP32_RTOL):
+        raise AssertionError("MaxViT serving logits disagree with the plain path or fp32")
+    step = make_eval_step(model)
+    cfg = default_cfg(MAXVIT)
+    mean, std = (torch.tensor(cfg[k], device="cuda") for k in ("mean", "std"))
+    x = (requests[1].float() / 255.0 - mean) / std
+    targets = torch.randint(0, 1000, (REQUEST_BATCH,), generator=gen, device="cuda")
+    logits, top1, top5 = step(x, targets)
+    if not (logits - outputs[1]).abs().max().item() <= 1e-3 * scale:
+        raise AssertionError("eval step logits differ from the serving logits on the same images")
+    if not (top1 <= top5).all() or top1.shape != (REQUEST_BATCH,):
+        raise AssertionError("eval step top-1/top-5 flags are malformed")
+    x = torch.randn(BENCH_BATCH, IMG, IMG, 3, generator=gen, device="cuda")
+    with torch.inference_mode():
+        runs = [BENCH_BATCH * 1000.0 / cuda_ms(lambda: model(x), BENCH_ITERS) for _ in range(2)]
+    log(f"[throughput] {MAXVIT} eval B={BENCH_BATCH} {IMG}px bf16: {sum(runs) / 2:.1f} img/s "
+        f"(runs {runs[0]:.1f}, {runs[1]:.1f}; kernel and plain path are one route at eval) "
+        f"on {card}")
+    return {"max_abs_err": err, "max_abs_plain": scale, "fp32_rel": err32, "fp32_top1": agree,
+            "eval_img_s": sum(runs) / 2, "eval_img_s_runs": runs}
+
+
+def maxvit_trainer(dtype):
+    """The maxvit_tiny recipe (train_with_script.py:24) on a fresh full-width
+    map_maxvit_tiny_tf_224: timm LAMB lr 8e-3 wd 0.05 clip 1.0 by norm, BCE
+    with smoothing 0.1 on dense (mixup) targets, drop-path 0.2, no EMA."""
+    import torch
+
+    from imagenet_models_tpu_torch import create_model
+    from imagenet_models_tpu_torch.train.losses import create_loss_fn
+    from imagenet_models_tpu_torch.train.optim import create_optimizer
+    from imagenet_models_tpu_torch.train.state import create_train_state
+
+    model = create_model(MAXVIT, dtype=dtype, drop_path_rate=MAXVIT_DROP_PATH,
+                         generator=torch.Generator().manual_seed(SEED))
+    opt = FirstGrads(create_optimizer("lamb", **MAXVIT_RECIPE))
+    return create_train_state(model, opt), opt, create_loss_fn(bce_loss=True, smoothing=0.1,
+                                                               mixup_active=True)
+
+
+def train_maxvit():
+    """Six kernel-path steps of the MaxViT recipe with launch counts, and one
+    plain-path step from a deep copy of the first state (same drop-path and
+    dropout draws), whose loss, grad norm and gradients must agree with the
+    kernel path's first step and an fp32 model's."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import partition_attention as pa
+    from imagenet_models_tpu_torch.train.state import make_train_step
+
+    state, kernel_opt, loss_fn = maxvit_trainer(torch.bfloat16)
+    plain_state = copy.deepcopy(state)
+    plain_opt = FirstGrads(kernel_opt.opt)
+    step = make_train_step(state.model, kernel_opt, loss_fn, dec_lam=-0.8)
+    plain_step = make_train_step(plain_state.model, plain_opt, loss_fn, dec_lam=-0.8,
+                                 use_kernel=False)
+    images, targets = train_batch()
+    gen = torch.Generator(device="cuda")
+
+    pa.fused_partition_attention.launches = pa.fused_partition_attention_bwd.launches = 0
+    metrics, per_step = [], []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        torch.manual_seed(SEED + 10 + i)  # the head's dropout masks
+        before = (pa.fused_partition_attention.launches, pa.fused_partition_attention_bwd.launches)
+        state, m = step(state, images, targets, gen.manual_seed(SEED + 10 + i))
+        metrics.append({k: v.item() for k, v in m.items()})
+        per_step.append((pa.fused_partition_attention.launches - before[0],
+                         pa.fused_partition_attention_bwd.launches - before[1]))
+    torch.cuda.synchronize()
+    launches = {"fwd": pa.fused_partition_attention.launches,
+                "bwd": pa.fused_partition_attention_bwd.launches}
+    log(f"[maxvit-train] {TRAIN_STEPS} steps of B={TRAIN_BATCH} in {time.perf_counter() - t0:.2f} s "
+        f"(first includes warm-up); (kernel 3, kernel 4) launches per step: {per_step}")
+    log("[maxvit-train] loss per step: " + ", ".join(f"{m['loss']:.6f}" for m in metrics)
+        + "; grad_norm per step: " + ", ".join(f"{m['grad_norm']:.6f}" for m in metrics))
+    if per_step != [(MAXVIT_LAUNCHES, MAXVIT_LAUNCHES)] * TRAIN_STEPS:
+        raise AssertionError(f"expected {MAXVIT_LAUNCHES} launches of each kernel per step, "
+                             f"got {per_step}")
+    for m in metrics:
+        if not all(map(lambda v: v == v and abs(v) != float("inf"), m.values())):
+            raise AssertionError(f"non-finite train metrics: {metrics}")
+    if not metrics[-1]["loss"] < metrics[0]["loss"]:
+        raise AssertionError("the loss did not fall over six steps on a fixed batch")
+
+    torch.manual_seed(SEED + 10)
+    plain_state, pm = plain_step(plain_state, images, targets, gen.manual_seed(SEED + 10))
+    pm = {k: v.item() for k, v in pm.items()}
+    loss_rel = abs(metrics[0]["loss"] - pm["loss"]) / abs(pm["loss"])
+    gnorm_rel = abs(metrics[0]["grad_norm"] - pm["grad_norm"]) / abs(pm["grad_norm"])
+    log(f"[maxvit-train] first step, kernel vs plain path: loss {metrics[0]['loss']:.6f} vs "
+        f"{pm['loss']:.6f} (rel {loss_rel:.3g}, tol {TRAIN_LOSS_RTOL}); grad_norm "
+        f"{metrics[0]['grad_norm']:.6f} vs {pm['grad_norm']:.6f} (rel {gnorm_rel:.3g}, tol "
+        f"{TRAIN_GNORM_RTOL})")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and gnorm_rel <= TRAIN_GNORM_RTOL):
+        raise AssertionError("the kernel-path train step disagrees with the plain path")
+    fp32_state, fp32_opt, _ = maxvit_trainer(torch.float32)
+    fp32_step = make_train_step(fp32_state.model, fp32_opt, loss_fn, dec_lam=-0.8,
+                                use_kernel=False)
+    torch.manual_seed(SEED + 10)
+    fp32_step(fp32_state, images, targets, gen.manual_seed(SEED + 10))
+    del fp32_state
+    grads = compare_grads(kernel_opt.grads, plain_opt.grads, fp32_opt.grads, "maxvit-",
+                          MAXVIT_ZERO_GRAD)
+    kernel_opt.grads = plain_opt.grads = fp32_opt.grads = {}
+    torch.cuda.empty_cache()
+    check = {"losses": [m["loss"] for m in metrics], "grad_norms": [m["grad_norm"] for m in metrics],
+             "plain_loss": pm["loss"], "plain_grad_norm": pm["grad_norm"], "loss_rel": loss_rel,
+             "grad_norm_rel": gnorm_rel, "grads_rel": grads}
+    return (state, step), (plain_state, plain_step), images, targets, launches, check
 
 
 def main() -> int:
@@ -644,8 +1042,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     builds = _kernels.build_all()
-    _kernels.ln_mlp_fwd_library()
-    _kernels.ln_mlp_bwd_library()
+    for name in _kernels.KERNELS:
+        getattr(_kernels, f"{name}_library")()
     log(f"[build] {', '.join(f'{n}.cu -> {b.path.name} in {b.seconds:.1f} s' for n, b in builds.items())}"
         f"; {time.perf_counter() - t0:.1f} s in all, in parallel")
     for name, b in builds.items():
@@ -653,6 +1051,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build]   {name}: {line.strip()}")
 
+    # map_convnext_tiny: kernels 1 and 2, serving and the train step
     fwd_rows, fwd_times = check_forward("exact", (64,))
     fast_rows, fast_times = check_forward("fast", (64, TRAIN_BATCH))
     bwd_rows, bwd_times = check_backward()
@@ -660,28 +1059,52 @@ def main() -> int:
     bench, runs = throughput(model, card)
     del model
     kernel, plain, images, targets, train_launches, train_check = train()
-    train_bench, train_runs = train_throughput(kernel, plain, images, targets, card)
+    train_bench, train_runs = train_throughput(kernel, plain, images, targets, card,
+                                               "map_convnext_tiny (LAMB, EMA)")
     del plain
-    prof = profile_step(kernel, images, targets)
+    prof = profile_step(kernel, images, targets, "map_convnext_tiny")
+    del kernel, images, targets
+    torch.cuda.empty_cache()
 
-    def entry(name, source, replaces, launches, rows, times):
+    # map_maxvit_tiny_tf_224: kernels 3 and 4, serving and the train step
+    attn_rows, attn_times, attn_evals = check_attention(card)
+    mv_serve = serve_maxvit(card)
+    torch.cuda.empty_cache()
+    mv_kernel, mv_plain, images, targets, mv_launches, mv_check = train_maxvit()
+    mv_bench, mv_runs = train_throughput(mv_kernel, mv_plain, images, targets, card,
+                                         f"{MAXVIT} (LAMB, clip 1.0, drop-path 0.2)")
+    del mv_plain
+    mv_prof = profile_step(mv_kernel, images, targets, MAXVIT)
+
+    def entry(name, source, replaces, launches, errs, times, weights):
         return {"name": name, "route": "cuda",
                 "source": f"imagenet_models_tpu_torch/csrc/{source}",
-                "replaces": f"imagenet_models_tpu/ops/convnext_block.py:{replaces}",
-                "launches": launches,
-                "max_abs_err": max(r["max_abs_err"] for r in rows),
-                # one forward's or train step's 18 launches: depth-weighted over the stages
-                "ms": depth_weighted(times, "ms"), "plain_ms": depth_weighted(times, "plain_ms"),
-                "bound_ms": depth_weighted(times, "bound_ms"),
+                "replaces": f"imagenet_models_tpu/ops/{replaces}",
+                "launches": launches, "max_abs_err": max(errs),
+                # one forward's or train step's launches, weighted over the stages
+                "ms": weighted(times, "ms", weights),
+                "plain_ms": weighted(times, "plain_ms", weights),
+                "bound_ms": weighted(times, "bound_ms", weights),
                 "bound_by": "operations" if all(t["bound_by"] == "operations" for t in times)
                 else "bytes",
-                "library_ms": None}
+                "library_ms": (weighted(times, "library_ms", weights)
+                               if "library_ms" in times[0] else None)}
 
+    errs = lambda rows: [r["max_abs_err"] for r in rows]
+    attn_errs = {"fwd": [r["max_abs_err"]["out"] for r in attn_rows],
+                 "bwd": [max(r["max_abs_err"]["dqkv"], r["max_abs_err"]["dbias"])
+                         for r in attn_rows]}
     kernels = [
-        entry("ln_mlp_fwd", "ln_mlp_fwd.cu", 341, serve_launches, fwd_rows, fwd_times[64]),
-        entry("ln_mlp_fwd_fast", "ln_mlp_fwd.cu", 341, train_launches["fwd"], fast_rows,
-              fast_times[TRAIN_BATCH]),
-        entry("ln_mlp_bwd", "ln_mlp_bwd.cu", 474, train_launches["bwd"], bwd_rows, bwd_times),
+        entry("ln_mlp_fwd", "ln_mlp_fwd.cu", "convnext_block.py:341", serve_launches,
+              errs(fwd_rows), fwd_times[64], STAGE_DEPTHS),
+        entry("ln_mlp_fwd_fast", "ln_mlp_fwd.cu", "convnext_block.py:341", train_launches["fwd"],
+              errs(fast_rows), fast_times[TRAIN_BATCH], STAGE_DEPTHS),
+        entry("ln_mlp_bwd", "ln_mlp_bwd.cu", "convnext_block.py:474", train_launches["bwd"],
+              errs(bwd_rows), bwd_times, STAGE_DEPTHS),
+        entry("partition_attn_fwd", "partition_attn_fwd.cu", "partition_attention.py:286",
+              mv_launches["fwd"], attn_errs["fwd"], attn_times["fwd"], MAXVIT_STAGE_LAUNCHES),
+        entry("partition_attn_bwd", "partition_attn_bwd.cu", "partition_attention.py:310",
+              mv_launches["bwd"], attn_errs["bwd"], attn_times["bwd"], MAXVIT_STAGE_LAUNCHES),
     ]
     # every module of the port, the weights converter included, imports
     # nothing of JAX or of the JAX package
@@ -704,7 +1127,13 @@ def main() -> int:
         "eval_img_s": bench, "eval_img_s_turns": runs,
         "train": train_check, "train_launches": train_launches,
         "train_img_s": train_bench, "train_img_s_turns": train_runs,
-        "train_profile": prof, "kernels": kernels}, indent=2))
+        "train_profile": prof,
+        "maxvit": {"attention_checks": attn_rows, "attention_times_b128": attn_times,
+                   "attention_eval_b256": attn_evals, "serving": mv_serve,
+                   "train": mv_check, "train_launches": mv_launches,
+                   "train_img_s": mv_bench, "train_img_s_turns": mv_runs,
+                   "train_profile": mv_prof},
+        "kernels": kernels}, indent=2))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,10 +4,10 @@ The port keeps its own copy of the JAX package's torch exporter
 (`ckpt/torch_convert.py`: the pytree flatten, the Flax -> torch tensor
 transform, `export_torch_state_dict`, `load_torch_checkpoint`) and of the
 reverse name rules of the ported families (`ckpt/reverse_rules.py`:
-`convnext_*`, `map_convnext_*`). It imports nothing of the JAX package. Port
-modules use the reference's torch names and layouts, so the exported
-state_dict loads into them with `strict=True`. The rules of families not yet
-ported come with their slices.
+`convnext_*`, `map_convnext_*`; `models/maxvit.py`: `*maxvit_*`). It imports
+nothing of the JAX package. Port modules use the reference's torch names and
+layouts, so the exported state_dict loads into them with `strict=True`. The
+rules of families not yet ported come with their slices.
 """
 
 from __future__ import annotations
@@ -80,9 +80,26 @@ CONVNEXT_REVERSE: List[Tuple[str, str]] = [
     (r"stages_(\d+)_blocks_(\d+)\.", r"stages.\1.\2."),
 ] + MAP_HEAD_REVERSE
 
+# models/maxvit.py:306-317. The TF rel-pos table (heads, 2H-1, 2W-1) passes
+# through as it is; re-resolving it for another input size on load
+# (ckpt/torch_convert.py:106-134) is not ported yet.
+MAXVIT_REVERSE: List[Tuple[str, str]] = [
+    (r"^stem_conv(\d)", r"stem.conv\1"),
+    (r"^stem_norm1\.bn", "stem.norm1"),
+    (r"^stages_(\d+)_blocks_(\d+)\.", r"stages.\1.blocks.\2."),
+    (r"\bconv\.shortcut_expand", "conv.shortcut.expand"),
+    (r"\bconv\.shortcut_conv", "conv.shortcut.0"),
+    (r"\bconv\.shortcut_bn", "conv.shortcut.1"),
+    (r"\bconv\.(pre_norm|norm1|norm2)\.bn", r"conv.\1"),
+    (r"^head_norm", "head.norm"),
+    (r"^head_pre_logits", "head.pre_logits.fc"),
+    (r"^head_fc", "head.fc"),
+] + MAP_HEAD_REVERSE
+
 _REVERSE: Dict[str, List[Tuple[str, str]]] = {
     "convnext_*": CONVNEXT_REVERSE,
     "map_convnext_*": CONVNEXT_REVERSE,
+    "*maxvit_*": MAXVIT_REVERSE,
 }
 
 

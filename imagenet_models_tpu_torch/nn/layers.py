@@ -1,7 +1,7 @@
 """Common NN building blocks on channels-last (NHWC) tensors.
 
-Port of imagenet_models_tpu/nn/layers.py, the parts the ConvNeXt and MAP-head
-paths use, in eval and in training (`module.train()` is JAX's
+Port of imagenet_models_tpu/nn/layers.py, the parts the ConvNeXt, MaxViT and
+MAP-head paths use, in eval and in training (`module.train()` is JAX's
 `training=True`: batch statistics, dropout, stochastic depth, fast GELU).
 Parameters keep the reference's torch layouts (Conv2d (O, I/g, kh, kw),
 Linear (O, I)), so a state_dict exported from the JAX package loads with
@@ -51,6 +51,10 @@ def resolve_act(act: Callable, deterministic: bool) -> Callable:
 
 def relu(x: torch.Tensor) -> torch.Tensor:
     return F.relu(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return F.silu(x)
 
 
 def _promote(x: torch.Tensor, p: torch.Tensor, dtype: Optional[torch.dtype]) -> torch.dtype:
@@ -248,6 +252,24 @@ class GroupConvMlp(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.drop(resolve_act(self.act, not self.training)(self.fc1(x)))
         return self.fc2(channel_shuffle(x, self.groups))
+
+
+class Mlp(nn.Module):
+    """Token MLP: fc1 -> activation -> dropout -> fc2 -> dropout, the exact
+    GELU becoming the fast one in training (nn/layers.py:250-270)."""
+
+    def __init__(self, in_features: int, hidden_features: Optional[int] = None,
+                 out_features: Optional[int] = None, act: Callable = gelu, drop: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.fc1 = Dense(in_features, hidden_features or in_features, dtype=dtype)
+        self.fc2 = Dense(hidden_features or in_features, out_features or in_features, dtype=dtype)
+        self.act = act
+        self.drop = nn.Dropout(drop)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.drop(resolve_act(self.act, not self.training)(self.fc1(x)))
+        return self.drop(self.fc2(x))
 
 
 class ConvNormAct(nn.Sequential):

@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-KERNELS = ("ln_mlp_fwd", "ln_mlp_bwd")
+KERNELS = ("ln_mlp_fwd", "ln_mlp_bwd", "partition_attn_fwd", "partition_attn_bwd")
 
 
 @dataclass(frozen=True)
@@ -123,4 +123,26 @@ def ln_mlp_bwd_library() -> ctypes.CDLL:
     lib.imt_ln_mlp_bwd_dx_bf16.restype = _I
     lib.imt_ln_mlp_bwd_wgrad_bf16.argtypes = [_P] * 10 + [_LL, _I, _I, _P]
     lib.imt_ln_mlp_bwd_wgrad_bf16.restype = _I
+    return lib
+
+
+@functools.cache
+def partition_attn_fwd_library() -> ctypes.CDLL:
+    """The partition-attention forward kernel's library (kernel 3), built on
+    first call."""
+    lib = _load("partition_attn_fwd")
+    lib.imt_partition_attn_fwd_bf16.argtypes = [_P] * 3 + [_I] * 8 + [_P]
+    lib.imt_partition_attn_fwd_bf16.restype = _I
+    return lib
+
+
+@functools.cache
+def partition_attn_bwd_library() -> ctypes.CDLL:
+    """The partition-attention backward kernel's library (kernel 4), built on
+    first call."""
+    lib = _load("partition_attn_bwd")
+    lib.imt_partition_attn_bwd_blocks.argtypes = [_LL, _I]
+    lib.imt_partition_attn_bwd_blocks.restype = _I
+    lib.imt_partition_attn_bwd_bf16.argtypes = [_P] * 6 + [_I] * 9 + [_P]
+    lib.imt_partition_attn_bwd_bf16.restype = _I
     return lib

@@ -66,8 +66,9 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer, base_loss: Cal
     images' device) draws the stochastic-depth masks; the head's dropouts
     draw from PyTorch's default generator of that device. metrics holds the
     mean microbatch "loss" and the "grad_norm" of the averaged gradients, as
-    0-d tensors on the device. `use_kernel` is the ConvNeXt blocks' dispatch
-    (None: the kernels for CUDA tensors).
+    0-d tensors on the device. `use_kernel` is the model's kernel dispatch
+    (the ConvNeXt blocks' LN+MLP, MaxViT's partition attention; None: the
+    kernels for CUDA tensors, False: their plain twins).
     """
 
     def loss_of(images, targets, generator):
