@@ -10,7 +10,8 @@ make_eval_step`) and its train step (`train.state.create_train_state` /
 `make_train_step` with bench.py's recipe: timm LAMB lr 5e-3 wd 0.05, BCE on
 dense targets, dec_lam -0.8, EMA 0.9999); then map_maxvit_tiny_tf_224 serving
 and its train step (the maxvit_tiny recipe: LAMB lr 8e-3 wd 0.05, clip 1.0 by
-norm, BCE with smoothing 0.1, drop-path 0.2, dec_lam -0.8, no EMA). Phases:
+norm, BCE with smoothing 0.1, drop-path 0.2, dec_lam -0.8, no EMA); then
+ga_cswin_tiny serving and its train step (the ConvNeXt recipe). Phases:
 
 1. device: the card's name and power limit;
 2. build: compile every CUDA kernel from `csrc/`, one nvcc per source, all
@@ -48,7 +49,26 @@ norm, BCE with smoothing 0.1, drop-path 0.2, dec_lam -0.8, no EMA). Phases:
    kernel per step, finite metrics, the loss falls on a fixed batch), one
    plain-path step from a deep copy of the first state with the same
    drop-path and dropout draws, checked as in phase 6; train img/s of both
-   paths in turns, and a profile of one train step.
+   paths in turns, and a profile of one train step;
+11. kernels 5 and 6 (CSWin stripe attention + LePE): against their twins at
+   the five idx=0 stripe shapes of ga_cswin_tiny at B=128, ga_cswin_base's
+   stage 3, a non-square map and an odd batch, every output (out; dq, dk, dv,
+   dw9, dwb), dw9 and dwb bit-equal between two runs; times per launch in
+   turns at the three B=128 shapes the path runs, beside the bound, the twin,
+   and two library calls (F.scaled_dot_product_attention on stripes
+   partitioned beforehand plus the LePE as a cuDNN depthwise F.conv2d; the
+   partition copies timed apart); kernel 5 (and 6) beside the composition at
+   the stage-1 and stage-2 shapes, which the gate sends to the composition;
+12. GA-CSWin serving (ga_cswin_tiny): four requests with 27 launches of
+   kernel 5 each, logits against the plain path and an fp32 model, one eval
+   step, eval img/s at B=256 of both paths in turns;
+13. GA-CSWin train: the benchkit recipe (LAMB lr 5e-3 wd 0.05, BCE with
+   smoothing 0.1 on dense targets, dec_lam -0.8, EMA 0.9999) at B=128: six
+   kernel-path steps (27 + 27 launches each, finite metrics, a falling loss,
+   the EMA moves), one plain-path step from a deep copy of the first state,
+   checked as in phase 6 (the groups with a true gradient of zero, named in
+   CSWIN_ZERO_GRAD, are checked to be ~0 rather than gated); train img/s of
+   both paths in turns, and a profile of one train step with its peak memory.
 
 Any failure raises and exits non-zero. The last lines are a JSON summary of
 the kernels, the card's name and power limit, and
@@ -129,6 +149,30 @@ MAXVIT_ZERO_GRAD = ("conv.pre_norm.bias",)
 # bf16 serving logits against an fp32 model with the same weights, through 11
 # bf16 blocks and the head: a loose bound that a wrong route would break
 MAXVIT_FP32_RTOL = 0.25
+GA_CSWIN = "ga_cswin_tiny"
+# (name, map side, ws, C/2, heads, kernel launches per forward) of the idx=0
+# stripes of ga_cswin_tiny at 224 px: stages 1 and 2 are taller than the
+# gate's 16 rows and take the composition; stage 3 (21 blocks), the stage-5
+# block and the 5 gram layers take kernels 5 and 6 (the 7x7 stage 4 is one
+# window, idx=-1)
+CSWIN_STRIPES = (("stage1", 56, 1, 32, 1, 0), ("stage2", 28, 2, 64, 2, 0),
+                 ("stage3", 14, 7, 128, 4, 21), ("stage5", 14, 7, 256, 8, 1),
+                 ("gram", 14, 7, 96, 3, 5))
+CSWIN_PATH_LAUNCHES = tuple(n for *_, n in CSWIN_STRIPES if n)
+CSWIN_LAUNCHES = sum(CSWIN_PATH_LAUNCHES)
+CSWIN_RECIPE = dict(learning_rate=5e-3, weight_decay=0.05)
+CSWIN_EMA = 0.9999
+# groups with a true gradient of zero: the grouped projections' biases before
+# the heads' train-mode BatchNorms, and the key third of every qkv bias
+# (softmax ignores a shift of the keys); and one of nearly zero: the stage-5
+# block's last bias adds one vector to every token of the map, which the
+# heads' first BatchNorms remove and the class attention sees only through
+# its 1e-4 layer scale (its fp32 gradient measured 4e-5 of the median
+# group's on an H100, below the bf16 paths' noise)
+CSWIN_ZERO_GRAD = ("gram_contraction.0.bias", "gram_embedding.0.bias", "qkv.bias_k",
+                   ("5", "mlp.fc2.bias"))
+# bf16 serving logits against an fp32 model with the same weights, as MaxViT's
+CSWIN_FP32_RTOL = 0.25
 # the card's published dense peaks (H100 SXM, NVIDIA's data sheet)
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 OUT_DIR = Path("chiprun_out")
@@ -410,7 +454,8 @@ def serve():
     return model, launches, {"max_abs_err": err, "max_abs_plain": scale, "top1_agreement": agree}
 
 
-def throughput(model, card: str):
+def throughput(model, card: str, name: str = "map_convnext_tiny"):
+    """Eval img/s at B=256 of the kernel path and the plain path in turns."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -421,7 +466,7 @@ def throughput(model, card: str):
                       "plain": lambda: model(x, use_kernel=False)}, BENCH_ITERS)
     runs = {k: [BENCH_BATCH * 1000.0 / ms for ms in v] for k, v in t.items()}
     result = {k: sum(v) / len(v) for k, v in runs.items()}
-    log(f"[throughput] map_convnext_tiny eval B={BENCH_BATCH} {IMG}px bf16: "
+    log(f"[throughput] {name} eval B={BENCH_BATCH} {IMG}px bf16: "
         f"kernel path {result['kernel']:.1f} img/s, plain path {result['plain']:.1f} img/s "
         f"(turns plain,kernel,kernel,plain: {runs['plain'][0]:.1f},{runs['kernel'][0]:.1f},"
         f"{runs['kernel'][1]:.1f},{runs['plain'][1]:.1f}) on {card}")
@@ -474,24 +519,38 @@ def rel_l2(got, ref) -> float:
     return (got - ref).norm().item() / max(ref.norm().item(), 1e-30)
 
 
+def grad_group(name: str):
+    """(stage, block parameter) of a parameter name, or None: the blocks of a
+    stage, `stages.<s>.<j>.<kind>` (ConvNeXt), `stages.<s>.blocks.<j>.<kind>`
+    (MaxViT), `stage<s>.<j>.<kind>` and the stage-5 block `stage5.2.<kind>`
+    (GA-CSWin); GA-CSWin's gram layers `gram_layer.<k>.1.<kind>` (stage
+    "gram") and its other head leaves by module and parameter (stage "head")."""
+    for pattern in (r"^stages\.(\d+)\.(?:blocks\.)?\d+\.(.+)$", r"^stage([1-4])\.\d+\.(.+)$",
+                    r"^stage(5)\.2\.(.+)$", r"^(gram)_layer\.\d+\.1\.(.+)$"):
+        m = re.match(pattern, name)
+        if m:
+            return m.group(1), m.group(2)
+    m = re.match(r"^(gram_contraction|gram_embedding|ga|fc)\.\d+\.(.+)$", name)
+    return ("head", f"{m.group(1)}.{m.group(2)}") if m else None
+
+
 def grad_groups(names) -> dict:
-    """{(stage, block parameter): parameter names} over the blocks of every
-    stage: `stages.<s>.<j>.<kind>` (ConvNeXt) or `stages.<s>.blocks.<j>.<kind>`
-    (MaxViT)."""
+    """{(stage, block parameter): parameter names}, by `grad_group`."""
     groups = {}
     for name in names:
-        m = re.match(r"^stages\.(\d+)\.(?:blocks\.)?\d+\.(.+)$", name)
-        if m:
-            groups.setdefault((int(m.group(1)), m.group(2)), []).append(name)
+        key = grad_group(name)
+        if key:
+            groups.setdefault(key, []).append(name)
     return dict(sorted(groups.items()))
 
 
 def compare_grads(kernel, plain, fp32, tag: str = "", zero_kinds=()) -> dict:
     """The first step's gradients by (stage, block parameter) group: kernel
     path against plain path, and both against the fp32 gradients; raises
-    past TRAIN_GRAD_RTOL or TRAIN_GRAD_ACC. Groups of `zero_kinds` have a
-    true gradient of zero and hold rounding noise only: they are not gated,
-    but their fp32 gradient must be below 1e-3 of the median group's."""
+    past TRAIN_GRAD_RTOL or TRAIN_GRAD_ACC. Groups of `zero_kinds` (a block
+    parameter, or a (stage, block parameter) pair) have a true gradient of
+    zero, or one far below the bf16 paths' rounding noise: they are not
+    gated, but their fp32 gradient must be below 1e-3 of the median group's."""
     import torch
 
     groups = []
@@ -506,13 +565,15 @@ def compare_grads(kernel, plain, fp32, tag: str = "", zero_kinds=()) -> dict:
     whole = {"kernel_vs_plain": rel_l2(cat(kernel), cat(plain)),
              "kernel_vs_fp32": rel_l2(cat(kernel), cat(fp32)),
              "plain_vs_fp32": rel_l2(cat(plain), cat(fp32))}
-    zero = [g for g in groups if g["kind"] in zero_kinds]
-    groups_gated = [g for g in groups if g["kind"] not in zero_kinds]
+    is_zero = lambda g: g["kind"] in zero_kinds or (g["stage"], g["kind"]) in zero_kinds
+    zero = [g for g in groups if is_zero(g)]
+    groups_gated = [g for g in groups if not is_zero(g)]
     median = sorted(g["fp32_norm"] for g in groups_gated)[len(groups_gated) // 2]
     if zero:
         worst = max(g["fp32_norm"] for g in zero)
-        log(f"[{tag}train] {len(zero)} groups with a true gradient of zero ({', '.join(zero_kinds)}) "
-            f"not gated: fp32 norm at most {worst:.3g} against a median group's {median:.3g}")
+        log(f"[{tag}train] {len(zero)} groups with a true gradient of (nearly) zero "
+            f"({', '.join(map(str, zero_kinds))}) not gated: fp32 norm at most {worst:.3g} "
+            f"against a median group's {median:.3g}")
         if not worst <= 1e-3 * median:
             raise AssertionError(f"a group taken for zero-gradient is not: {zero}")
     apart = max(groups_gated, key=lambda g: g["kernel_vs_plain"])
@@ -1025,6 +1086,407 @@ def train_maxvit():
     return (state, step), (plain_state, plain_step), images, targets, launches, check
 
 
+# ---------------------------------------------------------------- GA-CSWin
+
+def stripe_args(b, h, w, c, gen):
+    """Inputs of the stripe kernels at a (b, h, w) map of c channels, laid out
+    as the model gives them: q, k, v as channel slices of a bf16 (b, h, w, 6c)
+    qkv map (the first half-channel branch of a block of 2c channels), taps
+    0.2 N(0, 1), bias 0.1 N(0, 1), and the cotangent as a channel slice of a
+    (b, h, w, 2c) map (the gradient of the two branches' concat)."""
+    import torch
+
+    qkv = torch.randn(b, h, w, 6 * c, generator=gen, device="cuda").to(torch.bfloat16)
+    w9 = 0.2 * torch.randn(9, c, generator=gen, device="cuda")
+    wb = 0.1 * torch.randn(1, c, generator=gen, device="cuda")
+    g = torch.randn(b, h, w, 2 * c, generator=gen, device="cuda").to(torch.bfloat16)
+    return qkv[..., :c], qkv[..., 2 * c:3 * c], qkv[..., 4 * c:5 * c], w9, wb, g[..., :c]
+
+
+def stripe_bound_ms(b, h, w, c, nh, ws, backward: bool) -> tuple:
+    """The least time of one stripe-attention launch: the larger of its
+    operations over the bf16 peak and its bytes over the memory rate. Per
+    stripe of T = h*ws tokens and head of d channels: forward q k^T and p v,
+    4 T^2 d flops, and 18 per output for LePE; q, k, v read, out written, w9
+    and wb read. Backward: the recomputed q k^T, p^T g, g v^T, ds k and
+    ds^T q, 10 T^2 d flops, 36 per output for the stencil and its weight
+    gradient; q, k, v, g read, dq, dk, dv written, w9 read, dw9 and dwb
+    written."""
+    n, t, d = b * h * w, h * ws, c // nh
+    stripes = b * (w // ws)
+    flops = (10 if backward else 4) * stripes * nh * t * t * d + (36 if backward else 18) * n * c
+    nbytes = (14 if backward else 8) * n * c + (20 if backward else 10) * c * 4
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+STRIPE_OUTPUTS = ("out", "dq", "dk", "dv", "dw9", "dwb")
+
+
+def compare_stripe(args, ws, nh, tag) -> dict:
+    """Kernels 5 and 6 against their twins on the same inputs, every output
+    (out; dq, dk, dv, dw9, dwb); raises past KERNEL_RTOL, or if dw9 and dwb
+    differ in any bit between two runs of kernel 6."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import stripe_attention as sa
+
+    q, k, v, w9, wb, g = args
+    scale = (q.shape[-1] // nh) ** -0.5
+    got = (sa.fused_stripe_attention(q, k, v, w9, wb, ws, nh, scale),
+           *sa.fused_stripe_attention_bwd(q, k, v, w9, wb, g, ws, nh, scale))
+    ref = (sa.plain_stripe_attention(q, k, v, w9, wb, ws=ws, nh=nh, scale=scale),
+           *sa.plain_stripe_attention_bwd(q, k, v, w9, wb, g, ws=ws, nh=nh, scale=scale))
+    again = sa.fused_stripe_attention_bwd(q, k, v, w9, wb, g, ws, nh, scale)
+    torch.cuda.synchronize()
+    ratios, errs = {}, {}
+    for name, o, r in zip(STRIPE_OUTPUTS, got, ref):
+        if o.shape != r.shape or o.dtype != r.dtype:
+            raise AssertionError(f"stripe attention {name} {tag}: {tuple(o.shape)} {o.dtype}, "
+                                 f"twin {tuple(r.shape)} {r.dtype}")
+        if not torch.isfinite(o.float()).all():
+            raise AssertionError(f"stripe attention {name} {tag} is not finite")
+        ratios[name] = rel_err(o, r)
+        errs[name] = (o.float() - r.float()).abs().max().item()
+    same = torch.equal(again[3], got[4]) and torch.equal(again[4], got[5])
+    log(f"[kernels] stripe_attn {tag}: max|kernel-twin|/max|twin| "
+        + " ".join(f"{k}={v:.3g}" for k, v in ratios.items())
+        + f" (tol {KERNEL_RTOL}); dw9, dwb bit-equal across runs: {same}")
+    bad = [k for k, v in ratios.items() if not v <= KERNEL_RTOL]
+    if bad or not same:
+        raise AssertionError(f"stripe attention kernels disagree with their twins {tag} in {bad}, "
+                             f"or their weight gradients moved between runs ({same})")
+    return {"tag": tag, "ratios": ratios, "max_abs_err": errs}
+
+
+def stripe_library_fns(args, ws, nh):
+    """The yardstick: two PyTorch calls, F.scaled_dot_product_attention on
+    stripes partitioned beforehand and the LePE as a cuDNN depthwise
+    F.conv2d on the partitioned v (forward), and the autograd backward of
+    both (dq, dk, dv, and the conv's input and weight gradients); and the
+    partition copies they need, timed apart: q, k, v into stripes and heads,
+    v into stripe images, the output back (forward); g into stripes, heads
+    and images, dq, dk, dv back (backward)."""
+    import torch
+    import torch.nn.functional as F
+
+    from imagenet_models_tpu_torch.ops.stripe_attention import _stripe_images, _stripes, _unstripes
+
+    q, k, v, w9, wb, g = args
+    b, h, w, c = q.shape
+    t = h * ws
+    scale = (c // nh) ** -0.5
+    weight = w9.t().reshape(c, 1, 3, 3).to(q.dtype).contiguous()
+    bias = wb.reshape(c).to(q.dtype)
+
+    def heads(x):  # (B, H, W, C) -> (N, nh, T, d), contiguous
+        rows = _stripes(x, ws)
+        return rows.reshape(rows.shape[0], t, nh, -1).transpose(1, 2).contiguous()
+
+    def images(x):
+        return _stripe_images(x, ws).to(x.dtype).contiguous()
+
+    def back(o):  # (N, nh, T, d) -> (B, H, W, C)
+        return _unstripes(o.transpose(1, 2).reshape(o.shape[0], t, c), b, h, w, ws)
+
+    qh, kh, vh, vi, gh, gi = heads(q), heads(k), heads(v), images(v), heads(g), images(g)
+    out = F.scaled_dot_product_attention(qh, kh, vh, scale=scale)
+    leaves = [x.detach().requires_grad_() for x in (qh, kh, vh, vi)]
+    wleaf = weight.detach().requires_grad_()
+    graph = (F.scaled_dot_product_attention(*leaves[:3], scale=scale),
+             F.conv2d(leaves[3], wleaf, bias, padding=1, groups=c))
+    return {
+        "fwd": lambda: (F.scaled_dot_product_attention(qh, kh, vh, scale=scale),
+                        F.conv2d(vi, weight, bias, padding=1, groups=c)),
+        "fwd_copies": lambda: (heads(q), heads(k), heads(v), images(v), back(out)),
+        "bwd": lambda: torch.autograd.grad(graph, leaves + [wleaf], (gh, gi), retain_graph=True),
+        "bwd_copies": lambda: (heads(g), images(g), back(qh), back(kh), back(vh)),
+    }
+
+
+def gate_composition(args, ws, nh, card, tag) -> dict:
+    """Kernel 5 (with kernel 6 for the backward) against the route the gate
+    gives an idx=0 branch taller than MAX_STRIPE_H: the composition of
+    `LePEAttention` (partition, bf16 scores, the LePE conv in bf16, reverse),
+    with the same taps, forward and forward + backward, in turns."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops.cswin_attention import LePEAttention
+    from imagenet_models_tpu_torch.ops.stripe_attention import stripe_attention
+
+    q, k, v, w9, wb, g = args
+    c = q.shape[-1]
+    attn = LePEAttention(c, nh, 0, ws, dtype=torch.bfloat16).cuda().train()
+    with torch.no_grad():
+        attn.get_v.weight.copy_(w9.t().reshape(c, 1, 3, 3))
+        attn.get_v.bias.copy_(wb.reshape(c))
+    scale = (c // nh) ** -0.5
+    fns = {"kernel": lambda *a: stripe_attention(*a, w9, wb, ws=ws, num_heads=nh, scale=scale),
+           "plain": lambda *a: attn(*a)}
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+    def both(f):
+        return lambda: torch.autograd.grad(f(*leaves), leaves, g)
+
+    with torch.inference_mode():
+        fwd = in_turns({n: (lambda f=f: f(q, k, v)) for n, f in fns.items()}, 10)
+    fb = in_turns({n: both(f) for n, f in fns.items()}, 10)
+    row = {"tag": tag, "kernel_fwd_ms": sum(fwd["kernel"]) / 2,
+           "composition_fwd_ms": sum(fwd["plain"]) / 2,
+           "kernel_fwd_bwd_ms": sum(fb["kernel"]) / 2,
+           "composition_fwd_bwd_ms": sum(fb["plain"]) / 2, "turns": {"fwd": fwd, "fwd_bwd": fb}}
+    log(f"[kernels] gate {tag}: forward kernel 5 {row['kernel_fwd_ms']:.4f} ms vs composition "
+        f"{row['composition_fwd_ms']:.4f} ms; forward+backward kernels 5+6 "
+        f"{row['kernel_fwd_bwd_ms']:.4f} ms vs composition {row['composition_fwd_bwd_ms']:.4f} ms "
+        f"(composition,kernel,kernel,composition fwd: {fwd['plain'][0]:.4f},{fwd['kernel'][0]:.4f},"
+        f"{fwd['kernel'][1]:.4f},{fwd['plain'][1]:.4f}) on {card}")
+    return row
+
+
+def check_stripe(card: str):
+    """Kernels 5 and 6 against their twins at the five idx=0 stripe shapes of
+    ga_cswin_tiny at B=128 (stages 1-3, the stage-5 block, a gram layer),
+    ga_cswin_base's stage 3 (heads of 24), a non-square map and an odd batch;
+    per launch at the three shapes the path runs, in turns (twin, kernel,
+    kernel, twin), with the bound and the library calls; kernel 5 beside the
+    composition at the stage-1 and stage-2 shapes, which the gate sends to
+    the composition."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import stripe_attention as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rows, times, gate = [], {"fwd": [], "bwd": []}, []
+    # (b, h, w, ws, C, heads, tag): ga_cswin_base's stage 3 (heads of 24), a
+    # non-square map, an odd batch
+    extra = [(TRAIN_BATCH, 14, 14, 7, 192, 8, "ga_cswin_base stage3"),
+             (8, 8, 12, 2, 64, 2, "non-square"), (3, 8, 9, 3, 96, 3, "odd batch")]
+    for name, side, ws, c, nh, launches in CSWIN_STRIPES:
+        args = stripe_args(TRAIN_BATCH, side, side, c, gen)
+        tag = f"{name} B={TRAIN_BATCH} {side}x{side} ws={ws} C={c} heads={nh}"
+        rows.append(compare_stripe(args, ws, nh, tag))
+        if not launches:
+            gate.append(gate_composition(args, ws, nh, card, tag))
+            del args
+            continue
+        q, k, v, w9, wb, g = args
+        scale = (c // nh) ** -0.5
+        iters = max(5, min(50, 4_000_000 // (TRAIN_BATCH * side * side)))
+        lib = stripe_library_fns(args, ws, nh)
+        for which, kern, plain in (
+                ("fwd", lambda: sa.fused_stripe_attention(q, k, v, w9, wb, ws, nh, scale),
+                 lambda: sa.plain_stripe_attention(q, k, v, w9, wb, ws=ws, nh=nh, scale=scale)),
+                ("bwd", lambda: sa.fused_stripe_attention_bwd(q, k, v, w9, wb, g, ws, nh, scale),
+                 lambda: sa.plain_stripe_attention_bwd(q, k, v, w9, wb, g, ws=ws, nh=nh,
+                                                       scale=scale))):
+            with torch.inference_mode(which == "fwd"):
+                t = in_turns({"kernel": kern, "plain": plain}, iters)
+            bound, by = stripe_bound_ms(TRAIN_BATCH, side, side, c, nh, ws, which == "bwd")
+            row = {"stage": name, "side": side, "c": c, "heads": nh, "ws": ws,
+                   "ms": sum(t["kernel"]) / 2, "plain_ms": sum(t["plain"]) / 2,
+                   "library_ms": cuda_ms(lib[which], iters),
+                   "copies_ms": cuda_ms(lib[which + "_copies"], iters),
+                   "bound_ms": bound, "bound_by": by, "turns": t}
+            times[which].append(row)
+            log(f"[kernels] stripe_attn_{which} {tag}: kernel {row['ms']:.4f} ms, twin "
+                f"{row['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}), SDPA + depthwise conv "
+                f"{row['library_ms']:.4f} ms + partition copies {row['copies_ms']:.4f} ms "
+                f"(twin,kernel,kernel,twin: {t['plain'][0]:.4f},{t['kernel'][0]:.4f},"
+                f"{t['kernel'][1]:.4f},{t['plain'][1]:.4f})")
+        del lib, args, q, k, v, g
+    for b, h, w, ws, c, nh, tag in extra:
+        args = stripe_args(b, h, w, c, gen)
+        rows.append(compare_stripe(args, ws, nh, f"{tag} B={b} {h}x{w} ws={ws} C={c} heads={nh}"))
+        del args
+    torch.cuda.empty_cache()
+    return rows, times, gate
+
+
+def serve_cswin(card: str):
+    """The serving path of ga_cswin_tiny: four requests, 27 launches of
+    kernel 5 each (none of kernel 6), logits against the plain path's and,
+    loosely, an fp32 model's with the same weights; one eval step; eval img/s
+    at B=256 on both paths in turns."""
+    import torch
+
+    from imagenet_models_tpu_torch import create_model, default_cfg
+    from imagenet_models_tpu_torch.ops import stripe_attention as sa
+    from imagenet_models_tpu_torch.serving import make_serving_fn
+    from imagenet_models_tpu_torch.train.state import make_eval_step
+
+    t0 = time.perf_counter()
+    model = create_model(GA_CSWIN, dtype=torch.bfloat16,
+                         generator=torch.Generator().manual_seed(SEED))
+    if not next(model.parameters()).is_cuda:
+        raise AssertionError("create_model did not build on the GPU by default")
+    log(f"[cswin-serving] {GA_CSWIN} built: {sum(p.numel() for p in model.parameters())} params, "
+        f"bf16 compute, {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    requests = [torch.randint(0, 256, (REQUEST_BATCH, IMG, IMG, 3), generator=gen,
+                              device="cuda", dtype=torch.uint8) for _ in range(REQUESTS)]
+    serve_fn = make_serving_fn(model)
+    sa.fused_stripe_attention.launches = sa.fused_stripe_attention_bwd.launches = 0
+    outputs, per_request = [], []
+    t0 = time.perf_counter()
+    for images in requests:
+        before = sa.fused_stripe_attention.launches
+        outputs.append(serve_fn(images))
+        per_request.append(sa.fused_stripe_attention.launches - before)
+    torch.cuda.synchronize()
+    launches = sa.fused_stripe_attention.launches
+    log(f"[cswin-serving] {REQUESTS} requests of {REQUEST_BATCH} in {time.perf_counter() - t0:.3f} s "
+        f"(first includes warm-up); stripe_attn_fwd launches per request: {per_request}")
+    if per_request != [CSWIN_LAUNCHES] * REQUESTS or sa.fused_stripe_attention_bwd.launches:
+        raise AssertionError(f"expected {CSWIN_LAUNCHES} forward launches per request and no "
+                             f"backward, got {per_request}, {sa.fused_stripe_attention_bwd.launches}")
+    for logits in outputs:
+        if logits.shape != (REQUEST_BATCH, 1000) or not torch.isfinite(logits).all():
+            raise AssertionError(f"malformed logits {tuple(logits.shape)}")
+    plain = make_serving_fn(model, use_kernel=False)(requests[0])
+    scale = plain.abs().max().item()
+    err = (outputs[0] - plain).abs().max().item()
+    fp32 = create_model(GA_CSWIN, generator=torch.Generator().manual_seed(SEED))
+    ref = make_serving_fn(fp32, use_kernel=False)(requests[0])  # the kernels are bf16 only
+    del fp32
+    err32 = (outputs[0] - ref).abs().max().item() / ref.abs().max().item()
+    agree = (outputs[0].argmax(-1) == ref.argmax(-1)).float().mean().item()
+    log(f"[cswin-serving] logits vs the plain path: max|diff| {err:.4g} (tol "
+        f"{LOGITS_RTOL * scale:.4g}, max|plain| {scale:.4g}); vs an fp32 model with the same "
+        f"weights: max|diff|/max|fp32| {err32:.4g} (tol {CSWIN_FP32_RTOL}), top-1 agreement "
+        f"{agree:.3f}")
+    if not (err <= LOGITS_RTOL * scale and err32 <= CSWIN_FP32_RTOL):
+        raise AssertionError("GA-CSWin serving logits disagree with the plain path or fp32")
+    step = make_eval_step(model)
+    cfg = default_cfg(GA_CSWIN)
+    mean, std = (torch.tensor(cfg[k], device="cuda") for k in ("mean", "std"))
+    x = (requests[1].float() / 255.0 - mean) / std
+    targets = torch.randint(0, 1000, (REQUEST_BATCH,), generator=gen, device="cuda")
+    before = sa.fused_stripe_attention.launches
+    logits, top1, top5 = step(x, targets)
+    if sa.fused_stripe_attention.launches - before != CSWIN_LAUNCHES:
+        raise AssertionError("the eval step did not run every stripe route through kernel 5")
+    if not (logits - outputs[1]).abs().max().item() <= 1e-3 * scale:
+        raise AssertionError("eval step logits differ from the serving logits on the same images")
+    if not (top1 <= top5).all() or top1.shape != (REQUEST_BATCH,):
+        raise AssertionError("eval step top-1/top-5 flags are malformed")
+    bench, runs = throughput(model, card, GA_CSWIN)
+    del model
+    torch.cuda.empty_cache()
+    return launches, {"max_abs_err": err, "max_abs_plain": scale, "fp32_rel": err32,
+                      "fp32_top1": agree, "eval_img_s": bench, "eval_img_s_turns": runs}
+
+
+def cswin_trainer(dtype):
+    """The benchkit recipe of ga_cswin_tiny (imagenet_models_tpu/utils/
+    benchkit.py:36-40) on a fresh full-width model: timm LAMB lr 5e-3 wd 0.05,
+    BCE with smoothing 0.1 on dense (mixup) targets, EMA 0.9999; dec_lam -0.8
+    goes to the step."""
+    import torch
+
+    from imagenet_models_tpu_torch import create_model
+    from imagenet_models_tpu_torch.train.losses import create_loss_fn
+    from imagenet_models_tpu_torch.train.optim import create_optimizer
+    from imagenet_models_tpu_torch.train.state import create_train_state
+
+    model = create_model(GA_CSWIN, dtype=dtype, generator=torch.Generator().manual_seed(SEED))
+    opt = FirstGrads(create_optimizer("lamb", **CSWIN_RECIPE))
+    return (create_train_state(model, opt, ema_decay=CSWIN_EMA), opt,
+            create_loss_fn(bce_loss=True, smoothing=0.1, mixup_active=True))
+
+
+def split_qkv_bias(grads):
+    """The gradients with every `qkv.bias` (3C) split into its key third,
+    `qkv.bias_k`, whose true gradient is zero (softmax ignores a shift of
+    the keys), and the query and value thirds, `qkv.bias_qv`."""
+    import torch
+
+    out = {}
+    for k, g in grads.items():
+        if k.endswith("qkv.bias"):
+            c = g.shape[0] // 3
+            out[k + "_k"], out[k + "_qv"] = g[c:2 * c], torch.cat([g[:c], g[2 * c:]])
+        else:
+            out[k] = g
+    return out
+
+
+def train_cswin():
+    """Six kernel-path steps of the benchkit recipe with launch counts, and
+    one plain-path step from a deep copy of the first state, whose loss, grad
+    norm and gradients must agree with the kernel path's first step and an
+    fp32 model's."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import stripe_attention as sa
+    from imagenet_models_tpu_torch.train.state import make_train_step
+
+    torch.cuda.reset_peak_memory_stats()
+    state, kernel_opt, loss_fn = cswin_trainer(torch.bfloat16)
+    plain_state = copy.deepcopy(state)
+    plain_opt = FirstGrads(kernel_opt.opt)
+    first = {k: p.detach().clone() for k, p in state.params().items()}
+    kw = dict(dec_lam=-0.8, ema_decay=CSWIN_EMA)
+    step = make_train_step(state.model, kernel_opt, loss_fn, **kw)
+    plain_step = make_train_step(plain_state.model, plain_opt, loss_fn, use_kernel=False, **kw)
+    images, targets = train_batch()
+    gen = torch.Generator(device="cuda")
+
+    sa.fused_stripe_attention.launches = sa.fused_stripe_attention_bwd.launches = 0
+    metrics, per_step = [], []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        before = (sa.fused_stripe_attention.launches, sa.fused_stripe_attention_bwd.launches)
+        state, m = step(state, images, targets, gen.manual_seed(SEED + 10 + i))
+        metrics.append({k: v.item() for k, v in m.items()})
+        per_step.append((sa.fused_stripe_attention.launches - before[0],
+                         sa.fused_stripe_attention_bwd.launches - before[1]))
+    torch.cuda.synchronize()
+    launches = {"fwd": sa.fused_stripe_attention.launches,
+                "bwd": sa.fused_stripe_attention_bwd.launches}
+    log(f"[cswin-train] {TRAIN_STEPS} steps of B={TRAIN_BATCH} in {time.perf_counter() - t0:.2f} s "
+        f"(first includes warm-up); (kernel 5, kernel 6) launches per step: {per_step}")
+    log("[cswin-train] loss per step: " + ", ".join(f"{m['loss']:.6f}" for m in metrics)
+        + "; grad_norm per step: " + ", ".join(f"{m['grad_norm']:.6f}" for m in metrics))
+    if per_step != [(CSWIN_LAUNCHES, CSWIN_LAUNCHES)] * TRAIN_STEPS:
+        raise AssertionError(f"expected {CSWIN_LAUNCHES} launches of each kernel per step, "
+                             f"got {per_step}")
+    for m in metrics:
+        if not all(map(lambda v: v == v and abs(v) != float("inf"), m.values())):
+            raise AssertionError(f"non-finite train metrics: {metrics}")
+    if not metrics[-1]["loss"] < metrics[0]["loss"]:
+        raise AssertionError("the loss did not fall over six steps on a fixed batch")
+    ema_moved = max((state.ema_params[k] - first[k]).abs().max().item() for k in first)
+    moved = max((p.detach() - first[k]).abs().max().item() for k, p in state.params().items())
+    log(f"[cswin-train] largest move from the initial weights: params {moved:.4g}, EMA shadow "
+        f"{ema_moved:.4g}")
+    if not 0.0 < ema_moved < moved:
+        raise AssertionError("the EMA shadow did not move, or moved as far as the params")
+
+    plain_state, pm = plain_step(plain_state, images, targets, gen.manual_seed(SEED + 10))
+    pm = {k: v.item() for k, v in pm.items()}
+    loss_rel = abs(metrics[0]["loss"] - pm["loss"]) / abs(pm["loss"])
+    gnorm_rel = abs(metrics[0]["grad_norm"] - pm["grad_norm"]) / abs(pm["grad_norm"])
+    log(f"[cswin-train] first step, kernel vs plain path: loss {metrics[0]['loss']:.6f} vs "
+        f"{pm['loss']:.6f} (rel {loss_rel:.3g}, tol {TRAIN_LOSS_RTOL}); grad_norm "
+        f"{metrics[0]['grad_norm']:.6f} vs {pm['grad_norm']:.6f} (rel {gnorm_rel:.3g}, tol "
+        f"{TRAIN_GNORM_RTOL})")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and gnorm_rel <= TRAIN_GNORM_RTOL):
+        raise AssertionError("the kernel-path train step disagrees with the plain path")
+    fp32_state, fp32_opt, _ = cswin_trainer(torch.float32)
+    fp32_step = make_train_step(fp32_state.model, fp32_opt, loss_fn, use_kernel=False, **kw)
+    fp32_step(fp32_state, images, targets, gen.manual_seed(SEED + 10))
+    del fp32_state
+    grads = compare_grads(*(split_qkv_bias(o.grads) for o in (kernel_opt, plain_opt, fp32_opt)),
+                          "cswin-", CSWIN_ZERO_GRAD)
+    kernel_opt.grads = plain_opt.grads = fp32_opt.grads = {}
+    torch.cuda.empty_cache()
+    check = {"losses": [m["loss"] for m in metrics], "grad_norms": [m["grad_norm"] for m in metrics],
+             "plain_loss": pm["loss"], "plain_grad_norm": pm["grad_norm"], "loss_rel": loss_rel,
+             "grad_norm_rel": gnorm_rel, "grads_rel": grads, "ema_moved": ema_moved,
+             "params_moved": moved}
+    return (state, step), (plain_state, plain_step), images, targets, launches, check
+
+
 def main() -> int:
     import torch
 
@@ -1075,6 +1537,19 @@ def main() -> int:
                                          f"{MAXVIT} (LAMB, clip 1.0, drop-path 0.2)")
     del mv_plain
     mv_prof = profile_step(mv_kernel, images, targets, MAXVIT)
+    del mv_kernel, images, targets
+    torch.cuda.empty_cache()
+
+    # ga_cswin_tiny: kernels 5 and 6, serving and the train step
+    stripe_rows, stripe_times, stripe_gate = check_stripe(card)
+    cs_serve_launches, cs_serve = serve_cswin(card)
+    cs_kernel, cs_plain, images, targets, cs_launches, cs_check = train_cswin()
+    cs_bench, cs_runs = train_throughput(cs_kernel, cs_plain, images, targets, card,
+                                         f"{GA_CSWIN} (LAMB, EMA)")
+    del cs_plain
+    cs_prof = profile_step(cs_kernel, images, targets, GA_CSWIN)
+    cs_prof["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del cs_kernel, images, targets
 
     def entry(name, source, replaces, launches, errs, times, weights):
         return {"name": name, "route": "cuda",
@@ -1105,6 +1580,13 @@ def main() -> int:
               mv_launches["fwd"], attn_errs["fwd"], attn_times["fwd"], MAXVIT_STAGE_LAUNCHES),
         entry("partition_attn_bwd", "partition_attn_bwd.cu", "partition_attention.py:310",
               mv_launches["bwd"], attn_errs["bwd"], attn_times["bwd"], MAXVIT_STAGE_LAUNCHES),
+        entry("stripe_attn_fwd", "stripe_attn_fwd.cu", "stripe_attention.py:264",
+              cs_launches["fwd"], [r["max_abs_err"]["out"] for r in stripe_rows],
+              stripe_times["fwd"], CSWIN_PATH_LAUNCHES),
+        entry("stripe_attn_bwd", "stripe_attn_bwd.cu", "stripe_attention.py:284",
+              cs_launches["bwd"], [max(r["max_abs_err"][k] for k in STRIPE_OUTPUTS[1:])
+                                   for r in stripe_rows],
+              stripe_times["bwd"], CSWIN_PATH_LAUNCHES),
     ]
     # every module of the port, the weights converter included, imports
     # nothing of JAX or of the JAX package
@@ -1133,6 +1615,11 @@ def main() -> int:
                    "train": mv_check, "train_launches": mv_launches,
                    "train_img_s": mv_bench, "train_img_s_turns": mv_runs,
                    "train_profile": mv_prof},
+        "ga_cswin": {"stripe_checks": stripe_rows, "stripe_times_b128": stripe_times,
+                     "gate_b128": stripe_gate, "serving": cs_serve,
+                     "serving_launches": cs_serve_launches, "train": cs_check,
+                     "train_launches": cs_launches, "train_img_s": cs_bench,
+                     "train_img_s_turns": cs_runs, "train_profile": cs_prof},
         "kernels": kernels}, indent=2))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,7 +4,8 @@ The port keeps its own copy of the JAX package's torch exporter
 (`ckpt/torch_convert.py`: the pytree flatten, the Flax -> torch tensor
 transform, `export_torch_state_dict`, `load_torch_checkpoint`) and of the
 reverse name rules of the ported families (`ckpt/reverse_rules.py`:
-`convnext_*`, `map_convnext_*`; `models/maxvit.py`: `*maxvit_*`). It imports
+`convnext_*`, `map_convnext_*`; `models/maxvit.py`: `*maxvit_*`;
+`models/ga_cswin.py`: `ga_cswin*`, `ga_CSWin*`). It imports
 nothing of the JAX package. Port modules use the reference's torch names and
 layouts, so the exported state_dict loads into them with `strict=True`. The
 rules of families not yet ported come with their slices.
@@ -96,10 +97,33 @@ MAXVIT_REVERSE: List[Tuple[str, str]] = [
     (r"^head_fc", "head.fc"),
 ] + MAP_HEAD_REVERSE
 
+# models/ga_cswin.py:244-267; the `_bn` suffixes rewrite before their prefixes
+GA_CSWIN_REVERSE: List[Tuple[str, str]] = [
+    (r"^stem_conv0", "stage1_conv_embed.0"),
+    (r"^stem_norm0", "stage1_conv_embed.2"),
+    (r"^stem_conv1", "stage1_conv_embed.5"),
+    (r"^stem_norm1", "stage1_conv_embed.7"),
+    (r"^stem_conv2", "stage1_conv_embed.10"),
+    (r"^stem_norm2", "stage1_conv_embed.12"),
+    (r"^stage5_merge\.", "stage5.1."),
+    (r"^stage5_block\.", "stage5.2."),
+    (r"^stage(\d)_(\d+)\.", r"stage\1.\2."),
+    (r"attns_(\d)\.", r"attns.\1."),
+    (r"^gram_contraction_(\d+)_bn", r"gram_contraction.\1.1"),
+    (r"^gram_contraction_(\d+)", r"gram_contraction.\1.0"),
+    (r"^gram_layer_(\d+)\.", r"gram_layer.\1.1."),
+    (r"^gram_embedding_(\d+)_bn", r"gram_embedding.\1.1"),
+    (r"^gram_embedding_(\d+)", r"gram_embedding.\1.0"),
+    (r"^ga_(\d+)\.", r"ga.\1."),
+    (r"^fc_(\d+)$", r"fc.\1"),
+]
+
 _REVERSE: Dict[str, List[Tuple[str, str]]] = {
     "convnext_*": CONVNEXT_REVERSE,
     "map_convnext_*": CONVNEXT_REVERSE,
     "*maxvit_*": MAXVIT_REVERSE,
+    "ga_cswin*": GA_CSWIN_REVERSE,
+    "ga_CSWin*": GA_CSWIN_REVERSE,
 }
 
 

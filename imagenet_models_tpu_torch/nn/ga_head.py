@@ -1,7 +1,9 @@
-"""Pieces of the GA head library that other families share. Port of the parts
-of imagenet_models_tpu/nn/ga_head.py that MaxViT's MBConv uses: the
-squeeze-and-excitation module and `make_divisible`. The GA head itself
-(ClassAttn, LayerScaleBlockClassAttn, Bottleneck) comes with GA-ConvNeXt.
+"""GA (Gramian Attention) head pieces. Port of imagenet_models_tpu/nn/ga_head.py:
+the class attention with layer scale that each GA branch ends in
+(`ClassAttn`, `LayerScaleBlockClassAttn`), the squeeze-and-excitation module
+and `make_divisible` (MaxViT's MBConv uses them too). `Bottleneck`, the
+stage-5 of the `stage5="bottleneck"` variants, comes with GA-ConvNeXt.
+Inputs are channels-last; parameter names are the reference's torch ones.
 """
 
 from __future__ import annotations
@@ -11,7 +13,73 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from imagenet_models_tpu_torch.nn.layers import conv2d_nhwc, relu
+from imagenet_models_tpu_torch.nn.layers import (
+    Dense,
+    DropPath,
+    GroupConvMlp,
+    LayerNorm,
+    conv2d_nhwc,
+    gelu,
+    relu,
+)
+
+
+class ClassAttn(nn.Module):
+    """Single-query class attention (nn/ga_head.py:34-65): q from token 0
+    only, k and v over all tokens, `dim_embed` wide, projected back to `dim`."""
+
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0, dim_embed: int = 128,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.num_heads, self.dim_embed = num_heads, dim_embed
+        self.q = Dense(dim, dim_embed, bias=qkv_bias, dtype=dtype)
+        self.k = Dense(dim, dim_embed, bias=qkv_bias, dtype=dtype)
+        self.v = Dense(dim, dim_embed, bias=qkv_bias, dtype=dtype)
+        self.attn_drop = nn.Dropout(attn_drop)
+        self.proj = Dense(dim_embed, dim, dtype=dtype)
+        self.proj_drop = nn.Dropout(proj_drop)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, n, _ = x.shape
+        e, h = self.dim_embed, self.num_heads
+        d = e // h
+        q = self.q(x[:, 0]).reshape(b, 1, h, d).transpose(1, 2)
+        q = q * torch.tensor(d ** -0.5, dtype=q.dtype, device=q.device)
+        k = self.k(x).reshape(b, n, h, d).transpose(1, 2)
+        v = self.v(x).reshape(b, n, h, d).transpose(1, 2)
+        attn = torch.matmul(q, k.transpose(-1, -2))
+        attn = torch.softmax(attn.float(), dim=-1).to(attn.dtype)
+        out = torch.matmul(self.attn_drop(attn), v).transpose(1, 2).reshape(b, 1, e)
+        return self.proj_drop(self.proj(out))
+
+
+class LayerScaleBlockClassAttn(nn.Module):
+    """Class-attention block with layer scale (nn/ga_head.py:68-101): the
+    class token attends over [class token, image tokens], then a grouped MLP,
+    each pre-norm with a residual scaled by gamma (init 1e-4)."""
+
+    def __init__(self, dim: int, num_heads: int = 8, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = False, drop: float = 0.0, attn_drop: float = 0.0,
+                 drop_path: float = 0.0, mlp_block_groups: int = 2, init_values: float = 1e-4,
+                 dim_embed: int = 128, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.gamma_1 = nn.Parameter(torch.full((dim,), init_values))
+        self.gamma_2 = nn.Parameter(torch.full((dim,), init_values))
+        self.norm1 = LayerNorm(dim, dtype=dtype)
+        self.attn = ClassAttn(dim, num_heads=num_heads, qkv_bias=qkv_bias, attn_drop=attn_drop,
+                              proj_drop=drop, dim_embed=dim_embed, dtype=dtype)
+        self.drop_path = DropPath(drop_path)
+        self.norm2 = LayerNorm(dim, dtype=dtype)
+        self.mlp = GroupConvMlp(dim, int(dim * mlp_ratio), act=gelu, drop=drop,
+                                groups=mlp_block_groups, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, x_cls: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        a = self.attn(self.norm1(torch.cat([x_cls, x], dim=1)))
+        x_cls = x_cls + self.drop_path(self.gamma_1.to(a.dtype) * a, generator)
+        m = self.mlp(self.norm2(x_cls))
+        return x_cls + self.drop_path(self.gamma_2.to(m.dtype) * m, generator)
 
 
 class SEModule(nn.Module):

@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-KERNELS = ("ln_mlp_fwd", "ln_mlp_bwd", "partition_attn_fwd", "partition_attn_bwd")
+KERNELS = ("ln_mlp_fwd", "ln_mlp_bwd", "partition_attn_fwd", "partition_attn_bwd",
+           "stripe_attn_fwd", "stripe_attn_bwd")
 
 
 @dataclass(frozen=True)
@@ -145,4 +146,27 @@ def partition_attn_bwd_library() -> ctypes.CDLL:
     lib.imt_partition_attn_bwd_blocks.restype = _I
     lib.imt_partition_attn_bwd_bf16.argtypes = [_P] * 6 + [_I] * 9 + [_P]
     lib.imt_partition_attn_bwd_bf16.restype = _I
+    return lib
+
+
+@functools.cache
+def stripe_attn_fwd_library() -> ctypes.CDLL:
+    """The stripe-attention + LePE forward kernel's library (kernel 5), built
+    on first call."""
+    lib = _load("stripe_attn_fwd")
+    lib.imt_stripe_attn_fwd_bf16.argtypes = [_P, _LL] * 3 + [_P] * 3 + [_I] * 6 + [_F, _P]
+    lib.imt_stripe_attn_fwd_bf16.restype = _I
+    return lib
+
+
+@functools.cache
+def stripe_attn_bwd_library() -> ctypes.CDLL:
+    """The stripe-attention + LePE backward kernel's library (kernel 6), built
+    on first call."""
+    lib = _load("stripe_attn_bwd")
+    lib.imt_stripe_attn_bwd_blocks.argtypes = [_LL, _I]
+    lib.imt_stripe_attn_bwd_blocks.restype = _I
+    lib.imt_stripe_attn_bwd_bf16.argtypes = ([_P, _LL] * 4 + [_P] * 7 + [_I] * 7
+                                             + [_F, _F, _P])
+    lib.imt_stripe_attn_bwd_bf16.restype = _I
     return lib

@@ -67,8 +67,9 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer, base_loss: Cal
     draw from PyTorch's default generator of that device. metrics holds the
     mean microbatch "loss" and the "grad_norm" of the averaged gradients, as
     0-d tensors on the device. `use_kernel` is the model's kernel dispatch
-    (the ConvNeXt blocks' LN+MLP, MaxViT's partition attention; None: the
-    kernels for CUDA tensors, False: their plain twins).
+    (the ConvNeXt blocks' LN+MLP, MaxViT's partition attention, GA-CSWin's
+    stripe attention; None: the kernels for CUDA tensors, False: their plain
+    twins).
     """
 
     def loss_of(images, targets, generator):
