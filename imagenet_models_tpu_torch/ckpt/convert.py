@@ -4,7 +4,8 @@ The port keeps its own copy of the JAX package's torch exporter
 (`ckpt/torch_convert.py`: the pytree flatten, the Flax -> torch tensor
 transform, `export_torch_state_dict`, `load_torch_checkpoint`) and of the
 reverse name rules of the ported families (`ckpt/reverse_rules.py`:
-`convnext_*`, `map_convnext_*`; `models/maxvit.py`: `*maxvit_*`;
+`convnext_*`, `map_convnext_*`, `*resnet50`, `*mobilenet_v1`;
+`models/maxvit.py`: `*maxvit_*`;
 `models/ga_cswin.py`: `ga_cswin*`, `ga_CSWin*`). It imports
 nothing of the JAX package. Port modules use the reference's torch names and
 layouts, so the exported state_dict loads into them with `strict=True`. The
@@ -118,9 +119,32 @@ GA_CSWIN_REVERSE: List[Tuple[str, str]] = [
     (r"^fc_(\d+)$", r"fc.\1"),
 ]
 
+# ckpt/reverse_rules.py:78-97
+RESNET_REVERSE: List[Tuple[str, str]] = [
+    (r"^stem_(\d+)\.conv", r"stem.\1.0"),
+    (r"^stem_(\d+)\.bn", r"stem.\1.1"),
+    (r"^layer(\d+)_(\d+)\.", r"layer\1.\2."),
+    (r"\bconv(\d)\.conv", r"conv\1.0"),
+    (r"\bconv(\d)\.bn", r"conv\1.1"),
+    (r"\bdownsample\.conv", "downsample.0"),
+    (r"\bdownsample\.bn", "downsample.1"),
+    (r"\bse\.fc1\.conv", "se.1.0"),
+    (r"\bse\.fc1\.bn", "se.1.1"),
+    (r"\bse\.fc2", "se.2"),
+] + MAP_HEAD_REVERSE
+
+MOBILENET_REVERSE: List[Tuple[str, str]] = [
+    (r"^layers_(\d+)_(\d+)\.conv0", r"layers.\1.\2.0"),
+    (r"^layers_(\d+)_(\d+)\.bn0", r"layers.\1.\2.1"),
+    (r"^layers_(\d+)_(\d+)\.conv1", r"layers.\1.\2.3"),
+    (r"^layers_(\d+)_(\d+)\.bn1", r"layers.\1.\2.4"),
+] + MAP_HEAD_REVERSE
+
 _REVERSE: Dict[str, List[Tuple[str, str]]] = {
     "convnext_*": CONVNEXT_REVERSE,
     "map_convnext_*": CONVNEXT_REVERSE,
+    "*resnet50": RESNET_REVERSE,
+    "*mobilenet_v1": MOBILENET_REVERSE,
     "*maxvit_*": MAXVIT_REVERSE,
     "ga_cswin*": GA_CSWIN_REVERSE,
     "ga_CSWin*": GA_CSWIN_REVERSE,

@@ -134,7 +134,7 @@ class ConvNeXt(nn.Module):
                 x = blk(x, use_kernel=use_kernel, generator=generator)
             features.append(x)
         if self.global_pool == "mmcap":
-            return self.head(features, pre_logits=pre_logits)
+            return self.head(features, pre_logits=pre_logits, use_kernel=use_kernel)
         return self.head(self.norm(x.mean(dim=(1, 2))))
 
 

@@ -199,8 +199,9 @@ class GA_CSWinTransformer(nn.Module):
         """x: NHWC float images of `img_size`. Returns a tuple of the
         branches' logits (B, num_classes) in both modes, or with `pre_logits`
         each branch's class token (B, dims[3]) before its classifier.
-        `use_kernel` is the stripe-attention dispatch (None: the kernels for
-        CUDA tensors); `generator` (on x's device) draws the stochastic-depth
+        `use_kernel` is the dispatch of the stripe attention and of the
+        gram BatchNorms (with IMTPU_PALLAS_BN on; None: the kernels for CUDA
+        tensors); `generator` (on x's device) draws the stochastic-depth
         masks."""
         if tuple(x.shape[1:3]) != (self.img_size, self.img_size):
             raise ValueError(f"this GA-CSWin is built for {self.img_size} px input (each block's "
@@ -241,7 +242,8 @@ class GA_CSWinTransformer(nn.Module):
         triu = (self.triu_index, self.triu_inverse, self.triu_mask)
         outs = []
         for k in range(self.branches):
-            g = self.gram_contraction[k](x)
+            proj, norm = self.gram_contraction[k]
+            g = norm(proj(x), use_kernel=use_kernel)
             if hasattr(self, "gram_layer"):
                 g = self.gram_layer[k]["1"](g, **kw)
             gv = gram_triu_normalize(g.reshape(b, h * w, self.gram_dim), scale=1.0 / h, triu=triu)

@@ -55,15 +55,15 @@ LN_EPS_TF = 1e-5
 class BNAct(BatchNorm):
     """BatchNorm (eps 1e-3) then GELU, exact at eval and fast in training
     (maxvit.py:59-71); the parameters sit on the module itself, as the
-    reference's `norm1.weight`."""
+    reference's `norm1.weight`. `use_kernel` goes to the BatchNorm."""
 
     def __init__(self, dim: int, apply_act: bool = True, eps: float = BN_EPS_TF,
                  dtype: Optional[torch.dtype] = None):
         super().__init__(dim, eps=eps, dtype=dtype)
         self.apply_act = apply_act
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = super().forward(x)
+    def forward(self, x: torch.Tensor, use_kernel: Optional[bool] = None) -> torch.Tensor:
+        x = super().forward(x, use_kernel=use_kernel)
         return resolve_act(gelu, not self.training)(x) if self.apply_act else x
 
 
@@ -116,19 +116,20 @@ class MbConvBlock(nn.Module):
         self.conv3_1x1 = nn.Conv2d(mid, out_chs, 1)
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        dt = self.compute_dtype
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                use_kernel: Optional[bool] = None) -> torch.Tensor:
+        dt, kw = self.compute_dtype, dict(use_kernel=use_kernel)
         if self.shortcut is None:
             shortcut = x
         elif isinstance(self.shortcut, Downsample2d):
             shortcut = self.shortcut(x)
         else:
             conv, bn = self.shortcut
-            shortcut = bn(conv2d_nhwc(x, conv.weight, None, dtype=dt))
-        h = conv2d_nhwc(self.pre_norm(x), self.conv1_1x1.weight, None, dtype=dt)
-        h = conv2d_nhwc(self.norm1(h), self.conv2_kxk.weight, None, stride=self.stride,
+            shortcut = bn(conv2d_nhwc(x, conv.weight, None, dtype=dt), **kw)
+        h = conv2d_nhwc(self.pre_norm(x, **kw), self.conv1_1x1.weight, None, dtype=dt)
+        h = conv2d_nhwc(self.norm1(h, **kw), self.conv2_kxk.weight, None, stride=self.stride,
                         groups=self.conv2_kxk.groups, dtype=dt)
-        h = self.se(self.norm2(h))
+        h = self.se(self.norm2(h, **kw))
         h = conv2d_nhwc(h, self.conv3_1x1.weight, self.conv3_1x1.bias, dtype=dt)
         return self.drop_path(h, generator) + shortcut
 
@@ -186,7 +187,7 @@ class MaxxVitBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, use_kernel: Optional[bool] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = self.conv(x, generator)
+        x = self.conv(x, generator, use_kernel=use_kernel)
         x = self.attn_block(x, use_kernel=use_kernel, generator=generator)
         return self.attn_grid(x, use_kernel=use_kernel, generator=generator)
 
@@ -202,9 +203,10 @@ class Stem(nn.Module):
         self.conv2 = nn.Conv2d(width, width, 3)
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_kernel: Optional[bool] = None) -> torch.Tensor:
         dt = self.compute_dtype
-        x = self.norm1(conv2d_nhwc(x, self.conv1.weight, self.conv1.bias, stride=2, dtype=dt))
+        x = self.norm1(conv2d_nhwc(x, self.conv1.weight, self.conv1.bias, stride=2, dtype=dt),
+                       use_kernel=use_kernel)
         return conv2d_nhwc(x, self.conv2.weight, self.conv2.bias, dtype=dt)
 
 
@@ -293,7 +295,8 @@ class MaxxVit(nn.Module):
         """x: NHWC float images of `img_size`. Eval output: a tuple of
         per-group logits for the mmcap head, a logits tensor for the avg head;
         in training the mmcap head gives (org, avg) pairs. `use_kernel` is the
-        partition-attention dispatch (None: the kernels for CUDA tensors);
+        dispatch of the partition attention and of the BatchNorms (with
+        IMTPU_PALLAS_BN on; None: the kernels for CUDA tensors);
         `generator` (on x's device) draws the stochastic-depth masks."""
         if tuple(x.shape[1:3]) != self.img_size:
             raise ValueError(f"this MaxViT's rel-pos tables are sized for {self.img_size} "
@@ -302,14 +305,14 @@ class MaxxVit(nn.Module):
             # torch.utils.checkpoint would redraw the DropPath masks from an
             # explicit generator in its recompute, unlike the first pass
             raise NotImplementedError("grad_checkpointing is not ported yet")
-        x = self.stem(x)
+        x = self.stem(x, use_kernel=use_kernel)
         features = [x]
         for stage in self.stages:
             for blk in stage.blocks:
                 x = blk(x, use_kernel=use_kernel, generator=generator)
             features.append(x)
         if self.global_pool == "mmcap":
-            return self.head(features, pre_logits=pre_logits)
+            return self.head(features, pre_logits=pre_logits, use_kernel=use_kernel)
         return self.head(x)
 
 

@@ -7,7 +7,7 @@ so a state_dict exported from the JAX package loads with `strict=True`.
 Under `module.train()` the head runs as JAX's `training=True`: batch
 statistics in its BatchNorms, its dropouts, the fast GELU, and `MAPHead`
 returns (org, avg) logit pairs. `Head`, `SplitNormHead` and `NormMlpHead`
-come with later slices.
+come with later slices. `use_kernel` reaches every BatchNorm of the head.
 """
 
 from __future__ import annotations
@@ -130,8 +130,8 @@ class GramToken(nn.Module):
         self.register_buffer("bp_inverse", inverse, persistent=False)
         self.register_buffer("bp_mask", mask, persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.ch_reduction(x)
+    def forward(self, x: torch.Tensor, use_kernel: Optional[bool] = None) -> torch.Tensor:
+        h = self.ch_reduction(x, use_kernel=use_kernel)
         b, hh, ww, c = h.shape
         flat = gram_triu_normalize(h.reshape(b, hh * ww, c), scale=1.0 / (hh * ww),
                                    interleave=self.num_tokens,
@@ -268,10 +268,10 @@ class CAP(nn.Module):
                     ca_dim=ca_dim, interactive=interactive, dtype=dtype)
             for _ in range(n_layers))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_kernel: Optional[bool] = None) -> torch.Tensor:
         b, h, w, c = x.shape
         if self.gram:
-            x_cls = self.gram_token_extraction(x)
+            x_cls = self.gram_token_extraction(x, use_kernel=use_kernel)
             if self.distill_tokens > 0:
                 dst = self.x_distill.expand(b, -1, -1).to(x_cls.dtype)
                 x_cls = torch.cat([x_cls, dst], dim=1)
@@ -295,10 +295,11 @@ class MultiScale(nn.Module):
         self.multi_scale_level = multi_scale_level
         self.concat_conv = ConvNormAct(in_dim, out_dim, 1, act=act, dtype=dtype)
 
-    def forward(self, features: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, features: Sequence[torch.Tensor],
+                use_kernel: Optional[bool] = None) -> torch.Tensor:
         target = tuple(features[self.multi_scale_level].shape[1:3])
         x = torch.cat([scale_features(f, target) for f in features], dim=-1)
-        return self.concat_conv(x)
+        return self.concat_conv(x, use_kernel=use_kernel)
 
 
 class MAP(nn.Module):
@@ -331,14 +332,15 @@ class MAP(nn.Module):
                 dtype=dtype)
             for _ in range(n_groups))
 
-    def forward(self, features: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def forward(self, features: Sequence[torch.Tensor],
+                use_kernel: Optional[bool] = None) -> List[torch.Tensor]:
         if self.use_multi_scale:
-            x = self.multi_scale(features)
+            x = self.multi_scale(features, use_kernel=use_kernel)
         else:
             x = features[-1]
             if hasattr(self, "channel_convertor"):
-                x = self.channel_convertor(x)
-        return [cap(x) for cap in self.mmcap]
+                x = self.channel_convertor(x, use_kernel=use_kernel)
+        return [cap(x, use_kernel=use_kernel) for cap in self.mmcap]
 
 
 class NormHead(nn.Module):
@@ -374,7 +376,10 @@ class MAPHead(nn.Module):
 
     Eval output: a tuple of `n_groups` logits, from the org heads, or from the
     self-distill heads in `light` mode. Training output with self-distill: a
-    tuple of (org, avg) logit pairs."""
+    tuple of (org, avg) logit pairs, the org pool through `dropout` first.
+    `head_fn` is "norm" (LayerNorm + Linear) or "linear" (a Linear; with
+    pre_logits it returns the pool). `use_kernel` goes to the head's
+    BatchNorms."""
 
     def __init__(self, channels: Sequence[int] = (64, 256, 512, 1024, 2048),
                  last_dim: int = 512, num_heads: int = 8, multi_scale_level: int = 3,
@@ -384,11 +389,12 @@ class MAPHead(nn.Module):
                  bp_groups: int = 1, bp_dim: int = 192, gram_dim: Optional[int] = None,
                  mlp_ratio: float = 4.0, mlp_groups: int = 2, num_classes: int = 1000,
                  head_fn: str = "norm", act: Callable = relu, non_linearity: Callable = relu,
-                 ca_dim: Optional[int] = None, light: bool = False, interactive: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 ca_dim: Optional[int] = None, light: bool = False, dropout: float = 0.0,
+                 interactive: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if head_fn != "norm":
+        if head_fn not in ("norm", "linear"):
             raise NotImplementedError(f"head_fn={head_fn!r} is not ported yet")
+        self.head_fn = head_fn
         self.n_groups, self.light = n_groups, light
         self.self_distill_token = self_distill_token
         self.out_ch = last_dim * n_tokens
@@ -403,8 +409,13 @@ class MAPHead(nn.Module):
                          interactive=interactive, dtype=dtype)
         # without self-distill the org head reads the whole pool
         head_in = self.out_ch if self_distill_token else last_dim * (n_tokens + distill_tokens)
-        self.heads = nn.ModuleList(
-            NormHead(head_in, num_classes, nt=n_tokens, dtype=dtype) for _ in range(n_groups))
+        if head_fn == "linear":
+            self.heads = nn.ModuleList(
+                Dense(head_in, num_classes, dtype=dtype) for _ in range(n_groups))
+        else:
+            self.heads = nn.ModuleList(
+                NormHead(head_in, num_classes, nt=n_tokens, dtype=dtype) for _ in range(n_groups))
+        self.dropout = nn.Dropout(dropout)
         if self_distill_token:
             self.self_dt_heads = nn.ModuleList(
                 NormHead(last_dim, num_classes, dtype=dtype) for _ in range(n_groups))
@@ -413,22 +424,28 @@ class MAPHead(nn.Module):
                     NormHead(self.dst_ch, num_classes, nt=distill_tokens, dtype=dtype)
                     for _ in range(n_groups))
 
-    def forward(self, features: Sequence[torch.Tensor], pre_logits: bool = False):
-        pools = self.mmcap(features)
+    def _org(self, i: int, pool: torch.Tensor, pre_logits: bool) -> torch.Tensor:
+        if self.head_fn == "linear":
+            return pool if pre_logits else self.heads[i](pool)
+        return self.heads[i](pool, pre_logits=pre_logits)
+
+    def forward(self, features: Sequence[torch.Tensor], pre_logits: bool = False,
+                use_kernel: Optional[bool] = None):
+        pools = self.mmcap(features, use_kernel=use_kernel)
         output = []
         for i, pool in enumerate(pools):
             if not self.self_distill_token:
-                output.append(self.heads[i](pool, pre_logits=pre_logits))
+                output.append(self._org(i, pool, pre_logits))
                 continue
             org = pool[:, : self.out_ch]
             avg = pool[:, self.out_ch + self.dst_ch:]
             if self.training:  # (org, avg) pairs, (org, distill, avg) with distill tokens
-                pair = [self.heads[i](org, pre_logits=pre_logits), self.self_dt_heads[i](avg)]
+                pair = [self._org(i, self.dropout(org), pre_logits), self.self_dt_heads[i](avg)]
                 if self.dst_ch:
                     pair.insert(1, self.distill_heads[i](pool[:, self.out_ch: self.out_ch + self.dst_ch]))
                 output.append(tuple(pair))
             elif self.light:
                 output.append(self.self_dt_heads[i](avg))
             else:
-                output.append(self.heads[i](org, pre_logits=pre_logits))
+                output.append(self._org(i, org, pre_logits))
         return tuple(output)

@@ -1,8 +1,9 @@
 """Common NN building blocks on channels-last (NHWC) tensors.
 
-Port of imagenet_models_tpu/nn/layers.py, the parts the ConvNeXt, MaxViT and
-MAP-head paths use, in eval and in training (`module.train()` is JAX's
-`training=True`: batch statistics, dropout, stochastic depth, fast GELU).
+Port of imagenet_models_tpu/nn/layers.py, the parts the ConvNeXt, MaxViT,
+ResNet, MobileNet and MAP-head paths use, in eval and in training
+(`module.train()` is JAX's `training=True`: batch statistics, dropout,
+stochastic depth, fast GELU).
 Parameters keep the reference's torch layouts (Conv2d (O, I/g, kh, kw),
 Linear (O, I)), so a state_dict exported from the JAX package loads with
 `strict=True`. Activations stay NHWC as in the JAX package: a contiguous
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from imagenet_models_tpu_torch.ops import batch_norm as bn_ops
 from imagenet_models_tpu_torch.ops.convnext_block import FastGelu
 
 
@@ -135,8 +137,12 @@ class BatchNorm(nn.Module):
     Training uses the batch's fp32 mean and E[x^2] (var = E[x^2] - mean^2,
     clamped at 0) and updates the running statistics with momentum 0.9 and
     the unbiased variance (:226-247, the branch without split-BN or SyncBN).
-    The parameter and buffer names are torch BatchNorm's;
-    `num_batches_tracked` is not kept, as the JAX export has no such leaf.
+    With IMTPU_PALLAS_BN on, a training input that passes
+    `ops.batch_norm.use_fused_bn` takes `ops.batch_norm.bn_train` (kernels 7
+    and 8 on CUDA tensors; `use_kernel` as there), as JAX's does (:211-225);
+    otherwise `plain_bn_train`, with autograd's gradient. The parameter and
+    buffer names are torch BatchNorm's; `num_batches_tracked` is not kept,
+    as the JAX export has no such leaf.
     """
 
     momentum = 0.9
@@ -150,22 +156,23 @@ class BatchNorm(nn.Module):
         self.eps = eps
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        if self.training:
-            axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = torch.clamp(xf.square().mean(dim=axes) - mean.square(), min=0.0)
-            n = x.numel() // x.shape[-1]
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * (var * (n / max(n - 1, 1))))
-        else:
+    def forward(self, x: torch.Tensor, use_kernel: Optional[bool] = None) -> torch.Tensor:
+        out = self.compute_dtype or x.dtype
+        if not self.training:
             mean, var = self.running_mean.float(), self.running_var.float()
-        inv = torch.rsqrt(var + self.eps) * self.weight.float()
-        y = (xf - mean) * inv + self.bias.float()
-        return y.to(self.compute_dtype or x.dtype)
+            inv = torch.rsqrt(var + self.eps) * self.weight.float()
+            return ((x.float() - mean) * inv + self.bias.float()).to(out)
+        if bn_ops.use_fused_bn(x):
+            y, mean, var = bn_ops.bn_train(x, self.weight, self.bias, self.eps, out,
+                                           use_kernel=use_kernel)
+        else:
+            y, mean, var = bn_ops.plain_bn_train(x, self.weight, self.bias, self.eps, out)
+        n = x.numel() // x.shape[-1]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * (var * (n / max(n - 1, 1))))
+        return y
 
 
 class DropPath(nn.Module):
@@ -274,7 +281,7 @@ class Mlp(nn.Module):
 
 class ConvNormAct(nn.Sequential):
     """Conv (no bias) + BatchNorm + activation; torch keys `.0` conv, `.1` bn
-    (nn/layers.py:347-380)."""
+    (nn/layers.py:347-380). `use_kernel` goes to the BatchNorm."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 1,
                  stride: int = 1, padding: int = 0, groups: int = 1,
@@ -286,13 +293,34 @@ class ConvNormAct(nn.Sequential):
         self.act = act
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, use_kernel: Optional[bool] = None) -> torch.Tensor:
         conv = self[0]
         x = conv2d_nhwc(x, conv.weight, None, stride=conv.stride[0],
                         padding=conv.padding[0], groups=conv.groups,
                         dtype=self.compute_dtype)
-        x = self[1](x)
+        x = self[1](x, use_kernel=use_kernel)
         return x if self.act is None else resolve_act(self.act, not self.training)(x)
+
+
+class SEUnit(nn.Sequential):
+    """Squeeze-excitation: global average pool -> 1x1 ConvNormAct -> 1x1
+    conv with bias -> sigmoid -> scale (nn/layers.py:383-399); torch keys
+    `.1.0`, `.1.1` and `.2` as the reference's Sequential. The squeezed
+    (B, 1, 1, C/r) map is far below the BatchNorm kernels' gate."""
+
+    def __init__(self, channels: int, reduction: int = 16, act: Callable = gelu,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(
+            nn.AdaptiveAvgPool2d(1),
+            ConvNormAct(channels, channels // reduction, 1, act=act, dtype=dtype),
+            nn.Conv2d(channels // reduction, channels, 1))
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor, use_kernel: Optional[bool] = None) -> torch.Tensor:
+        s = self[0](x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        s = self[1](s, use_kernel=use_kernel)
+        s = conv2d_nhwc(s, self[2].weight, self[2].bias, dtype=self.compute_dtype)
+        return x * torch.sigmoid(s)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:

@@ -26,7 +26,7 @@ BUILD_DIR = CSRC.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNELS = ("ln_mlp_fwd", "ln_mlp_bwd", "partition_attn_fwd", "partition_attn_bwd",
-           "stripe_attn_fwd", "stripe_attn_bwd")
+           "stripe_attn_fwd", "stripe_attn_bwd", "bn_moments", "bn_dot_sums")
 
 
 @dataclass(frozen=True)
@@ -169,4 +169,28 @@ def stripe_attn_bwd_library() -> ctypes.CDLL:
     lib.imt_stripe_attn_bwd_bf16.argtypes = ([_P, _LL] * 4 + [_P] * 7 + [_I] * 7
                                              + [_F, _F, _P])
     lib.imt_stripe_attn_bwd_bf16.restype = _I
+    return lib
+
+
+@functools.cache
+def bn_moments_library() -> ctypes.CDLL:
+    """The BatchNorm forward statistics kernel's library (kernel 7), built on
+    first call."""
+    lib = _load("bn_moments")
+    lib.imt_bn_slices.argtypes = [_LL, _I, _I]
+    lib.imt_bn_slices.restype = _I
+    lib.imt_bn_moments.argtypes = [_P, _LL, _I, _LL, _I, _I, _I, _P, _P, _P]
+    lib.imt_bn_moments.restype = _I
+    return lib
+
+
+@functools.cache
+def bn_dot_sums_library() -> ctypes.CDLL:
+    """The BatchNorm backward sums kernel's library (kernel 8), built on first
+    call."""
+    lib = _load("bn_dot_sums")
+    lib.imt_bn_slices.argtypes = [_LL, _I, _I]
+    lib.imt_bn_slices.restype = _I
+    lib.imt_bn_dot_sums.argtypes = [_P, _LL, _I, _P, _LL, _I, _LL, _I, _I, _I, _P, _P, _P]
+    lib.imt_bn_dot_sums.restype = _I
     return lib

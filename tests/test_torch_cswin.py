@@ -3,7 +3,7 @@ orientations and both routes, CSWinBlock, the GA class-attention block, a
 narrow GA_CSWinTransformer's logits in both modes (at 64 px, where every
 stripe takes the stripe route, and at 112 px, where stage 1 takes the
 composition, stage 2 the stripe route and stages 3-5 the full window), the
-full-width ga_cswin_tiny (parameter count, state_dict), and five LAMB steps of
+full-width ga_cswin_tiny (parameter count, state_dict), and three LAMB steps of
 the narrow model against JAX's `make_train_step`.
 
 Weights: every parameter and BN statistic random from numpy, carried over
@@ -242,10 +242,10 @@ def _zero_grad_leaf(k: str) -> bool:
 
 
 def test_train_trajectory_matches_jax(no_jax_dropout):
-    """5 LAMB steps with the benchkit recipe of ga_cswin_tiny
+    """3 LAMB steps with the benchkit recipe of ga_cswin_tiny
     (imagenet_models_tpu/utils/benchkit.py:36-40: lr 5e-3, wd 0.05, BCE with
     smoothing 0.1 on dense targets, dec_lam -0.8), EMA 0.9 (the recipe's
-    0.9999 would leave the shadow within 1e-3 of its start in five steps),
+    0.9999 would leave the shadow within 1e-3 of its start in three steps),
     the narrow model at 64 px, B=4, fp32. The port's stripe attention takes
     its twin with autograd, JAX's its own twin. The tolerances are those of
     the ConvNeXt trajectory test (tests/test_torch_train.py:329-346)."""
@@ -255,7 +255,7 @@ def test_train_trajectory_matches_jax(no_jax_dropout):
                                  seed=8)
     rng = np.random.default_rng(8)
     batches = [(rng.standard_normal((4, 64, 64, 3)).astype(np.float32),
-                rng.random((4, 7)).astype(np.float32)) for _ in range(5)]
+                rng.random((4, 7)).astype(np.float32)) for _ in range(3)]
     opt = dict(learning_rate=5e-3, weight_decay=0.05)
     loss = dict(bce_loss=True, smoothing=0.1, mixup_active=True)
 

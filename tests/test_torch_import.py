@@ -52,7 +52,8 @@ def test_port_imports_without_jax_and_serves_on_cpu():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("imagenet_models_tpu_torch.ckpt.convert", "imagenet_models_tpu_torch.train.losses",
                  "imagenet_models_tpu_torch.train.optim", "imagenet_models_tpu_torch.train.scheduler",
-                 "imagenet_models_tpu_torch.train.state"):
+                 "imagenet_models_tpu_torch.train.state", "imagenet_models_tpu_torch.ops.batch_norm",
+                 "imagenet_models_tpu_torch.models.resnet", "imagenet_models_tpu_torch.models.mobilenet"):
         assert name in out["modules"]
     assert out["after_import"] == []   # every module, the converter included
     assert out["after_forward"] == []

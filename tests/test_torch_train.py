@@ -309,6 +309,8 @@ def test_train_trajectory_matches_jax(monkeypatch):
 
     tx = joptim.create_optimizer("lamb", learning_rate=5e-3, weight_decay=0.05)
     jst = jstate.create_train_state(jax.tree.map(jnp.asarray, variables), tx, ema_decay=0.9)
+    # committed like the step's outputs, so the step compiles once, not twice
+    jst = jax.device_put(jst, jax.devices()[0])
     jstep = jstate.make_train_step(jm, tx, jloss.create_loss_fn(**LOSS), dec_lam=-0.8,
                                    ema_decay=0.9)
     ref_losses = []
