@@ -13,7 +13,8 @@ and its train step (the maxvit_tiny recipe: LAMB lr 8e-3 wd 0.05, clip 1.0 by
 norm, BCE with smoothing 0.1, drop-path 0.2, dec_lam -0.8, no EMA); then
 ga_cswin_tiny serving and its train step (the ConvNeXt recipe); then
 map_resnet50 and map_mobilenet_v1 serving and train steps with the BatchNorm
-switch on. Phases:
+switch on; then ga_convnext_tiny serving and its train step (the README's
+recipe) with the dw weight-gradient switch on. Phases:
 
 1. device: the card's name and power limit;
 2. build: compile every CUDA kernel from `csrc/`, one nvcc per source, all
@@ -94,7 +95,26 @@ switch on. Phases:
 17. map_mobilenet_v1: serving as phase 15, one train step at its recipe's
    160 px and B=128, kernel path against plain path and fp32 gradients;
    then MaxViT's train img/s with the switch at "full" against "0", one
-   pair of turns, on phase 10's trainer.
+   pair of turns, on phase 10's trainer;
+18. kernel 9 (the depthwise 7x7 weight gradient): against its twin and
+   float64 sums at the five B=128 shapes of ga_convnext_tiny's train step
+   (stages 0-3 and the gram layers), in bf16 and fp32, and at C = 688, a
+   non-square map and an odd batch, bit-equal between two runs; times per
+   launch in turns at the path's bf16 shapes beside the bound, the twin and
+   cuDNN's depthwise weight gradient (`torch.nn.grad.conv2d_weight`, and
+   the weight-only `aten.convolution_backward`), and their sums per step;
+19. ga_convnext_tiny serving: four requests with 23 launches of kernel 1
+   each (18 backbone blocks, 5 gram layers), logits against the plain path
+   and an fp32 model, one eval step, eval img/s at B=256 of both paths;
+20. ga_convnext_tiny train, the README recipe (LAMB lr 5e-3 wd 0.05, BCE
+   with smoothing 0.1, drop-path 0.1, EMA 0.9999, dec_lam -0.8) at B=128
+   with IMTPU_DW_WGRAD at "1" (phases 18-20 set it through
+   `ops.dw_conv._DW_WGRAD`): six kernel-path steps with 23 launches each of
+   kernels 1, 2 and 9, one plain-path step (no launch) checked as in phase
+   6; train img/s of three arms in turns ("1" with kernel 9, "0" with
+   cuDNN's weight gradient, the plain path), a profile of one step with its
+   peak memory; then map_convnext_tiny's train img/s at "1" against "0",
+   one pair of turns.
 
 Any failure raises and exits non-zero. The last lines are a JSON summary of
 the kernels, the card's name and power limit, and
@@ -186,8 +206,11 @@ CSWIN_STRIPES = (("stage1", 56, 1, 32, 1, 0), ("stage2", 28, 2, 64, 2, 0),
                  ("gram", 14, 7, 96, 3, 5))
 CSWIN_PATH_LAUNCHES = tuple(n for *_, n in CSWIN_STRIPES if n)
 CSWIN_LAUNCHES = sum(CSWIN_PATH_LAUNCHES)
-CSWIN_RECIPE = dict(learning_rate=5e-3, weight_decay=0.05)
-CSWIN_EMA = 0.9999
+# the GA recipe of both GA models: benchkit's (imagenet_models_tpu/utils/
+# benchkit.py:36-40) and README.md:51's -- timm LAMB lr 5e-3 wd 0.05, BCE with
+# smoothing 0.1 on dense (mixup) targets, EMA 0.9999, dec_lam -0.8
+GA_RECIPE = dict(learning_rate=5e-3, weight_decay=0.05)
+GA_EMA = 0.9999
 # groups with a true gradient of zero: the grouped projections' biases before
 # the heads' train-mode BatchNorms, and the key third of every qkv bias
 # (softmax ignores a shift of the keys); and one of nearly zero: the stage-5
@@ -238,6 +261,49 @@ BN_FP32_RTOL = 0.25
 # plain paths are held together by group in fp32 (TRAIN_GRAD_RTOL), and in
 # bf16 by group only through their distances to the fp32 gradients
 # (TRAIN_GRAD_ACC).
+GA_CONVNEXT = "ga_convnext_tiny"
+# (name, B, H, W, C, launches per train step) of the ConvNeXt blocks of
+# ga_convnext_tiny at 224 px and B=128: their dw convs' weight gradients are
+# kernel 9's with IMTPU_DW_WGRAD at "1" (3, 3, 9 and 3 backbone blocks, one
+# gram-layer block in each of the 5 branches), and each block is one launch
+# of kernels 1 and 2
+DW_SHAPES = (("stage0", 128, 56, 56, 96, 3), ("stage1", 128, 28, 28, 192, 3),
+             ("stage2", 128, 14, 14, 384, 9), ("stage3", 128, 7, 7, 768, 3),
+             ("gram", 128, 14, 14, 192, 5))
+DW_PATH_LAUNCHES = tuple(n for *_, n in DW_SHAPES)
+GA_LAUNCHES = sum(DW_PATH_LAUNCHES)
+# kernel 9 off the path's shapes: stage 3 of ga_convnext_tiny_688 (C = 688,
+# a ragged channel tile), a non-square map, an odd batch
+DW_EXTRA = ((128, 7, 7, 688), (6, 20, 36, 128), (3, 14, 14, 192))
+# kernel 9 against float64 sums of its (rounded) products: |difference| per
+# tap over the tap's sum of |terms|, the scale of the fp32 rounding of any
+# order of summation
+DW_SUM_RTOL = 1e-5
+# README.md:51 adds drop-path 0.1 to the GA recipe for ga_convnext_tiny;
+# ls_init_value=1 as phase 6, so that the blocks show
+GA_TRAIN_KW = dict(drop_path_rate=0.1, ls_init_value=1.0)
+# groups with a true gradient of zero: the biases of the convs and
+# projections that feed a train-mode BatchNorm (the heads' gram contraction
+# and embedding, the stage-5 bottleneck's shortcut conv)
+GA_ZERO_GRAD = ("gram_contraction.0.bias", "gram_embedding.0.bias", ("4", "downsample.0.bias"))
+# The first train step's bf16 gradients of ga_convnext_tiny lie far apart
+# between the kernel and the plain path: 11.2% (L2) over all leaves, up to
+# 16% in a group (stage 0 norm.bias), each path 11.7% from fp32 (H100 80GB
+# HBM3, 700 W), against 2.4-4.2% and 6-8% for map_convnext_tiny: the gram
+# heads' and the bottleneck's train-mode BatchNorms amplify the paths'
+# different bf16 roundings, as in the BatchNorm family (phase 16). So that
+# pair is held by the loss and, by group, by its distances to the fp32
+# gradients (TRAIN_GRAD_ACC); grad norms are logged. Kernel 9 is held on the
+# path by its own inputs: every (x, dy) it takes in the first step, against
+# float64 sums and the twin (DW_SUM_RTOL). The kernel path's first step at
+# IMTPU_DW_WGRAD "0" from the same state (cuDNN's weight gradient; dx is the
+# same framework call under both) must give the same loss and grad norm
+# within DW_SWITCH_RTOL; its gradients are logged by group beside those of
+# a second "0" step, whose distance is the library kernels' run-to-run
+# spread.
+DW_SWITCH_RTOL = 1e-3
+# the IMTPU_DW_WGRAD arms timed in phase 20: (switch, path)
+DW_ARMS = (("1", "kernel"), ("0", "kernel"), ("0", "plain"))
 # the switch's arms timed in phase 16: (IMTPU_PALLAS_BN, path)
 BN_ARMS = (("full", "kernel"), ("full", "plain"), ("bwd", "kernel"), ("0", "kernel"))
 # the card's published dense peaks (H100 SXM, NVIDIA's data sheet)
@@ -590,12 +656,16 @@ def grad_group(name: str):
     """(stage, block parameter) of a parameter name, or None: the blocks of a
     stage, `stages.<s>.<j>.<kind>` (ConvNeXt), `stages.<s>.blocks.<j>.<kind>`
     (MaxViT), `stage<s>.<j>.<kind>` and the stage-5 block `stage5.2.<kind>`
-    (GA-CSWin); GA-CSWin's gram layers `gram_layer.<k>.1.<kind>` (stage
-    "gram") and its other head leaves by module and parameter (stage "head");
+    (GA-CSWin); GA-ConvNeXt's blocks `stages.<s>.blocks.<j>.<kind>` and its
+    stage-5 bottleneck `stages.4.<kind>`; the gram layers of GA-CSWin
+    `gram_layer.<k>.1.<kind>` and of GA-ConvNeXt
+    `gram_layer.<k>.blocks.0.<kind>` (stage "gram") and the other head
+    leaves by module and parameter (stage "head");
     `layer<s>.<j>.<kind>` and `stem.<j>.<kind>` (ResNet), `layers.<s>.<j>.<kind>`
     (MobileNet)."""
     for pattern in (r"^stages\.(\d+)\.(?:blocks\.)?\d+\.(.+)$", r"^stage([1-4])\.\d+\.(.+)$",
-                    r"^stage(5)\.2\.(.+)$", r"^(gram)_layer\.\d+\.1\.(.+)$",
+                    r"^stage(5)\.2\.(.+)$", r"^(gram)_layer\.\d+\.(?:blocks\.\d+|1)\.(.+)$",
+                    r"^stages\.(4)\.(.+)$",
                     r"^layer([1-4])\.\d+\.(.+)$", r"^(stem)\.\d+\.(.+)$",
                     r"^layers\.([0-4])\.\d+\.(.+)$"):
         m = re.match(pattern, name)
@@ -1391,85 +1461,88 @@ def check_stripe(card: str):
     return rows, times, gate
 
 
-def serve_cswin(card: str):
-    """The serving path of ga_cswin_tiny: four requests, 27 launches of
-    kernel 5 each (none of kernel 6), logits against the plain path's and,
-    loosely, an fp32 model's with the same weights; one eval step; eval img/s
-    at B=256 on both paths in turns."""
+def serve_branches(card: str, name: str, counters, launches: int, tag: str, **model_kw):
+    """The serving path of a GA model (phases 12 and 19): four requests,
+    `launches` launches each of the first of `counters` (kernel wrappers,
+    each counting its own launches) and none of the others, logits against
+    the plain path's and, loosely, an fp32 model's with the same weights;
+    one eval step; eval img/s at B=256 on both paths in turns. `model_kw`
+    goes to both models."""
     import torch
 
     from imagenet_models_tpu_torch import create_model, default_cfg
-    from imagenet_models_tpu_torch.ops import stripe_attention as sa
     from imagenet_models_tpu_torch.serving import make_serving_fn
     from imagenet_models_tpu_torch.train.state import make_eval_step
 
     t0 = time.perf_counter()
-    model = create_model(GA_CSWIN, dtype=torch.bfloat16,
-                         generator=torch.Generator().manual_seed(SEED))
+    model = create_model(name, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED),
+                         **model_kw)
     if not next(model.parameters()).is_cuda:
         raise AssertionError("create_model did not build on the GPU by default")
-    log(f"[cswin-serving] {GA_CSWIN} built: {sum(p.numel() for p in model.parameters())} params, "
+    log(f"[{tag}serving] {name} built: {sum(p.numel() for p in model.parameters())} params, "
         f"bf16 compute, {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
     requests = [torch.randint(0, 256, (REQUEST_BATCH, IMG, IMG, 3), generator=gen,
                               device="cuda", dtype=torch.uint8) for _ in range(REQUESTS)]
     serve_fn = make_serving_fn(model)
-    sa.fused_stripe_attention.launches = sa.fused_stripe_attention_bwd.launches = 0
+    first = counters[0]
+    for c in counters:
+        c.launches = 0
     outputs, per_request = [], []
     t0 = time.perf_counter()
     for images in requests:
-        before = sa.fused_stripe_attention.launches
+        before = first.launches
         outputs.append(serve_fn(images))
-        per_request.append(sa.fused_stripe_attention.launches - before)
+        per_request.append(first.launches - before)
     torch.cuda.synchronize()
-    launches = sa.fused_stripe_attention.launches
-    log(f"[cswin-serving] {REQUESTS} requests of {REQUEST_BATCH} in {time.perf_counter() - t0:.3f} s "
-        f"(first includes warm-up); stripe_attn_fwd launches per request: {per_request}")
-    if per_request != [CSWIN_LAUNCHES] * REQUESTS or sa.fused_stripe_attention_bwd.launches:
-        raise AssertionError(f"expected {CSWIN_LAUNCHES} forward launches per request and no "
-                             f"backward, got {per_request}, {sa.fused_stripe_attention_bwd.launches}")
+    others = [c.launches for c in counters[1:]]
+    log(f"[{tag}serving] {REQUESTS} requests of {REQUEST_BATCH} in "
+        f"{time.perf_counter() - t0:.3f} s (first includes warm-up); {first.__name__} launches "
+        f"per request: {per_request}")
+    if per_request != [launches] * REQUESTS or any(others):
+        raise AssertionError(f"expected {launches} forward launches per request and none of the "
+                             f"other kernels, got {per_request}, {others}")
     for logits in outputs:
         if logits.shape != (REQUEST_BATCH, 1000) or not torch.isfinite(logits).all():
             raise AssertionError(f"malformed logits {tuple(logits.shape)}")
     plain = make_serving_fn(model, use_kernel=False)(requests[0])
     scale = plain.abs().max().item()
     err = (outputs[0] - plain).abs().max().item()
-    fp32 = create_model(GA_CSWIN, generator=torch.Generator().manual_seed(SEED))
+    fp32 = create_model(name, generator=torch.Generator().manual_seed(SEED), **model_kw)
     ref = make_serving_fn(fp32, use_kernel=False)(requests[0])  # the kernels are bf16 only
     del fp32
     err32 = (outputs[0] - ref).abs().max().item() / ref.abs().max().item()
     agree = (outputs[0].argmax(-1) == ref.argmax(-1)).float().mean().item()
-    log(f"[cswin-serving] logits vs the plain path: max|diff| {err:.4g} (tol "
+    log(f"[{tag}serving] logits vs the plain path: max|diff| {err:.4g} (tol "
         f"{LOGITS_RTOL * scale:.4g}, max|plain| {scale:.4g}); vs an fp32 model with the same "
         f"weights: max|diff|/max|fp32| {err32:.4g} (tol {CSWIN_FP32_RTOL}), top-1 agreement "
         f"{agree:.3f}")
     if not (err <= LOGITS_RTOL * scale and err32 <= CSWIN_FP32_RTOL):
-        raise AssertionError("GA-CSWin serving logits disagree with the plain path or fp32")
+        raise AssertionError(f"{name} serving logits disagree with the plain path or fp32")
     step = make_eval_step(model)
-    cfg = default_cfg(GA_CSWIN)
+    cfg = default_cfg(name)
     mean, std = (torch.tensor(cfg[k], device="cuda") for k in ("mean", "std"))
     x = (requests[1].float() / 255.0 - mean) / std
     targets = torch.randint(0, 1000, (REQUEST_BATCH,), generator=gen, device="cuda")
-    before = sa.fused_stripe_attention.launches
+    before = first.launches
     logits, top1, top5 = step(x, targets)
-    if sa.fused_stripe_attention.launches - before != CSWIN_LAUNCHES:
-        raise AssertionError("the eval step did not run every stripe route through kernel 5")
+    if first.launches - before != launches:
+        raise AssertionError(f"the eval step did not launch {first.__name__} {launches} times")
     if not (logits - outputs[1]).abs().max().item() <= 1e-3 * scale:
         raise AssertionError("eval step logits differ from the serving logits on the same images")
     if not (top1 <= top5).all() or top1.shape != (REQUEST_BATCH,):
         raise AssertionError("eval step top-1/top-5 flags are malformed")
-    bench, runs = throughput(model, card, GA_CSWIN)
+    bench, runs = throughput(model, card, name)
     del model
     torch.cuda.empty_cache()
-    return launches, {"max_abs_err": err, "max_abs_plain": scale, "fp32_rel": err32,
-                      "fp32_top1": agree, "eval_img_s": bench, "eval_img_s_turns": runs}
+    return first.launches, {"max_abs_err": err, "max_abs_plain": scale, "fp32_rel": err32,
+                            "fp32_top1": agree, "eval_img_s": bench, "eval_img_s_turns": runs}
 
 
-def cswin_trainer(dtype):
-    """The benchkit recipe of ga_cswin_tiny (imagenet_models_tpu/utils/
-    benchkit.py:36-40) on a fresh full-width model: timm LAMB lr 5e-3 wd 0.05,
-    BCE with smoothing 0.1 on dense (mixup) targets, EMA 0.9999; dec_lam -0.8
-    goes to the step."""
+def ga_trainer(name: str, dtype, **model_kw):
+    """The GA recipe (GA_RECIPE, GA_EMA; dec_lam -0.8 goes to the step) on a
+    fresh full-width `name`: timm LAMB, BCE with smoothing 0.1 on dense
+    (mixup) targets, EMA; `model_kw` goes to the model."""
     import torch
 
     from imagenet_models_tpu_torch import create_model
@@ -1477,9 +1550,10 @@ def cswin_trainer(dtype):
     from imagenet_models_tpu_torch.train.optim import create_optimizer
     from imagenet_models_tpu_torch.train.state import create_train_state
 
-    model = create_model(GA_CSWIN, dtype=dtype, generator=torch.Generator().manual_seed(SEED))
-    opt = FirstGrads(create_optimizer("lamb", **CSWIN_RECIPE))
-    return (create_train_state(model, opt, ema_decay=CSWIN_EMA), opt,
+    model = create_model(name, dtype=dtype, generator=torch.Generator().manual_seed(SEED),
+                         **model_kw)
+    opt = FirstGrads(create_optimizer("lamb", **GA_RECIPE))
+    return (create_train_state(model, opt, ema_decay=GA_EMA), opt,
             create_loss_fn(bce_loss=True, smoothing=0.1, mixup_active=True))
 
 
@@ -1510,11 +1584,11 @@ def train_cswin():
     from imagenet_models_tpu_torch.train.state import make_train_step
 
     torch.cuda.reset_peak_memory_stats()
-    state, kernel_opt, loss_fn = cswin_trainer(torch.bfloat16)
+    state, kernel_opt, loss_fn = ga_trainer(GA_CSWIN, torch.bfloat16)
     plain_state = copy.deepcopy(state)
     plain_opt = FirstGrads(kernel_opt.opt)
     first = {k: p.detach().clone() for k, p in state.params().items()}
-    kw = dict(dec_lam=-0.8, ema_decay=CSWIN_EMA)
+    kw = dict(dec_lam=-0.8, ema_decay=GA_EMA)
     step = make_train_step(state.model, kernel_opt, loss_fn, **kw)
     plain_step = make_train_step(plain_state.model, plain_opt, loss_fn, use_kernel=False, **kw)
     images, targets = train_batch()
@@ -1561,7 +1635,7 @@ def train_cswin():
         f"{TRAIN_GNORM_RTOL})")
     if not (loss_rel <= TRAIN_LOSS_RTOL and gnorm_rel <= TRAIN_GNORM_RTOL):
         raise AssertionError("the kernel-path train step disagrees with the plain path")
-    fp32_state, fp32_opt, _ = cswin_trainer(torch.float32)
+    fp32_state, fp32_opt, _ = ga_trainer(GA_CSWIN, torch.float32)
     fp32_step = make_train_step(fp32_state.model, fp32_opt, loss_fn, use_kernel=False, **kw)
     fp32_step(fp32_state, images, targets, gen.manual_seed(SEED + 10))
     del fp32_state
@@ -1961,15 +2035,21 @@ def train_bn(name: str, recipe: dict, steps: int, img: int, tag: str, **model_kw
     return (state, step), (plain_state, plain_step), images, targets, launches, check
 
 
-def bn_arms(kernel, plain, images, targets, card: str, what: str, arms) -> dict:
-    """Train img/s of the switch's arms in turns, after TRAIN_WARMUP steps
-    each: ("full", kernels), ("full", twins), ("bwd", kernel 8), ("0",
-    autograd through the plain BatchNorm), as `arms` lists them. The arms
-    share one model and batch; each sets the switch before its step."""
+def switch_arms(switch: str, kernel, plain, images, targets, card: str, what: str,
+                arms) -> dict:
+    """Train img/s of the arms of a switch in turns, after TRAIN_WARMUP steps
+    each: `switch` is "IMTPU_PALLAS_BN" (`ops.batch_norm._PALLAS_BN_MODE`)
+    or "IMTPU_DW_WGRAD" (`ops.dw_conv._DW_WGRAD`); `arms` lists (value,
+    "kernel" or "plain" path). The arms share one model and batch of each
+    path; each sets the switch before its step, which is left at the first
+    arm's value."""
     import torch
 
     from imagenet_models_tpu_torch.ops import batch_norm as bn_ops
+    from imagenet_models_tpu_torch.ops import dw_conv as dw_ops
 
+    module, attr = {"IMTPU_PALLAS_BN": (bn_ops, "_PALLAS_BN_MODE"),
+                    "IMTPU_DW_WGRAD": (dw_ops, "_DW_WGRAD")}[switch]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
     steps = {"kernel": kernel, "plain": plain}
     fns = {}
@@ -1977,22 +2057,348 @@ def bn_arms(kernel, plain, images, targets, card: str, what: str, arms) -> dict:
         st, step = steps[which]
 
         def run(st=st, step=step, mode=mode):
-            bn_ops._PALLAS_BN_MODE = mode
+            setattr(module, attr, mode)
             step(st, images, targets, gen)
         fns[f"{mode}/{which}"] = run
     for fn in fns.values():
         for _ in range(TRAIN_WARMUP):
             fn()
     t = in_turns(fns, TRAIN_ITERS, order=tuple(fns))
-    bn_ops._PALLAS_BN_MODE = "full"
+    setattr(module, attr, arms[0][0])
     batch = images.shape[0]
     runs = {k: [batch * 1000.0 / ms for ms in v] for k, v in t.items()}
     result = {k: sum(v) / len(v) for k, v in runs.items()}
-    log(f"[train-throughput] {what} train B={batch} {images.shape[1]}px bf16, by IMTPU_PALLAS_BN "
+    log(f"[train-throughput] {what} train B={batch} {images.shape[1]}px bf16, by {switch} "
         f"arm: " + "; ".join(f"{k} {result[k]:.1f} img/s (turns "
                              + ",".join(f"{r:.1f}" for r in runs[k]) + ")" for k in runs)
         + f" on {card}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     return {"img_s": result, "turns": runs}
+
+
+# ---------------------------------------------------------------- GA-ConvNeXt
+
+def dw_bound_ms(b: int, h: int, w: int, c: int, itemsize: int) -> tuple:
+    """The least time of one launch of kernel 9 on a (b, h, w, c) map: the
+    larger of its bytes (x and dy read once, the 49C fp32 taps written once)
+    over the memory rate and its operations (a multiply and an add per tap
+    and element pair) over the bf16 tensor-core peak. Beside it, the CUDA-core
+    floor: the 49 multiply-adds per element pair at the fp32 rate outside the
+    tensor cores (a per-channel reduction has no tensor-core shape)."""
+    n = b * h * w * c
+    nbytes = 2 * n * itemsize + 49 * c * 4
+    flops = 2 * 49 * n
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    core_ms = flops / PEAK_FP32_FLOPS * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")) + (core_ms,)
+
+
+def dw_fp64(x, dy):
+    """float64 tap sums of the products of x and dy (each rounded to bf16 when
+    both are bf16), and the tap sums of |terms|, both (C, 1, 7, 7)."""
+    import torch
+
+    b, h, w, c = x.shape
+    xp = torch.nn.functional.pad(x.double(), (0, 0, 3, 3, 3, 3))
+    dyd = dy.double()
+    exact, size = [], []
+    for ky in range(7):
+        for kx in range(7):
+            prod = xp[:, ky:ky + h, kx:kx + w] * dyd
+            if x.dtype == torch.bfloat16 and dy.dtype == torch.bfloat16:
+                prod = prod.float().bfloat16().double()
+            exact.append(prod.sum((0, 1, 2)))
+            size.append(prod.abs().sum((0, 1, 2)))
+    return (torch.stack(exact, 1).reshape(c, 1, 7, 7), torch.stack(size, 1).reshape(c, 1, 7, 7))
+
+
+def compare_dw(x, dy, tag: str) -> dict:
+    """Kernel 9 against float64 sums and its twin; raises past DW_SUM_RTOL
+    of the tap's sum of |terms|, or if a second run gives other bits."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import dw_conv as dw_ops
+
+    got = dw_ops.fused_dw7_wgrad(x, dy)
+    again = dw_ops.fused_dw7_wgrad(x, dy)
+    twin = dw_ops.plain_dw7_wgrad(x, dy)
+    torch.cuda.synchronize()
+    exact, size = dw_fp64(x, dy)
+    size = size.clamp_min(1e-30)
+    vs_fp64 = ((got.double() - exact).abs() / size).max().item()
+    vs_twin = ((got.double() - twin.double()).abs() / size).max().item()
+    twin_fp64 = ((twin.double() - exact).abs() / size).max().item()
+    same = torch.equal(got, again)
+    ok = (got.shape == (x.shape[-1], 1, 7, 7) and got.dtype == torch.float32
+          and bool(torch.isfinite(got).all()))
+    log(f"[kernels] dw7_wgrad {tag}: |kernel - fp64| / sum|terms| {vs_fp64:.3g}, vs twin "
+        f"{vs_twin:.3g} (twin vs fp64 {twin_fp64:.3g}; tol {DW_SUM_RTOL}); bit-equal across "
+        f"runs: {same}")
+    if not (ok and vs_fp64 <= DW_SUM_RTOL and vs_twin <= DW_SUM_RTOL and same):
+        raise AssertionError(f"kernel 9 disagrees {tag}: vs fp64 {vs_fp64}, vs twin {vs_twin}, "
+                             f"bit-equal {same}, well-formed {ok}")
+    return {"tag": tag, "vs_fp64": vs_fp64, "vs_twin": vs_twin, "twin_vs_fp64": twin_fp64,
+            "max_abs_err": (got - twin).abs().max().item(), "bit_equal": same}
+
+
+def check_dw(card: str):
+    """Phase 18: kernel 9 against its twin and float64 sums at the five B=128
+    shapes of ga_convnext_tiny's train step, in bf16 (as the path gives them)
+    and fp32, and at C = 688, a non-square map and an odd batch; per launch
+    in turns (twin, kernel, kernel, twin) at the path's bf16 shapes, beside
+    the bound, and cuDNN's depthwise weight gradient (`torch.nn.grad.
+    conv2d_weight`, and the weight-only `aten.convolution_backward`, on the
+    channels_last NCHW views), never called by the port; the sums per train
+    step weighted by launches."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import dw_conv as dw_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    rows, times = [], []
+    for name, b, h, w, c, count in DW_SHAPES:
+        x = torch.randn(b, h, w, c, generator=gen, device="cuda").to(torch.bfloat16)
+        dy = (0.1 * torch.randn(b, h, w, c, generator=gen, device="cuda")).to(torch.bfloat16)
+        rows.append(compare_dw(x, dy, f"{name} {(b, h, w, c)} bfloat16"))
+        rows.append(compare_dw(x.float(), dy.float(), f"{name} {(b, h, w, c)} float32"))
+        n = b * h * w * c
+        iters = max(3, min(50, 300_000_000 // n))
+        xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)   # channels_last views
+        weight = torch.zeros(c, 1, 7, 7, device="cuda", dtype=torch.bfloat16)
+        with torch.inference_mode():
+            t = in_turns({"kernel": lambda: dw_ops.fused_dw7_wgrad(x, dy),
+                          "plain": lambda: dw_ops.plain_dw7_wgrad(x, dy)}, iters)
+            lib_ms = cuda_ms(lambda: torch.nn.grad.conv2d_weight(
+                xn, weight.shape, dyn, padding=3, groups=c), iters)
+            aten_ms = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+                dyn, xn, weight, None, [1, 1], [3, 3], [1, 1], False, [0, 0], c,
+                [False, True, False]), iters)
+        bound, by, core = dw_bound_ms(b, h, w, c, 2)
+        row = {"name": name, "shape": [b, h, w, c], "count": count,
+               "ms": sum(t["kernel"]) / 2, "plain_ms": sum(t["plain"]) / 2, "library_ms": lib_ms,
+               "aten_weight_only_ms": aten_ms, "bound_ms": bound, "bound_by": by,
+               "fp32_core_floor_ms": core, "turns": t}
+        times.append(row)
+        log(f"[kernels] dw7_wgrad {name} {(b, h, w, c)} bf16 (x{count} per step): kernel "
+            f"{row['ms']:.4f} ms, twin {row['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}; "
+            f"CUDA-core floor {core:.4f}), cuDNN conv2d_weight {lib_ms:.4f} ms, weight-only "
+            f"convolution_backward {aten_ms:.4f} ms (twin,kernel,kernel,twin: "
+            f"{t['plain'][0]:.4f},{t['kernel'][0]:.4f},{t['kernel'][1]:.4f},{t['plain'][1]:.4f}) "
+            f"on {card}")
+        del x, dy, xn, dyn
+    for shape in DW_EXTRA:
+        x = torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+        dy = (0.1 * torch.randn(*shape, generator=gen, device="cuda")).to(torch.bfloat16)
+        rows.append(compare_dw(x, dy, f"{shape} bfloat16"))
+        rows.append(compare_dw(x.float(), dy.float(), f"{shape} float32"))
+    keys = ("ms", "plain_ms", "library_ms", "aten_weight_only_ms", "bound_ms", "fp32_core_floor_ms")
+    totals = {k: sum(r["count"] * r[k] for r in times) for k in keys}
+    log(f"[kernels] per {GA_CONVNEXT} train step (ms, weighted by launches): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in totals.items()) + f" on {card}")
+    torch.cuda.empty_cache()
+    return rows, times, totals
+
+
+def launch_counts():
+    """(kernel 1, kernel 2, kernel 9) launches so far."""
+    from imagenet_models_tpu_torch.ops import dw_conv as dw_ops
+    from imagenet_models_tpu_torch.ops.convnext_block import fused_ln_mlp, fused_ln_mlp_bwd
+
+    return fused_ln_mlp.launches, fused_ln_mlp_bwd.launches, dw_ops.fused_dw7_wgrad.launches
+
+
+def train_ga():
+    """Phase 20: six kernel-path steps of the GA recipe with IMTPU_DW_WGRAD at
+    "1" and the launches of kernels 1, 2 and 9 per step, and one plain-path
+    step from a deep copy of the first state (no launch), whose loss, grad
+    norm and gradients must agree with the kernel path's first step and an
+    fp32 model's, as in phase 6."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import dw_conv as dw_ops
+    from imagenet_models_tpu_torch.ops.convnext_block import fused_ln_mlp, fused_ln_mlp_bwd
+    from imagenet_models_tpu_torch.train.state import make_train_step
+
+    dw_ops._DW_WGRAD = "1"
+    torch.cuda.reset_peak_memory_stats()
+    state, kernel_opt, loss_fn = ga_trainer(GA_CONVNEXT, torch.bfloat16, **GA_TRAIN_KW)
+    plain_state = copy.deepcopy(state)
+    off_states = [copy.deepcopy(state), copy.deepcopy(state)]  # two steps at "0"
+    plain_opt = FirstGrads(kernel_opt.opt)
+    first = {k: p.detach().clone() for k, p in state.params().items()}
+    kw = dict(dec_lam=-0.8, ema_decay=GA_EMA)
+    step = make_train_step(state.model, kernel_opt, loss_fn, **kw)
+    plain_step = make_train_step(plain_state.model, plain_opt, loss_fn, use_kernel=False, **kw)
+    images, targets = train_batch()
+    gen = torch.Generator(device="cuda")
+    captured, real_wgrad = [], dw_ops.dw7_wgrad
+
+    def capture(x, dy):  # the first step's inputs and outputs of kernel 9
+        out = real_wgrad(x, dy)
+        captured.append((x.detach(), dy.detach(), out.detach()))
+        return out
+
+    fused_ln_mlp.launches = fused_ln_mlp_bwd.launches = dw_ops.fused_dw7_wgrad.launches = 0
+    metrics, per_step = [], []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        before = launch_counts()
+        dw_ops.dw7_wgrad = capture if i == 0 else real_wgrad
+        state, m = step(state, images, targets, gen.manual_seed(SEED + 10 + i))
+        metrics.append({k: v.item() for k, v in m.items()})
+        per_step.append(tuple(a - b for a, b in zip(launch_counts(), before)))
+    dw_ops.dw7_wgrad = real_wgrad
+    torch.cuda.synchronize()
+    launches = dict(zip(("fwd", "bwd", "dw_wgrad"), launch_counts()))
+    log(f"[ga-train] {TRAIN_STEPS} steps of B={TRAIN_BATCH} in {time.perf_counter() - t0:.2f} s "
+        f"(first includes warm-up); (kernel 1, kernel 2, kernel 9) launches per step: {per_step}")
+    log("[ga-train] loss per step: " + ", ".join(f"{m['loss']:.6f}" for m in metrics)
+        + "; grad_norm per step: " + ", ".join(f"{m['grad_norm']:.6f}" for m in metrics))
+    if per_step != [(GA_LAUNCHES,) * 3] * TRAIN_STEPS:
+        raise AssertionError(f"expected {GA_LAUNCHES} launches of each kernel per step, "
+                             f"got {per_step}")
+    for m in metrics:
+        if not all(map(lambda v: v == v and abs(v) != float("inf"), m.values())):
+            raise AssertionError(f"non-finite train metrics: {metrics}")
+    if not metrics[-1]["loss"] < metrics[0]["loss"]:
+        raise AssertionError("the loss did not fall over six steps on a fixed batch")
+    ema_moved = max((state.ema_params[k] - first[k]).abs().max().item() for k in first)
+    moved = max((p.detach() - first[k]).abs().max().item() for k, p in state.params().items())
+    log(f"[ga-train] largest move from the initial weights: params {moved:.4g}, EMA shadow "
+        f"{ema_moved:.4g}")
+    if not 0.0 < ema_moved < moved:
+        raise AssertionError("the EMA shadow did not move, or moved as far as the params")
+
+    before = launch_counts()
+    plain_state, pm = plain_step(plain_state, images, targets, gen.manual_seed(SEED + 10))
+    if launch_counts() != before:
+        raise AssertionError("the plain path launched a kernel")
+    pm = {k: v.item() for k, v in pm.items()}
+    loss_rel = abs(metrics[0]["loss"] - pm["loss"]) / abs(pm["loss"])
+    gnorm_rel = abs(metrics[0]["grad_norm"] - pm["grad_norm"]) / abs(pm["grad_norm"])
+    log(f"[ga-train] first step, kernel vs plain path: loss {metrics[0]['loss']:.6f} vs "
+        f"{pm['loss']:.6f} (rel {loss_rel:.3g}, tol {TRAIN_LOSS_RTOL}); grad_norm "
+        f"{metrics[0]['grad_norm']:.6f} vs {pm['grad_norm']:.6f} (rel {gnorm_rel:.3g}, not gated)")
+    if not loss_rel <= TRAIN_LOSS_RTOL:
+        raise AssertionError("the kernel-path train step disagrees with the plain path")
+    fp32_state, fp32_opt, _ = ga_trainer(GA_CONVNEXT, torch.float32, **GA_TRAIN_KW)
+    fp32_step = make_train_step(fp32_state.model, fp32_opt, loss_fn, use_kernel=False, **kw)
+    fp32_step(fp32_state, images, targets, gen.manual_seed(SEED + 10))
+    del fp32_state
+    grads = compare_grads(kernel_opt.grads, plain_opt.grads, fp32_opt.grads, "ga-", GA_ZERO_GRAD,
+                          gates=("ratio",))
+    on_path = check_path_dw(captured)
+    del captured
+    switch = compare_switch(off_states, kernel_opt, loss_fn, metrics[0], images, targets, gen)
+    kernel_opt.grads = plain_opt.grads = fp32_opt.grads = {}
+    del off_states
+    torch.cuda.empty_cache()
+    check = {"losses": [m["loss"] for m in metrics], "grad_norms": [m["grad_norm"] for m in metrics],
+             "plain_loss": pm["loss"], "plain_grad_norm": pm["grad_norm"], "loss_rel": loss_rel,
+             "grad_norm_rel": gnorm_rel, "grads_rel": grads, "dw_on_path": on_path,
+             "switch": switch, "ema_moved": ema_moved, "params_moved": moved,
+             "per_step": per_step}
+    return (state, step), (plain_state, plain_step), images, targets, launches, check
+
+
+def check_path_dw(captured) -> dict:
+    """Kernel 9 on the path: each (x, dy) the first train step gave it,
+    against float64 sums of the (rounded) products and the twin, within
+    DW_SUM_RTOL of the tap's sum of |terms|."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import dw_conv as dw_ops
+
+    worst = {"vs_fp64": 0.0, "vs_twin": 0.0}
+    shapes = []
+    for x, dy, got in captured:
+        exact, size = dw_fp64(x, dy)
+        size = size.clamp_min(1e-30)
+        twin = dw_ops.plain_dw7_wgrad(x, dy)
+        worst["vs_fp64"] = max(worst["vs_fp64"], ((got.double() - exact).abs() / size).max().item())
+        worst["vs_twin"] = max(worst["vs_twin"],
+                               ((got.double() - twin.double()).abs() / size).max().item())
+        shapes.append(f"{tuple(x.shape)} {str(x.dtype).replace('torch.', '')}")
+        del exact, size, twin
+    counts = {k: shapes.count(k) for k in dict.fromkeys(shapes)}
+    log(f"[ga-train] kernel 9 on the first step's own inputs ({len(captured)} launches: "
+        + ", ".join(f"{k} x{n}" for k, n in counts.items())
+        + f"): |kernel - fp64| / sum|terms| at most {worst['vs_fp64']:.3g}, vs twin "
+        f"{worst['vs_twin']:.3g} (tol {DW_SUM_RTOL})")
+    if len(captured) != GA_LAUNCHES or not (worst["vs_fp64"] <= DW_SUM_RTOL
+                                            and worst["vs_twin"] <= DW_SUM_RTOL):
+        raise AssertionError(f"kernel 9 disagrees on the path's inputs: {worst}, "
+                             f"{len(captured)} launches")
+    torch.cuda.empty_cache()
+    return {**worst, "launches": len(captured), "shapes": counts}
+
+
+def compare_switch(off_states, kernel_opt, loss_fn, first_metrics, images, targets, gen) -> dict:
+    """The kernel path's first step with IMTPU_DW_WGRAD at "0" (cuDNN's dw
+    weight gradient), twice, from the same state and draws as phase 20's
+    first step at "1": kernels 1 and 2 launch as at "1", kernel 9 not at all;
+    loss and grad norm within DW_SWITCH_RTOL of the step at "1"; by group, the
+    distance of "1" from "0" beside that of the two "0" steps (logged)."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import dw_conv as dw_ops
+    from imagenet_models_tpu_torch.train.state import make_train_step
+
+    dw_ops._DW_WGRAD = "0"
+    runs = []
+    for st in off_states:
+        opt = FirstGrads(kernel_opt.opt)
+        step = make_train_step(st.model, opt, loss_fn, dec_lam=-0.8, ema_decay=GA_EMA)
+        before = launch_counts()
+        _, m = step(st, images, targets, gen.manual_seed(SEED + 10))
+        runs.append((tuple(a - b for a, b in zip(launch_counts(), before)),
+                     {k: v.item() for k, v in m.items()}, opt.grads))
+    dw_ops._DW_WGRAD = "1"
+    on = kernel_opt.grads
+    (launched, m, off), (launched2, _, off2) = runs
+    rows = []
+    for (stage, kind), keys in grad_groups(on).items():
+        cat = lambda g: torch.cat([g[k].float().flatten() for k in keys])
+        rows.append({"stage": stage, "kind": kind, "on_vs_off": rel_l2(cat(on), cat(off)),
+                     "off_vs_off": rel_l2(cat(off2), cat(off))})
+
+    def worst(rows, key):
+        r = max(rows, key=lambda r: r[key])
+        return f"{r[key]:.4g} (stage {r['stage']} {r['kind']})"
+
+    dw_rows = [r for r in rows if r["kind"].startswith("conv_dw.")]
+    other = [r for r in rows if not r["kind"].startswith("conv_dw.")]
+    loss_rel = abs(first_metrics["loss"] - m["loss"]) / abs(m["loss"])
+    gnorm_rel = abs(first_metrics["grad_norm"] - m["grad_norm"]) / abs(m["grad_norm"])
+    log(f"[ga-train] first step, kernel path at IMTPU_DW_WGRAD '1' vs '0' (launches at '0': "
+        f"{launched}, {launched2}): loss {loss_rel:.3g}, grad_norm {gnorm_rel:.3g} (tol "
+        f"{DW_SWITCH_RTOL}); by group (L2, logged), dw conv groups '1' vs '0' at most "
+        f"{worst(dw_rows, 'on_vs_off')}, '0' vs '0' {worst(dw_rows, 'off_vs_off')}; other "
+        f"groups '1' vs '0' {worst(other, 'on_vs_off')}, '0' vs '0' {worst(other, 'off_vs_off')}")
+    if launched != (GA_LAUNCHES, GA_LAUNCHES, 0) or launched2 != launched:
+        raise AssertionError(f"at '0' expected ({GA_LAUNCHES}, {GA_LAUNCHES}, 0) launches, "
+                             f"got {launched}, {launched2}")
+    if not (loss_rel <= DW_SWITCH_RTOL and gnorm_rel <= DW_SWITCH_RTOL):
+        raise AssertionError("the kernel path's step at IMTPU_DW_WGRAD '1' disagrees with '0'")
+    return {"groups": rows, "loss_rel": loss_rel, "grad_norm_rel": gnorm_rel,
+            "launches_at_0": launched}
+
+
+def convnext_dw_arms(card: str) -> dict:
+    """map_convnext_tiny's train img/s with IMTPU_DW_WGRAD at "1" against "0",
+    one pair of turns, on phase 6's recipe (its 18 blocks take kernel 9 at
+    "1")."""
+    import torch
+
+    from imagenet_models_tpu_torch.train.state import make_train_step
+
+    state, opt, loss_fn = make_trainer()
+    step = make_train_step(state.model, opt, loss_fn, dec_lam=-0.8, ema_decay=0.9999)
+    images, targets = train_batch()
+    out = switch_arms("IMTPU_DW_WGRAD", (state, step), None, images, targets, card,
+                      "map_convnext_tiny (LAMB, EMA)", (("1", "kernel"), ("0", "kernel")))
+    del state, step, images, targets
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -2050,8 +2456,12 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ga_cswin_tiny: kernels 5 and 6, serving and the train step
+    from imagenet_models_tpu_torch.ops import stripe_attention as sa
+
     stripe_rows, stripe_times, stripe_gate = check_stripe(card)
-    cs_serve_launches, cs_serve = serve_cswin(card)
+    cs_serve_launches, cs_serve = serve_branches(
+        card, GA_CSWIN, (sa.fused_stripe_attention, sa.fused_stripe_attention_bwd),
+        CSWIN_LAUNCHES, "cswin-")
     cs_kernel, cs_plain, images, targets, cs_launches, cs_check = train_cswin()
     cs_bench, cs_runs = train_throughput(cs_kernel, cs_plain, images, targets, card,
                                          f"{GA_CSWIN} (LAMB, EMA)")
@@ -2069,7 +2479,7 @@ def main() -> int:
     rn_serve = serve_bn(RESNET, card, "resnet")
     rn_kernel, rn_plain, images, targets, rn_launches, rn_check = train_bn(
         RESNET, RESNET_RECIPE, TRAIN_STEPS, IMG, "resnet", **RESNET_DROPS)
-    rn_arms = bn_arms(rn_kernel, rn_plain, images, targets, card,
+    rn_arms = switch_arms("IMTPU_PALLAS_BN", rn_kernel, rn_plain, images, targets, card,
                       f"{RESNET} (LAMB, drop-path 0.1, drop 0.1)", BN_ARMS)
     del rn_plain
     rn_prof = profile_step(rn_kernel, images, targets, f"{RESNET} (switch 'full')")
@@ -2081,10 +2491,31 @@ def main() -> int:
         MOBILENET, MOBILENET_RECIPE, 1, MOBILENET_IMG, "mobilenet")
     del mb_kernel, mb_plain, images, targets
     torch.cuda.empty_cache()
-    mv_arms = bn_arms(mv_kernel, None, *mv_batch, card, f"{MAXVIT} (LAMB, clip 1.0, drop-path 0.2)",
+    mv_arms = switch_arms("IMTPU_PALLAS_BN", mv_kernel, None, *mv_batch, card,
+                          f"{MAXVIT} (LAMB, clip 1.0, drop-path 0.2)",
                       (("full", "kernel"), ("0", "kernel")))
     bn_ops._PALLAS_BN_MODE = "0"
     del mv_kernel, mv_batch
+    torch.cuda.empty_cache()
+
+    # ga_convnext_tiny: kernels 1 and 2 in 23 blocks, kernel 9 with IMTPU_DW_WGRAD at "1"
+    from imagenet_models_tpu_torch.ops import dw_conv as dw_ops
+    from imagenet_models_tpu_torch.ops.convnext_block import fused_ln_mlp, fused_ln_mlp_bwd
+
+    dw_rows, dw_times, dw_totals = check_dw(card)
+    ga_serve_launches, ga_serve = serve_branches(
+        card, GA_CONVNEXT, (fused_ln_mlp, fused_ln_mlp_bwd, dw_ops.fused_dw7_wgrad),
+        GA_LAUNCHES, "ga-", ls_init_value=1.0)
+    ga_kernel, ga_plain, images, targets, ga_launches, ga_check = train_ga()
+    ga_arms = switch_arms("IMTPU_DW_WGRAD", ga_kernel, ga_plain, images, targets, card,
+                          f"{GA_CONVNEXT} (LAMB, drop-path 0.1, EMA)", DW_ARMS)
+    del ga_plain
+    ga_prof = profile_step(ga_kernel, images, targets, f"{GA_CONVNEXT} (IMTPU_DW_WGRAD '1')")
+    ga_prof["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del ga_kernel, images, targets
+    torch.cuda.empty_cache()
+    cx_dw_arms = convnext_dw_arms(card)
+    dw_ops._DW_WGRAD = "0"
 
     def entry(name, source, replaces, launches, errs, times, weights):
         return {"name": name, "route": "cuda",
@@ -2128,6 +2559,8 @@ def main() -> int:
         entry("bn_dot_sums", "bn_dot_sums.cu", "batch_norm.py:133", rn_launches["bwd"],
               [r["dot_sums"]["max_abs_err"] for r in bn_rows], bn_times["bwd"],
               [r["count"] for r in bn_times["bwd"]]),
+        entry("dw7_wgrad", "dw7_wgrad.cu", "dw_conv.py:72", ga_launches["dw_wgrad"],
+              errs(dw_rows), dw_times, DW_PATH_LAUNCHES),
     ]
     # every module of the port, the weights converter included, imports
     # nothing of JAX or of the JAX package
@@ -2169,6 +2602,11 @@ def main() -> int:
                        "mobilenet": {"serving": mb_serve, "train": mb_check,
                                      "train_launches": mb_launches},
                        "maxvit_arms": mv_arms},
+        "ga_convnext": {"dw_checks": dw_rows, "dw_times_b128": dw_times,
+                        "dw_per_step_ms": dw_totals, "serving": ga_serve,
+                        "serving_launches": ga_serve_launches, "train": ga_check,
+                        "train_launches": ga_launches, "train_arms": ga_arms,
+                        "train_profile": ga_prof, "map_convnext_tiny_arms": cx_dw_arms},
         "kernels": kernels}, indent=2))
     print(json.dumps({"kernels": kernels}))
     print(card)

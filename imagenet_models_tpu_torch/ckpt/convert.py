@@ -4,7 +4,7 @@ The port keeps its own copy of the JAX package's torch exporter
 (`ckpt/torch_convert.py`: the pytree flatten, the Flax -> torch tensor
 transform, `export_torch_state_dict`, `load_torch_checkpoint`) and of the
 reverse name rules of the ported families (`ckpt/reverse_rules.py`:
-`convnext_*`, `map_convnext_*`, `*resnet50`, `*mobilenet_v1`;
+`convnext_*`, `map_convnext_*`, `ga_convnext_*`, `*resnet50`, `*mobilenet_v1`;
 `models/maxvit.py`: `*maxvit_*`;
 `models/ga_cswin.py`: `ga_cswin*`, `ga_CSWin*`). It imports
 nothing of the JAX package. Port modules use the reference's torch names and
@@ -119,6 +119,34 @@ GA_CSWIN_REVERSE: List[Tuple[str, str]] = [
     (r"^fc_(\d+)$", r"fc.\1"),
 ]
 
+# ckpt/reverse_rules.py:60-76
+GA_CONVNEXT_REVERSE: List[Tuple[str, str]] = [
+    (r"^stem_conv", "stem.0"),
+    (r"^stem_norm", "stem.1"),
+    (r"^stage4\.downsample_conv", "stages.4.downsample.0"),
+    (r"^stage4\.downsample_bn", "stages.4.downsample.1"),
+    (r"^stage4\.", "stages.4."),
+    (r"^stages_(\d)\.downsample_norm", r"stages.\1.downsample.0"),
+    (r"^stages_(\d)\.downsample_conv", r"stages.\1.downsample.1"),
+    (r"^stages_(\d)\.blocks_(\d+)\.", r"stages.\1.blocks.\2."),
+    (r"^gram_contraction_(\d+)_conv", r"gram_contraction.\1.0"),
+    (r"^gram_contraction_(\d+)_bn", r"gram_contraction.\1.1"),
+    (r"^gram_layer_(\d+)\.blocks_(\d+)\.", r"gram_layer.\1.blocks.\2."),
+    (r"^gram_embedding_(\d+)_bn", r"gram_embedding.\1.1"),
+    (r"^gram_embedding_(\d+)", r"gram_embedding.\1.0"),
+    (r"^ga_(\d+)\.", r"ga.\1."),
+    (r"^fc_(\d+)$", r"fc.\1"),
+]
+
+# GA-CSWin with stage5="bottleneck": the Bottleneck's shortcut is
+# `stage5_block.downsample_{conv,bn}` in JAX and `downsample.{0,1}` in torch
+# (as GA-ConvNeXt's stage 4). GA_CSWIN_REVERSE, the JAX package's list, maps
+# only the `stage5_block.` prefix, so these two rules run before it.
+GA_CSWIN_BOTTLENECK_REVERSE: List[Tuple[str, str]] = [
+    (r"^stage5_block\.downsample_conv", "stage5_block.downsample.0"),
+    (r"^stage5_block\.downsample_bn", "stage5_block.downsample.1"),
+]
+
 # ckpt/reverse_rules.py:78-97
 RESNET_REVERSE: List[Tuple[str, str]] = [
     (r"^stem_(\d+)\.conv", r"stem.\1.0"),
@@ -133,21 +161,26 @@ RESNET_REVERSE: List[Tuple[str, str]] = [
     (r"\bse\.fc2", "se.2"),
 ] + MAP_HEAD_REVERSE
 
+# ckpt/reverse_rules.py:91-96, and the plain head's classifier: the
+# reference's Sequential(avgpool, flatten, linear) keys it `fc.2`
+# (models/mobilenet.py:106), a rule the JAX package's reverse list lacks
 MOBILENET_REVERSE: List[Tuple[str, str]] = [
     (r"^layers_(\d+)_(\d+)\.conv0", r"layers.\1.\2.0"),
     (r"^layers_(\d+)_(\d+)\.bn0", r"layers.\1.\2.1"),
     (r"^layers_(\d+)_(\d+)\.conv1", r"layers.\1.\2.3"),
     (r"^layers_(\d+)_(\d+)\.bn1", r"layers.\1.\2.4"),
+    (r"^fc$", "fc.2"),
 ] + MAP_HEAD_REVERSE
 
 _REVERSE: Dict[str, List[Tuple[str, str]]] = {
     "convnext_*": CONVNEXT_REVERSE,
     "map_convnext_*": CONVNEXT_REVERSE,
+    "ga_convnext_*": GA_CONVNEXT_REVERSE,
     "*resnet50": RESNET_REVERSE,
     "*mobilenet_v1": MOBILENET_REVERSE,
     "*maxvit_*": MAXVIT_REVERSE,
-    "ga_cswin*": GA_CSWIN_REVERSE,
-    "ga_CSWin*": GA_CSWIN_REVERSE,
+    "ga_cswin*": GA_CSWIN_BOTTLENECK_REVERSE + GA_CSWIN_REVERSE,
+    "ga_CSWin*": GA_CSWIN_BOTTLENECK_REVERSE + GA_CSWIN_REVERSE,
 }
 
 

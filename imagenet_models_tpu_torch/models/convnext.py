@@ -30,6 +30,7 @@ from imagenet_models_tpu_torch.nn.layers import (
     DropPath,
     LayerNorm,
     conv2d_nhwc,
+    dropout,
     gelu,
     init_weights_,
 )
@@ -72,11 +73,17 @@ class ConvNeXt(nn.Module):
                  last_dim: int = 384, n_groups: int = 4, n_tokens: int = 3,
                  gram_group: int = 8, bp_dim: int = 192, bp_groups: int = 1,
                  gram_dim: Optional[int] = None, ca_dim: int = 128, num_heads: int = 8,
-                 gram: bool = True, self_distill_token: bool = True, distill_tokens: int = 0,
+                 gram: bool = True, split_norm: bool = False, self_distill_token: bool = True,
+                 distill_tokens: int = 0, drop_rate: float = 0.0,
                  dtype: Optional[torch.dtype] = None, in_chans: int = 3,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        if split_norm:
+            raise NotImplementedError("split_norm (the MAP head's SplitNormHead) is not ported yet")
         self.global_pool = global_pool
+        # the avg head's dropout in training (models/convnext.py:152); the
+        # mmcap head ignores it, as JAX's passes fc_drop=0.0 (:143)
+        self.drop_rate = drop_rate
         self.compute_dtype = dtype
         self.downsample_layers = nn.ModuleList()
         self.downsample_layers.append(nn.Sequential(
@@ -119,7 +126,7 @@ class ConvNeXt(nn.Module):
         """x: NHWC float images. Eval output: a tuple of per-group logits for
         the mmcap head, a logits tensor for the avg head; in training the
         mmcap head gives (org, avg) pairs. `generator` (on x's device) draws
-        the stochastic-depth masks."""
+        the stochastic-depth masks and the avg head's dropout mask."""
         dt = self.compute_dtype
         features = []
         for i, (ds, stage) in enumerate(zip(self.downsample_layers, self.stages)):
@@ -135,7 +142,10 @@ class ConvNeXt(nn.Module):
             features.append(x)
         if self.global_pool == "mmcap":
             return self.head(features, pre_logits=pre_logits, use_kernel=use_kernel)
-        return self.head(self.norm(x.mean(dim=(1, 2))))
+        x = self.norm(x.mean(dim=(1, 2)))
+        if self.training:
+            x = dropout(x, self.drop_rate, generator)
+        return self.head(x)
 
 
 def _convnext(**kwargs) -> ConvNeXt:

@@ -5,7 +5,8 @@ Deep 3-conv stem; four CSWin stages joined by `MergeBlock` (3x3 stride-2
 conv + LayerNorm); the stage-3 taps every depth//(stage3_naggre+1) blocks;
 the multi-scale concat on the 1/16 grid (stages 1-2 average-pooled, stage 4
 resized bilinearly); stage 5 = `MergeBlockLCF` (1x1 conv + LayerNorm) and one
-CSWinBlock; then `branches` heads, each a grouped projection, train-mode
+CSWinBlock, or with `stage5="bottleneck"` the SE `Bottleneck` of GA-ConvNeXt
+(`stage5.2.`); then `branches` heads, each a grouped projection, train-mode
 BatchNorm, a CSWin `gram_layer`, the normalized upper triangle of the Gram
 matrix, another grouped projection and BatchNorm, a class-attention block and
 its classifier. The forward returns a tuple of the branches' logits in both
@@ -38,7 +39,7 @@ import torch
 from torch import nn
 
 from imagenet_models_tpu_torch.core.registry import register_default_cfg, register_model
-from imagenet_models_tpu_torch.nn.ga_head import LayerScaleBlockClassAttn
+from imagenet_models_tpu_torch.nn.ga_head import Bottleneck, LayerScaleBlockClassAttn
 from imagenet_models_tpu_torch.nn.heads import gram_triu_normalize, triu_gather_tables
 from imagenet_models_tpu_torch.nn.layers import (
     BatchNorm,
@@ -104,8 +105,6 @@ class GA_CSWinTransformer(nn.Module):
                  use_chk: bool = False, dtype: Optional[torch.dtype] = None, in_chans: int = 3,
                  img_size: int = 224, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if stage5 != "CSWin":
-            raise NotImplementedError(f"stage5={stage5!r} (the SE bottleneck) is not ported yet")
         if not deep_stem:
             raise NotImplementedError("deep_stem=False (the 7x7 stride-4 stem) is not ported yet")
         self.img_size, self.use_chk = img_size, use_chk
@@ -148,13 +147,17 @@ class GA_CSWinTransformer(nn.Module):
         concat = dims[0] + dims[1] + (self.n_taps + 1) * dims[2] + dims[3]
 
         c, s16 = dims[3], sides[2]  # stage 5 and the heads run on the 1/16 grid
-        self.stage5 = nn.ModuleDict({
-            "1": MergeBlockLCF(concat, c, dtype),
-            "2": CSWinBlock(c, num_heads[4], split_size=split_size[4],
-                            mlp_ratio=mlp_ratio_stage5, qkv_bias=qkv_bias, drop=drop_rate,
-                            attn_drop=attn_drop_rate, drop_path=float(dpr[-1]),
-                            last_stage=s16 == split_size[4], mlp_groups=stage5_mlp_groups,
-                            dtype=dtype)})
+        if stage5 == "CSWin":
+            self.stage5 = nn.ModuleDict({
+                "1": MergeBlockLCF(concat, c, dtype),
+                "2": CSWinBlock(c, num_heads[4], split_size=split_size[4],
+                                mlp_ratio=mlp_ratio_stage5, qkv_bias=qkv_bias, drop=drop_rate,
+                                attn_drop=attn_drop_rate, drop_path=float(dpr[-1]),
+                                last_stage=s16 == split_size[4], mlp_groups=stage5_mlp_groups,
+                                dtype=dtype)})
+        else:  # the SE bottleneck on the concat, JAX's `stage5_block` (ga_cswin.py:181-184)
+            self.stage5 = nn.ModuleDict({
+                "2": Bottleneck(concat, c // 4, c, drop_path=drop_path_rate, dtype=dtype)})
 
         tri = gram_dim * (gram_dim + 1) // 2
         self.gram_contraction = nn.ModuleList(
@@ -235,7 +238,9 @@ class GA_CSWinTransformer(nn.Module):
         hw = tuple(xs[2].shape[1:3])
         parts = [adaptive_avg_pool(xs[0], hw), adaptive_avg_pool(xs[1], hw)] + xs[2:-1]
         x = torch.cat(parts + [resize_bilinear(xs[-1], hw)], dim=-1)
-        x = self.stage5["2"](self.stage5["1"](x), **kw)
+        if "1" in self.stage5:
+            x = self.stage5["1"](x)
+        x = self.stage5["2"](x, **kw)
 
         b, h, w, c = x.shape
         img_tokens = x.reshape(b, h * w, c)

@@ -99,7 +99,9 @@ class MobileNetV1(nn.Module):
                 num_heads=dim // 32, ca_dim=dim, mlp_ratio=1, mlp_groups=1, interactive=True,
                 head_fn="linear", num_classes=num_classes, dtype=dtype)
         else:
-            self.fc = Dense(in_ch, num_classes, dtype=dtype)
+            # the reference's Sequential(avgpool, flatten, linear): key `fc.2`
+            self.fc = nn.Sequential(nn.AdaptiveAvgPool2d(1), nn.Flatten(),
+                                    Dense(in_ch, num_classes, dtype=dtype))
         init_weights_(self, generator)
         self.eval()
 
@@ -117,7 +119,7 @@ class MobileNetV1(nn.Module):
             features.append(x)
         if self.use_map:
             return self.fc(features, pre_logits=pre_logits, use_kernel=use_kernel)
-        return self.fc(x.mean(dim=(1, 2)))
+        return self.fc[2](x.mean(dim=(1, 2)))
 
 
 def _pop_drops(kwargs):

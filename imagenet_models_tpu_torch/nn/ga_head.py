@@ -1,9 +1,10 @@
 """GA (Gramian Attention) head pieces. Port of imagenet_models_tpu/nn/ga_head.py:
 the class attention with layer scale that each GA branch ends in
 (`ClassAttn`, `LayerScaleBlockClassAttn`), the squeeze-and-excitation module
-and `make_divisible` (MaxViT's MBConv uses them too). `Bottleneck`, the
-stage-5 of the `stage5="bottleneck"` variants, comes with GA-ConvNeXt.
-Inputs are channels-last; parameter names are the reference's torch ones.
+and `make_divisible` (MaxViT's MBConv uses them too), and `Bottleneck`, the
+SE bottleneck of GA-ConvNeXt's stage 5 and of GA-CSWin's
+`stage5="bottleneck"`. Inputs are channels-last; parameter names are the
+reference's torch ones.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 from torch import nn
 
 from imagenet_models_tpu_torch.nn.layers import (
+    BatchNorm,
     Dense,
     DropPath,
     GroupConvMlp,
@@ -110,3 +112,40 @@ def make_divisible(v: int, divisor: int = 8, min_value: Optional[int] = None) ->
     if new_v < 0.9 * v:
         new_v += divisor
     return new_v
+
+
+class Bottleneck(nn.Module):
+    """The ResNet-style SE bottleneck of the GA stage 5 (nn/ga_head.py:132-163):
+    an unconditional 1x1 conv (with bias) + BatchNorm shortcut; 1x1, 3x3 and
+    1x1 convs without bias, each with a BatchNorm, ReLU after the first two;
+    `SEModule(make_divisible(planes // 4))` before the third; drop path on
+    the branch; a ReLU join. Torch keys `conv1`, `bn1`, ..., `se.fc1`,
+    `downsample.0` and `downsample.1`. Every BatchNorm takes `use_kernel`
+    (kernels 7 and 8 in training with IMTPU_PALLAS_BN on)."""
+
+    def __init__(self, inplanes: int, planes: int, outplanes: int, drop_path: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = BatchNorm(planes, dtype=dtype)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.bn2 = BatchNorm(planes, dtype=dtype)
+        self.se = SEModule(planes, make_divisible(planes // 4), dtype=dtype)
+        self.conv3 = nn.Conv2d(planes, outplanes, 1, bias=False)
+        self.bn3 = BatchNorm(outplanes, dtype=dtype)
+        self.downsample = nn.Sequential(nn.Conv2d(inplanes, outplanes, 1),
+                                        BatchNorm(outplanes, dtype=dtype))
+        self.drop_path = DropPath(drop_path)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor, use_kernel: Optional[bool] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        dt = self.compute_dtype
+        conv, bn = self.downsample
+        shortcut = bn(conv2d_nhwc(x, conv.weight, conv.bias, dtype=dt), use_kernel=use_kernel)
+        h = relu(self.bn1(conv2d_nhwc(x, self.conv1.weight, None, dtype=dt), use_kernel=use_kernel))
+        h = relu(self.bn2(conv2d_nhwc(h, self.conv2.weight, None, padding=1, dtype=dt),
+                          use_kernel=use_kernel))
+        h = self.se(h)
+        h = self.bn3(conv2d_nhwc(h, self.conv3.weight, None, dtype=dt), use_kernel=use_kernel)
+        return relu(self.drop_path(h, generator) + shortcut)

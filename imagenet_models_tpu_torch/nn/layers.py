@@ -194,6 +194,18 @@ class DropPath(nn.Module):
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax nn.Dropout in training: each element kept with probability
+    1 - rate and scaled by 1/(1 - rate), the mask drawn from `generator` (on
+    x's device) when given. Callers apply it in training only."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 def grouped_weights(module: nn.Module) -> Dict[str, int]:
     """{parameter name: group count} of the `GroupedDense` weights under
     `module`: their JAX leaf is (g, I/g, O/g), not the torch (O, I/g, 1, 1)."""

@@ -26,7 +26,7 @@ BUILD_DIR = CSRC.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNELS = ("ln_mlp_fwd", "ln_mlp_bwd", "partition_attn_fwd", "partition_attn_bwd",
-           "stripe_attn_fwd", "stripe_attn_bwd", "bn_moments", "bn_dot_sums")
+           "stripe_attn_fwd", "stripe_attn_bwd", "bn_moments", "bn_dot_sums", "dw7_wgrad")
 
 
 @dataclass(frozen=True)
@@ -193,4 +193,16 @@ def bn_dot_sums_library() -> ctypes.CDLL:
     lib.imt_bn_slices.restype = _I
     lib.imt_bn_dot_sums.argtypes = [_P, _LL, _I, _P, _LL, _I, _LL, _I, _I, _I, _P, _P, _P]
     lib.imt_bn_dot_sums.restype = _I
+    return lib
+
+
+@functools.cache
+def dw7_wgrad_library() -> ctypes.CDLL:
+    """The depthwise 7x7 weight-gradient kernel's library (kernel 9), built
+    on first call."""
+    lib = _load("dw7_wgrad")
+    lib.imt_dw7_wgrad_slabs.argtypes = [_I] * 4
+    lib.imt_dw7_wgrad_slabs.restype = _I
+    lib.imt_dw7_wgrad.argtypes = [_P, _P] + [_I] * 5 + [_P] * 3
+    lib.imt_dw7_wgrad.restype = _I
     return lib

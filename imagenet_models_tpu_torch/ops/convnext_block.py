@@ -2,7 +2,8 @@
 Dense(4C) -> GELU -> Dense(C) -> layer-scale, forward and backward.
 
 Port of imagenet_models_tpu/ops/convnext_block.py. The depthwise conv stays
-with the framework (`F.conv2d`, as it is XLA's in JAX). The LN+MLP is two
+with the framework (`F.conv2d`, as it is XLA's in JAX); with IMTPU_DW_WGRAD
+at "1" its weight gradient is kernel 9 (`ops/dw_conv.py`). The LN+MLP is two
 hand-written CUDA kernels: the forward (`csrc/ln_mlp_fwd.cu`, wrapper
 `fused_ln_mlp`) and the backward (`csrc/ln_mlp_bwd.cu`, wrapper
 `fused_ln_mlp_bwd`), joined by the autograd function `LnMlpFunction`. Beside
@@ -26,16 +27,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from imagenet_models_tpu_torch.ops import dw_conv as dw_ops
+from imagenet_models_tpu_torch.ops.dw_conv import DwConv7Function, dw_conv7
+
 GELU_IMPLS = ("exact", "fast")
-
-
-def dw_conv7(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor) -> torch.Tensor:
-    """Depthwise 7x7 conv on NHWC `x`, weight (C, 1, 7, 7), in x.dtype
-    (ops/convnext_block.py:242-251). The NCHW view is channels_last, so the
-    result permutes back to a contiguous NHWC tensor."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), dw_w.to(x.dtype), dw_b.to(x.dtype),
-                 padding=3, groups=x.shape[-1])
-    return y.permute(0, 2, 3, 1)
 
 
 def _horner(t: torch.Tensor, coefs) -> torch.Tensor:
@@ -406,9 +401,17 @@ def convnext_block_apply(x: torch.Tensor, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2
                          training: bool = False) -> torch.Tensor:
     """The pre-residual ConvNeXt branch on NHWC `x` (ops/convnext_block.py:605-638):
     depthwise 7x7, then LN+MLP+scale by the dispatch rule of `ln_mlp`, with
-    the GELU of `resolve_gelu_impl(training)`."""
+    the GELU of `resolve_gelu_impl(training)`. With IMTPU_DW_WGRAD at "1"
+    (`dw_conv._DW_WGRAD`) the dw conv is `DwConv7Function`, whose weight
+    gradient is kernel 9 on CUDA tensors and its twin on CPU tensors
+    (:557-566); at "0", and on the plain path (`use_kernel=False`, as JAX's
+    `use_pallas=False` takes the plain conv), it is `F.conv2d` under
+    autograd."""
     if gamma is None:
         gamma = torch.ones(x.shape[-1], device=x.device)
-    h = dw_conv7(x, dw_w, dw_b)
+    if dw_ops._DW_WGRAD == "1" and use_kernel is not False:
+        h = DwConv7Function.apply(x, dw_w, dw_b)
+    else:
+        h = dw_conv7(x, dw_w, dw_b)
     return ln_mlp(h, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, use_kernel=use_kernel,
                   gelu_impl=resolve_gelu_impl(training))

@@ -163,3 +163,54 @@ def test_eval_step_matches_jax(tta):
     np.testing.assert_array_equal(top1, np.asarray(ref[1]))
     np.testing.assert_array_equal(top5, np.asarray(ref[2]))
     assert top1.shape == ((8 // tta,) if tta else (8,))
+
+
+# ---------------------------------------------------------------- drop_rate and split_norm
+
+def test_convnext_takes_drop_rate_and_refuses_split_norm():
+    """train.py passes drop_rate to every model (train.py:369-371): both
+    heads build with it; split_norm (the MAP head's SplitNormHead) raises
+    until it is ported."""
+    for name in ("map_convnext_tiny", "convnext_tiny"):
+        m = create_model(name, device="cpu", drop_rate=0.1, num_classes=10)
+        assert m.drop_rate == 0.1
+        with pytest.raises(NotImplementedError, match="split_norm"):
+            create_model(name, device="cpu", split_norm=True, num_classes=10)
+
+
+def test_avg_head_dropout_matches_jax(monkeypatch):
+    """A narrow avg-head ConvNeXt in training with drop_rate 0.5: the port
+    draws the head's dropout mask from the explicit generator, and JAX's
+    nn.Dropout is handed that same mask (models/convnext.py:152); the logits
+    then match within the fp32 tolerance. The mmcap head ignores drop_rate,
+    as JAX's passes fc_drop=0.0."""
+    from flax import linen as fnn
+
+    kw = dict(depths=(1, 1, 1, 1), dims=(8, 8, 16, 16), num_classes=11, global_pool="avg",
+              drop_rate=0.5)
+    jm = JConvNeXt(**kw)
+    x = _images(4, 32, seed=8)
+    variables = random_variables(init_shapes(jm, jnp.zeros((1, 32, 32, 3)), training=False),
+                                 seed=8)
+    tm = load_port(ConvNeXt(**kw), variables, "convnext_tiny").train()
+    mask = (torch.rand((4, 16), generator=torch.Generator().manual_seed(3)) < 0.5).numpy()
+    assert 0 < mask.sum() < mask.size
+
+    def fixed_mask(self, y, deterministic=None, rng=None):
+        assert y.shape == mask.shape and self.rate == 0.5
+        return jnp.where(mask, y / 0.5, 0.0)
+
+    monkeypatch.setattr(fnn.Dropout, "__call__", fixed_mask)
+    with highest():
+        ref = jax.jit(lambda v, x: jm.apply(v, x, training=True,
+                                            rngs={"dropout": jax.random.PRNGKey(0)}))(
+            variables, jnp.asarray(x))
+    got = tm(torch.from_numpy(x), generator=torch.Generator().manual_seed(3))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), **TOL)
+    eval_logits = tm.eval()(torch.from_numpy(x))
+    assert not np.allclose(got.detach().numpy(), eval_logits.detach().numpy(), atol=1e-3)
+    tiny = ConvNeXt(**{**TINY, "drop_rate": 0.5}).train()
+    gen = torch.Generator().manual_seed(0)
+    out = tiny(torch.zeros(2, 32, 32, 3), generator=gen)
+    assert len(out) == 2 and torch.equal(gen.get_state(),
+                                         torch.Generator().manual_seed(0).get_state())

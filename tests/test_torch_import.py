@@ -53,7 +53,9 @@ def test_port_imports_without_jax_and_serves_on_cpu():
     for name in ("imagenet_models_tpu_torch.ckpt.convert", "imagenet_models_tpu_torch.train.losses",
                  "imagenet_models_tpu_torch.train.optim", "imagenet_models_tpu_torch.train.scheduler",
                  "imagenet_models_tpu_torch.train.state", "imagenet_models_tpu_torch.ops.batch_norm",
-                 "imagenet_models_tpu_torch.models.resnet", "imagenet_models_tpu_torch.models.mobilenet"):
+                 "imagenet_models_tpu_torch.models.resnet", "imagenet_models_tpu_torch.models.mobilenet",
+                 "imagenet_models_tpu_torch.ops.dw_conv",
+                 "imagenet_models_tpu_torch.models.ga_convnext"):
         assert name in out["modules"]
     assert out["after_import"] == []   # every module, the converter included
     assert out["after_forward"] == []

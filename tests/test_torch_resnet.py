@@ -197,6 +197,32 @@ def test_map_mobilenet_v1_logits_match_jax():
         _close(got, ref)
 
 
+def test_mobilenet_v1_classifier_has_the_reference_key():
+    """Plain mobilenet_v1's classifier is the reference's `fc.2` (its
+    Sequential(avgpool, flatten, linear); JAX's forward rule
+    models/mobilenet.py:106): a JAX export carries `fc.2.weight` and loads
+    into the port with strict=True, the logits match JAX's at 64 px, and the
+    port's state_dict goes back into JAX through JAX's own reference-format
+    rules with every leaf filled."""
+    from imagenet_models_tpu.ckpt.pretrained import translator_for
+    from imagenet_models_tpu.ckpt.torch_convert import convert_torch_state_dict
+
+    jm = jax_create_model("mobilenet_v1", num_classes=7)
+    x = _x(2, 64, 64, 3, seed=6)
+    variables = random_variables(init_shapes(jm, jnp.asarray(x)), seed=6)
+    sd = convert.state_dict_from_jax(variables, "mobilenet_v1")
+    assert {"fc.2.weight", "fc.2.bias"} <= set(sd) and "fc.weight" not in sd
+    tm = load_port(create_model("mobilenet_v1", device="cpu", num_classes=7), variables,
+                   "mobilenet_v1")
+    assert tuple(tm.state_dict()["fc.2.weight"].shape) == (7, 1024)
+    ref, _ = _apply(jm, variables, x, False)
+    _close(tm(torch.from_numpy(x)), ref)
+    back = convert_torch_state_dict({k: v.numpy() for k, v in tm.state_dict().items()},
+                                    variables, translator_for("mobilenet_v1"), strict=True)
+    np.testing.assert_array_equal(np.asarray(back["params"]["fc"]["kernel"]),
+                                  variables["params"]["fc"]["kernel"])
+
+
 @pytest.mark.parametrize("name,millions", [("map_resnet50", 42.71), ("map_mobilenet_v1", 4.88)])
 def test_full_width_param_count_matches_jax(name, millions):
     """The factories at full width: the exact parameter count of JAX's
