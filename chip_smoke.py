@@ -14,7 +14,10 @@ norm, BCE with smoothing 0.1, drop-path 0.2, dec_lam -0.8, no EMA); then
 ga_cswin_tiny serving and its train step (the ConvNeXt recipe); then
 map_resnet50 and map_mobilenet_v1 serving and train steps with the BatchNorm
 switch on; then ga_convnext_tiny serving and its train step (the README's
-recipe) with the dw weight-gradient switch on. Phases:
+recipe) with the dw weight-gradient switch on; then map_maxvit_tiny_tf_224
+and ga_cswin_tiny again on the JAX package's opt-in routes, the flash
+attention switch (kernels 12 and 13) and the transformer LN+MLP switch
+(kernels 1 and 2 on their MLPs). Phases:
 
 1. device: the card's name and power limit;
 2. build: compile every CUDA kernel from `csrc/`, one nvcc per source, all
@@ -114,7 +117,38 @@ recipe) with the dw weight-gradient switch on. Phases:
    6; train img/s of three arms in turns ("1" with kernel 9, "0" with
    cuDNN's weight gradient, the plain path), a profile of one step with its
    peak memory; then map_convnext_tiny's train img/s at "1" against "0",
-   one pair of turns.
+   one pair of turns;
+21. kernels 12 and 13 (fused window attention, forward): against their
+   twins in bf16 and fp32 at the shapes the flash route gives them (kernel
+   13 at the four stages of map_maxvit_tiny_tf_224's eval forward at B=256,
+   with the rel-pos bias; kernel 12 at the six shapes of ga_cswin_tiny's
+   LePEAttention calls at B=128), at N = 144 and 256, a ragged N=50, D=24,
+   heads of 64 and 128 and kernel 12 with a per-window bias, bit-equal
+   between two runs; times per launch in turns at the path shapes beside the
+   bound, the twin and F.scaled_dot_product_attention with the bias as its
+   mask, and their sums per forward;
+22. map_maxvit_tiny_tf_224 with IMTPU_FLASH_ATTN at "1" (phases 22-23 set
+   it through `ops.flash_attention._FLASH_ATTN`): serving with 22 launches
+   of kernel 13 per request, logits against the plain path and an fp32
+   model, one eval step, eval img/s at "1" and "0" in turns; six train steps
+   of phase 10's recipe with 4 launches of kernel 13 per step (stage 3; the
+   other stages keep kernels 3 and 4, 18 each), one plain-path step checked
+   as in phase 10, train img/s at "1" and "0" in turns;
+23. ga_cswin_tiny with the switch at "1": serving with one launch of kernel
+   12 per LePEAttention call (61, counted from the model) and none of kernel
+   5, logits against the plain path and an fp32 model, one eval step, eval
+   img/s at "1" and "0"; six train steps of phase 13's recipe with 61
+   launches of kernel 12 per step, one plain-path step checked as in phase
+   13, train img/s at "1" and "0";
+24. IMTPU_TLNMLP at "1" (`ops.convnext_block._TLNMLP`) on both models: two
+   train steps each with kernels 1 and 2 launched once per eligible MLP (22
+   and 31) forward and backward, an eval forward with one launch of kernel 1
+   per MLP, the first step against the plain path by loss, grad norm and,
+   by model, the distance ratio to an fp32 model's gradients or the paths'
+   distance by group (TLNMLP_GRAD_GATES);
+   train img/s at "1" and "0", one pair of turns, and a profile of one step
+   at each with the device time of the elementwise kernels (the fast GELU's
+   chains among them) and of kernels 1 and 2. Both switches go back to "0".
 
 Any failure raises and exits non-zero. The last lines are a JSON summary of
 the kernels, the card's name and power limit, and
@@ -302,10 +336,60 @@ GA_ZERO_GRAD = ("gram_contraction.0.bias", "gram_embedding.0.bias", ("4", "downs
 # a second "0" step, whose distance is the library kernels' run-to-run
 # spread.
 DW_SWITCH_RTOL = 1e-3
+# kernels 12 and 13 (fused window attention) on the flash route, N = 49 or
+# 56 or 98 tokens, heads of FLASH_D channels, as the port's forward at 224 px
+# gives them (per image; BW grows with the batch): kernel 13 in the 22
+# attentions of map_maxvit_tiny_tf_224's eval forward, (name, windows per
+# image, heads, launches), with one (heads, 49, 49) rel-pos bias each; in
+# training only stage 3's 4 (stages 0-2 keep kernels 3 and 4)
+FLASH_D = 32
+MAXVIT_FLASH_SHAPES = (("stage0", 64, 2, 4), ("stage1", 16, 4, 4), ("stage2", 4, 8, 10),
+                       ("stage3", 1, 16, 4))
+MAXVIT_FLASH_WEIGHTS = tuple(n for *_, n in MAXVIT_FLASH_SHAPES)
+MAXVIT_FLASH_LAUNCHES = sum(MAXVIT_FLASH_WEIGHTS)
+MAXVIT_FLASH_TRAIN_LAUNCHES = MAXVIT_FLASH_SHAPES[-1][-1]
+# kernel 12 in ga_cswin_tiny's 61 LePEAttention calls: (name, windows x
+# heads per image, N, launches), no bias
+CSWIN_FLASH_SHAPES = (("stage1", 56, 56, 2), ("stage2", 28, 56, 4), ("stage3", 8, 98, 42),
+                      ("stage4", 16, 49, 1), ("stage5", 16, 98, 2), ("gram", 6, 98, 10))
+CSWIN_FLASH_WEIGHTS = tuple(n for *_, n in CSWIN_FLASH_SHAPES)
+CSWIN_FLASH_LAUNCHES = sum(CSWIN_FLASH_WEIGHTS)
+# off the paths: the windows of maxvit_tiny_tf_384 and _512 (N = 144, 256),
+# the JAX tests' ragged N = 50, D = 24, wider heads, and kernel 12 with a
+# per-window bias: ("12" or "13", BW, heads, N, D, bias)
+FLASH_EXTRA = (("13", 64, 2, 144, 32, True), ("13", 16, 2, 256, 32, True),
+               ("13", 4, 3, 50, 24, True), ("12", 4, 1, 50, 24, True),
+               ("12", 1024, 1, 98, 32, True), ("12", 7, 1, 256, 128, False),
+               ("12", 9, 1, 33, 64, True))
+# fp32 kernel vs twin: both keep every digit of p and sum in fp32 in other
+# orders (1e-7 of a sum of |terms|)
+FLASH_FP32_RTOL = 1e-5
+# IMTPU_TLNMLP's first train step, kernel path (kernels 1 and 2 on every
+# MLP) against the plain path, by model (H100 80GB HBM3, 700 W, four calls
+# of the same code): MaxViT's bf16 gradients lie 8.6% (L2) apart in a group
+# (stage 0 conv.pre_norm.weight, a BatchNorm after the MBConv's expansion,
+# the amplifier of phase 16), 5.1% over all leaves, against 2.6% and 1.3%
+# with the flash switch alone, while the kernel path stays as close to fp32
+# as the plain path (distance ratio 1.073 in every call): held as phases 16
+# and 20 hold theirs, by the ratio. GA-CSWin's two paths stay within 0.0657,
+# 0.0654, 0.0689 and 0.0642 of each other by group, and 0.018 over all
+# leaves, each 2.4% from fp32, but the ratio of its small stage-2 groups
+# (two leaves of 64 or 128 values) wanders with the library kernels'
+# nondeterminism, as phase 13's stage 1 does: 1.212, 1.22, 1.252 and 1.291
+# in the four calls. Held by the "apart" gate. Both pairs are held by the loss and the grad norm
+# too; the other gate's figure is logged.
+TLNMLP_GRAD_GATES = {MAXVIT: ("ratio",), GA_CSWIN: ("apart",)}
+# the eligible norm2 + MLP pairs of IMTPU_TLNMLP: every PartitionAttention of
+# map_maxvit_tiny_tf_224 (22) and every CSWinBlock of ga_cswin_tiny with an
+# ungrouped MLP (31: 25 backbone, the stage-5 block, 5 gram layers)
+MAXVIT_MLPS, CSWIN_MLPS = 22, 31
 # the IMTPU_DW_WGRAD arms timed in phase 20: (switch, path)
 DW_ARMS = (("1", "kernel"), ("0", "kernel"), ("0", "plain"))
 # the switch's arms timed in phase 16: (IMTPU_PALLAS_BN, path)
 BN_ARMS = (("full", "kernel"), ("full", "plain"), ("bwd", "kernel"), ("0", "kernel"))
+# the device kernels of kernels 1 and 2 (csrc/ln_mlp_fwd.cu, csrc/ln_mlp_bwd.cu)
+LN_MLP_KERNEL_NAMES = ("ln_mlp_fwd_kernel", "ln_mlp_bwd_dx_kernel", "::wgrad_kernel",
+                       "colsum_kernel", "dw2_finish_kernel")
 # the card's published dense peaks (H100 SXM, NVIDIA's data sheet)
 PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FP32_FLOPS = 989e12, 3.35e12, 67e12
 OUT_DIR = Path("chiprun_out")
@@ -606,6 +690,33 @@ def throughput(model, card: str, name: str = "map_convnext_tiny"):
     return result, runs
 
 
+def eval_arms(model, switch: str, card: str, name: str):
+    """Eval img/s at B=256 of the kernel path with the switch at "0" and "1"
+    in turns (0, 1, 1, 0); the switch is left at "1"."""
+    import torch
+
+    module, attr = switch_attr(switch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    x = torch.randn(BENCH_BATCH, IMG, IMG, 3, generator=gen, device="cuda")
+    model.eval()
+
+    def arm(mode):
+        def run():
+            setattr(module, attr, mode)
+            model(x)
+        return run
+
+    with torch.inference_mode():
+        t = in_turns({"0": arm("0"), "1": arm("1")}, BENCH_ITERS, order=("0", "1"))
+    setattr(module, attr, "1")
+    runs = {k: [BENCH_BATCH * 1000.0 / ms for ms in v] for k, v in t.items()}
+    result = {k: sum(v) / len(v) for k, v in runs.items()}
+    log(f"[throughput] {name} eval B={BENCH_BATCH} {IMG}px bf16: {switch} at 1 "
+        f"{result['1']:.1f} img/s, at 0 {result['0']:.1f} img/s (turns 0,1,1,0: "
+        f"{runs['0'][0]:.1f},{runs['1'][0]:.1f},{runs['1'][1]:.1f},{runs['0'][1]:.1f}) on {card}")
+    return result, runs
+
+
 def make_trainer():
     """bench.py's train recipe on a fresh full-width map_convnext_tiny."""
     import torch
@@ -896,11 +1007,19 @@ def profile_step(kernel, images, targets, what: str, top: int = 15):
             rows.append({"name": ev.key, "ms": dev_us / 1e3, "count": ev.count})
     rows.sort(key=lambda r: -r["ms"])
     idle = max(0.0, 1 - busy_ms / span_ms)
+    # PyTorch's eager elementwise kernels (the fast GELU's chains among them)
+    # and the LN+MLP kernels 1 and 2 (the latter's three kernels)
+    kinds = {kind: sum(r["ms"] for r in rows if any(k in r["name"] for k in keys))
+             for kind, keys in (("elementwise", ("elementwise",)),
+                                ("ln_mlp", LN_MLP_KERNEL_NAMES))}
     log(f"[profile] one {what} train step: device span {span_ms:.2f} ms, kernels busy "
-        f"{busy_ms:.2f} ms, idle share of the span {idle:.3f}")
+        f"{busy_ms:.2f} ms, idle share of the span {idle:.3f}; elementwise kernels "
+        f"{kinds['elementwise']:.2f} ms, LN+MLP kernels {kinds['ln_mlp']:.2f} ms")
     for r in rows[:top]:
         log(f"[profile]   {r['ms']:9.3f} ms  x{r['count']:<5d} {r['name'][:110]}")
-    return {"span_ms": span_ms, "busy_ms": busy_ms, "idle_share": idle, "rows": rows[:40]}
+    return {"span_ms": span_ms, "busy_ms": busy_ms, "idle_share": idle,
+            "elementwise_ms": kinds["elementwise"], "ln_mlp_ms": kinds["ln_mlp"],
+            "rows": rows[:40]}
 
 
 def weighted(times, key, weights):
@@ -1173,15 +1292,38 @@ def maxvit_trainer(dtype):
                                                                mixup_active=True)
 
 
-def train_maxvit():
-    """Six kernel-path steps of the MaxViT recipe with launch counts, and one
-    plain-path step from a deep copy of the first state (same drop-path and
-    dropout draws), whose loss, grad norm and gradients must agree with the
-    kernel path's first step and an fp32 model's."""
+def counter_launches(counters):
+    """The launch counts of (kernel wrapper, launches per step) pairs."""
+    return tuple(c.launches for c, _ in counters)
+
+
+def check_step_launches(counters, per_step, tag: str) -> dict:
+    """Raises unless every step launched each wrapper of `counters` its
+    expected number of times; returns the totals by wrapper name."""
+    expected = tuple(n for _, n in counters)
+    names = ", ".join(c.__name__ for c, _ in counters)
+    log(f"[{tag}train] ({names}) launches per step: {per_step}")
+    if any(tuple(s) != expected for s in per_step):
+        raise AssertionError(f"expected {expected} launches of ({names}) per step, got {per_step}")
+    return {c.__name__: c.launches for c, _ in counters}
+
+
+def train_maxvit(counters=None, steps: int = TRAIN_STEPS, tag: str = "maxvit-",
+                 gates=("apart", "ratio")):
+    """`steps` kernel-path steps of the MaxViT recipe with launch counts (of
+    `counters`, (kernel wrapper, launches per step) pairs; by default kernels
+    3 and 4), and one plain-path step from a deep copy of the first state
+    (same drop-path and dropout draws), whose loss, grad norm and gradients
+    must agree with the kernel path's first step and an fp32 model's
+    (`compare_grads` by `gates`)."""
     import torch
 
     from imagenet_models_tpu_torch.ops import partition_attention as pa
     from imagenet_models_tpu_torch.train.state import make_train_step
+
+    if counters is None:
+        counters = ((pa.fused_partition_attention, MAXVIT_LAUNCHES),
+                    (pa.fused_partition_attention_bwd, MAXVIT_LAUNCHES))
 
     state, kernel_opt, loss_fn = maxvit_trainer(torch.bfloat16)
     plain_state = copy.deepcopy(state)
@@ -1192,38 +1334,34 @@ def train_maxvit():
     images, targets = train_batch()
     gen = torch.Generator(device="cuda")
 
-    pa.fused_partition_attention.launches = pa.fused_partition_attention_bwd.launches = 0
+    for c, _ in counters:
+        c.launches = 0
     metrics, per_step = [], []
     t0 = time.perf_counter()
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         torch.manual_seed(SEED + 10 + i)  # the head's dropout masks
-        before = (pa.fused_partition_attention.launches, pa.fused_partition_attention_bwd.launches)
+        before = counter_launches(counters)
         state, m = step(state, images, targets, gen.manual_seed(SEED + 10 + i))
         metrics.append({k: v.item() for k, v in m.items()})
-        per_step.append((pa.fused_partition_attention.launches - before[0],
-                         pa.fused_partition_attention_bwd.launches - before[1]))
+        per_step.append([a - b for a, b in zip(counter_launches(counters), before)])
     torch.cuda.synchronize()
-    launches = {"fwd": pa.fused_partition_attention.launches,
-                "bwd": pa.fused_partition_attention_bwd.launches}
-    log(f"[maxvit-train] {TRAIN_STEPS} steps of B={TRAIN_BATCH} in {time.perf_counter() - t0:.2f} s "
-        f"(first includes warm-up); (kernel 3, kernel 4) launches per step: {per_step}")
-    log("[maxvit-train] loss per step: " + ", ".join(f"{m['loss']:.6f}" for m in metrics)
+    log(f"[{tag}train] {steps} steps of B={TRAIN_BATCH} in {time.perf_counter() - t0:.2f} s "
+        f"(first includes warm-up)")
+    launches = check_step_launches(counters, per_step, tag)
+    log(f"[{tag}train] loss per step: " + ", ".join(f"{m['loss']:.6f}" for m in metrics)
         + "; grad_norm per step: " + ", ".join(f"{m['grad_norm']:.6f}" for m in metrics))
-    if per_step != [(MAXVIT_LAUNCHES, MAXVIT_LAUNCHES)] * TRAIN_STEPS:
-        raise AssertionError(f"expected {MAXVIT_LAUNCHES} launches of each kernel per step, "
-                             f"got {per_step}")
     for m in metrics:
         if not all(map(lambda v: v == v and abs(v) != float("inf"), m.values())):
             raise AssertionError(f"non-finite train metrics: {metrics}")
     if not metrics[-1]["loss"] < metrics[0]["loss"]:
-        raise AssertionError("the loss did not fall over six steps on a fixed batch")
+        raise AssertionError(f"the loss did not fall over {steps} steps on a fixed batch")
 
     torch.manual_seed(SEED + 10)
     plain_state, pm = plain_step(plain_state, images, targets, gen.manual_seed(SEED + 10))
     pm = {k: v.item() for k, v in pm.items()}
     loss_rel = abs(metrics[0]["loss"] - pm["loss"]) / abs(pm["loss"])
     gnorm_rel = abs(metrics[0]["grad_norm"] - pm["grad_norm"]) / abs(pm["grad_norm"])
-    log(f"[maxvit-train] first step, kernel vs plain path: loss {metrics[0]['loss']:.6f} vs "
+    log(f"[{tag}train] first step, kernel vs plain path: loss {metrics[0]['loss']:.6f} vs "
         f"{pm['loss']:.6f} (rel {loss_rel:.3g}, tol {TRAIN_LOSS_RTOL}); grad_norm "
         f"{metrics[0]['grad_norm']:.6f} vs {pm['grad_norm']:.6f} (rel {gnorm_rel:.3g}, tol "
         f"{TRAIN_GNORM_RTOL})")
@@ -1235,8 +1373,8 @@ def train_maxvit():
     torch.manual_seed(SEED + 10)
     fp32_step(fp32_state, images, targets, gen.manual_seed(SEED + 10))
     del fp32_state
-    grads = compare_grads(kernel_opt.grads, plain_opt.grads, fp32_opt.grads, "maxvit-",
-                          MAXVIT_ZERO_GRAD)
+    grads = compare_grads(kernel_opt.grads, plain_opt.grads, fp32_opt.grads, tag,
+                          MAXVIT_ZERO_GRAD, gates=gates)
     kernel_opt.grads = plain_opt.grads = fp32_opt.grads = {}
     torch.cuda.empty_cache()
     check = {"losses": [m["loss"] for m in metrics], "grad_norms": [m["grad_norm"] for m in metrics],
@@ -1461,13 +1599,17 @@ def check_stripe(card: str):
     return rows, times, gate
 
 
-def serve_branches(card: str, name: str, counters, launches: int, tag: str, **model_kw):
-    """The serving path of a GA model (phases 12 and 19): four requests,
-    `launches` launches each of the first of `counters` (kernel wrappers,
-    each counting its own launches) and none of the others, logits against
-    the plain path's and, loosely, an fp32 model's with the same weights;
-    one eval step; eval img/s at B=256 on both paths in turns. `model_kw`
-    goes to both models."""
+def serve_branches(card: str, name: str, counters, launches: int, tag: str, arms=None,
+                   calls=None, **model_kw):
+    """The serving path of a GA model (phases 12 and 19; MaxViT and GA-CSWin
+    on the flash route in phases 22-23): four requests, `launches` launches
+    each of the first of `counters` (kernel wrappers, each counting its own
+    launches) and none of the others, logits against the plain path's and,
+    loosely, an fp32 model's with the same weights; one eval step; eval img/s
+    at B=256 on both paths in turns, or with the switch `arms` at "1" and
+    "0" in turns on the kernel path. With `calls`, a module class, the
+    forward calls of its modules are counted too, and each must launch the
+    kernel once. `model_kw` goes to both models."""
     import torch
 
     from imagenet_models_tpu_torch import create_model, default_cfg
@@ -1486,6 +1628,11 @@ def serve_branches(card: str, name: str, counters, launches: int, tag: str, **mo
                               device="cuda", dtype=torch.uint8) for _ in range(REQUESTS)]
     serve_fn = make_serving_fn(model)
     first = counters[0]
+    called, hooks = [0], []
+    if calls is not None:
+        def count(*_):
+            called[0] += 1
+        hooks = [m.register_forward_hook(count) for m in model.modules() if isinstance(m, calls)]
     for c in counters:
         c.launches = 0
     outputs, per_request = [], []
@@ -1495,13 +1642,19 @@ def serve_branches(card: str, name: str, counters, launches: int, tag: str, **mo
         outputs.append(serve_fn(images))
         per_request.append(first.launches - before)
     torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
     others = [c.launches for c in counters[1:]]
     log(f"[{tag}serving] {REQUESTS} requests of {REQUEST_BATCH} in "
         f"{time.perf_counter() - t0:.3f} s (first includes warm-up); {first.__name__} launches "
-        f"per request: {per_request}")
+        f"per request: {per_request}"
+        + (f"; {len(hooks)} {calls.__name__} modules, {called[0]} calls" if hooks else ""))
     if per_request != [launches] * REQUESTS or any(others):
         raise AssertionError(f"expected {launches} forward launches per request and none of the "
                              f"other kernels, got {per_request}, {others}")
+    if calls is not None and not len(hooks) == launches == called[0] // REQUESTS:
+        raise AssertionError(f"{len(hooks)} {calls.__name__} modules called {called[0]} times in "
+                             f"{REQUESTS} requests: not one launch of {first.__name__} each")
     for logits in outputs:
         if logits.shape != (REQUEST_BATCH, 1000) or not torch.isfinite(logits).all():
             raise AssertionError(f"malformed logits {tuple(logits.shape)}")
@@ -1532,10 +1685,12 @@ def serve_branches(card: str, name: str, counters, launches: int, tag: str, **mo
         raise AssertionError("eval step logits differ from the serving logits on the same images")
     if not (top1 <= top5).all() or top1.shape != (REQUEST_BATCH,):
         raise AssertionError("eval step top-1/top-5 flags are malformed")
-    bench, runs = throughput(model, card, name)
+    served = first.launches
+    bench, runs = throughput(model, card, name) if arms is None else eval_arms(model, arms, card,
+                                                                               name)
     del model
     torch.cuda.empty_cache()
-    return first.launches, {"max_abs_err": err, "max_abs_plain": scale, "fp32_rel": err32,
+    return served, {"max_abs_err": err, "max_abs_plain": scale, "fp32_rel": err32,
                             "fp32_top1": agree, "eval_img_s": bench, "eval_img_s_turns": runs}
 
 
@@ -1573,15 +1728,21 @@ def split_qkv_bias(grads):
     return out
 
 
-def train_cswin():
-    """Six kernel-path steps of the benchkit recipe with launch counts, and
-    one plain-path step from a deep copy of the first state, whose loss, grad
-    norm and gradients must agree with the kernel path's first step and an
-    fp32 model's."""
+def train_cswin(counters=None, steps: int = TRAIN_STEPS, tag: str = "cswin-",
+                gates=("apart", "ratio")):
+    """`steps` kernel-path steps of the benchkit recipe with launch counts
+    (of `counters`, (kernel wrapper, launches per step) pairs; by default
+    kernels 5 and 6), and one plain-path step from a deep copy of the first
+    state, whose loss, grad norm and gradients must agree with the kernel
+    path's first step and an fp32 model's (`compare_grads` by `gates`)."""
     import torch
 
     from imagenet_models_tpu_torch.ops import stripe_attention as sa
     from imagenet_models_tpu_torch.train.state import make_train_step
+
+    if counters is None:
+        counters = ((sa.fused_stripe_attention, CSWIN_LAUNCHES),
+                    (sa.fused_stripe_attention_bwd, CSWIN_LAUNCHES))
 
     torch.cuda.reset_peak_memory_stats()
     state, kernel_opt, loss_fn = ga_trainer(GA_CSWIN, torch.bfloat16)
@@ -1594,33 +1755,29 @@ def train_cswin():
     images, targets = train_batch()
     gen = torch.Generator(device="cuda")
 
-    sa.fused_stripe_attention.launches = sa.fused_stripe_attention_bwd.launches = 0
+    for c, _ in counters:
+        c.launches = 0
     metrics, per_step = [], []
     t0 = time.perf_counter()
-    for i in range(TRAIN_STEPS):
-        before = (sa.fused_stripe_attention.launches, sa.fused_stripe_attention_bwd.launches)
+    for i in range(steps):
+        before = counter_launches(counters)
         state, m = step(state, images, targets, gen.manual_seed(SEED + 10 + i))
         metrics.append({k: v.item() for k, v in m.items()})
-        per_step.append((sa.fused_stripe_attention.launches - before[0],
-                         sa.fused_stripe_attention_bwd.launches - before[1]))
+        per_step.append([a - b for a, b in zip(counter_launches(counters), before)])
     torch.cuda.synchronize()
-    launches = {"fwd": sa.fused_stripe_attention.launches,
-                "bwd": sa.fused_stripe_attention_bwd.launches}
-    log(f"[cswin-train] {TRAIN_STEPS} steps of B={TRAIN_BATCH} in {time.perf_counter() - t0:.2f} s "
-        f"(first includes warm-up); (kernel 5, kernel 6) launches per step: {per_step}")
-    log("[cswin-train] loss per step: " + ", ".join(f"{m['loss']:.6f}" for m in metrics)
+    log(f"[{tag}train] {steps} steps of B={TRAIN_BATCH} in {time.perf_counter() - t0:.2f} s "
+        f"(first includes warm-up)")
+    launches = check_step_launches(counters, per_step, tag)
+    log(f"[{tag}train] loss per step: " + ", ".join(f"{m['loss']:.6f}" for m in metrics)
         + "; grad_norm per step: " + ", ".join(f"{m['grad_norm']:.6f}" for m in metrics))
-    if per_step != [(CSWIN_LAUNCHES, CSWIN_LAUNCHES)] * TRAIN_STEPS:
-        raise AssertionError(f"expected {CSWIN_LAUNCHES} launches of each kernel per step, "
-                             f"got {per_step}")
     for m in metrics:
         if not all(map(lambda v: v == v and abs(v) != float("inf"), m.values())):
             raise AssertionError(f"non-finite train metrics: {metrics}")
     if not metrics[-1]["loss"] < metrics[0]["loss"]:
-        raise AssertionError("the loss did not fall over six steps on a fixed batch")
+        raise AssertionError(f"the loss did not fall over {steps} steps on a fixed batch")
     ema_moved = max((state.ema_params[k] - first[k]).abs().max().item() for k in first)
     moved = max((p.detach() - first[k]).abs().max().item() for k, p in state.params().items())
-    log(f"[cswin-train] largest move from the initial weights: params {moved:.4g}, EMA shadow "
+    log(f"[{tag}train] largest move from the initial weights: params {moved:.4g}, EMA shadow "
         f"{ema_moved:.4g}")
     if not 0.0 < ema_moved < moved:
         raise AssertionError("the EMA shadow did not move, or moved as far as the params")
@@ -1629,7 +1786,7 @@ def train_cswin():
     pm = {k: v.item() for k, v in pm.items()}
     loss_rel = abs(metrics[0]["loss"] - pm["loss"]) / abs(pm["loss"])
     gnorm_rel = abs(metrics[0]["grad_norm"] - pm["grad_norm"]) / abs(pm["grad_norm"])
-    log(f"[cswin-train] first step, kernel vs plain path: loss {metrics[0]['loss']:.6f} vs "
+    log(f"[{tag}train] first step, kernel vs plain path: loss {metrics[0]['loss']:.6f} vs "
         f"{pm['loss']:.6f} (rel {loss_rel:.3g}, tol {TRAIN_LOSS_RTOL}); grad_norm "
         f"{metrics[0]['grad_norm']:.6f} vs {pm['grad_norm']:.6f} (rel {gnorm_rel:.3g}, tol "
         f"{TRAIN_GNORM_RTOL})")
@@ -1640,7 +1797,7 @@ def train_cswin():
     fp32_step(fp32_state, images, targets, gen.manual_seed(SEED + 10))
     del fp32_state
     grads = compare_grads(*(split_qkv_bias(o.grads) for o in (kernel_opt, plain_opt, fp32_opt)),
-                          "cswin-", CSWIN_ZERO_GRAD, CSWIN_NOISY_STAGES)
+                          tag, CSWIN_ZERO_GRAD, CSWIN_NOISY_STAGES, gates=gates)
     kernel_opt.grads = plain_opt.grads = fp32_opt.grads = {}
     torch.cuda.empty_cache()
     check = {"losses": [m["loss"] for m in metrics], "grad_norms": [m["grad_norm"] for m in metrics],
@@ -2035,21 +2192,31 @@ def train_bn(name: str, recipe: dict, steps: int, img: int, tag: str, **model_kw
     return (state, step), (plain_state, plain_step), images, targets, launches, check
 
 
+def switch_attr(switch: str):
+    """(module, attribute) that holds a switch of the port, read once from the
+    environment at import: IMTPU_PALLAS_BN (`ops.batch_norm._PALLAS_BN_MODE`),
+    IMTPU_DW_WGRAD (`ops.dw_conv._DW_WGRAD`), IMTPU_FLASH_ATTN
+    (`ops.flash_attention._FLASH_ATTN`) and IMTPU_TLNMLP
+    (`ops.convnext_block._TLNMLP`)."""
+    from imagenet_models_tpu_torch.ops import batch_norm as bn_ops
+    from imagenet_models_tpu_torch.ops import convnext_block as cb_ops
+    from imagenet_models_tpu_torch.ops import dw_conv as dw_ops
+    from imagenet_models_tpu_torch.ops import flash_attention as fa_ops
+
+    return {"IMTPU_PALLAS_BN": (bn_ops, "_PALLAS_BN_MODE"), "IMTPU_DW_WGRAD": (dw_ops, "_DW_WGRAD"),
+            "IMTPU_FLASH_ATTN": (fa_ops, "_FLASH_ATTN"), "IMTPU_TLNMLP": (cb_ops, "_TLNMLP")}[switch]
+
+
 def switch_arms(switch: str, kernel, plain, images, targets, card: str, what: str,
                 arms) -> dict:
     """Train img/s of the arms of a switch in turns, after TRAIN_WARMUP steps
-    each: `switch` is "IMTPU_PALLAS_BN" (`ops.batch_norm._PALLAS_BN_MODE`)
-    or "IMTPU_DW_WGRAD" (`ops.dw_conv._DW_WGRAD`); `arms` lists (value,
+    each: `switch` names one of `switch_attr`'s; `arms` lists (value,
     "kernel" or "plain" path). The arms share one model and batch of each
     path; each sets the switch before its step, which is left at the first
     arm's value."""
     import torch
 
-    from imagenet_models_tpu_torch.ops import batch_norm as bn_ops
-    from imagenet_models_tpu_torch.ops import dw_conv as dw_ops
-
-    module, attr = {"IMTPU_PALLAS_BN": (bn_ops, "_PALLAS_BN_MODE"),
-                    "IMTPU_DW_WGRAD": (dw_ops, "_DW_WGRAD")}[switch]
+    module, attr = switch_attr(switch)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
     steps = {"kernel": kernel, "plain": plain}
     fns = {}
@@ -2401,6 +2568,245 @@ def convnext_dw_arms(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- the opt-in routes
+
+def flash_args(kernel: str, bw: int, heads: int, n: int, d: int, bias: bool, dtype, gen):
+    """q, k, v and the bias of one launch: kernel "13" (bw, heads, n, d) with
+    an (heads, n, n) bias, kernel "12" (bw * heads, n, d) with an optional
+    (bw * heads, n, n) bias; q pre-scaled as the routes scale it."""
+    import torch
+
+    shape = (bw, heads, n, d) if kernel == "13" else (bw * heads, n, d)
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    q = q * torch.tensor(d ** -0.5, dtype=dtype, device="cuda")
+    b = None
+    if bias:
+        b = 0.5 * torch.randn((heads, n, n) if kernel == "13" else (bw * heads, n, n),
+                              generator=gen, device="cuda")
+    return q, k, v, b
+
+
+def flash_bound_ms(kernel: str, bw: int, heads: int, n: int, d: int, bias: bool,
+                   itemsize: int) -> tuple:
+    """The least time of one launch: the larger of its operations (4 n^2 d
+    per window and head) over the peak of its type and its bytes (q, k, v
+    read once and out written once; the bias per window for kernel 12, once
+    per head for kernel 13) over the memory rate."""
+    pairs = bw * heads
+    nbytes = 4 * pairs * n * d * itemsize
+    if bias:
+        nbytes += (heads if kernel == "13" else pairs) * n * n * 4
+    peak = PEAK_BF16_FLOPS if itemsize == 2 else PEAK_FP32_FLOPS
+    t_ops, t_bytes = 4 * pairs * n * n * d / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def check_flash(card: str):
+    """Phase 21: kernels 12 and 13 against their twins at the paths' shapes
+    (MaxViT's four eval stages at B=256 for kernel 13, GA-CSWin's six shapes
+    at B=128 for kernel 12) and off them (FLASH_EXTRA), in bf16 and fp32, each
+    bit-equal between two runs; per-launch times at the path shapes in bf16,
+    in turns (twin, kernel, SDPA, SDPA, kernel, twin), beside the bound.
+    SDPA (`F.scaled_dot_product_attention` with the bias as its mask) is the
+    library yardstick; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from imagenet_models_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    cases = ([("13", BENCH_BATCH * w, h, 49, FLASH_D, True, tag)
+              for tag, w, h, _ in MAXVIT_FLASH_SHAPES]
+             + [("12", TRAIN_BATCH * w, 1, n, FLASH_D, False, tag)
+                for tag, w, n, _ in CSWIN_FLASH_SHAPES]
+             + [(*e, "extra") for e in FLASH_EXTRA])
+    rows, times = [], {"12": [], "13": []}
+    for kernel, bw, heads, n, d, bias, tag in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, b = flash_args(kernel, bw, heads, n, d, bias, dtype, gen)
+            fused, twin = ((fa.fused_window_attention_heads, fa.plain_fused_window_attention_heads)
+                           if kernel == "13" else
+                           (fa.fused_window_attention, fa.plain_fused_window_attention))
+            with torch.inference_mode():
+                got = fused(q, k, v, b)
+                again = fused(q, k, v, b)
+                ref = twin(q, k, v, b)
+                torch.cuda.synchronize()
+            ratio = rel_err(got, ref)
+            tol = KERNEL_RTOL if dtype == torch.bfloat16 else FLASH_FP32_RTOL
+            same = torch.equal(got, again)
+            shape = tuple(q.shape)
+            log(f"[kernels] window_attn{'_heads' if kernel == '13' else ''}_fwd {tag} {shape} "
+                f"{str(dtype)[6:]}{' bias' if bias else ''}: max|kernel-twin|/max|twin| = "
+                f"{ratio:.4g} (tol {tol}), bit-equal between runs: {same}")
+            if not (ratio <= tol and same and torch.isfinite(got.float()).all()):
+                raise AssertionError(f"kernel {kernel} disagrees with its twin at {shape} "
+                                     f"{dtype}: {ratio}, bit-equal {same}")
+            rows.append({"kernel": kernel, "tag": tag, "shape": list(shape), "dtype": str(dtype),
+                         "bias": bias, "max_abs_err": (got.float() - ref.float()).abs().max().item(),
+                         "err_over_max_twin": ratio})
+            if tag == "extra" or dtype != torch.bfloat16:
+                continue
+            mask = None if b is None else (b[None] if kernel == "13" else b).to(dtype)
+            with torch.inference_mode():
+                t = in_turns({"plain": lambda: twin(q, k, v, b), "kernel": lambda: fused(q, k, v, b),
+                              "library": lambda: F.scaled_dot_product_attention(
+                                  q, k, v, attn_mask=mask, scale=1.0)},
+                             20, order=("plain", "kernel", "library"))
+            bound, by = flash_bound_ms(kernel, bw, heads, n, d, bias, 2)
+            row = {"tag": tag, "shape": list(shape), "ms": sum(t["kernel"]) / 2,
+                   "plain_ms": sum(t["plain"]) / 2, "library_ms": sum(t["library"]) / 2,
+                   "bound_ms": bound, "bound_by": by, "turns": t}
+            times[kernel].append(row)
+            log(f"[kernels]   {tag} {shape}: kernel {row['ms']:.4f} ms, twin "
+                f"{row['plain_ms']:.4f} ms, SDPA {row['library_ms']:.4f} ms, bound {bound:.4f} ms "
+                f"({by}) on {card}")
+            del q, k, v, b, got, again, ref
+    for kernel, weights, what in (("13", MAXVIT_FLASH_WEIGHTS, f"{MAXVIT} eval forward, B=256"),
+                                  ("12", CSWIN_FLASH_WEIGHTS, f"{GA_CSWIN} forward, B=128")):
+        log(f"[kernels] kernel {kernel} per {what}: " + ", ".join(
+            f"{key} {weighted(times[kernel], key, weights):.3f} ms"
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms")))
+    torch.cuda.empty_cache()
+    return rows, times
+
+
+def flash_maxvit(card: str) -> dict:
+    """Phase 22: map_maxvit_tiny_tf_224 with IMTPU_FLASH_ATTN at "1" (the
+    caller sets it): serving with 22 launches of kernel 13 per request (and
+    none of kernels 3, 4 and 12), logits against the plain path and an fp32
+    model, one eval step, eval img/s at "1" and "0" in turns; six train
+    steps of the maxvit recipe with 4 launches of kernel 13 per step beside
+    the 18 each of kernels 3 and 4, one plain-path step checked as in phase
+    10; train img/s at "1" and "0" in turns. "launches" is kernel 13's count
+    over the whole phase, set to 0 before it."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import flash_attention as fa
+    from imagenet_models_tpu_torch.ops import partition_attention as pa
+
+    heads = fa.fused_window_attention_heads
+    heads.launches = 0
+    served, serve = serve_branches(
+        card, MAXVIT, (heads, pa.fused_partition_attention, pa.fused_partition_attention_bwd,
+                       fa.fused_window_attention), MAXVIT_FLASH_LAUNCHES, "maxvit-flash-",
+        arms="IMTPU_FLASH_ATTN")
+    phase_launches = heads.launches  # the trainer sets the counts to 0
+    kernel, plain, images, targets, launches, check = train_maxvit(
+        ((pa.fused_partition_attention, MAXVIT_LAUNCHES),
+         (pa.fused_partition_attention_bwd, MAXVIT_LAUNCHES),
+         (heads, MAXVIT_FLASH_TRAIN_LAUNCHES)), tag="maxvit-flash-")
+    del plain
+    arms = switch_arms("IMTPU_FLASH_ATTN", kernel, None, images, targets, card,
+                       f"{MAXVIT} (LAMB, clip 1.0, drop-path 0.2)", (("1", "kernel"), ("0", "kernel")))
+    del kernel, images, targets
+    torch.cuda.empty_cache()
+    return {"serving": serve, "serving_launches": served, "train": check,
+            "train_launches": launches, "train_arms": arms,
+            "launches": phase_launches + heads.launches}
+
+
+def flash_cswin(card: str) -> dict:
+    """Phase 23: ga_cswin_tiny with IMTPU_FLASH_ATTN at "1" (the caller sets
+    it): serving with one launch of kernel 12 per LePEAttention call (61,
+    counted from the model) and none of kernels 5, 6 and 13, logits against
+    the plain path and an fp32 model, one eval step, eval img/s at "1" and
+    "0" in turns; six train steps of the benchkit recipe with 61 launches of
+    kernel 12 per step and none of kernels 5 and 6, one plain-path step
+    checked as in phase 13; train img/s at "1" and "0" in turns. "launches"
+    is kernel 12's count over the whole phase, set to 0 before it."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import cswin_attention as ca
+    from imagenet_models_tpu_torch.ops import flash_attention as fa
+    from imagenet_models_tpu_torch.ops import stripe_attention as sa
+
+    window = fa.fused_window_attention
+    window.launches = 0
+    served, serve = serve_branches(
+        card, GA_CSWIN, (window, sa.fused_stripe_attention, sa.fused_stripe_attention_bwd,
+                         fa.fused_window_attention_heads), CSWIN_FLASH_LAUNCHES, "cswin-flash-",
+        arms="IMTPU_FLASH_ATTN", calls=ca.LePEAttention)
+    phase_launches = window.launches  # the trainer sets the counts to 0
+    kernel, plain, images, targets, launches, check = train_cswin(
+        ((sa.fused_stripe_attention, 0), (sa.fused_stripe_attention_bwd, 0),
+         (window, CSWIN_FLASH_LAUNCHES)), tag="cswin-flash-")
+    del plain
+    arms = switch_arms("IMTPU_FLASH_ATTN", kernel, None, images, targets, card,
+                       f"{GA_CSWIN} (LAMB, EMA)", (("1", "kernel"), ("0", "kernel")))
+    del kernel, images, targets
+    torch.cuda.empty_cache()
+    return {"serving": serve, "serving_launches": served, "train": check,
+            "train_launches": launches, "train_arms": arms,
+            "launches": phase_launches + window.launches}
+
+
+def tlnmlp_arms(card: str) -> dict:
+    """Phase 24: IMTPU_TLNMLP at "1" (the caller sets it; IMTPU_FLASH_ATTN at
+    "0") on map_maxvit_tiny_tf_224 and ga_cswin_tiny: two train steps each
+    with kernels 1 and 2 launched once per eligible MLP (22 and 31) beside
+    the attention kernels, one eval forward with one launch of kernel 1 per
+    MLP, the first step against the plain path and an fp32 model as in
+    phases 10 and 13 but by TLNMLP_GRAD_GATES; train img/s at "1" and "0",
+    one pair of turns, and a profile of one step at each, with the device
+    time of the elementwise kernels (the fast GELU's chains among them) and
+    of kernels 1 and 2."""
+    import torch
+
+    from imagenet_models_tpu_torch.models.maxvit import PartitionAttention
+    from imagenet_models_tpu_torch.ops import cswin_attention as ca
+    from imagenet_models_tpu_torch.ops import convnext_block as cb
+    from imagenet_models_tpu_torch.ops import partition_attention as pa
+    from imagenet_models_tpu_torch.ops import stripe_attention as sa
+
+    fwd, bwd = cb.fused_ln_mlp, cb.fused_ln_mlp_bwd
+    out = {}
+    for name, train, attn, mlps, is_mlp, what in (
+            (MAXVIT, train_maxvit, (pa.fused_partition_attention, pa.fused_partition_attention_bwd,
+                                    MAXVIT_LAUNCHES), MAXVIT_MLPS,
+             lambda m: isinstance(m, PartitionAttention), "(LAMB, clip 1.0, drop-path 0.2)"),
+            (GA_CSWIN, train_cswin, (sa.fused_stripe_attention, sa.fused_stripe_attention_bwd,
+                                     CSWIN_LAUNCHES), CSWIN_MLPS,
+             lambda m: isinstance(m, ca.CSWinBlock) and m.mlp_groups == 1, "(LAMB, EMA)")):
+        tag = "maxvit-tlnmlp-" if name == MAXVIT else "cswin-tlnmlp-"
+        a_fwd, a_bwd, a_n = attn
+        kernel, plain, images, targets, launches, check = train(
+            ((a_fwd, a_n), (a_bwd, a_n), (fwd, mlps), (bwd, mlps)), steps=2, tag=tag,
+            gates=TLNMLP_GRAD_GATES[name])
+        del plain
+        model = kernel[0].model
+        found = sum(map(is_mlp, model.modules()))
+        before = fwd.launches
+        model.eval()
+        with torch.inference_mode():
+            model(images[:REQUEST_BATCH])
+        eval_launches = fwd.launches - before
+        model.train()
+        log(f"[{tag}train] {found} eligible MLPs; one eval forward launched kernel 1 "
+            f"{eval_launches} times")
+        if not found == mlps == eval_launches:
+            raise AssertionError(f"{name}: {found} eligible MLPs, {eval_launches} launches of "
+                                 f"kernel 1 in an eval forward, {mlps} expected")
+        arms = switch_arms("IMTPU_TLNMLP", kernel, None, images, targets, card, f"{name} {what}",
+                           (("1", "kernel"), ("0", "kernel")))
+        profiles = {}
+        for mode in ("1", "0"):
+            cb._TLNMLP = mode
+            profiles[mode] = profile_step(kernel, images, targets,
+                                          f"{name} (IMTPU_TLNMLP {mode!r})", top=8)
+        cb._TLNMLP = "1"
+        log(f"[{tag}profile] IMTPU_TLNMLP 0 -> 1: elementwise kernels "
+            f"{profiles['0']['elementwise_ms']:.2f} -> {profiles['1']['elementwise_ms']:.2f} ms, "
+            f"kernels 1 and 2 {profiles['0']['ln_mlp_ms']:.2f} -> "
+            f"{profiles['1']['ln_mlp_ms']:.2f} ms, device busy {profiles['0']['busy_ms']:.2f} -> "
+            f"{profiles['1']['busy_ms']:.2f} ms")
+        out[name] = {"train": check, "train_launches": launches, "eval_launches": eval_launches,
+                     "train_arms": arms, "profiles": profiles}
+        del kernel, images, targets, model
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2517,6 +2923,20 @@ def main() -> int:
     cx_dw_arms = convnext_dw_arms(card)
     dw_ops._DW_WGRAD = "0"
 
+    # the opt-in routes: kernels 12 and 13 with IMTPU_FLASH_ATTN at "1", and
+    # kernels 1 and 2 on the transformers' MLPs with IMTPU_TLNMLP at "1"
+    from imagenet_models_tpu_torch.ops import convnext_block as cb_ops
+    from imagenet_models_tpu_torch.ops import flash_attention as fa_ops
+
+    flash_rows, flash_times = check_flash(card)
+    fa_ops._FLASH_ATTN = "1"
+    mv_flash = flash_maxvit(card)
+    cs_flash = flash_cswin(card)
+    fa_ops._FLASH_ATTN = "0"
+    cb_ops._TLNMLP = "1"
+    tlnmlp = tlnmlp_arms(card)
+    cb_ops._TLNMLP = "0"
+
     def entry(name, source, replaces, launches, errs, times, weights):
         return {"name": name, "route": "cuda",
                 "source": f"imagenet_models_tpu_torch/csrc/{source}",
@@ -2543,15 +2963,18 @@ def main() -> int:
         entry("ln_mlp_bwd", "ln_mlp_bwd.cu", "convnext_block.py:474", train_launches["bwd"],
               errs(bwd_rows), bwd_times, STAGE_DEPTHS),
         entry("partition_attn_fwd", "partition_attn_fwd.cu", "partition_attention.py:286",
-              mv_launches["fwd"], attn_errs["fwd"], attn_times["fwd"], MAXVIT_STAGE_LAUNCHES),
+              mv_launches["fused_partition_attention"], attn_errs["fwd"], attn_times["fwd"],
+              MAXVIT_STAGE_LAUNCHES),
         entry("partition_attn_bwd", "partition_attn_bwd.cu", "partition_attention.py:310",
-              mv_launches["bwd"], attn_errs["bwd"], attn_times["bwd"], MAXVIT_STAGE_LAUNCHES),
+              mv_launches["fused_partition_attention_bwd"], attn_errs["bwd"], attn_times["bwd"],
+              MAXVIT_STAGE_LAUNCHES),
         entry("stripe_attn_fwd", "stripe_attn_fwd.cu", "stripe_attention.py:264",
-              cs_launches["fwd"], [r["max_abs_err"]["out"] for r in stripe_rows],
-              stripe_times["fwd"], CSWIN_PATH_LAUNCHES),
+              cs_launches["fused_stripe_attention"],
+              [r["max_abs_err"]["out"] for r in stripe_rows], stripe_times["fwd"],
+              CSWIN_PATH_LAUNCHES),
         entry("stripe_attn_bwd", "stripe_attn_bwd.cu", "stripe_attention.py:284",
-              cs_launches["bwd"], [max(r["max_abs_err"][k] for k in STRIPE_OUTPUTS[1:])
-                                   for r in stripe_rows],
+              cs_launches["fused_stripe_attention_bwd"],
+              [max(r["max_abs_err"][k] for k in STRIPE_OUTPUTS[1:]) for r in stripe_rows],
               stripe_times["bwd"], CSWIN_PATH_LAUNCHES),
         entry("bn_moments", "bn_moments.cu", "batch_norm.py:115", rn_launches["fwd"],
               [r["moments"]["max_abs_err"] for r in bn_rows], bn_times["fwd"],
@@ -2561,7 +2984,19 @@ def main() -> int:
               [r["count"] for r in bn_times["bwd"]]),
         entry("dw7_wgrad", "dw7_wgrad.cu", "dw_conv.py:72", ga_launches["dw_wgrad"],
               errs(dw_rows), dw_times, DW_PATH_LAUNCHES),
+        # kernel 12 per ga_cswin_tiny forward at B=128, kernel 13 per
+        # map_maxvit_tiny_tf_224 eval forward at B=256; launches over phases
+        # 23 and 22 (serving, training and the switch arms)
+        entry("window_attn_fwd", "window_attn_fwd.cu", "flash_attention.py:64",
+              cs_flash["launches"], [r["max_abs_err"] for r in flash_rows if r["kernel"] == "12"],
+              flash_times["12"], CSWIN_FLASH_WEIGHTS),
+        entry("window_attn_heads_fwd", "window_attn_heads_fwd.cu", "flash_attention.py:134",
+              mv_flash["launches"], [r["max_abs_err"] for r in flash_rows if r["kernel"] == "13"],
+              flash_times["13"], MAXVIT_FLASH_WEIGHTS),
     ]
+    if not all(k["launches"] > 0 for k in kernels):
+        raise AssertionError(f"a kernel of the paths was never launched: "
+                             f"{[k['name'] for k in kernels if not k['launches']]}")
     # every module of the port, the weights converter included, imports
     # nothing of JAX or of the JAX package
     import imagenet_models_tpu_torch
@@ -2607,6 +3042,9 @@ def main() -> int:
                         "serving_launches": ga_serve_launches, "train": ga_check,
                         "train_launches": ga_launches, "train_arms": ga_arms,
                         "train_profile": ga_prof, "map_convnext_tiny_arms": cx_dw_arms},
+        "flash": {"checks": flash_rows, "times": flash_times, "maxvit": mv_flash,
+                  "ga_cswin": cs_flash},
+        "tlnmlp": tlnmlp,
         "kernels": kernels}, indent=2))
     print(json.dumps({"kernels": kernels}))
     print(card)

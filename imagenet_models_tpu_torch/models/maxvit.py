@@ -12,9 +12,12 @@ norm1`, `...attn_block.attn.rel_pos.relative_position_bias_table`,
 
 The attention blocks take the window / grid attention kernels in training and
 the partition -> AttentionCl -> reverse composition at eval, by the gate
-`ops.window_attention.use_fused_partition_attn`. The rel-pos tables are sized
-for `img_size` at construction (JAX sizes them from the init input), so a
-model runs at that input size only.
+`ops.window_attention.use_fused_partition_attn`; with IMTPU_FLASH_ATTN at "1"
+the composition's attention is kernel 13 (`ops.flash_attention`), and with
+IMTPU_TLNMLP at "1" each norm2 + MLP pair is kernels 1 and 2
+(`ops.convnext_block.ln_mlp_apply`). Both switches default to "0", as in
+JAX. The rel-pos tables are sized for `img_size` at construction (JAX sizes
+them from the init input), so a model runs at that input size only.
 
 Modes: a built model is in eval mode, as the JAX forward's default
 `training=False`; `model.train()` gives JAX's `training=True` forward (batch
@@ -47,6 +50,7 @@ from imagenet_models_tpu_torch.nn.layers import (
     trunc_normal_,
 )
 from imagenet_models_tpu_torch.ops import window_attention as wa
+from imagenet_models_tpu_torch.ops.convnext_block import ln_mlp_apply, use_transformer_lnmlp
 
 BN_EPS_TF = 1e-3
 LN_EPS_TF = 1e-5
@@ -137,8 +141,10 @@ class MbConvBlock(nn.Module):
 class PartitionAttention(nn.Module):
     """Block-window or grid attention, then the MLP, each pre-norm with a
     residual; one DropPath draws a mask for each (maxvit.py:121-188). The
-    norm2 + MLP pair runs as modules: the JAX package's fused LN+MLP route
-    for it is opt-in and not ported yet."""
+    norm2 + MLP pair runs as modules, or with IMTPU_TLNMLP at "1" (where
+    `use_transformer_lnmlp` allows it) as one `ln_mlp_apply` on the same
+    parameters (kernels 1 and 2 on the card). `use_kernel` reaches the
+    attention and the LN+MLP."""
 
     def __init__(self, dim: int, partition_type: str = "block",
                  partition_size: Tuple[int, int] = (7, 7), dim_head: int = 32,
@@ -156,6 +162,7 @@ class PartitionAttention(nn.Module):
         self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, eps=LN_EPS_TF, dtype=dtype)
         self.mlp = Mlp(dim, int(dim * expand_ratio), act=gelu, drop=proj_drop, dtype=dtype)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor, use_kernel: Optional[bool] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -165,11 +172,21 @@ class PartitionAttention(nn.Module):
                                        not self.training):
             a = self.attn(n1, partition=(kind, ps), use_kernel=use_kernel)
         elif kind == "block":
-            a = wa.window_reverse(self.attn(wa.window_partition(n1, ps)), ps, n1.shape[1:3])
+            a = wa.window_reverse(self.attn(wa.window_partition(n1, ps), use_kernel=use_kernel),
+                                  ps, n1.shape[1:3])
         else:
-            a = wa.grid_reverse(self.attn(wa.grid_partition(n1, ps)), ps, n1.shape[1:3])
+            a = wa.grid_reverse(self.attn(wa.grid_partition(n1, ps), use_kernel=use_kernel),
+                                ps, n1.shape[1:3])
         x = x + self.drop_path(a, generator)
-        return x + self.drop_path(self.mlp(self.norm2(x)), generator)
+        if use_transformer_lnmlp(self.mlp.drop.p, not self.training):
+            xc = x if self.compute_dtype is None else x.to(self.compute_dtype)
+            m = ln_mlp_apply(xc, self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
+                             self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
+                             eps=LN_EPS_TF, training=self.training,
+                             use_kernel=use_kernel).to(x.dtype)
+        else:
+            m = self.mlp(self.norm2(x))
+        return x + self.drop_path(m, generator)
 
 
 class MaxxVitBlock(nn.Module):

@@ -26,7 +26,8 @@ BUILD_DIR = CSRC.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNELS = ("ln_mlp_fwd", "ln_mlp_bwd", "partition_attn_fwd", "partition_attn_bwd",
-           "stripe_attn_fwd", "stripe_attn_bwd", "bn_moments", "bn_dot_sums", "dw7_wgrad")
+           "stripe_attn_fwd", "stripe_attn_bwd", "bn_moments", "bn_dot_sums", "dw7_wgrad",
+           "window_attn_fwd", "window_attn_heads_fwd")
 
 
 @dataclass(frozen=True)
@@ -205,4 +206,28 @@ def dw7_wgrad_library() -> ctypes.CDLL:
     lib.imt_dw7_wgrad_slabs.restype = _I
     lib.imt_dw7_wgrad.argtypes = [_P, _P] + [_I] * 5 + [_P] * 3
     lib.imt_dw7_wgrad.restype = _I
+    return lib
+
+
+@functools.cache
+def window_attn_fwd_library() -> ctypes.CDLL:
+    """The fused window-attention forward kernel's library (kernel 12), built
+    on first call."""
+    lib = _load("window_attn_fwd")
+    lib.imt_window_attn_fwd_supported.argtypes = [_I, _I]
+    lib.imt_window_attn_fwd_supported.restype = _I
+    lib.imt_window_attn_fwd.argtypes = [_P] * 5 + [_LL, _I, _I, _I, _P]
+    lib.imt_window_attn_fwd.restype = _I
+    return lib
+
+
+@functools.cache
+def window_attn_heads_fwd_library() -> ctypes.CDLL:
+    """The per-head-bias window-attention forward kernel's library (kernel
+    13), built on first call."""
+    lib = _load("window_attn_heads_fwd")
+    lib.imt_window_attn_heads_fwd_supported.argtypes = [_I, _I]
+    lib.imt_window_attn_heads_fwd_supported.restype = _I
+    lib.imt_window_attn_heads_fwd.argtypes = [_P] * 5 + [_LL, _I, _I, _I, _I, _P]
+    lib.imt_window_attn_heads_fwd.restype = _I
     return lib

@@ -14,6 +14,10 @@ GELU: "exact" (erf) at eval, "fast" (the single-segment minimax fit of erf,
 and of the GELU derivative in the backward) in training, as
 `resolve_gelu_impl` picks it.
 
+The transformer blocks' norm2 + MLP pair takes the same kernels with a unit
+layer scale through `ln_mlp_apply`, where `use_transformer_lnmlp` allows it
+(IMTPU_TLNMLP at "1", read once at import into `_TLNMLP`).
+
 Dispatch rule: a CPU tensor goes to the twin, with autograd through it (JAX's
 CPU path is autodiff of its plain ops); a CUDA tensor goes to the kernels, or
 raises. There is no fallback from a kernel to a twin. `use_kernel=False` runs
@@ -22,6 +26,7 @@ the twin on any device, to compare against.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -31,6 +36,12 @@ from imagenet_models_tpu_torch.ops import dw_conv as dw_ops
 from imagenet_models_tpu_torch.ops.dw_conv import DwConv7Function, dw_conv7
 
 GELU_IMPLS = ("exact", "fast")
+
+# IMTPU_TLNMLP: "1" = a transformer block's norm2 + MLP pair (MaxViT's
+# PartitionAttention, CSWinBlock) takes the LN+MLP kernels 1 and 2 with a unit
+# layer scale, through `ln_mlp_apply`; "0" = LayerNorm and Mlp modules: the
+# default, as in the JAX package.
+_TLNMLP = os.environ.get("IMTPU_TLNMLP", "0")
 
 
 def _horner(t: torch.Tensor, coefs) -> torch.Tensor:
@@ -414,4 +425,26 @@ def convnext_block_apply(x: torch.Tensor, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2
     else:
         h = dw_conv7(x, dw_w, dw_b)
     return ln_mlp(h, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, use_kernel=use_kernel,
+                  gelu_impl=resolve_gelu_impl(training))
+
+
+def use_transformer_lnmlp(drop: float, deterministic: bool) -> bool:
+    """Whether a transformer block's norm2 + MLP pair takes `ln_mlp_apply`
+    (ops/convnext_block.py:641-652): only with IMTPU_TLNMLP at "1", and then
+    at eval or where the MLP has no dropout (the kernels draw no random
+    numbers)."""
+    if _TLNMLP != "1":
+        return False
+    return drop == 0.0 or deterministic
+
+
+def ln_mlp_apply(x: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, eps: float,
+                 training: bool = False, use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """LN -> Dense(hidden) -> GELU -> Dense(C) on (..., C) tokens of any leading
+    shape, with a unit layer scale (ops/convnext_block.py:655-675): `ln_mlp`
+    by its dispatch rule (kernels 1 and 2 for CUDA tensors, the twin for CPU
+    tensors), with the GELU of `resolve_gelu_impl(training)`. Weights in
+    torch Linear layout; returns x's dtype."""
+    gamma = torch.ones(x.shape[-1], device=x.device)
+    return ln_mlp(x, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, use_kernel=use_kernel,
                   gelu_impl=resolve_gelu_impl(training))

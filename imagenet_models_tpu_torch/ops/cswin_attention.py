@@ -13,12 +13,21 @@ MLP). `LePEAttention` has two routes:
 - the composition (the JAX package's default "stacked" form) for idx=1,
   idx=-1 and idx=0 when the gate is off: partition, the LePE conv in the
   compute dtype, scores out of the product in the compute dtype before an
-  fp32 softmax, reverse.
+  fp32 softmax, reverse;
+- the flash route, with IMTPU_FLASH_ATTN at "1" (`ops.flash_attention.
+  _FLASH_ATTN`) for every orientation, unless attention dropout is active in
+  training: the stripe route is off, and the stacked composition runs with
+  `ops.flash_attention.window_attention` (kernel 12 on the card, its twin on
+  the CPU) in place of its two products and softmax, on the flattened
+  (B*nWin*heads, n, d) windows, with LePE in the compute dtype added after
+  (cswin_attention.py:131-135, :214-224).
 
-In bf16 the two routes round LePE differently (fp32 against bf16), as in the
-JAX package. Its opt-in routes (`IMTPU_CSWIN_FUSED`, `IMTPU_CSWIN_DIRECT`,
-`IMTPU_CSWIN_INNER`, `IMTPU_FLASH_ATTN` and the transformer LN+MLP gate
-`IMTPU_TLNMLP`) are not ported.
+In bf16 the stripe route rounds LePE differently (fp32 against bf16), as in
+the JAX package. `CSWinBlock`'s norm2 + MLP pair takes `ln_mlp_apply`
+(kernels 1 and 2 on the card) with IMTPU_TLNMLP at "1" where
+`use_transformer_lnmlp` allows it and the MLP is not grouped
+(cswin_attention.py:341-354). The other opt-in routes (`IMTPU_CSWIN_FUSED`,
+`IMTPU_CSWIN_DIRECT`, `IMTPU_CSWIN_INNER`) are not ported.
 """
 
 from __future__ import annotations
@@ -37,6 +46,8 @@ from imagenet_models_tpu_torch.nn.layers import (
     conv2d_nhwc,
     gelu,
 )
+from imagenet_models_tpu_torch.ops import flash_attention as flash_ops
+from imagenet_models_tpu_torch.ops.convnext_block import ln_mlp_apply, use_transformer_lnmlp
 from imagenet_models_tpu_torch.ops.stripe_attention import stripe_attention, use_fused_stripe_attn
 
 
@@ -99,8 +110,9 @@ class LePEAttention(nn.Module):
         b, h, w, c = q.shape
         hs, ws = self.geometry(h, w)
         scale = (c // self.num_heads) ** -0.5
-        if self.idx == 0 and use_fused_stripe_attn(q.shape, self.split_size,
-                                                   self.attn_drop_rate, self.training):
+        flash = flash_ops._FLASH_ATTN == "1"
+        if self.idx == 0 and not flash and use_fused_stripe_attn(
+                q.shape, self.split_size, self.attn_drop_rate, self.training):
             # taps t = 3*kh + kw of the (C, 1, 3, 3) weight: w9 = (9, C)
             w9 = self.get_v.weight.reshape(c, 9).t().float()
             wb = self.get_v.bias.reshape(1, c).float()
@@ -115,9 +127,15 @@ class LePEAttention(nn.Module):
         kw = self._to_heads(img2windows(k, hs, ws))
         lepe = self._lepe_windows(v)
         vw = self._to_heads(img2windows(v, hs, ws))
-        attn = torch.matmul(qw, kw.transpose(-1, -2))
-        attn = torch.softmax(attn.float(), dim=-1).to(attn.dtype)
-        out = torch.matmul(self.attn_drop(attn), vw) + lepe
+        if flash and not (self.attn_drop_rate > 0 and self.training):
+            bw, nh, n, d = qw.shape
+            out = flash_ops.window_attention(*(t.reshape(bw * nh, n, d) for t in (qw, kw, vw)),
+                                             use_kernel=use_kernel)
+            out = out.reshape(bw, nh, n, d) + lepe
+        else:
+            attn = torch.matmul(qw, kw.transpose(-1, -2))
+            attn = torch.softmax(attn.float(), dim=-1).to(attn.dtype)
+            out = torch.matmul(self.attn_drop(attn), vw) + lepe
         out = out.transpose(1, 2).reshape(-1, hs * ws, c)
         return windows2img(out, hs, ws, h, w)
 
@@ -126,7 +144,10 @@ class CSWinBlock(nn.Module):
     """CSWin block on (B, H, W, C) (cswin_attention.py:244-367): norm1, qkv,
     two half-channel stripe orientations (idx 0 and 1) or, in the last stage,
     one full window (idx -1), proj, a residual with stochastic depth, then
-    norm2 and the MLP (`GroupConvMlp` when mlp_groups > 1) with another.
+    norm2 and the MLP (`GroupConvMlp` when mlp_groups > 1) with another; with
+    IMTPU_TLNMLP at "1" an ungrouped norm2 + MLP pair is one `ln_mlp_apply`
+    on the same parameters (eps 1e-6). `use_kernel` reaches the attention
+    and the LN+MLP.
 
     The JAX block decides the last-stage form from the map it is given
     (`last_stage or h == split_size`), which fixes its parameters; here the
@@ -151,6 +172,7 @@ class CSWinBlock(nn.Module):
         self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNorm(dim, dtype=dtype)
         hidden = int(dim * mlp_ratio)
+        self.mlp_groups, self.compute_dtype = mlp_groups, dtype
         if mlp_groups == 1:
             self.mlp = Mlp(dim, hidden, act=gelu, drop=drop, dtype=dtype)
         else:
@@ -175,4 +197,11 @@ class CSWinBlock(nn.Module):
                              self.attns[1](q[..., half:], k[..., half:], v[..., half:],
                                            use_kernel=use_kernel)], dim=-1)
         x = x + self.drop_path(self.proj(att), generator)
-        return x + self.drop_path(self.mlp(self.norm2(x)), generator)
+        if self.mlp_groups == 1 and use_transformer_lnmlp(self.mlp.drop.p, not self.training):
+            xc = x if self.compute_dtype is None else x.to(self.compute_dtype)
+            m = ln_mlp_apply(xc, self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
+                             self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias, eps=1e-6,
+                             training=self.training, use_kernel=use_kernel).to(x.dtype)
+        else:
+            m = self.mlp(self.norm2(x))
+        return x + self.drop_path(m, generator)

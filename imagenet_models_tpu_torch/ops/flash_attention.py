@@ -1,0 +1,275 @@
+"""Fused window attention: softmax(q k^T [+ bias]) v over many small windows
+(CSWin's stripes, MaxViT's block and grid windows), the forward in one CUDA
+kernel per call.
+
+Port of imagenet_models_tpu/ops/flash_attention.py, the route the JAX
+package takes with IMTPU_FLASH_ATTN=1 (read once at import into
+`_FLASH_ATTN`; tests and chip_smoke.py set that attribute). Two hand-written
+CUDA kernels compute the forward:
+
+- kernel 12, `fused_window_attention` (`csrc/window_attn_fwd.cu`): q, k, v
+  (BW, N, D), q pre-scaled, with an optional (BW, N, N) bias;
+- kernel 13, `fused_window_attention_heads` (`csrc/window_attn_heads_fwd.cu`):
+  q, k, v (BW, H, N, D) with one (H, N, N) bias shared by every window, never
+  broadcast to the windows in device memory.
+
+Beside them are their plain-PyTorch twins `plain_fused_window_attention` and
+`plain_fused_window_attention_heads`, which have the kernels' numerics
+(`_attn_body`, flash_attention.py:37-52): exact products of the input-dtype
+operands with fp32 sums, the bias added in fp32, an fp32 softmax, p rounded
+to the input dtype, p v with fp32 sums, one cast at the output.
+
+There is no backward kernel, in JAX or here. As JAX's custom VJPs
+(flash_attention.py:177-192, :211-228), the autograd functions
+`WindowAttentionFunction` and `WindowAttentionHeadsFunction` save the inputs
+and pull the cotangent back through autograd of the JAX composition's copy,
+`plain_window_attention` / `plain_window_attention_heads`, recomputed from
+them: scores out of the product in the input dtype before the fp32 softmax.
+Kernel 13's gives the bias its gradient, so the rel-pos tables train.
+
+The JAX kernels' padding of N to a multiple of 8 and D to 128, their -1e30
+key mask and their window groups (`IMTPU_FLASH_GROUP`) are TPU tile
+geometry; the CUDA kernels mask the ragged key chunk themselves.
+
+Dispatch rule (as the partition attention's): a CPU tensor goes to the twin,
+and autograd through it gives the gradient (JAX's CPU path is autodiff of
+the composition, which in fp32 is the twin's function); a CUDA tensor goes to
+the kernel, or raises. There is no fallback from a kernel to a twin.
+`use_kernel=False` runs the twin on any device, to compare against.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Optional, Sequence, Tuple
+
+import torch
+
+# IMTPU_FLASH_ATTN: "1" = MaxViT's AttentionCl (where it is not given a
+# partition) and CSWin's LePEAttention take kernels 12 and 13; "0" = their
+# other routes: the default, as in the JAX package.
+_FLASH_ATTN = os.environ.get("IMTPU_FLASH_ATTN", "0")
+
+MAX_TOKENS = 256    # the kernels' largest window
+MAX_HEAD_DIM = 128  # and widest head (a multiple of 8)
+_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def plain_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """JAX's composition (flash_attention.py:202-208): q, k, v (BW, N, D),
+    q pre-scaled; scores out of the product in the input dtype, the bias
+    added in fp32, softmax in fp32 cast to q's dtype, p v in the input
+    dtype. The pullback of kernel 12 is autograd of this."""
+    s = torch.einsum("bnd,bmd->bnm", q, k).float()
+    if bias is not None:
+        s = s + bias.float()
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bnm,bmd->bnd", p, v)
+
+
+def plain_window_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 bias: torch.Tensor) -> torch.Tensor:
+    """JAX's composition with a per-head shared bias (flash_attention.py:
+    170-174): q, k, v (BW, H, N, D), bias (H, N, N). The pullback of kernel
+    13 is autograd of this."""
+    s = torch.einsum("bhnd,bhmd->bhnm", q, k).float() + bias.float()[None]
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhnm,bhmd->bhnd", p, v)
+
+
+def plain_fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel 12's function in plain PyTorch, with its numerics: q, k, v
+    (..., N, D), q pre-scaled, an optional bias that broadcasts to
+    (..., N, N); returns (..., N, D) in q's dtype. The products run on fp32
+    copies of the input-dtype operands, so they are exact with fp32 sums
+    (TF32 must be off on a GPU). In fp32 this is `plain_window_attention`."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if bias is not None:
+        s = s + bias.float()
+    p = torch.softmax(s, dim=-1).to(q.dtype).float()
+    return torch.matmul(p, v.float()).to(q.dtype)
+
+
+def plain_fused_window_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                       bias: torch.Tensor) -> torch.Tensor:
+    """Kernel 13's function in plain PyTorch: q, k, v (BW, H, N, D), bias
+    (H, N, N) shared by every window; the numerics of
+    `plain_fused_window_attention`."""
+    return plain_fused_window_attention(q, k, v, bias[None])
+
+
+def _check_operands(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    ndim: int) -> Tuple[int, ...]:
+    """Raises on q, k, v that no kernel build takes; returns q's shape."""
+    if not q.is_cuda:
+        raise ValueError(f"{name} needs CUDA tensors; CPU tensors go to the plain twin")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name} takes bf16 or fp32 q, k, v, got {q.dtype}")
+    if q.dim() != ndim or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name} takes q, k, v of one {ndim}-d shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if any(t.dtype != q.dtype or t.device != q.device for t in (k, v)):
+        raise ValueError(f"{name}: q, k and v must share a dtype and a device")
+    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name} takes contiguous, 16-byte aligned q, k, v")
+    return tuple(q.shape)
+
+
+def _check_window(name: str, supported: Callable[[int, int], int], n: int, d: int) -> None:
+    """Raises unless the kernel's own check takes windows of n tokens and
+    heads of d channels."""
+    if not supported(n, d):
+        raise ValueError(f"{name} takes windows of 1..{MAX_TOKENS} tokens and heads of 8.."
+                         f"{MAX_HEAD_DIM} channels in steps of 8, got N={n}, D={d}")
+
+
+def _check_bias(name: str, bias: torch.Tensor, shape: Tuple[int, ...],
+                q: torch.Tensor) -> torch.Tensor:
+    if tuple(bias.shape) != shape or bias.device != q.device:
+        raise ValueError(f"{name}: bias must be {shape} on q's device, got "
+                         f"{tuple(bias.shape)} on {bias.device}")
+    return bias.float().contiguous()
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.imt_cuda_error_string(err).decode()}")
+
+
+def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel 12, the CUDA fused window attention, on contiguous bf16 or fp32
+    (BW, N, D) q, k, v (q pre-scaled) and an optional (BW, N, N) bias (used in
+    fp32); returns (BW, N, D) in q's dtype.
+
+    Replaces `fused_window_attention` (ops/flash_attention.py:64). Raises on
+    anything the kernel does not take, CPU tensors included.
+    `fused_window_attention.launches` counts launches."""
+    from imagenet_models_tpu_torch.ops._kernels import window_attn_fwd_library
+
+    name = "fused_window_attention"
+    bw, n, d = _check_operands(name, q, k, v, 3)
+    lib = window_attn_fwd_library()
+    _check_window(name, lib.imt_window_attn_fwd_supported, n, d)
+    if bias is not None:
+        bias = _check_bias(name, bias, (bw, n, n), q)
+    out = torch.empty_like(q)
+    if bw == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.imt_window_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                      None if bias is None else bias.data_ptr(), out.data_ptr(),
+                                      bw, n, d, int(q.dtype == torch.bfloat16), stream)
+    _raise_on(lib, err, "window_attn_fwd")
+    fused_window_attention.launches += 1
+    return out
+
+
+fused_window_attention.launches = 0
+
+
+def fused_window_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 bias: torch.Tensor) -> torch.Tensor:
+    """Kernel 13, the CUDA fused window attention with a per-head shared bias,
+    on contiguous bf16 or fp32 (BW, H, N, D) q, k, v (q pre-scaled) and an
+    (H, N, N) bias (used in fp32); returns (BW, H, N, D) in q's dtype.
+
+    Replaces `fused_window_attention_heads` (ops/flash_attention.py:134).
+    Raises on anything the kernel does not take, CPU tensors included.
+    `fused_window_attention_heads.launches` counts launches."""
+    from imagenet_models_tpu_torch.ops._kernels import window_attn_heads_fwd_library
+
+    name = "fused_window_attention_heads"
+    bw, heads, n, d = _check_operands(name, q, k, v, 4)
+    lib = window_attn_heads_fwd_library()
+    _check_window(name, lib.imt_window_attn_heads_fwd_supported, n, d)
+    bias = _check_bias(name, bias, (heads, n, n), q)
+    out = torch.empty_like(q)
+    if bw == 0 or heads == 0:
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.imt_window_attn_heads_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                            bias.data_ptr(), out.data_ptr(), bw, heads, n, d,
+                                            int(q.dtype == torch.bfloat16), stream)
+    _raise_on(lib, err, "window_attn_heads_fwd")
+    fused_window_attention_heads.launches += 1
+    return out
+
+
+fused_window_attention_heads.launches = 0
+
+
+def _pullback(fn: Callable, inputs: Sequence[Optional[torch.Tensor]], g: torch.Tensor,
+              needs: Sequence[bool]) -> Tuple[Optional[torch.Tensor], ...]:
+    """The vector-Jacobian product of `fn` at `inputs` with `g`, by autograd
+    of a recompute: a gradient for each input that needs one, else None."""
+    with torch.enable_grad():
+        leaves = [None if t is None else t.detach().requires_grad_(bool(need))
+                  for t, need in zip(inputs, needs)]
+        wrt = [t for t in leaves if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(fn(*leaves), wrt, g) if wrt else ())
+    return tuple(next(grads) if t is not None and t.requires_grad else None for t in leaves)
+
+
+class WindowAttentionFunction(torch.autograd.Function):
+    """Window attention on CUDA: kernel 12 forward; the backward is autograd
+    of `plain_window_attention` recomputed from the saved inputs, as JAX's
+    `_fused_diff_bwd` (flash_attention.py:219-225)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        ctx.save_for_backward(q, k, v, bias)
+        return fused_window_attention(q, k, v, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _pullback(plain_window_attention, ctx.saved_tensors, g, ctx.needs_input_grad)
+
+
+class WindowAttentionHeadsFunction(torch.autograd.Function):
+    """Window attention with a per-head bias on CUDA: kernel 13 forward; the
+    backward is autograd of `plain_window_attention_heads` recomputed from
+    the saved inputs (dbias summed over the windows), as JAX's
+    `_fused_heads_bwd` (flash_attention.py:185-189)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        ctx.save_for_backward(q, k, v, bias)
+        return fused_window_attention_heads(q, k, v, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _pullback(plain_window_attention_heads, ctx.saved_tensors, g,
+                         ctx.needs_input_grad)
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None,
+                     use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """softmax(q k^T [+ bias]) v over (BW, N, D) windows, q pre-scaled, with an
+    optional (BW, N, N) bias (flash_attention.py:231-246): kernel 12 for CUDA
+    tensors, the twin for CPU tensors; `use_kernel` forces one.
+    Differentiable either way."""
+    if use_kernel is None:
+        use_kernel = q.is_cuda
+    if not use_kernel:
+        return plain_fused_window_attention(q, k, v, bias)
+    return WindowAttentionFunction.apply(q.contiguous(), k.contiguous(), v.contiguous(), bias)
+
+
+def window_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: torch.Tensor, use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """softmax(q k^T + bias[h]) v over (BW, H, N, D) windows, q pre-scaled,
+    with an (H, N, N) bias shared by the windows (flash_attention.py:195-199):
+    kernel 13 for CUDA tensors, the twin for CPU tensors; `use_kernel` forces
+    one. Differentiable either way."""
+    if use_kernel is None:
+        use_kernel = q.is_cuda
+    if not use_kernel:
+        return plain_fused_window_attention_heads(q, k, v, bias)
+    return WindowAttentionHeadsFunction.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                              bias)

@@ -10,9 +10,16 @@ its two routes:
   kernels 3 and 4 on the card, their twin on the CPU), then `proj`;
 - the composition route (the default of the JAX package, its channel-slice
   form): the caller partitions, attention runs per window in torch ops with
-  the JAX route's roundings, and the caller reverses.
+  the JAX route's roundings, and the caller reverses;
+- the flash route, with IMTPU_FLASH_ATTN at "1" (`ops.flash_attention.
+  _FLASH_ATTN`) where the composition would run, unless attention dropout is
+  active in training: qkv split in the stacked (3, B, heads, N, d) form, q
+  scaled in its dtype, then `ops.flash_attention.window_attention_heads` with
+  the fp32 rel-pos bias (kernel 13 on the card, its twin on the CPU), or
+  `window_attention` on the flattened heads without a rel-pos table (kernel
+  12), then `proj` (window_attention.py:248-280).
 
-The JAX package's opt-in routes (`IMTPU_QKV_SPLIT=stack`, `IMTPU_FLASH_ATTN`,
+The JAX package's other opt-in routes (`IMTPU_QKV_SPLIT=stack`,
 `IMTPU_RELPOS_MATMUL`) are not ported; they give the same results.
 """
 
@@ -26,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from imagenet_models_tpu_torch.nn.layers import Dense, trunc_normal_
+from imagenet_models_tpu_torch.ops import flash_attention as flash_ops
 from imagenet_models_tpu_torch.ops.partition_attention import partition_attention
 
 
@@ -131,7 +139,9 @@ class AttentionCl(nn.Module):
     unpartitioned (B, H, W, C) map and attention runs per window through
     `partition_attention` (the JAX module's `partition` attribute; the
     parameters are the same either way). Without, x is (..., C) and every
-    leading index but the first is a token of one attention window."""
+    leading index but the first is a token of one attention window; it takes
+    the flash route with IMTPU_FLASH_ATTN at "1", else the composition.
+    `use_kernel` goes to the partition or flash attention."""
 
     def __init__(self, dim: int, dim_out: Optional[int] = None, dim_head: int = 32,
                  bias: bool = True, rel_pos_type: Optional[str] = None,
@@ -170,7 +180,30 @@ class AttentionCl(nn.Module):
             out = partition_attention(qkv * scale.to(qkv.dtype), bias, part_type=part_type,
                                       ps=ps, num_heads=nh, use_kernel=use_kernel)
             return self.proj_drop(self.proj(out))
-        return self.proj_drop(self.proj(slice_attention(qkv, bias, nh, self.attn_drop)))
+        if flash_ops._FLASH_ATTN == "1" and not (self.attn_drop.p > 0 and self.training):
+            out = self._flash(qkv, bias, use_kernel)
+        else:
+            out = slice_attention(qkv, bias, nh, self.attn_drop)
+        return self.proj_drop(self.proj(out))
+
+    def _flash(self, qkv: torch.Tensor, bias: Optional[torch.Tensor],
+               use_kernel: Optional[bool]) -> torch.Tensor:
+        """The flash route's attention (window_attention.py:248-270): qkv
+        (B, ..., 3C) with every leading index but the first a token of one
+        window, split in the stacked form; returns (B, ..., C)."""
+        lead = qkv.shape[:-1]
+        b, n = qkv.shape[0], int(np.prod(lead[1:]))
+        nh, d = self.num_heads, self.dim_head
+        qkv = qkv.reshape(b, n, 3, nh, d).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]
+        qs = q * torch.tensor(d ** -0.5, dtype=q.dtype, device=q.device)
+        if bias is not None:
+            out = flash_ops.window_attention_heads(qs, k, v, bias.float(), use_kernel=use_kernel)
+        else:
+            out = flash_ops.window_attention(*(t.reshape(b * nh, n, d) for t in (qs, k, v)),
+                                             use_kernel=use_kernel)
+            out = out.reshape(b, nh, n, d)
+        return out.transpose(1, 2).reshape(*lead, nh * d)
 
 
 def slice_attention(qkv: torch.Tensor, bias: Optional[torch.Tensor], num_heads: int,

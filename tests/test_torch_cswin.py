@@ -40,7 +40,16 @@ from imagenet_models_tpu_torch.ops import stripe_attention as tsa
 from imagenet_models_tpu_torch.train import losses as tloss
 from imagenet_models_tpu_torch.train import optim as toptim
 from imagenet_models_tpu_torch.train import state as tstate
-from torch_parity import highest, init_shapes, load_port, random_variables
+from imagenet_models_tpu_torch.ops import convnext_block as tcb
+from imagenet_models_tpu_torch.ops import flash_attention as tfa
+from torch_parity import (
+    grads_match_jax,
+    highest,
+    init_shapes,
+    load_port,
+    random_variables,
+    switch_on,
+)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 NAME = "ga_cswin_tiny"
@@ -69,6 +78,15 @@ def _close(got, ref, tol=TOL):
 
 def _launches():
     return tsa.fused_stripe_attention.launches, tsa.fused_stripe_attention_bwd.launches
+
+
+def _all_launches():
+    return _launches() + (tfa.fused_window_attention.launches, tcb.fused_ln_mlp.launches,
+                          tcb.fused_ln_mlp_bwd.launches)
+
+
+def _switch_on(monkeypatch, *names):
+    return switch_on(monkeypatch, names, ((tfa, "window_attention"), (tca, "ln_mlp_apply")))
 
 
 # ---------------------------------------------------------------- layers
@@ -119,6 +137,65 @@ def test_cswin_block_matches_jax(side, ws, last, groups, training, no_jax_dropou
     _close(tm(torch.from_numpy(x)), ref)
     with pytest.raises(ValueError, match="last_stage"):
         tca.CSWinBlock(64, 4, split_size=side)(torch.zeros(1, side, side, 64))
+
+
+@pytest.mark.parametrize("training", [False, True])
+@pytest.mark.parametrize("switch,side,ws,last", [("flash", 14, 7, False), ("flash", 7, 7, True),
+                                                 ("tlnmlp", 14, 7, False)])
+def test_cswin_block_switches_match_jax(switch, side, ws, last, training, monkeypatch,
+                                        no_jax_dropout):
+    """CSWinBlock with one switch at "1" on both sides: the output at eval,
+    and in training the gradients of the input and every parameter. With
+    IMTPU_FLASH_ATTN every orientation takes `window_attention` (kernel 12's
+    twin here), the idx=0 stripes of the 14x14 map included, which the
+    stripe route takes otherwise; with IMTPU_TLNMLP the norm2 + MLP pair is
+    `ln_mlp_apply` (eps 1e-6)."""
+    calls = _switch_on(monkeypatch, switch)
+    x = _x(2, side, side, 64, seed=24)
+    jm = jca.CSWinBlock(64, 4, split_size=ws, last_stage=last)
+    variables = random_variables(init_shapes(jm, jnp.asarray(x)), seed=24)
+    tm = load_port(tca.CSWinBlock(64, 4, split_size=ws, last_stage=last), variables, NAME,
+                   prefix="stage3_0").train(training)
+    before = _all_launches()
+    if training:
+        grads_match_jax(jm, variables, tm, x, NAME, "stage3_0",
+                        dict(training=True, rngs={"dropout": jax.random.PRNGKey(0)}), TOL)
+    else:
+        with highest():
+            ref = jm.apply(variables, jnp.asarray(x))
+        _close(tm(torch.from_numpy(x)), ref)
+    assert _all_launches() == before  # CPU: the twins
+    assert calls == ({"window_attention": 1 if last else 2} if switch == "flash"
+                     else {"ln_mlp_apply": 1})
+
+
+def test_switches_off_keep_the_routes(monkeypatch):
+    """With both switches at "0" (the default) the new routes are never
+    entered, and CSWinBlock computes bit for bit what its older routes'
+    pieces compute, the idx=0 stripe route included."""
+    assert tfa._FLASH_ATTN == "0" and tcb._TLNMLP == "0"
+
+    def refuse(*a, **k):
+        raise AssertionError("a switched-off route ran")
+
+    monkeypatch.setattr(tfa, "window_attention", refuse)
+    monkeypatch.setattr(tca, "ln_mlp_apply", refuse)
+    x = torch.from_numpy(_x(2, 14, 14, 64, seed=25))
+    blk = tca.CSWinBlock(64, 4, split_size=7)
+    before = _launches()
+    with torch.no_grad():
+        for training in (False, True):
+            blk.train(training)
+            got = blk(x)
+            q, k, v = blk.qkv(blk.norm1(x)).split(64, dim=-1)
+            a0 = tsa.stripe_attention(q[..., :32], k[..., :32], v[..., :32],
+                                      blk.attns[0].get_v.weight.reshape(32, 9).t(),
+                                      blk.attns[0].get_v.bias.reshape(1, 32), ws=7, num_heads=2,
+                                      scale=16 ** -0.5)
+            a1 = blk.attns[1](q[..., 32:], k[..., 32:], v[..., 32:])
+            y = x + blk.proj(torch.cat([a0, a1], dim=-1))
+            assert torch.equal(got, y + blk.mlp(blk.norm2(y))), training
+    assert _launches() == before
 
 
 @pytest.mark.parametrize("training", [False, True])
@@ -179,6 +256,28 @@ def test_narrow_ga_cswin_logits(img, training, no_jax_dropout):
     assert isinstance(got, tuple) and len(got) == len(ref) == 2
     assert tuple(got[0].shape) == (2, 7)
     _close(got, ref, tol)
+
+
+@pytest.mark.parametrize("training", [False, True])
+def test_narrow_ga_cswin_with_both_switches(training, monkeypatch, no_jax_dropout):
+    """IMTPU_FLASH_ATTN and IMTPU_TLNMLP at "1" on both sides: the narrow
+    model's logits at 64 px in both modes. Every LePEAttention takes
+    `window_attention` (none the stripe route), and every CSWinBlock with an
+    ungrouped MLP takes `ln_mlp_apply`. Tolerances as the logits test
+    above."""
+    calls = _switch_on(monkeypatch, "flash", "tlnmlp")
+    tol = dict(rtol=1e-4, atol=5e-4) if training else TOL
+    jm, variables, tm = _narrow(64, seed=26)
+    x = _x(2, 64, 64, 3, seed=26)
+    with highest():
+        ref = _run(jm, variables, x, training)
+    before = _all_launches()
+    got = tm.train(training)(torch.from_numpy(x))
+    assert _all_launches() == before
+    _close(got, ref[0] if training else ref, tol)
+    lepe = sum(isinstance(m, tca.LePEAttention) for m in tm.modules())
+    mlps = sum(isinstance(m, tca.CSWinBlock) and m.mlp_groups == 1 for m in tm.modules())
+    assert calls == {"window_attention": lepe, "ln_mlp_apply": mlps} and lepe > mlps > 0
 
 
 def test_ga_cswin_tiny_structure():

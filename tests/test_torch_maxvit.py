@@ -36,7 +36,16 @@ from imagenet_models_tpu_torch.ops import window_attention as twa
 from imagenet_models_tpu_torch.train import losses as tloss
 from imagenet_models_tpu_torch.train import optim as toptim
 from imagenet_models_tpu_torch.train import state as tstate
-from torch_parity import highest, init_shapes, load_port, random_variables
+from imagenet_models_tpu_torch.ops import convnext_block as tcb
+from imagenet_models_tpu_torch.ops import flash_attention as tfa
+from torch_parity import (
+    grads_match_jax,
+    highest,
+    init_shapes,
+    load_port,
+    random_variables,
+    switch_on,
+)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 NAME = "map_maxvit_tiny_tf_224"
@@ -75,6 +84,23 @@ def _run(jm, variables, x, training, **kw):
 def _close(got, ref, tol=TOL):
     for g, r in zip(jax.tree.leaves(got), jax.tree.leaves(ref)):
         np.testing.assert_allclose(g.detach().numpy(), np.asarray(r), **tol)
+
+
+def _switch_on(monkeypatch, *names):
+    return switch_on(monkeypatch, names, ((tfa, "window_attention"),
+                                          (tfa, "window_attention_heads"),
+                                          (tmv, "ln_mlp_apply")))
+
+
+def _launches():
+    return (tfa.fused_window_attention.launches, tfa.fused_window_attention_heads.launches,
+            tcb.fused_ln_mlp.launches, tcb.fused_ln_mlp_bwd.launches)
+
+
+def _grads_match_jax(jm, variables, tm, x, prefix, apply_kw):
+    before = _launches()
+    grads_match_jax(jm, variables, tm, x, NAME, prefix, apply_kw, TOL)
+    assert _launches() == before  # CPU: the twins
 
 
 # ---------------------------------------------------------------- layers
@@ -168,6 +194,86 @@ def test_partition_attention_matches_jax(part, route, training, monkeypatch, no_
     _close(tm(torch.from_numpy(x)), ref)
 
 
+@pytest.mark.parametrize("rel_pos", ["bias_tf", None])
+def test_attention_cl_flash_route_matches_jax(rel_pos, monkeypatch):
+    """With IMTPU_FLASH_ATTN at "1" on both sides, AttentionCl on a
+    partitioned batch takes the flash route: `window_attention_heads` with
+    the rel-pos table (kernel 13's twin here), `window_attention` on the
+    flattened heads without one (kernel 12's); eval output and the training
+    gradients of the input and every parameter, the rel-pos table's
+    included."""
+    calls = _switch_on(monkeypatch, "flash")
+    jm = jwa.AttentionCl(64, 64, rel_pos_type=rel_pos, window_size=(7, 7))
+    x = _x(8, 7, 7, 64, seed=20)
+    variables = random_variables(init_shapes(jm, jnp.asarray(x)), seed=20)
+    tm = load_port(twa.AttentionCl(64, 64, rel_pos_type=rel_pos, window_size=(7, 7)),
+                   variables, NAME, prefix="attn")
+    with highest():
+        ref = jm.apply(variables, jnp.asarray(x))
+    _close(tm(torch.from_numpy(x)), ref)
+    _grads_match_jax(jm, variables, tm.train(), x, "attn", dict(deterministic=False))
+    assert calls == {"window_attention_heads" if rel_pos else "window_attention": 2}
+
+
+@pytest.mark.parametrize("training", [False, True])
+@pytest.mark.parametrize("switch", ["flash", "tlnmlp"])
+def test_partition_attention_switches_match_jax(switch, training, monkeypatch):
+    """PartitionAttention with one switch at "1" on both sides, the output
+    and in training the gradients of the input and every parameter. At eval
+    on a 14x21 map (the composition's place, so the flash route); in training
+    on a single 7x7 window, where the flash route runs in training too (larger
+    maps keep the partition route). IMTPU_TLNMLP's norm2 + MLP pair is
+    `ln_mlp_apply` on the Mlp's parameters: exact GELU at eval, the fast one
+    in training."""
+    calls = _switch_on(monkeypatch, switch)
+    x = _x(2, 7, 7, 64, seed=21) if training else _x(2, 14, 21, 64, seed=21)
+    jm = jmv.PartitionAttention(64, "grid", (7, 7))
+    variables = random_variables(init_shapes(jm, jnp.asarray(x)), seed=21)
+    tm = load_port(tmv.PartitionAttention(64, "grid", (7, 7)), variables, NAME,
+                   prefix="attn_grid")
+    if not training:
+        before = _launches()
+        with highest():
+            ref = jm.apply(variables, jnp.asarray(x))
+        _close(tm(torch.from_numpy(x)), ref)
+        assert _launches() == before
+    else:
+        _grads_match_jax(jm, variables, tm.train(), x, "attn_grid",
+                         dict(training=True, rngs={"dropout": jax.random.PRNGKey(0)}))
+    route = "window_attention_heads" if switch == "flash" else "ln_mlp_apply"
+    assert calls == {route: 1}
+
+
+def test_switches_off_keep_the_routes(monkeypatch):
+    """With both switches at "0" (the default) the new routes are never
+    entered, and AttentionCl and PartitionAttention compute bit for bit what
+    their older routes' pieces compute."""
+    assert tfa._FLASH_ATTN == "0" and tcb._TLNMLP == "0"
+
+    def refuse(*a, **k):
+        raise AssertionError("a switched-off route ran")
+
+    for name in ("window_attention", "window_attention_heads"):
+        monkeypatch.setattr(tfa, name, refuse)
+    monkeypatch.setattr(tmv, "ln_mlp_apply", refuse)
+    x = torch.from_numpy(_x(2, 14, 14, 64, seed=22))
+    pa = tmv.PartitionAttention(64, "block", (7, 7))
+    torch.nn.init.normal_(pa.attn.rel_pos.relative_position_bias_table)
+    with torch.no_grad():
+        for training in (False, True):
+            pa.train(training)
+            got = pa(x)
+            n1 = pa.norm1(x)
+            if training:  # the partition route
+                a = pa.attn(n1, partition=("block", (7, 7)))
+            else:  # the composition
+                qkv = pa.attn.qkv(twa.window_partition(n1, (7, 7)))
+                att = twa.slice_attention(qkv, pa.attn.rel_pos(), pa.attn.num_heads)
+                a = twa.window_reverse(pa.attn.proj(att), (7, 7), (14, 14))
+            y = x + a
+            assert torch.equal(got, y + pa.mlp(pa.norm2(y))), training
+
+
 # ---------------------------------------------------------------- models
 
 def _tiny(global_pool, seed=0, dtype=None):
@@ -202,6 +308,27 @@ def test_tiny_maxvit_logits_per_head(training, no_jax_dropout):
         else:
             assert tuple(got.shape) == (2, 11)
         _close(got, ref, tol)
+
+
+@pytest.mark.parametrize("training", [False, True])
+def test_tiny_maxvit_with_both_switches(training, monkeypatch, no_jax_dropout):
+    """IMTPU_FLASH_ATTN and IMTPU_TLNMLP at "1" on both sides: the MAP head's
+    per-group logits of the narrow model at 224 px. At eval every attention
+    takes the flash route (22 of them in the full model); in training only
+    the 7x7 stage does, the others the partition route. Every MLP takes the
+    LN+MLP. Tolerances as the logits test above."""
+    calls = _switch_on(monkeypatch, "flash", "tlnmlp")
+    tol = dict(rtol=1e-4, atol=5e-4) if training else TOL
+    x = _x(2, 224, 224, 3, seed=23)
+    jm, variables, tm = _tiny("mmcap", seed=23)
+    tm.train(training)
+    before = _launches()
+    with highest():
+        ref = _run(jm, variables, x, training)
+    _close(tm(torch.from_numpy(x)), ref, tol)
+    assert _launches() == before
+    # 4 blocks of a block and a grid attention; in training only stage 3's take the flash route
+    assert calls == {"window_attention_heads": 2 if training else 8, "ln_mlp_apply": 8}
 
 
 @pytest.mark.parametrize("training,pool", [(False, "mmcap"), (True, "avg")])

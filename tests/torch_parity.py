@@ -8,11 +8,20 @@ layer scale or BN mean 0 / var 1 would hide whole blocks from a comparison.
 """
 
 import numpy as np
+import torch
 
 import jax
+import jax.numpy as jnp
 
 from imagenet_models_tpu.ckpt.torch_convert import flatten_dict, unflatten_dict
 from imagenet_models_tpu_torch.ckpt.convert import state_dict_from_jax
+from imagenet_models_tpu_torch.ops import convnext_block, flash_attention
+
+# the JAX package's opt-in routes and the port's switches for them: JAX reads
+# its gates from the environment when it traces, the port from a module
+# attribute read once at import
+SWITCHES = {"flash": ("IMTPU_FLASH_ATTN", flash_attention, "_FLASH_ATTN"),
+            "tlnmlp": ("IMTPU_TLNMLP", convnext_block, "_TLNMLP")}
 
 
 def init_shapes(module, *args, **kwargs):
@@ -58,3 +67,54 @@ def load_port(module, variables, model_name: str = "map_convnext_tiny", prefix: 
 
 def highest():
     return jax.default_matmul_precision("highest")
+
+
+def switch_on(monkeypatch, names, routes=()):
+    """Sets the named switches to "1" on both sides, and counts the calls of
+    each (module, function name) in `routes`: in fp32 a switched route
+    computes what the route it replaces does, so only the counts show that it
+    ran. Returns the counts by function name."""
+    for name in names:
+        env, module, attr = SWITCHES[name]
+        monkeypatch.setenv(env, "1")
+        monkeypatch.setattr(module, attr, "1")
+    calls = {}
+    for module, fn in routes:
+        def counted(*a, _f=getattr(module, fn), _n=fn, **k):
+            calls[_n] = calls.get(_n, 0) + 1
+            return _f(*a, **k)
+        monkeypatch.setattr(module, fn, counted)
+    return calls
+
+
+def grads_match_jax(jm, variables, tm, x, model_name: str, prefix: str, apply_kw, tol):
+    """The output, d(out . g)/dx and every parameter's gradient of the port
+    module `tm` (in its current mode) against JAX's `jm` applied with
+    `apply_kw`, on the numpy input `x` and a numpy cotangent g, in fp32."""
+    def fwd(params, x):
+        return jm.apply({**variables, "params": params}, x, **apply_kw)
+
+    shape = jax.eval_shape(fwd, variables["params"], jnp.asarray(x)).shape
+    g = np.random.default_rng(99).standard_normal(shape).astype(np.float32)
+
+    @jax.jit
+    def out_and_grads(params, x):
+        out, vjp = jax.vjp(fwd, params, x)
+        return (out,) + vjp(jnp.asarray(g))
+
+    with highest():
+        ref, gp, gx = out_and_grads(variables["params"], jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    out = tm(xt)
+    (out * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **tol)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), **tol)
+    # the parameter gradients carried to the port's keys by the weights
+    # bridge (its transposes and reshapes are linear), as `load_port` does
+    grads = state_dict_from_jax({"params": {prefix: jax.tree.map(np.asarray, gp)}}, model_name)
+    grads = {k[len(prefix) + 1:]: v for k, v in grads.items()}
+    named = dict(tm.named_parameters())
+    assert set(named) == set(grads)
+    for k, p in named.items():
+        assert p.grad is not None, k
+        np.testing.assert_allclose(p.grad.numpy(), grads[k].numpy(), err_msg=k, **tol)
