@@ -17,7 +17,9 @@ switch on; then ga_convnext_tiny serving and its train step (the README's
 recipe) with the dw weight-gradient switch on; then map_maxvit_tiny_tf_224
 and ga_cswin_tiny again on the JAX package's opt-in routes, the flash
 attention switch (kernels 12 and 13) and the transformer LN+MLP switch
-(kernels 1 and 2 on their MLPs). Phases:
+(kernels 1 and 2 on their MLPs); then map_convnext_tiny again with its
+blocks on the JAX package's fused-branch entry `convnext_branch_apply`
+(kernels 10 and 11). Phases:
 
 1. device: the card's name and power limit;
 2. build: compile every CUDA kernel from `csrc/`, one nvcc per source, all
@@ -148,7 +150,23 @@ attention switch (kernels 12 and 13) and the transformer LN+MLP switch
    distance by group (TLNMLP_GRAD_GATES);
    train img/s at "1" and "0", one pair of turns, and a profile of one step
    at each with the device time of the elementwise kernels (the fast GELU's
-   chains among them) and of kernels 1 and 2. Both switches go back to "0".
+   chains among them) and of kernels 1 and 2. Both switches go back to "0";
+25. kernels 10 and 11 (the fused ConvNeXt branch, `ops/convnext_branch.py`:
+   dw 7x7 -> LayerNorm -> MLP with the exact GELU -> layer scale, forward and
+   backward): against their twins in bf16 and fp32 at the four B=128 stage
+   shapes of map_convnext_tiny, ga_convnext_tiny's gram-layer shape, an odd
+   batch, a non-square map and C = 688, every output, each bit-equal between
+   two runs; times per launch in turns at the path's bf16 shapes beside the
+   bound, the twin and the block route that does the same work today
+   (cuDNN's depthwise conv and kernel 1; kernel 2 and cuDNN's depthwise data
+   and weight gradients), and their sums per forward and per step; then
+   map_convnext_tiny with the name its blocks call bound to
+   `convnext_branch_apply` for the phase (`branch_route`; the block route is
+   restored afterwards): serving with 18 launches of kernel 10 per request,
+   logits against the plain composition and an fp32 model, one eval step,
+   eval img/s of both routes in turns; six train steps of phase 6's recipe
+   with 18 + 18 launches each, one plain-composition step checked as in
+   phase 6, train img/s and the peak memory of both routes.
 
 Any failure raises and exits non-zero. The last lines are a JSON summary of
 the kernels, the card's name and power limit, and
@@ -383,6 +401,28 @@ TLNMLP_GRAD_GATES = {MAXVIT: ("ratio",), GA_CSWIN: ("apart",)}
 # map_maxvit_tiny_tf_224 (22) and every CSWinBlock of ga_cswin_tiny with an
 # ungrouped MLP (31: 25 backbone, the stage-5 block, 5 gram layers)
 MAXVIT_MLPS, CSWIN_MLPS = 22, 31
+# the fused ConvNeXt branch (kernels 10 and 11), phase 25: map_convnext_tiny's
+# 18 blocks at 224 px and the train batch, (name, B, H, W, C, launches per
+# forward); on the branch route each block is one launch of kernel 10 in the
+# forward and one of kernel 11 in the backward
+BRANCH_SHAPES = tuple((f"stage{i}", TRAIN_BATCH, s, s, c, n) for i, (s, c, n)
+                      in enumerate(zip(STAGE_SIDES, STAGE_WIDTHS, STAGE_DEPTHS)))
+# off the path: ga_convnext_tiny's gram layers, an odd batch, a non-square
+# map, and C = 688 (ga_convnext_tiny_688's stage 3, a ragged channel tile)
+BRANCH_EXTRA = (("gram", 128, 14, 14, 192), ("odd batch", 3, 14, 14, 384),
+                ("non-square", 6, 20, 36, 128), ("C=688", 128, 7, 7, 688))
+# fp32 kernel vs twin: the kernels' fp32 products are 3xTF32 (about 22 bits
+# of each product kept) against the twins' exact fp32 products, and both sum
+# in fp32 in other orders, the weight gradients over up to 400k tokens:
+# 2.5e-4 of the largest |value| of each output. At phase 25's eight shapes
+# the kernels read at most 1.03e-4 and one-pass TF32 products (11 bits, the
+# twin with TF32 on, which compare_branch also reads) 5.2e-4 to 6.9e-4, so
+# the limit tells a kernel that drops the 3xTF32 lo terms from one that keeps them
+BRANCH_FP32_RTOL = 2.5e-4
+# bf16 serving logits on the branch route against an fp32 model with the same
+# weights on it, as the GA models' (CSWIN_FP32_RTOL)
+BRANCH_FP32_LOGITS_RTOL = 0.25
+
 # the IMTPU_DW_WGRAD arms timed in phase 20: (switch, path)
 DW_ARMS = (("1", "kernel"), ("0", "kernel"), ("0", "plain"))
 # the switch's arms timed in phase 16: (IMTPU_PALLAS_BN, path)
@@ -2807,6 +2847,475 @@ def tlnmlp_arms(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- the fused ConvNeXt branch
+
+def branch_args(b: int, h: int, w: int, c: int, dtype, gen):
+    """x, a cotangent g (both `dtype`) and the branch's parameters in the
+    port's layout (fp32; the wrappers cast the weights to x's dtype) for one
+    launch on a (b, h, w, c) map, hidden 4c."""
+    import torch
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale + shift
+
+    x = randn(b, h, w, c).to(dtype)
+    g = randn(b, h, w, c).to(dtype)
+    params = [randn(c, 1, 7, 7, scale=0.1), randn(c, scale=0.1), randn(c, scale=0.1, shift=1.0),
+              randn(c, scale=0.1), randn(4 * c, c, scale=c ** -0.5), randn(4 * c, scale=0.1),
+              randn(c, 4 * c, scale=(4 * c) ** -0.5), randn(c, scale=0.1), randn(c)]
+    return x, g, params
+
+
+def branch_bound_ms(b: int, h: int, w: int, c: int, backward: bool) -> tuple:
+    """The least time of one bf16 launch of kernel 10 (or 11) on a (b, h, w, c)
+    map, hidden 4c: the larger of its operations over the bf16 peak and its
+    bytes (each input read once, each output written once) over the memory
+    rate. Operations: the products, 2 N C 4C each (two in the forward; five in
+    the backward: pre1, dhmid, dln, dW1 and G = g^T hmid, which gives dW2 =
+    gamma * G and dgamma = sum_j W2 * G + b2 * sum_t g, so pre2 need not be
+    formed, as bound_ms counts kernel 2), and the conv's 49 multiply-adds per
+    element (once in the forward; the recomputed conv, dx and the tap
+    gradient in the backward)."""
+    n, hid = b * h * w, 4 * c
+    product, conv = 2 * n * c * hid, 2 * 49 * n * c
+    vectors = (hid + 5 * c) * 4  # dw_b, ln_s, ln_b, b1, b2, gamma
+    if backward:
+        flops = 5 * product + 3 * conv
+        nbytes = 3 * n * c * 2 + 2 * hid * c * (2 + 4) + 2 * 49 * c * 4 + 2 * vectors
+    else:
+        flops = 2 * product + conv
+        nbytes = 2 * n * c * 2 + 2 * hid * c * 2 + 49 * c * 4 + vectors
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def compare_branch(x, g, params, tag: str) -> dict:
+    """Kernels 10 and 11 against their twins on the same inputs, every output
+    (out; GRAD_NAMES), each kernel run twice and bit-equal between the runs;
+    raises past KERNEL_RTOL (bf16) or BRANCH_FP32_RTOL (fp32). In fp32 the
+    twin with TF32 on (one-pass products) is read against the exact twin too,
+    and must fall outside BRANCH_FP32_RTOL: the limit has to catch a kernel
+    that lost the 3xTF32 precision."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import convnext_branch as cbr
+
+    tol = KERNEL_RTOL if x.dtype == torch.bfloat16 else BRANCH_FP32_RTOL
+    with torch.inference_mode():
+        run = lambda: ((cbr.fused_convnext_branch(x, *params),)
+                       + cbr.fused_convnext_branch_bwd(x, g, *params))
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        twin = lambda: ((cbr.plain_convnext_branch(x, *params),)
+                        + cbr.plain_convnext_branch_bwd(x, g, *params))
+        ref = twin()
+        tf32 = None
+        if x.dtype == torch.float32:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                one_pass = twin()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            tf32 = max(rel_err(o, r) for o, r in zip(one_pass, ref))
+            del one_pass
+    names = ("out",) + cbr.GRAD_NAMES
+    ratios, errs, same = {}, {}, {}
+    for name, o, a, r in zip(names, got, again, ref):
+        if o.shape != r.shape or o.dtype != r.dtype or not torch.isfinite(o.float()).all():
+            raise AssertionError(f"branch kernel output {name} {tag}: {tuple(o.shape)} {o.dtype}, "
+                                 f"twin {tuple(r.shape)} {r.dtype}, or not finite")
+        ratios[name] = rel_err(o, r)
+        errs[name] = (o.float() - r.float()).abs().max().item()
+        same[name] = torch.equal(o, a)
+    log(f"[branch] {tag}: max|kernel-twin|/max|twin| " + " ".join(f"{k}={v:.3g}"
+                                                                for k, v in ratios.items())
+        + f" (tol {tol}); bit-equal between runs: {all(same.values())}"
+        + ("" if tf32 is None else f"; the TF32 twin's worst {tf32:.3g}"))
+    bad = [k for k in names if not ratios[k] <= tol]
+    unequal = [k for k in names if not same[k]]
+    if bad or unequal:
+        raise AssertionError(f"branch kernels {tag}: outside the tolerance {bad}, not bit-equal "
+                             f"between runs {unequal}")
+    if tf32 is not None and not tf32 > tol:
+        raise AssertionError(f"branch kernels {tag}: one-pass TF32 products read {tf32:.3g}, "
+                             f"within the fp32 tolerance {tol}: it cannot tell them from 3xTF32")
+    return {"tag": tag, "ratios": ratios, "bit_equal": True, "tf32_twin_worst": tf32,
+            "max_abs_err": {"fwd": errs["out"], "bwd": max(errs[k] for k in cbr.GRAD_NAMES)}}
+
+
+def branch_times(x, g, params, count: int, card: str, tag: str) -> tuple:
+    """Per-launch times of kernels 10 and 11 at one bf16 path shape in turns
+    (twin, kernel, block route, block route, kernel, twin), beside the bound.
+    The block route does the same work as the calls the default ConvNeXt
+    block makes today: forward, cuDNN's depthwise conv (`dw_conv7`) and
+    kernel 1 with the exact GELU; backward, kernel 2 (exact GELU) on the
+    saved conv output and cuDNN's depthwise data and weight gradients
+    (`aten.convolution_backward`). No single PyTorch call computes the branch,
+    so there is no library time."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import convnext_branch as cbr
+    from imagenet_models_tpu_torch.ops.convnext_block import fused_ln_mlp, fused_ln_mlp_bwd
+    from imagenet_models_tpu_torch.ops.dw_conv import dw_conv7
+
+    b, h, w, c = x.shape
+    n = b * h * w
+    dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma = params
+    mlp = (ln_s, ln_b, w1, b1, w2, b2, gamma)
+    xn, weight = x.permute(0, 3, 1, 2), dw_w.to(x.dtype)
+    hmap = dw_conv7(x, dw_w, dw_b).contiguous().reshape(n, c)  # the block route's saved conv output
+    g2 = g.reshape(n, c)
+
+    def block_fwd():
+        return fused_ln_mlp(dw_conv7(x, dw_w, dw_b).reshape(n, c), *mlp, gelu_impl="exact")
+
+    def block_bwd():
+        dh = fused_ln_mlp_bwd(hmap, g2, *mlp, gelu_impl="exact")[0]
+        return torch.ops.aten.convolution_backward(
+            dh.reshape(b, h, w, c).permute(0, 3, 1, 2), xn, weight, [c], [1, 1], [3, 3], [1, 1],
+            False, [0, 0], c, [True, True, True])
+
+    order = ("plain", "kernel", "block")
+    rows = []
+    with torch.inference_mode():
+        for what, fns, iters in (
+                ("fwd", {"plain": lambda: cbr.plain_convnext_branch(x, *params),
+                         "kernel": lambda: cbr.fused_convnext_branch(x, *params),
+                         "block": block_fwd}, max(3, min(20, 4_000_000 // n))),
+                ("bwd", {"plain": lambda: cbr.plain_convnext_branch_bwd(x, g, *params),
+                         "kernel": lambda: cbr.fused_convnext_branch_bwd(x, g, *params),
+                         "block": block_bwd}, max(3, min(10, 2_000_000 // n)))):
+            t = in_turns(fns, iters, order=order)
+            bound, by = branch_bound_ms(b, h, w, c, what == "bwd")
+            row = {"tag": tag, "shape": [b, h, w, c], "count": count, "ms": sum(t["kernel"]) / 2,
+                   "plain_ms": sum(t["plain"]) / 2, "block_ms": sum(t["block"]) / 2,
+                   "library_ms": None, "bound_ms": bound, "bound_by": by, "turns": t}
+            rows.append(row)
+            log(f"[branch] kernel {10 if what == 'fwd' else 11} {tag} {(b, h, w, c)} bf16 "
+                f"(x{count} per {'forward' if what == 'fwd' else 'step'}): kernel "
+                f"{row['ms']:.4f} ms, twin {row['plain_ms']:.4f} ms, block route "
+                f"{row['block_ms']:.4f} ms, bound {bound:.4f} ms ({by}) (turns twin,kernel,block,"
+                f"block,kernel,twin: " + ",".join(f"{v:.4f}" for v in (
+                    t["plain"][0], t["kernel"][0], t["block"][0], t["block"][1], t["kernel"][1],
+                    t["plain"][1])) + f") on {card}")
+    del hmap, g2
+    return rows[0], rows[1]
+
+
+def device_ms_by_kernel(fn, calls: int = 3) -> dict:
+    """Device milliseconds per call of `fn` by kernel name, from torch.profiler
+    over `calls` calls (after one to warm up); a second window if the first
+    caught no device event. Empty if neither did."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                dev_us = getattr(ev, "self_device_time_total", None)
+                if dev_us is None:
+                    dev_us = ev.self_cuda_time_total
+                name = re.split(r"[<(]", ev.key.replace("(anonymous namespace)::", ""))[0]
+                name = name.split("::")[-1].replace("void ", "").strip()
+                out[name] = out.get(name, 0.0) + dev_us / 1e3 / calls
+        if out:
+            break
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def check_branch(card: str):
+    """Phase 25 (a) and (b): kernels 10 and 11 against their twins in bf16 and
+    fp32 at the four B=128 stage shapes of map_convnext_tiny and at
+    BRANCH_EXTRA, bit-equal between runs; per-launch times at the path's bf16
+    shapes beside the bound, the twin and the block route, and their sums per
+    forward (18 launches of kernel 10) and per train step (18 of each)."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import convnext_branch as cbr
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
+    rows, times = [], {"fwd": [], "bwd": []}
+    cases = ([(name, b, h, w, c, count) for name, b, h, w, c, count in BRANCH_SHAPES]
+             + [(name, b, h, w, c, 0) for name, b, h, w, c in BRANCH_EXTRA])
+    for name, b, h, w, c, count in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            x, g, params = branch_args(b, h, w, c, dtype, gen)
+            rows.append(compare_branch(x, g, params, f"{name} {(b, h, w, c)} {str(dtype)[6:]}"))
+            if count and dtype == torch.bfloat16:
+                fwd, bwd = branch_times(x, g, params, count, card, name)
+                with torch.inference_mode():
+                    fwd["device_ms"] = device_ms_by_kernel(lambda: cbr.fused_convnext_branch(
+                        x, *params))
+                    bwd["device_ms"] = device_ms_by_kernel(lambda: cbr.fused_convnext_branch_bwd(
+                        x, g, *params))
+                by_kernel = lambda ms: (", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+                                        or "not captured by the profiler")
+                log(f"[branch]   {name} device ms by kernel: kernel 10 "
+                    f"{by_kernel(fwd['device_ms'])}; kernel 11 {by_kernel(bwd['device_ms'])}")
+                times["fwd"].append(fwd)
+                times["bwd"].append(bwd)
+            del x, g, params
+            torch.cuda.empty_cache()
+    keys = ("ms", "plain_ms", "block_ms", "bound_ms")
+    totals = {"forward": {k: weighted(times["fwd"], k, STAGE_DEPTHS) for k in keys},
+              "step": {k: weighted(times["fwd"], k, STAGE_DEPTHS)
+                       + weighted(times["bwd"], k, STAGE_DEPTHS) for k in keys}}
+    for what, t in totals.items():
+        log(f"[branch] per map_convnext_tiny {what} at B={TRAIN_BATCH} (ms, weighted by "
+            f"launches): " + ", ".join(f"{k} {v:.3f}" for k, v in t.items()) + f" on {card}")
+    return rows, times, totals
+
+
+def branch_route():
+    """The route of phase 25(c): a stand-in for the name `models/convnext.py`
+    calls, `convnext_block_apply`, that drops `training` and calls
+    `convnext_branch_apply` (the branch takes the exact GELU in training
+    too). The phase binds it and restores the block route afterwards, as
+    phases 15-24 set their switches; no switch enters the package."""
+    from imagenet_models_tpu_torch.ops.convnext_branch import convnext_branch_apply
+
+    def route(x, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma, eps=1e-6, use_kernel=None,
+              training=False):
+        return convnext_branch_apply(x, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma, eps,
+                                     use_kernel)
+    return route
+
+
+def branch_counts():
+    """(kernel 10, kernel 11, kernel 1, kernel 2) launches so far."""
+    from imagenet_models_tpu_torch.ops import convnext_branch as cbr
+    from imagenet_models_tpu_torch.ops.convnext_block import fused_ln_mlp, fused_ln_mlp_bwd
+
+    return (cbr.fused_convnext_branch.launches, cbr.fused_convnext_branch_bwd.launches,
+            fused_ln_mlp.launches, fused_ln_mlp_bwd.launches)
+
+
+def branch_serve(card: str, cx, route, block) -> dict:
+    """Phase 25(c), serving on the branch route: four requests with 18
+    launches of kernel 10 each and none of kernel 1, logits against the same
+    route with use_kernel=False (the plain composition) and an fp32 model;
+    one eval step; eval img/s at B=256, block route and branch route in
+    turns."""
+    import torch
+
+    from imagenet_models_tpu_torch import create_model, default_cfg
+    from imagenet_models_tpu_torch.serving import make_serving_fn
+    from imagenet_models_tpu_torch.train.state import make_eval_step
+
+    n_blocks = sum(STAGE_DEPTHS)
+    model = create_model("map_convnext_tiny", dtype=torch.bfloat16, ls_init_value=1.0,
+                         generator=torch.Generator().manual_seed(SEED))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    requests = [torch.randint(0, 256, (REQUEST_BATCH, IMG, IMG, 3), generator=gen,
+                              device="cuda", dtype=torch.uint8) for _ in range(REQUESTS)]
+    serve_fn = make_serving_fn(model)
+    outputs, per_request = [], []
+    for images in requests:
+        before = branch_counts()
+        outputs.append(serve_fn(images))
+        per_request.append(tuple(a - b for a, b in zip(branch_counts(), before)))
+    torch.cuda.synchronize()
+    log(f"[branch-serving] {REQUESTS} requests of {REQUEST_BATCH}; (kernel 10, kernel 11, "
+        f"kernel 1, kernel 2) launches per request: {per_request}")
+    if per_request != [(n_blocks, 0, 0, 0)] * REQUESTS:
+        raise AssertionError(f"expected {n_blocks} launches of kernel 10 per request and none of "
+                             f"the others, got {per_request}")
+    for logits in outputs:
+        if logits.shape != (REQUEST_BATCH, 1000) or not torch.isfinite(logits).all():
+            raise AssertionError(f"malformed logits {tuple(logits.shape)}")
+    before = branch_counts()
+    plain = make_serving_fn(model, use_kernel=False)(requests[0])
+    fp32 = create_model("map_convnext_tiny", ls_init_value=1.0,
+                        generator=torch.Generator().manual_seed(SEED))
+    ref = make_serving_fn(fp32, use_kernel=False)(requests[0])
+    del fp32
+    if branch_counts() != before:
+        raise AssertionError("the branch route's plain composition launched a kernel")
+    scale = plain.abs().max().item()
+    err = (outputs[0] - plain).abs().max().item()
+    err32 = (outputs[0] - ref).abs().max().item() / ref.abs().max().item()
+    agree = (outputs[0].argmax(-1) == ref.argmax(-1)).float().mean().item()
+    log(f"[branch-serving] logits vs the plain composition: max|diff| {err:.4g} (tol "
+        f"{LOGITS_RTOL * scale:.4g}, max|plain| {scale:.4g}); vs an fp32 model on the route: "
+        f"max|diff|/max|fp32| {err32:.4g} (tol {BRANCH_FP32_LOGITS_RTOL}), top-1 agreement "
+        f"{agree:.3f}")
+    if not (err <= LOGITS_RTOL * scale and err32 <= BRANCH_FP32_LOGITS_RTOL):
+        raise AssertionError("branch-route logits disagree with the plain composition or fp32")
+    step = make_eval_step(model)
+    cfg = default_cfg("map_convnext_tiny")
+    mean, std = (torch.tensor(cfg[k], device="cuda") for k in ("mean", "std"))
+    x = (requests[1].float() / 255.0 - mean) / std
+    targets = torch.randint(0, 1000, (REQUEST_BATCH,), generator=gen, device="cuda")
+    before = branch_counts()[0]
+    logits, top1, top5 = step(x, targets)
+    if branch_counts()[0] - before != n_blocks:
+        raise AssertionError("the eval step did not run every block through kernel 10")
+    if not (logits - outputs[1]).abs().max().item() <= 1e-3 * scale:
+        raise AssertionError("eval step logits differ from the serving logits on the same images")
+    if not (top1 <= top5).all() or top1.shape != (REQUEST_BATCH,):
+        raise AssertionError("eval step top-1/top-5 flags are malformed")
+
+    xb = torch.randn(BENCH_BATCH, IMG, IMG, 3, generator=gen, device="cuda")
+    model.eval()
+
+    def arm(apply):
+        def run():
+            cx.convnext_block_apply = apply
+            model(xb)
+        return run
+
+    with torch.inference_mode():
+        t = in_turns({"block": arm(block), "branch": arm(route)}, BENCH_ITERS,
+                     order=("block", "branch"))
+    cx.convnext_block_apply = route
+    runs = {k: [BENCH_BATCH * 1000.0 / ms for ms in v] for k, v in t.items()}
+    result = {k: sum(v) / len(v) for k, v in runs.items()}
+    log(f"[branch-throughput] map_convnext_tiny eval B={BENCH_BATCH} {IMG}px bf16: branch route "
+        f"{result['branch']:.1f} img/s, block route {result['block']:.1f} img/s (turns block,"
+        f"branch,branch,block: {runs['block'][0]:.1f},{runs['branch'][0]:.1f},"
+        f"{runs['branch'][1]:.1f},{runs['block'][1]:.1f}) on {card}")
+    del model, xb
+    torch.cuda.empty_cache()
+    return {"per_request": per_request, "max_abs_err": err, "max_abs_plain": scale,
+            "fp32_rel": err32, "fp32_top1": agree, "eval_img_s": result, "eval_img_s_turns": runs}
+
+
+def branch_train(card: str, cx, route, block) -> dict:
+    """Phase 25(c), training on the branch route with phase 6's recipe at
+    B=128: six steps with 18 launches each of kernels 10 and 11 (none of
+    kernels 1 and 2), finite metrics, a moving EMA; one step of the same route
+    with use_kernel=False (the plain composition under autograd, no launch)
+    from a deep copy of the first state, held as phase 6 holds its plain step
+    (loss, grad norm, the group gates against an fp32 model on the route);
+    train img/s of the block and the branch route in turns, and each route's
+    peak memory over one step. Returns the launch counts after the six steps
+    (`branch_counts`) and the measurements."""
+    import torch
+
+    from imagenet_models_tpu_torch.train.state import make_train_step
+
+    n_blocks = sum(STAGE_DEPTHS)
+    state, opt, loss_fn = make_trainer()
+    plain_state = copy.deepcopy(state)
+    first = {k: p.detach().clone() for k, p in state.params().items()}
+    kernel_opt, plain_opt = FirstGrads(opt), FirstGrads(opt)
+    kw = dict(dec_lam=-0.8, ema_decay=0.9999)
+    step = make_train_step(state.model, kernel_opt, loss_fn, **kw)
+    plain_step = make_train_step(plain_state.model, plain_opt, loss_fn, use_kernel=False, **kw)
+    images, targets = train_batch()
+    gen = torch.Generator(device="cuda")
+    metrics, per_step = [], []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        torch.manual_seed(SEED + 10 + i)  # the head's dropout masks
+        before = branch_counts()
+        state, m = step(state, images, targets, gen.manual_seed(SEED + 10 + i))
+        metrics.append({k: v.item() for k, v in m.items()})
+        per_step.append(tuple(a - b for a, b in zip(branch_counts(), before)))
+    torch.cuda.synchronize()
+    log(f"[branch-train] {TRAIN_STEPS} steps of B={TRAIN_BATCH} in "
+        f"{time.perf_counter() - t0:.2f} s (first includes warm-up); (kernel 10, kernel 11, "
+        f"kernel 1, kernel 2) launches per step: {per_step}")
+    log("[branch-train] loss per step: " + ", ".join(f"{m['loss']:.6f}" for m in metrics)
+        + "; grad_norm per step: " + ", ".join(f"{m['grad_norm']:.6f}" for m in metrics))
+    if per_step != [(n_blocks, n_blocks, 0, 0)] * TRAIN_STEPS:
+        raise AssertionError(f"expected {n_blocks} launches each of kernels 10 and 11 per step "
+                             f"and none of kernels 1 and 2, got {per_step}")
+    for m in metrics:
+        if not all(map(lambda v: v == v and abs(v) != float("inf"), m.values())):
+            raise AssertionError(f"non-finite train metrics: {metrics}")
+    ema_moved = max((state.ema_params[k] - first[k]).abs().max().item() for k in first)
+    moved = max((p.detach() - first[k]).abs().max().item() for k, p in state.params().items())
+    log(f"[branch-train] largest move from the initial weights: params {moved:.4g}, EMA shadow "
+        f"{ema_moved:.4g}")
+    if not 0.0 < ema_moved < moved:
+        raise AssertionError("the EMA shadow did not move, or moved as far as the params")
+    path_launches = branch_counts()
+
+    torch.manual_seed(SEED + 10)
+    plain_state, pm = plain_step(plain_state, images, targets, gen.manual_seed(SEED + 10))
+    if branch_counts() != path_launches:
+        raise AssertionError("the branch route's plain composition launched a kernel")
+    pm = {k: v.item() for k, v in pm.items()}
+    loss_rel = abs(metrics[0]["loss"] - pm["loss"]) / abs(pm["loss"])
+    gnorm_rel = abs(metrics[0]["grad_norm"] - pm["grad_norm"]) / abs(pm["grad_norm"])
+    log(f"[branch-train] first step, kernels vs plain composition: loss {metrics[0]['loss']:.6f} "
+        f"vs {pm['loss']:.6f} (rel {loss_rel:.3g}, tol {TRAIN_LOSS_RTOL}); grad_norm "
+        f"{metrics[0]['grad_norm']:.6f} vs {pm['grad_norm']:.6f} (rel {gnorm_rel:.3g}, tol "
+        f"{TRAIN_GNORM_RTOL})")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and gnorm_rel <= TRAIN_GNORM_RTOL):
+        raise AssertionError("the branch route's train step disagrees with the plain composition")
+    grads = compare_grads(kernel_opt.grads, plain_opt.grads, fp32_grads(loss_fn, images, targets),
+                          "branch-")
+    kernel_opt.grads = plain_opt.grads = {}
+    del plain_state, plain_step
+    torch.cuda.empty_cache()
+
+    tgen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def arm(apply):
+        def run():
+            cx.convnext_block_apply = apply
+            step(state, images, targets, tgen)
+        return run
+
+    fns = {"block": arm(block), "branch": arm(route)}
+    peak = {}
+    for name, fn in fns.items():
+        for _ in range(TRAIN_WARMUP):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+    t = in_turns(fns, TRAIN_ITERS, order=("block", "branch"))
+    cx.convnext_block_apply = route
+    runs = {k: [TRAIN_BATCH * 1000.0 / ms for ms in v] for k, v in t.items()}
+    result = {k: sum(v) / len(v) for k, v in runs.items()}
+    log(f"[branch-train-throughput] map_convnext_tiny (LAMB, EMA) train B={TRAIN_BATCH} {IMG}px "
+        f"bf16: branch route {result['branch']:.1f} img/s, block route {result['block']:.1f} img/s "
+        f"(turns block,branch,branch,block: {runs['block'][0]:.1f},{runs['branch'][0]:.1f},"
+        f"{runs['branch'][1]:.1f},{runs['block'][1]:.1f}); peak memory over one step: branch "
+        f"{peak['branch']:.2f} GiB, block {peak['block']:.2f} GiB on {card}")
+    del state, step, images, targets
+    torch.cuda.empty_cache()
+    return path_launches, {
+        "per_step": per_step, "losses": [m["loss"] for m in metrics],
+        "grad_norms": [m["grad_norm"] for m in metrics], "plain_loss": pm["loss"],
+        "plain_grad_norm": pm["grad_norm"], "loss_rel": loss_rel, "grad_norm_rel": gnorm_rel,
+        "grads_rel": grads, "ema_moved": ema_moved, "params_moved": moved,
+        "train_img_s": result, "train_img_s_turns": runs, "peak_memory_gib": peak}
+
+
+def branch_path(card: str) -> dict:
+    """Phase 25(c): map_convnext_tiny's blocks on the branch route
+    (`branch_route`), serving then training; the counts of kernels 10 and
+    11 are set to 0 just before the route is driven and read after the six
+    train steps (serving, the eval timing turns and the train steps). The
+    block route is restored at the end, whatever happens."""
+    from imagenet_models_tpu_torch.models import convnext as cx
+    from imagenet_models_tpu_torch.ops import convnext_branch as cbr
+
+    block, route = cx.convnext_block_apply, branch_route()
+    cbr.fused_convnext_branch.launches = cbr.fused_convnext_branch_bwd.launches = 0
+    try:
+        cx.convnext_block_apply = route
+        serving = branch_serve(card, cx, route, block)
+        launches, train = branch_train(card, cx, route, block)
+    finally:
+        cx.convnext_block_apply = block
+    return {"serving": serving, "train": train,
+            "launches": {"fwd": launches[0], "bwd": launches[1]}}
+
+
 def main() -> int:
     import torch
 
@@ -2937,6 +3446,11 @@ def main() -> int:
     tlnmlp = tlnmlp_arms(card)
     cb_ops._TLNMLP = "0"
 
+    # the fused ConvNeXt branch: kernels 10 and 11 on map_convnext_tiny's 18
+    # blocks through convnext_branch_apply, phase 25
+    branch_rows, branch_times_b128, branch_totals = check_branch(card)
+    branch = branch_path(card)
+
     def entry(name, source, replaces, launches, errs, times, weights):
         return {"name": name, "route": "cuda",
                 "source": f"imagenet_models_tpu_torch/csrc/{source}",
@@ -2993,6 +3507,14 @@ def main() -> int:
         entry("window_attn_heads_fwd", "window_attn_heads_fwd.cu", "flash_attention.py:134",
               mv_flash["launches"], [r["max_abs_err"] for r in flash_rows if r["kernel"] == "13"],
               flash_times["13"], MAXVIT_FLASH_WEIGHTS),
+        # per map_convnext_tiny forward (kernel 10) and train step's backward
+        # (kernel 11) at B=128; launches over phase 25(c)
+        entry("convnext_branch_fwd", "convnext_branch_fwd.cu", "convnext_branch.py:213",
+              branch["launches"]["fwd"], [r["max_abs_err"]["fwd"] for r in branch_rows],
+              branch_times_b128["fwd"], STAGE_DEPTHS),
+        entry("convnext_branch_bwd", "convnext_branch_bwd.cu", "convnext_branch.py:242",
+              branch["launches"]["bwd"], [r["max_abs_err"]["bwd"] for r in branch_rows],
+              branch_times_b128["bwd"], STAGE_DEPTHS),
     ]
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel of the paths was never launched: "
@@ -3045,6 +3567,8 @@ def main() -> int:
         "flash": {"checks": flash_rows, "times": flash_times, "maxvit": mv_flash,
                   "ga_cswin": cs_flash},
         "tlnmlp": tlnmlp,
+        "convnext_branch": {"checks": branch_rows, "times_b128": branch_times_b128,
+                            "per_forward_and_step_ms": branch_totals, **branch},
         "kernels": kernels}, indent=2))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -55,6 +55,7 @@
 #include <type_traits>
 
 #include "ln_mlp_common.cuh"
+#include "wgrad_common.cuh"
 
 namespace {
 
@@ -507,12 +508,8 @@ cudaError_t dispatch_dx(const bf16* h, const bf16* g, const float* ln_s, const f
 
 // ---------------------------------------------------------------- half (b)
 
-constexpr int kWB = 128;       // output tile: kWB x kWB
 constexpr int kWK = 32;        // tokens per pipeline stage
 constexpr int kWLd = kWB + 8;  // bf16 row stride of a staged tile
-constexpr int kTargetBlocks = 264;     // two blocks per SM of a 132-SM card
-constexpr long long kMinSlice = 256;   // fewest tokens a slice is given
-constexpr long long kChunk = 64;       // rows one thread adds in a column sum
 
 // out[m][p] = sum over tokens t of this block's slice of A[t][m] * B[t][p],
 // A (n, M) and B (n, P) bf16 row-major, out (M, P) fp32 row-major at slice
@@ -592,38 +589,6 @@ wgrad_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, float* __re
     }
 }
 
-// dst[y][c] = sum of src rows [y*chunk, (y+1)*chunk) of column c, in row order.
-__global__ void colsum_kernel(const float* __restrict__ src, long long rows, long long cols,
-                              long long chunk, float* __restrict__ dst) {
-  const long long c = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (c >= cols) return;
-  const long long r0 = static_cast<long long>(blockIdx.y) * chunk;
-  const long long r1 = r0 + chunk < rows ? r0 + chunk : rows;
-  float s = 0.f;
-  for (long long r = r0; r < r1; ++r) s += src[r * cols + c];
-  dst[static_cast<long long>(blockIdx.y) * cols + c] = s;
-}
-
-// Column sums of a (rows, cols) fp32 matrix, in a fixed order: one pass of
-// kChunk-row sums into `scratch`, then one pass over those.
-cudaError_t colsum(const float* src, long long rows, long long cols, float* dst, float* scratch,
-                   cudaStream_t st) {
-  const long long gx = (cols + 255) / 256;
-  if (gx > 0x7fffffffLL) return cudaErrorInvalidValue;
-  if (rows <= kChunk) {
-    colsum_kernel<<<dim3(static_cast<unsigned>(gx), 1), 256, 0, st>>>(src, rows, cols, rows, dst);
-    return cudaGetLastError();
-  }
-  const long long parts = (rows + kChunk - 1) / kChunk;
-  if (parts > 65535) return cudaErrorInvalidValue;
-  colsum_kernel<<<dim3(static_cast<unsigned>(gx), static_cast<unsigned>(parts)), 256, 0, st>>>(
-      src, rows, cols, kChunk, scratch);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  colsum_kernel<<<dim3(static_cast<unsigned>(gx), 1), 256, 0, st>>>(scratch, parts, cols, parts, dst);
-  return cudaGetLastError();
-}
-
 // Row c of G = g^T hmid (C, hidden): dgamma[c] += sum_j W2[c][j] * G[c][j],
 // then G[c][j] *= gamma[c], which makes it dW2. One block per row; the row's
 // sum meets in a fixed order (warp butterflies, then the warps in turn).
@@ -649,25 +614,6 @@ dw2_finish_kernel(const bf16* __restrict__ w2, const float* __restrict__ gamma,
     for (int w = 0; w < kWarps; ++w) t += red[w];
     dgamma[c] += t;
   }
-}
-
-size_t align256(size_t b) { return (b + 255) & ~size_t(255); }
-
-// Token slices of one weight-grad product: enough blocks for the card, at
-// least kMinSlice tokens each, at most kChunk slices (one column-sum pass).
-struct Slices {
-  long long count, per;
-};
-
-Slices plan_slices(long long n, int M, int P) {
-  const long long tiles = static_cast<long long>((M + kWB - 1) / kWB) * ((P + kWB - 1) / kWB);
-  long long s = (kTargetBlocks + tiles - 1) / tiles;
-  const long long most = (n + kMinSlice - 1) / kMinSlice;
-  s = s < most ? s : most;
-  s = s < kChunk ? s : kChunk;
-  s = s > 1 ? s : 1;
-  const long long per = (n + s - 1) / s;
-  return {(n + per - 1) / per, per};
 }
 
 // The workspace: the blocks' vector rows of (a), their first column-sum pass,

@@ -27,7 +27,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNELS = ("ln_mlp_fwd", "ln_mlp_bwd", "partition_attn_fwd", "partition_attn_bwd",
            "stripe_attn_fwd", "stripe_attn_bwd", "bn_moments", "bn_dot_sums", "dw7_wgrad",
-           "window_attn_fwd", "window_attn_heads_fwd")
+           "window_attn_fwd", "window_attn_heads_fwd", "convnext_branch_fwd",
+           "convnext_branch_bwd")
 
 
 @dataclass(frozen=True)
@@ -230,4 +231,30 @@ def window_attn_heads_fwd_library() -> ctypes.CDLL:
     lib.imt_window_attn_heads_fwd_supported.restype = _I
     lib.imt_window_attn_heads_fwd.argtypes = [_P] * 5 + [_LL, _I, _I, _I, _I, _P]
     lib.imt_window_attn_heads_fwd.restype = _I
+    return lib
+
+
+@functools.cache
+def convnext_branch_fwd_library() -> ctypes.CDLL:
+    """The fused ConvNeXt branch forward kernel's library (kernel 10), built
+    on first call."""
+    lib = _load("convnext_branch_fwd")
+    lib.imt_convnext_branch_fwd_supported.argtypes = [_I] * 3
+    lib.imt_convnext_branch_fwd_supported.restype = _I
+    lib.imt_convnext_branch_fwd.argtypes = [_P] * 11 + [_I] * 6 + [_F, _P]
+    lib.imt_convnext_branch_fwd.restype = _I
+    return lib
+
+
+@functools.cache
+def convnext_branch_bwd_library() -> ctypes.CDLL:
+    """The fused ConvNeXt branch backward kernel's library (kernel 11), built
+    on first call."""
+    lib = _load("convnext_branch_bwd")
+    lib.imt_convnext_branch_bwd_supported.argtypes = [_I] * 3
+    lib.imt_convnext_branch_bwd_supported.restype = _I
+    lib.imt_convnext_branch_bwd_workspace_bytes.argtypes = [_I] * 6
+    lib.imt_convnext_branch_bwd_workspace_bytes.restype = _LL
+    lib.imt_convnext_branch_bwd.argtypes = [_P] * 17 + [_I] * 6 + [_F, _P]
+    lib.imt_convnext_branch_bwd.restype = _I
     return lib

@@ -56,7 +56,8 @@ def test_port_imports_without_jax_and_serves_on_cpu():
                  "imagenet_models_tpu_torch.models.resnet", "imagenet_models_tpu_torch.models.mobilenet",
                  "imagenet_models_tpu_torch.ops.dw_conv",
                  "imagenet_models_tpu_torch.models.ga_convnext",
-                 "imagenet_models_tpu_torch.ops.flash_attention"):
+                 "imagenet_models_tpu_torch.ops.flash_attention",
+                 "imagenet_models_tpu_torch.ops.convnext_branch"):
         assert name in out["modules"]
     assert out["after_import"] == []   # every module, the converter included
     assert out["after_forward"] == []
