@@ -107,7 +107,9 @@ blocks on the JAX package's fused-branch entry `convnext_branch_apply`
    non-square map and an odd batch, bit-equal between two runs; times per
    launch in turns at the path's bf16 shapes beside the bound, the twin and
    cuDNN's depthwise weight gradient (`torch.nn.grad.conv2d_weight`, and
-   the weight-only `aten.convolution_backward`), and their sums per step;
+   the weight-only `aten.convolution_backward`), their sums per step and
+   the kernel's over cuDNN's; the library's registers (ptxas) and SASS
+   instruction counts (cuobjdump);
 19. ga_convnext_tiny serving: four requests with 23 launches of kernel 1
    each (18 backbone blocks, 5 gram layers), logits against the plain path
    and an fp32 model, one eval step, eval img/s at B=256 of both paths;
@@ -126,9 +128,13 @@ blocks on the JAX package's fused-branch entry `convnext_branch_apply`
    with the rel-pos bias; kernel 12 at the six shapes of ga_cswin_tiny's
    LePEAttention calls at B=128), at N = 144 and 256, a ragged N=50, D=24,
    heads of 64 and 128 and kernel 12 with a per-window bias, bit-equal
-   between two runs; times per launch in turns at the path shapes beside the
-   bound, the twin and F.scaled_dot_product_attention with the bias as its
-   mask, and their sums per forward;
+   between two runs; kernel 13's bf16 output (tensor cores, no longer
+   bit-equal to its twin) also against the float64 function of its inputs,
+   its error at most 1.25 times the twin's; kernel 12's bits against PR 8's
+   build; times per launch in turns at the path shapes beside the bound, the
+   twin and F.scaled_dot_product_attention with the bias as its mask, their
+   sums per forward and the kernels' over SDPA's; kernel 13's registers and
+   SASS counts;
 22. map_maxvit_tiny_tf_224 with IMTPU_FLASH_ATTN at "1" (phases 22-23 set
    it through `ops.flash_attention._FLASH_ATTN`): serving with 22 launches
    of kernel 13 per request, logits against the plain path and an fp32
@@ -382,6 +388,19 @@ FLASH_EXTRA = (("13", 64, 2, 144, 32, True), ("13", 16, 2, 256, 32, True),
 # fp32 kernel vs twin: both keep every digit of p and sum in fp32 in other
 # orders (1e-7 of a sum of |terms|)
 FLASH_FP32_RTOL = 1e-5
+# kernel 13's bf16 output against the float64 function of the same inputs:
+# the tensor cores sum the products in another order than the twin, so the
+# two may round p or the output to neighbouring bf16 values and are no longer
+# bit-equal; the kernel's largest error may be at most this many times the
+# twin's, at every shape
+FLASH_FP64_RATIO = 1.25
+# kernel 12 (csrc/window_attn_fwd.cu, with csrc/window_attn_common.cuh) is
+# PR 8's: the SHA-256 of its outputs at `k12_digest`'s fixed inputs from the
+# PR 8 build, on an NVIDIA H100 80GB HBM3 with the CUDA 12.8 toolkit
+K12_PR8_DIGEST = "ebf52250d86aac1d93d025b8209a1e4f0d31a7752820a27491fe93e71bb5b4f7"
+# the SASS opcodes counted in the kernels' code reports (phases 18 and 21)
+SASS_OPCODES = ("HMUL2", "HFMA2", "FADD", "FFMA", "FMUL", "HMMA", "LDSM", "LDS", "STS", "LDG",
+                "LDGSTS", "BAR", "SHFL", "MUFU", "BRA")
 # IMTPU_TLNMLP's first train step, kernel path (kernels 1 and 2 on every
 # MLP) against the plain path, by model (H100 80GB HBM3, 700 W, four calls
 # of the same code): MaxViT's bf16 gradients lie 8.6% (L2) apart in a group
@@ -2282,6 +2301,73 @@ def switch_arms(switch: str, kernel, plain, images, targets, card: str, what: st
     return {"img_s": result, "turns": runs}
 
 
+def code_report(build, tag: str) -> dict:
+    """What the compiler made of a kernel library: ptxas's registers and
+    spills of each kernel function (from its nvcc log, `-Xptxas -v`) and the
+    SASS instruction count of each (`cuobjdump -sass`), with the counts of
+    SASS_OPCODES. Logged; a tool that is missing or a reused build (no log)
+    reads "not measured"."""
+    import os
+    import shutil
+    from collections import Counter
+
+    report = {"ptxas": {}, "sass": {}}
+    current = None
+    for line in build.log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            current = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            spill = re.search(r"(\d+) bytes spill stores", build.log[build.log.find(current):])
+            report["ptxas"][current] = {"registers": int(m.group(1)),
+                                        "spill_stores": int(spill.group(1)) if spill else None}
+    tool = shutil.which("cuobjdump") or str(
+        Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump")
+    try:
+        text = subprocess.run([tool, "-sass", str(build.path)], capture_output=True, text=True,
+                              timeout=120, check=True).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        log(f"[code] {tag}: SASS not measured ({e})")
+        text = ""
+    for name, body in re.findall(r"Function : (\S+)\n(.*?)(?=\n\s*Function : |\Z)", text, re.S):
+        ops = Counter(o.split(".")[0] for o in re.findall(
+            r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", body))
+        report["sass"][name] = {"instructions": sum(ops.values()),
+                                **{k: ops[k] for k in SASS_OPCODES if ops[k]}}
+    for name in sorted(set(report["ptxas"]) | set(report["sass"])):
+        regs = report["ptxas"].get(name, {})
+        code = report["sass"].get(name, {})
+        log(f"[code] {tag} {name}: "
+            + (f"{regs['registers']} registers, {regs['spill_stores']} bytes spilled; "
+               if regs else "registers not measured; ")
+            + (", ".join(f"{k} {v}" for k, v in code.items()) if code else "SASS not measured"))
+    return report
+
+
+def k12_digest(run) -> str:
+    """The SHA-256 of kernel 12's outputs (their bits) at fixed inputs made
+    with numpy: GA-CSWin's stage-3 windows (98 tokens) with a per-window bias,
+    a ragged 50 x 24 without one and 256 tokens of 128 channels with one, in
+    bf16 and fp32. `run(q, k, v, bias)` launches a build of kernel 12."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    digest = hashlib.sha256()
+    rng = np.random.default_rng(1212)
+    draw = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    for bw, n, d, with_bias in ((256, 98, 32, True), (64, 50, 24, False), (16, 256, 128, True)):
+        q, k, v = draw(bw, n, d) * d ** -0.5, draw(bw, n, d), draw(bw, n, d)
+        bias = (0.5 * draw(bw, n, n)).cuda() if with_bias else None
+        for dtype, bits in ((torch.bfloat16, torch.int16), (torch.float32, torch.int32)):
+            out = run(q.to(dtype).cuda(), k.to(dtype).cuda(), v.to(dtype).cuda(), bias)
+            torch.cuda.synchronize()
+            digest.update(out.view(bits).cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
 # ---------------------------------------------------------------- GA-ConvNeXt
 
 def dw_bound_ms(b: int, h: int, w: int, c: int, itemsize: int) -> tuple:
@@ -2347,7 +2433,7 @@ def compare_dw(x, dy, tag: str) -> dict:
             "max_abs_err": (got - twin).abs().max().item(), "bit_equal": same}
 
 
-def check_dw(card: str):
+def check_dw(card: str, build):
     """Phase 18: kernel 9 against its twin and float64 sums at the five B=128
     shapes of ga_convnext_tiny's train step, in bf16 (as the path gives them)
     and fp32, and at C = 688, a non-square map and an odd batch; per launch
@@ -2355,7 +2441,8 @@ def check_dw(card: str):
     the bound, and cuDNN's depthwise weight gradient (`torch.nn.grad.
     conv2d_weight`, and the weight-only `aten.convolution_backward`, on the
     channels_last NCHW views), never called by the port; the sums per train
-    step weighted by launches."""
+    step weighted by launches, and the kernel's over cuDNN's; the library's
+    code report (registers, SASS counts)."""
     import torch
 
     from imagenet_models_tpu_torch.ops import dw_conv as dw_ops
@@ -2399,8 +2486,12 @@ def check_dw(card: str):
         rows.append(compare_dw(x.float(), dy.float(), f"{shape} float32"))
     keys = ("ms", "plain_ms", "library_ms", "aten_weight_only_ms", "bound_ms", "fp32_core_floor_ms")
     totals = {k: sum(r["count"] * r[k] for r in times) for k in keys}
+    totals["over_library"] = totals["ms"] / totals["library_ms"]
     log(f"[kernels] per {GA_CONVNEXT} train step (ms, weighted by launches): "
         + ", ".join(f"{k} {v:.4f}" for k, v in totals.items()) + f" on {card}")
+    log(f"[kernels] kernel 9 over cuDNN's conv2d_weight per step: {totals['over_library']:.3f}; by "
+        f"shape: " + ", ".join(f"{r['name']} {r['ms'] / r['library_ms']:.3f}" for r in times))
+    totals["code"] = code_report(build, "dw7_wgrad")
     torch.cuda.empty_cache()
     return rows, times, totals
 
@@ -2641,13 +2732,17 @@ def flash_bound_ms(kernel: str, bw: int, heads: int, n: int, d: int, bias: bool,
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_flash(card: str):
+def check_flash(card: str, build):
     """Phase 21: kernels 12 and 13 against their twins at the paths' shapes
     (MaxViT's four eval stages at B=256 for kernel 13, GA-CSWin's six shapes
     at B=128 for kernel 12) and off them (FLASH_EXTRA), in bf16 and fp32, each
-    bit-equal between two runs; per-launch times at the path shapes in bf16,
-    in turns (twin, kernel, SDPA, SDPA, kernel, twin), beside the bound.
-    SDPA (`F.scaled_dot_product_attention` with the bias as its mask) is the
+    bit-equal between two runs, kernel 13 in bf16 also against the float64
+    function of its inputs (its error at most FLASH_FP64_RATIO times the
+    twin's); kernel 12's bits against PR 8's build (K12_PR8_DIGEST);
+    per-launch times at the path shapes in bf16, in turns (twin, kernel,
+    SDPA, SDPA, kernel, twin), beside the bound, their sums per forward and
+    the kernels' over SDPA's; kernel 13's code report. SDPA
+    (`F.scaled_dot_product_attention` with the bias as its mask) is the
     library yardstick; the port never calls it."""
     import torch
     import torch.nn.functional as F
@@ -2676,15 +2771,29 @@ def check_flash(card: str):
             tol = KERNEL_RTOL if dtype == torch.bfloat16 else FLASH_FP32_RTOL
             same = torch.equal(got, again)
             shape = tuple(q.shape)
+            fp64 = ""
+            if kernel == "13" and dtype == torch.bfloat16:
+                with torch.inference_mode():
+                    s = torch.matmul(q.double(), k.double().transpose(-1, -2)) + b.double()[None]
+                    exact = torch.matmul(torch.softmax(s, -1), v.double())
+                    e_kernel = (got.double() - exact).abs().max().item()
+                    e_twin = (ref.double() - exact).abs().max().item()
+                del s, exact
+                fp64 = (f", max|err| vs float64 kernel {e_kernel:.4g} twin {e_twin:.4g} (ratio "
+                        f"{e_kernel / max(e_twin, 1e-30):.3f}, limit {FLASH_FP64_RATIO})")
             log(f"[kernels] window_attn{'_heads' if kernel == '13' else ''}_fwd {tag} {shape} "
                 f"{str(dtype)[6:]}{' bias' if bias else ''}: max|kernel-twin|/max|twin| = "
-                f"{ratio:.4g} (tol {tol}), bit-equal between runs: {same}")
+                f"{ratio:.4g} (tol {tol}), bit-equal between runs: {same}{fp64}")
             if not (ratio <= tol and same and torch.isfinite(got.float()).all()):
                 raise AssertionError(f"kernel {kernel} disagrees with its twin at {shape} "
                                      f"{dtype}: {ratio}, bit-equal {same}")
+            if fp64 and not e_kernel <= FLASH_FP64_RATIO * e_twin:
+                raise AssertionError(f"kernel 13 is farther from float64 than its twin at {shape}: "
+                                     f"{e_kernel} against {e_twin}")
             rows.append({"kernel": kernel, "tag": tag, "shape": list(shape), "dtype": str(dtype),
                          "bias": bias, "max_abs_err": (got.float() - ref.float()).abs().max().item(),
-                         "err_over_max_twin": ratio})
+                         "err_over_max_twin": ratio,
+                         **({"fp64_err": e_kernel, "twin_fp64_err": e_twin} if fp64 else {})})
             if tag == "extra" or dtype != torch.bfloat16:
                 continue
             mask = None if b is None else (b[None] if kernel == "13" else b).to(dtype)
@@ -2704,11 +2813,20 @@ def check_flash(card: str):
             del q, k, v, b, got, again, ref
     for kernel, weights, what in (("13", MAXVIT_FLASH_WEIGHTS, f"{MAXVIT} eval forward, B=256"),
                                   ("12", CSWIN_FLASH_WEIGHTS, f"{GA_CSWIN} forward, B=128")):
+        over = weighted(times[kernel], "ms", weights) / weighted(times[kernel], "library_ms", weights)
+        by_shape = ", ".join(f"{r['tag']} {r['ms'] / r['library_ms']:.3f}" for r in times[kernel])
         log(f"[kernels] kernel {kernel} per {what}: " + ", ".join(
             f"{key} {weighted(times[kernel], key, weights):.3f} ms"
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms")))
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"))
+            + f"; kernel over SDPA {over:.3f} (by shape {by_shape})")
+    digest = k12_digest(fa.fused_window_attention)
+    log(f"[kernels] kernel 12's bits at k12_digest's inputs: {digest}; PR 8's build: "
+        f"{K12_PR8_DIGEST}")
+    if digest != K12_PR8_DIGEST:
+        raise AssertionError("kernel 12 no longer gives PR 8's bits")
+    code = code_report(build, "window_attn_heads_fwd")
     torch.cuda.empty_cache()
-    return rows, times
+    return rows, times, {"k12_digest": digest, "code": code}
 
 
 def flash_maxvit(card: str) -> dict:
@@ -3417,7 +3535,7 @@ def main() -> int:
     from imagenet_models_tpu_torch.ops import dw_conv as dw_ops
     from imagenet_models_tpu_torch.ops.convnext_block import fused_ln_mlp, fused_ln_mlp_bwd
 
-    dw_rows, dw_times, dw_totals = check_dw(card)
+    dw_rows, dw_times, dw_totals = check_dw(card, builds["dw7_wgrad"])
     ga_serve_launches, ga_serve = serve_branches(
         card, GA_CONVNEXT, (fused_ln_mlp, fused_ln_mlp_bwd, dw_ops.fused_dw7_wgrad),
         GA_LAUNCHES, "ga-", ls_init_value=1.0)
@@ -3437,7 +3555,7 @@ def main() -> int:
     from imagenet_models_tpu_torch.ops import convnext_block as cb_ops
     from imagenet_models_tpu_torch.ops import flash_attention as fa_ops
 
-    flash_rows, flash_times = check_flash(card)
+    flash_rows, flash_times, flash_extra = check_flash(card, builds["window_attn_heads_fwd"])
     fa_ops._FLASH_ATTN = "1"
     mv_flash = flash_maxvit(card)
     cs_flash = flash_cswin(card)
@@ -3565,7 +3683,7 @@ def main() -> int:
                         "train_launches": ga_launches, "train_arms": ga_arms,
                         "train_profile": ga_prof, "map_convnext_tiny_arms": cx_dw_arms},
         "flash": {"checks": flash_rows, "times": flash_times, "maxvit": mv_flash,
-                  "ga_cswin": cs_flash},
+                  "ga_cswin": cs_flash, **flash_extra},
         "tlnmlp": tlnmlp,
         "convnext_branch": {"checks": branch_rows, "times_b128": branch_times_b128,
                             "per_forward_and_step_ms": branch_totals, **branch},

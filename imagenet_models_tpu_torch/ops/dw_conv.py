@@ -102,13 +102,13 @@ def fused_dw7_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     from imagenet_models_tpu_torch.ops._kernels import dw7_wgrad_library
 
     lib = dw7_wgrad_library()
-    slabs = lib.imt_dw7_wgrad_slabs(b, h, w, c)
-    if slabs <= 0:
-        raise ValueError(f"fused_dw7_wgrad does not take (B, H, W, C) = {tuple(x.shape)}: "
-                         f"it needs a non-empty map with C % 8 == 0")
-    partials = torch.empty(slabs, K * K, c, dtype=torch.float32, device=x.device)
-    dw = torch.empty(c, 1, K, K, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device):  # the plan reads the device's SM count
+        slabs = lib.imt_dw7_wgrad_slabs(b, h, w, c)
+        if slabs <= 0:
+            raise ValueError(f"fused_dw7_wgrad does not take (B, H, W, C) = {tuple(x.shape)}: "
+                             f"it needs a non-empty map with C % 8 == 0")
+        partials = torch.empty(slabs, K * K, c, dtype=torch.float32, device=x.device)
+        dw = torch.empty(c, 1, K, K, dtype=torch.float32, device=x.device)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.imt_dw7_wgrad(x.data_ptr(), dy.data_ptr(), _DTYPES[x.dtype], b, h, w, c,
                                 partials.data_ptr(), dw.data_ptr(), stream)

@@ -178,7 +178,10 @@ def fused_window_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     (H, N, N) bias (used in fp32); returns (BW, H, N, D) in q's dtype.
 
     Replaces `fused_window_attention_heads` (ops/flash_attention.py:134).
-    Raises on anything the kernel does not take, CPU tensors included.
+    In bf16 its products run on the tensor cores, whose fp32 sums take
+    another order than the twin's, so the two may round p or the output to
+    neighbouring bf16 values (fp32 keeps the twin's arithmetic). Raises on
+    anything the kernel does not take, CPU tensors included.
     `fused_window_attention_heads.launches` counts launches."""
     from imagenet_models_tpu_torch.ops._kernels import window_attn_heads_fwd_library
 

@@ -317,7 +317,8 @@ def _fp64_check(x, g, got):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("shape", [(4, 56, 56, 96), (8, 14, 14, 384), (3, 7, 7, 768),
-                                   (5, 13, 19, 688), (1, 40, 9, 40)])
+                                   (5, 13, 19, 688), (1, 40, 9, 40), (6, 20, 36, 128),
+                                   (2, 28, 28, 192), (3, 5, 3, 16)])
 def test_kernel_matches_twin_and_fp64_on_cuda(shape, dtype):
     gen = _cuda()
     x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)

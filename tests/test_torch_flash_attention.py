@@ -25,8 +25,12 @@ from imagenet_models_tpu_torch.ops import flash_attention as tfa
 
 # (BW, N, D): tests/test_flash_attention.py:27
 SHAPES = [(16, 56, 32), (8, 98, 32), (16, 49, 32), (4, 50, 24)]
-# (BW, H, N, D): tests/test_flash_attention.py:67
-HEAD_SHAPES = [(8, 2, 49, 32), (4, 3, 50, 24)]
+# (BW, H, N, D): tests/test_flash_attention.py:67, then the shapes where
+# kernel 13's tensor-core tiles pad or split: one 16-row tile, a window of
+# exactly 64 keys, 65 keys (a second key chunk), and heads of 16, 24
+# (padded to 32) and 48 channels
+HEAD_SHAPES = [(8, 2, 49, 32), (4, 3, 50, 24), (2, 2, 16, 16), (2, 2, 64, 24), (2, 2, 65, 48)]
+NEW_HEAD_SHAPES = HEAD_SHAPES[2:]
 # fp32 on both sides: only the summation order differs
 # (tests/test_flash_attention.py:43)
 F32 = dict(rtol=2e-6, atol=2e-6)
@@ -71,6 +75,22 @@ def test_heads_twin_matches_pallas_kernel(bw, h, n, d):
     q, k, v, b = _inputs((bw, h, n, d), (h, n, n), seed=3)
     got = tfa.plain_fused_window_attention_heads(*_torch(q, k, v, b))
     np.testing.assert_allclose(got.numpy(), _pallas(q, k, v, b, True, np.float32), **F32)
+
+
+@pytest.mark.parametrize("bw,h,n,d", NEW_HEAD_SHAPES)
+def test_heads_bf16_twin_matches_pallas_kernel(bw, h, n, d):
+    """bf16 q, k, v at the tensor-core tiles' edge shapes, against the Pallas
+    kernel on the same bf16 values: within 1e-2 of the largest |output| (2.5
+    bf16 ulps), as `test_bf16_twins_match_pallas_kernel`."""
+    import jax.numpy as jnp
+
+    q, k, v, b = _inputs((bw, h, n, d), (h, n, n), seed=14)
+    got = tfa.plain_fused_window_attention_heads(*_torch(q, k, v, dtype=torch.bfloat16),
+                                                 torch.from_numpy(b))
+    assert got.dtype == torch.bfloat16
+    ref = _pallas(q, k, v, b, True, jnp.bfloat16)
+    err = np.abs(got.float().numpy() - ref).max()
+    assert err <= 1e-2 * np.abs(ref).max(), err
 
 
 @pytest.mark.parametrize("heads", [False, True])
@@ -223,13 +243,24 @@ def test_kernel12_matches_twin_on_cuda(bw, n, d, with_bias, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("bw,h,n,d", [(9, 2, 49, 32), (4, 16, 49, 32), (3, 4, 144, 32),
-                                      (2, 3, 256, 32), (5, 3, 50, 24)])
+                                      (2, 3, 256, 32), (5, 3, 50, 24), (7, 3, 16, 16),
+                                      (7, 3, 64, 24), (7, 3, 65, 48), (3, 2, 49, 128),
+                                      (5, 2, 1, 8)])
 def test_kernel13_matches_twin_on_cuda(bw, h, n, d, dtype):
+    """Kernel 13 against its twin; in bf16 (tensor cores, sums in another
+    order than the twin's) also against the float64 function of the same
+    inputs: its error at most 1.25 times the twin's."""
     q, k, v, b = _cuda((bw, h, n, d), (h, n, n), dtype, seed=11)
     out = tfa.fused_window_attention_heads(q, k, v, b)
     torch.cuda.synchronize()
-    _assert_kernel_close(out, tfa.plain_fused_window_attention_heads(q, k, v, b))
+    twin = tfa.plain_fused_window_attention_heads(q, k, v, b)
+    _assert_kernel_close(out, twin)
     assert torch.equal(tfa.fused_window_attention_heads(q, k, v, b), out)
+    if dtype == torch.bfloat16:
+        s = torch.matmul(q.double(), k.double().transpose(-1, -2)) + b.double()[None]
+        ref = torch.matmul(torch.softmax(s, -1), v.double())
+        err = (out.double() - ref).abs().max().item()
+        assert err <= 1.25 * (twin.double() - ref).abs().max().item(), err
 
 
 @pytest.mark.cuda
