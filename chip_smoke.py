@@ -204,6 +204,11 @@ def stage_shapes(batch: int):
 
 
 RAGGED_SHAPE = (49 * 3 + 5, 768)
+# kernel 2's edges, (n, C, hidden): one token, a few, one more or less than
+# k 128-token tiles; C = 688 (43 x 16) and 1024; a hidden width other than
+# 4C
+BWD_EDGE_SHAPES = ((1, 64, 256), (17, 96, 384), (128 * 3 - 1, 96, 384), (128 * 2 + 1, 688, 2752),
+                   (128 + 1, 1024, 4096), (128 * 5 + 3, 96, 256))
 # bf16 kernel vs twin: both sum in fp32 in different orders, so a result may
 # round to the neighbouring bf16 value; 1e-2 of the largest |output| is 2.5
 # bf16 ulps at the top of the range. The same bound holds every output of the
@@ -400,7 +405,7 @@ FLASH_FP64_RATIO = 1.25
 K12_PR8_DIGEST = "ebf52250d86aac1d93d025b8209a1e4f0d31a7752820a27491fe93e71bb5b4f7"
 # the SASS opcodes counted in the kernels' code reports (phases 18 and 21)
 SASS_OPCODES = ("HMUL2", "HFMA2", "FADD", "FFMA", "FMUL", "HMMA", "LDSM", "LDS", "STS", "LDG",
-                "LDGSTS", "BAR", "SHFL", "MUFU", "BRA")
+                "LDGSTS", "BAR", "SHFL", "MUFU", "BRA", "HGMMA", "UTMALDG", "SYNCS")
 # IMTPU_TLNMLP's first train step, kernel path (kernels 1 and 2 on every
 # MLP) against the plain path, by model (H100 80GB HBM3, 700 W, four calls
 # of the same code): MaxViT's bf16 gradients lie 8.6% (L2) apart in a group
@@ -447,8 +452,8 @@ DW_ARMS = (("1", "kernel"), ("0", "kernel"), ("0", "plain"))
 # the switch's arms timed in phase 16: (IMTPU_PALLAS_BN, path)
 BN_ARMS = (("full", "kernel"), ("full", "plain"), ("bwd", "kernel"), ("0", "kernel"))
 # the device kernels of kernels 1 and 2 (csrc/ln_mlp_fwd.cu, csrc/ln_mlp_bwd.cu)
-LN_MLP_KERNEL_NAMES = ("ln_mlp_fwd_kernel", "ln_mlp_bwd_dx_kernel", "::wgrad_kernel",
-                       "colsum_kernel", "dw2_finish_kernel")
+LN_MLP_KERNEL_NAMES = ("ln_mlp_fwd_kernel", "ln_mlp_bwd_prologue_kernel", "ln_mlp_bwd_gemm_kernel",
+                       "ln_mlp_bwd_rows_kernel", "colsum_kernel", "dw2_finish_kernel")
 # the card's published dense peaks (H100 SXM, NVIDIA's data sheet)
 PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FP32_FLOPS = 989e12, 3.35e12, 67e12
 OUT_DIR = Path("chiprun_out")
@@ -506,16 +511,17 @@ def bound_ms(n: int, c: int, backward: bool) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def ln_mlp_args(n: int, c: int, gen):
+def ln_mlp_args(n: int, c: int, gen, hidden: int = 0):
     import torch
 
     def randn(*shape, scale=1.0, shift=0.0):
         return torch.randn(*shape, generator=gen, device="cuda") * scale + shift
 
+    hid = hidden or 4 * c
     return (randn(n, c).to(torch.bfloat16),
             randn(c, scale=0.1, shift=1.0), randn(c, scale=0.1),
-            randn(4 * c, c, scale=c ** -0.5).to(torch.bfloat16), randn(4 * c, scale=0.1),
-            randn(c, 4 * c, scale=(4 * c) ** -0.5).to(torch.bfloat16), randn(c, scale=0.1),
+            randn(hid, c, scale=c ** -0.5).to(torch.bfloat16), randn(hid, scale=0.1),
+            randn(c, hid, scale=hid ** -0.5).to(torch.bfloat16), randn(c, scale=0.1),
             randn(c))
 
 
@@ -587,15 +593,19 @@ BWD_NAMES = ("dx", "dln_s", "dln_b", "dw1", "db1", "dw2", "db2", "dgamma")
 
 def compare_backward(args, g, gelu_impl: str, tag: str) -> dict:
     """One launch of kernel 2 against its twin on the same inputs, all eight
-    outputs; raises past KERNEL_RTOL."""
+    outputs, and a second launch against the first; raises past KERNEL_RTOL
+    or if the second gives other bits."""
     import torch
 
     from imagenet_models_tpu_torch.ops.convnext_block import fused_ln_mlp_bwd, plain_ln_mlp_bwd
 
     n, c = args[0].shape
+    hidden = args[3].shape[0]
     got = fused_ln_mlp_bwd(args[0], g, *args[1:], gelu_impl=gelu_impl)
+    again = fused_ln_mlp_bwd(args[0], g, *args[1:], gelu_impl=gelu_impl)
     ref = plain_ln_mlp_bwd(args[0], g, *args[1:], gelu_impl=gelu_impl)
     torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
     ratios = {}
     for name, o, r in zip(BWD_NAMES, got, ref):
         if o.shape != r.shape or o.dtype != r.dtype:
@@ -605,29 +615,36 @@ def compare_backward(args, g, gelu_impl: str, tag: str) -> dict:
             raise AssertionError(f"backward kernel output {name} at ({n}, {c}) is not finite")
         ratios[name] = rel_err(o, r)
     err = max((o.float() - r.float()).abs().max().item() for o, r in zip(got, ref))
-    log(f"[kernels] ln_mlp_bwd[{gelu_impl}] {tag}N={n} C={c}: max|kernel-twin|/max|twin| "
-        + " ".join(f"{k}={v:.3g}" for k, v in ratios.items()) + f" (tol {KERNEL_RTOL})")
+    log(f"[kernels] ln_mlp_bwd[{gelu_impl}] {tag}N={n} C={c} hidden={hidden}: "
+        "max|kernel-twin|/max|twin| " + " ".join(f"{k}={v:.3g}" for k, v in ratios.items())
+        + f" (tol {KERNEL_RTOL}); bit-equal across two runs: {same}")
     bad = [k for k, v in ratios.items() if not v <= KERNEL_RTOL]
-    if bad:
+    if bad or not same:
         raise AssertionError(f"backward kernel ({gelu_impl}) disagrees with its twin at "
-                             f"({n}, {c}) in {bad}")
-    return {"n": n, "c": c, "gelu": gelu_impl, "max_abs_err": err, "ratios": ratios}
+                             f"({n}, {c}, {hidden}) in {bad}, or moved between runs ({same})")
+    return {"n": n, "c": c, "hidden": hidden, "gelu": gelu_impl, "max_abs_err": err,
+            "ratios": ratios, "bit_equal": same}
 
 
 def check_backward():
-    """Kernel 2 vs its twin with both GELUs at the B=64 stage shapes and the
-    ragged one, and with the training GELU at the B=128 stage shapes, where
-    its halves (a) and (b) and the twin are also timed per launch."""
+    """Kernel 2 vs its twin with both GELUs at the B=64 stage shapes, the
+    ragged one and BWD_EDGE_SHAPES, bit-equal across two runs; with the
+    training GELU at the B=128 stage shapes, where it is also timed per
+    launch in turns with the twin, each stage of its pipeline alone
+    (`ln_mlp_bwd_pipeline`), and, as a yardstick of the tensor cores and not
+    the same function, its five products as torch.matmul calls at the same
+    shapes (which the port never calls)."""
     import torch
 
     from imagenet_models_tpu_torch.ops.convnext_block import (
-        fused_ln_mlp_bwd, ln_mlp_bwd_dx, ln_mlp_bwd_wgrad, plain_ln_mlp_bwd)
+        BWD_STAGES, fused_ln_mlp_bwd, ln_mlp_bwd_pipeline, plain_ln_mlp_bwd)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rows = []
     for gelu_impl in ("exact", "fast"):
-        for n, c in stage_shapes(64) + [RAGGED_SHAPE]:
-            args = ln_mlp_args(n, c, gen)
+        for n, c, hidden in ([(n, c, 0) for n, c in stage_shapes(64) + [RAGGED_SHAPE]]
+                             + list(BWD_EDGE_SHAPES)):
+            args = ln_mlp_args(n, c, gen, hidden)
             g = torch.randn(n, c, generator=gen, device="cuda").to(torch.bfloat16)
             rows.append(compare_backward(args, g, gelu_impl, ""))
             del args, g
@@ -637,22 +654,29 @@ def check_backward():
         g = torch.randn(n, c, generator=gen, device="cuda").to(torch.bfloat16)
         rows.append(compare_backward(args, g, "fast", f"B={TRAIN_BATCH} "))
         iters = max(3, min(30, 1_000_000 // n))
-        _, scratch = ln_mlp_bwd_dx(args[0], g, *args[1:], gelu_impl="fast")
         t = in_turns({"kernel": lambda: fused_ln_mlp_bwd(args[0], g, *args[1:], gelu_impl="fast"),
                       "plain": lambda: plain_ln_mlp_bwd(args[0], g, *args[1:], gelu_impl="fast")},
                      iters)
-        dx_ms = cuda_ms(lambda: ln_mlp_bwd_dx(args[0], g, *args[1:], gelu_impl="fast"), iters)
-        wgrad_ms = cuda_ms(lambda: ln_mlp_bwd_wgrad(scratch), iters)
+        call = ln_mlp_bwd_pipeline(args[0], g, *args[1:], gelu_impl="fast")
+        stages = {name: cuda_ms(lambda k=k: call.run(k, k + 1), iters)
+                  for k, name in enumerate(BWD_STAGES)}
+        del call
+        h, w1, w2 = args[0], args[3], args[5]
+        mid = torch.randn(n, 4 * c, generator=gen, device="cuda").to(torch.bfloat16)
+        products = (lambda: h @ w1.t(), lambda: g @ w2, lambda: mid @ w1, lambda: mid.t() @ h,
+                    lambda: g.t() @ mid)
+        matmul_ms = cuda_ms(lambda: [p() for p in products], iters)
         bound, by = bound_ms(n, c, backward=True)
         row = {"n": n, "c": c, "ms": sum(t["kernel"]) / 2, "plain_ms": sum(t["plain"]) / 2,
-               "dx_ms": dx_ms, "wgrad_ms": wgrad_ms, "bound_ms": bound, "bound_by": by,
+               "stages_ms": stages, "matmul5_ms": matmul_ms, "bound_ms": bound, "bound_by": by,
                "turns": t}
         times.append(row)
-        log(f"[kernels] ln_mlp_bwd[fast] B={TRAIN_BATCH} N={n} C={c}: kernel {row['ms']:.4f} ms "
-            f"((a) {dx_ms:.4f} + (b) {wgrad_ms:.4f}), twin {row['plain_ms']:.4f} ms, bound "
+        log(f"[kernels] ln_mlp_bwd[fast] B={TRAIN_BATCH} N={n} C={c}: kernel {row['ms']:.4f} ms ("
+            + ", ".join(f"{k} {v:.4f}" for k, v in stages.items()) + f" alone), twin "
+            f"{row['plain_ms']:.4f} ms, five torch.matmul products {matmul_ms:.4f} ms, bound "
             f"{bound:.4f} ms ({by}) (twin,kernel,kernel,twin: {t['plain'][0]:.4f},"
             f"{t['kernel'][0]:.4f},{t['kernel'][1]:.4f},{t['plain'][1]:.4f})")
-        del args, g, scratch
+        del args, g, mid
     return rows, times
 
 
@@ -1908,10 +1932,39 @@ def bn_bound_ms(n: int, c: int, itemsizes) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def bn_bare_ms(which: str, a, b, iters: int) -> float:
+    """Milliseconds per launch of kernel 7 (on b, which="fwd") or 8 (on a, b)
+    launched back to back through its C entry point alone, from a workspace
+    and tickets made once: the device's time wherever it exceeds the one
+    ctypes call left on the host."""
+    import ctypes
+
+    import torch
+
+    from imagenet_models_tpu_torch.ops import _kernels
+    from imagenet_models_tpu_torch.ops import batch_norm as bn_ops
+
+    ops = [b] if which == "fwd" else [a, b]
+    lib = _kernels.bn_moments_library() if which == "fwd" else _kernels.bn_dot_sums_library()
+    fn = lib.imt_bn_moments if which == "fwd" else lib.imt_bn_dot_sums
+    c = b.shape[-1]
+    n = b.numel() // c
+    sizes = (ctypes.c_longlong * 2)()
+    lib.imt_bn_plan(n, c, sizes)
+    work = torch.empty(sizes[0], dtype=torch.float32, device="cuda")
+    tickets = torch.zeros(sizes[1], dtype=torch.int32, device="cuda")
+    args = []
+    for t in ops:
+        args += [t.data_ptr(), bn_ops._row_stride(t), bn_ops._DTYPES[t.dtype]]
+    args += [n, c, work.data_ptr(), tickets.data_ptr(), torch.cuda.current_stream().cuda_stream]
+    return cuda_ms(lambda: fn(*args), iters)
+
+
 def compare_bn(a, b, tag: str) -> dict:
     """Kernels 7 (on a) and 8 (on a, b) against their twins and float64 sums;
     raises past BN_SUM_RTOL of the per-channel sum of |terms|, or if kernel
-    8 gives other bits on a second run."""
+    8 gives other bits on a second run, or on a third after a call on
+    another shape (a stale last-block ticket would show there)."""
     import torch
 
     from imagenet_models_tpu_torch.ops import batch_norm as bn_ops
@@ -1933,11 +1986,14 @@ def compare_bn(a, b, tag: str) -> dict:
                         "max_abs_err": max(rel_err(g, t) for g, t in zip(got, twin))}
     again = bn_ops.fused_channel_dot_sums(a, b)
     first = bn_ops.fused_channel_dot_sums(a, b)
-    same = all(torch.equal(x, y) for x, y in zip(again, first))
+    other = torch.ones(3, 5, 7, 24, device=a.device, dtype=a.dtype)  # another plan
+    bn_ops.fused_channel_dot_sums(other, other)
+    after = bn_ops.fused_channel_dot_sums(a, b)
+    same = all(torch.equal(x, y) and torch.equal(x, z) for x, y, z in zip(again, first, after))
     log(f"[kernels] bn {tag}: |kernel - fp64| / sum|terms| moments "
         f"{checks['moments']['vs_fp64']:.3g}, dot_sums {checks['dot_sums']['vs_fp64']:.3g}; vs "
         f"twin {checks['moments']['vs_twin']:.3g}, {checks['dot_sums']['vs_twin']:.3g} (tol "
-        f"{BN_SUM_RTOL}); dot sums bit-equal across runs: {same}")
+        f"{BN_SUM_RTOL}); dot sums bit-equal across runs and after another shape: {same}")
     bad = [k for k, v in checks.items() if not (v["vs_fp64"] <= BN_SUM_RTOL
                                                and v["vs_twin"] <= BN_SUM_RTOL)]
     if bad or not same:
@@ -1954,7 +2010,10 @@ def check_bn(card: str):
     operand types; per launch in turns (twin, kernel, kernel, twin) at the
     path's bf16 shapes, beside the bound and one PyTorch call per kernel
     (`torch.batch_norm_stats`, `torch.batch_norm_backward_reduce` on the
-    NCHW channels_last view), never called by the port."""
+    NCHW channels_last view), never called by the port; each kernel's
+    device time per launch from the profiler, and its time launched back to
+    back through the C entry point alone (`bn_bare_ms`), beside them, so
+    that host and device time stand apart."""
     import torch
 
     from imagenet_models_tpu_torch import create_model
@@ -1996,12 +2055,16 @@ def check_bn(card: str):
                     log(f"[kernels] library call for {shape} failed: {e}")
                     lib_ms = None
             bound, by = bn_bound_ms(n, c, sizes)
+            device = device_ms_by_kernel(kern, 10, "channel_sums_kernel", per_launch=True)
             row = {"shape": list(shape), "count": count, "ms": sum(t["kernel"]) / 2,
                    "plain_ms": sum(t["plain"]) / 2, "library_ms": lib_ms, "bound_ms": bound,
-                   "bound_by": by, "turns": t}
+                   "bound_by": by, "device_ms": device.get("channel_sums_kernel"),
+                   "bare_ms": bn_bare_ms(which, b, a, iters), "turns": t}
             times[which].append(row)
             log(f"[kernels] bn_{'moments' if which == 'fwd' else 'dot_sums'} {shape} bf16 "
-                f"(x{count} per step): kernel {row['ms']:.4f} ms, twin {row['plain_ms']:.4f} ms, "
+                f"(x{count} per step): kernel {row['ms']:.4f} ms (device {row['device_ms']} ms, "
+                f"bare launches {row['bare_ms']:.4f} ms), "
+                f"twin {row['plain_ms']:.4f} ms, "
                 f"bound {bound:.4f} ms ({by}), library {lib_ms} ms "
                 f"(twin,kernel,kernel,twin: {t['plain'][0]:.4f},{t['kernel'][0]:.4f},"
                 f"{t['kernel'][1]:.4f},{t['plain'][1]:.4f}) on {card}")
@@ -2018,7 +2081,8 @@ def check_bn(card: str):
     rows.append(compare_bn(wide[..., 1:97], wide[..., 96:192], "(5, 9, 9, 96) channel slices"))
     totals = {w: {k: (sum(r["count"] * r[k] for r in times[w])
                       if all(r[k] is not None for r in times[w]) else None)
-                  for k in ("ms", "plain_ms", "library_ms", "bound_ms")} for w in times}
+                  for k in ("ms", "device_ms", "bare_ms", "plain_ms", "library_ms", "bound_ms")}
+              for w in times}
     log(f"[kernels] per {RESNET} train step (ms, weighted by launches): kernel 7 {totals['fwd']}; "
         f"kernel 8 {totals['bwd']} on {card}")
     torch.cuda.empty_cache()
@@ -3120,17 +3184,20 @@ def branch_times(x, g, params, count: int, card: str, tag: str) -> tuple:
     return rows[0], rows[1]
 
 
-def device_ms_by_kernel(fn, calls: int = 3) -> dict:
+def device_ms_by_kernel(fn, calls: int = 3, want: str = "", per_launch: bool = False) -> dict:
     """Device milliseconds per call of `fn` by kernel name, from torch.profiler
-    over `calls` calls (after one to warm up); a second window if the first
-    caught no device event. Empty if neither did."""
+    over `calls` calls (after one to warm up); up to two more windows while
+    a window caught no device event (or none of the kernel `want`). Empty if
+    none did. `per_launch`: milliseconds per launch the profiler caught
+    instead (it may miss launches of a short kernel called many times)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     out = {}
-    for _ in range(2):
+    for _ in range(3):
+        out = {}
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
@@ -3142,8 +3209,9 @@ def device_ms_by_kernel(fn, calls: int = 3) -> dict:
                     dev_us = ev.self_cuda_time_total
                 name = re.split(r"[<(]", ev.key.replace("(anonymous namespace)::", ""))[0]
                 name = name.split("::")[-1].replace("void ", "").strip()
-                out[name] = out.get(name, 0.0) + dev_us / 1e3 / calls
-        if out:
+                share = ev.count if per_launch else calls
+                out[name] = out.get(name, 0.0) + dev_us / 1e3 / share
+        if out and (not want or want in out):
             break
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 

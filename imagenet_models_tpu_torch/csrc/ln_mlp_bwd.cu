@@ -16,43 +16,69 @@
 // the twin sums bf16(g*gamma)^T hmid; the two differ by that one rounding.
 // And dgamma = sum_t g * pre2 is taken from the same product, as
 // sum_j W2[c][j] * (g^T hmid)[c][j] + b2[c] * sum_t g[t][c], so pre2 is never
-// formed.
-//
-// Why it is not the TPU kernel. The TPU kernel adds every token tile's weight
-// gradients into one output block, relying on grid steps that run in order.
-// Hopper's blocks run in parallel in no order, and a block's 227 KB of shared
-// memory holds neither W1 + W2 (4.7 MB in bf16 at C=768) nor an fp32 dW
-// partial (9.4 MB). So the work is split in two halves, with no float atomics,
-// and summed in a fixed order (the same result on every run):
-//  (a) ln_mlp_bwd_dx_kernel, one block of 8 warps per tile of T tokens, laid
-//      out as the forward kernel: the LN'd tile and the dpre2 tile stay in
-//      shared memory; W1 and W2 chunks of HC hidden units stream through it
-//      with cp.async. Loop 1 over the chunks recomputes pre1 and GELU, and
-//      computes dhmid = dpre2 W2 and dpre1; it writes hmid and dpre1 in bf16
-//      to HBM. Loop 2 reads its own dpre1 back and accumulates dln = dpre1 W1
-//      in registers. Then the LN backward per token gives dx. Each block
-//      writes one fp32 row of partial vector sums. The bf16 tok tile goes to
-//      HBM too.
-//  (b) wgrad_kernel, a hand-written tiled product out = A^T B over tokens:
-//      each block owns a 128 x 128 tile of dW1 = dpre1^T tok or G = g^T hmid
-//      and one slice of the N tokens (wmma, fp32 sums, a double-buffered
-//      cp.async ring of 32-token stages). A second pass adds the slices'
-//      partials, and the blocks' vector rows of (a), each column in a fixed
-//      order; a last pass turns G into dW2 = gamma * G and adds
-//      sum_j W2 * G to dgamma.
+// formed. Nothing is added with float atomics: every sum over tokens meets
+// in a fixed order, so the same inputs give the same bits on every run.
 //
 // What bounds it on the H100. The recomputed forward plus the backward are
-// five products of N x hidden x C (8*N*C^2 flops each at hidden = 4C: pre1,
-// dhmid and dln in (a), dW1 and G in (b)), far above the card's ~295
-// flop/byte balance, so the fused TPU design is bound by the tensor cores.
-// This version also writes and re-reads two (N, hidden) bf16 tensors, hmid
-// and dpre1: at stage 0 of B=128 (N = 401408, hidden = 384) that is 2 x 308 MB
-// written and read back, about 0.37 ms of HBM time, the traffic a later
-// design removes by keeping the hidden on chip across both halves
-// (weight-grad sums in a cluster's distributed shared memory, or wgmma with
-// TMA). Loop 2 of (a) does not overlap its loads with its products.
+// five products of N x hidden x C (8*N*C^2 flops each at hidden = 4C): pre1
+// and dhmid, dln, dW1 and G, each far above the card's ~295 flop/byte
+// balance, so the work is bound by the tensor cores, 0.15 ms at peak per
+// launch at the B=128 stage shapes of map_convnext_tiny. The earlier design
+// (one block of 8 warps per tile of 16-64 tokens, wmma fragments, W1 and W2
+// streamed through shared memory for every tile) moved 24*C^2 bytes of
+// weights per tile, 1.4-5.6 GB per launch, at 16-64 flops per byte, and ran
+// 20x over that bound. This one splits the work into GEMM-shaped kernels
+// with 128 x 128 tiles on `wgmma` (m64n128k16, fp32 sums in registers), fed
+// by TMA into a four-stage ring of shared memory that a producer warp keeps
+// full, with mbarriers, while two consumer warpgroups of 64 rows each
+// multiply; the CTAs are persistent (one per SM, walking over the tiles),
+// so the producer loads the next tile while the consumers finish one. Each
+// weight byte now serves 128 tokens:
+//
+//  (i)   ln_mlp_bwd_prologue_kernel, a warp (16 lanes at C <= 128) per
+//        token row, several rows in flight, memory-bound: the LN
+//        statistics (mu, rstd), tok = bf16(LN(h)), dpre2 = bf16(g*gamma),
+//        and each block's partial sums of db2 and of dgamma's b2 * sum g.
+//  (ii)  ln_mlp_bwd_gemm_kernel<kHidden>: on a tile of 128 tokens x 128
+//        hidden units, pre1 = tok W1^T and dhmid = dpre2 W2 (K = C, two
+//        accumulators); the epilogue writes hmid = bf16(GELU(pre1 + b1))
+//        and dpre1 = bf16(dhmid * gelu'(pre1 + b1)) into swizzled shared
+//        memory, TMA stores take them out while the next tile multiplies,
+//        and the tile's partial sums of db1 (of the fp32 dpre1).
+//  (iii) ln_mlp_bwd_gemm_kernel<kDln>: dln = dpre1 W1 (K = hidden) on 128
+//        tokens x 128 channels; the epilogue takes the LN backward as far
+//        as a tile's channels allow: dxhat = dln * ln_s (fp32, to HBM),
+//        each row's partial sums of dxhat and dxhat * xhat over the tile's
+//        channels, and the tile's partial sums of dln_s and dln_b. A row's
+//        means need all C channels, and a CTA cannot hold 128 tokens x C
+//        fp32 sums for C up to 1024 (512 KB), so C is split into
+//        128-channel tiles and ln_mlp_bwd_rows_kernel, a small second pass
+//        (about 2 x N x C x 4 bytes more traffic, 11-23 us at the B=128
+//        shapes of stages 1-3), adds the row sums and writes dx = rstd *
+//        (dxhat - m1 - xhat * m2). Where one tile spans C (C <= 128, stage
+//        0) the epilogue has whole rows and writes dx itself.
+//  (iv)  ln_mlp_bwd_gemm_kernel<kWgrad>: dW1 = dpre1^T tok and G = g^T
+//        hmid, both operands read token-major from shared memory as
+//        MN-major (the transpose bits of a bf16 wgmma); each CTA owns a
+//        128 x 128 output tile and one slice of the tokens (a multiple of
+//        64, as many slices as fill the card's rounds), and the slices'
+//        partials are added in the fixed order of wgrad_common.cuh. The
+//        blocks' vector partial rows of (i)-(iii) are added the same way,
+//        and dw2_finish_kernel turns G into dW2 = gamma * G and adds sum_j
+//        W2 * G to dgamma.
+//
+// Ragged edges (N not a multiple of 128, C = 688 = 43 x 16, hidden tiles of
+// 64) take TMA's zero fill on the loads and masks (or the store maps'
+// clipping) on the stores: one path. What remains over the bound: the
+// pipeline's traffic, hmid and dpre1 (two N x hidden bf16 tensors) written
+// and read back three times: about 2 GB at stage 0 of B=128 (N = 401408,
+// C = 96), 0.6 ms at 3.35 TB/s; the epilogues' GELU work at stages 0-1;
+// and at stages 2-3 tiles too small for the L2's rate (128 x 128 tiles
+// feed 64 flops per byte streamed).
 
-#include <type_traits>
+#include <cuda.h>
+
+#include <algorithm>
 
 #include "ln_mlp_common.cuh"
 #include "wgrad_common.cuh"
@@ -61,532 +87,716 @@ namespace {
 
 using namespace imt;
 
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragACol;
+// ------------------------------------------------------------- Hopper PTX
 
-// ---------------------------------------------------------------- half (a)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-// Shared-memory plan of (a), identical on host and device: the LN'd tile Xs
-// and the dpre2 tile Ds; the weight chunks, whose region the fp32 (T, C) dln
-// tile Os reuses after loop 2; KS fp32 partial sums of the (T, HC) pre1 (Hf)
-// and dhmid (Df) chunks; the bf16 (T, HC) dpre1 chunk Gs of loop 2; per-token
-// LN mean and 1/std.
-struct BwdLayout {
-  int ldx, ldw2, ldh, ldg, ldo;
-  size_t xs, ds, w1s, w2s, os, hf, df, gs, st, total;
+__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Waits for the phase of `parity` to complete. A wait that outlasts any
+// real one (2^30 polls, seconds) traps: a fault in the ring's bookkeeping
+// then ends the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
+  uint32_t done = 0;
+  for (unsigned polls = 0; !done; ++polls) {
+    if (polls == (1u << 30)) asm volatile("trap;\n");
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// A box of a 2-D tensor map into shared memory; completion counts bytes on
+// the mbarrier. c0 is the inner (contiguous) coordinate.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// A box from shared memory to a 2-D tensor map (the map clips what falls
+// outside the tensor), in the thread's bulk group; and that group's commit,
+// the waits for its reads of shared memory and for its writes, and the
+// fence that makes generic writes to shared memory visible to the stores.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads of the accumulators across a wait.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128 fp32 per warpgroup) += A (64 x 16) B (16 x 128), bf16 from
+// shared memory; TA / TB: the operand is MN-major (transposed), else K-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// barrier 1 over the two consumer warpgroups (barrier 0 is __syncthreads)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// ------------------------------------------------------------ tiled GEMMs
+
+constexpr int kBM = 128;                    // tokens (or output rows) per CTA: two warpgroups
+constexpr int kBN = 128;                    // output columns per CTA
+constexpr int kBK = 64;                     // reduction depth of one stage: 128 bytes of bf16
+constexpr int kStages = 4;                  // ring depth
+constexpr int kGemmThreads = 384;           // consumer warpgroups 0, 1; producer warpgroup 2
+constexpr unsigned kOpBytes = kBM * kBK * 2;  // one operand of one stage: 16 KB
+constexpr unsigned kStageBytes = 2 * kOpBytes;
+constexpr int kHalfBox = 64 * 64 * 2;       // a 64 x 64 bf16 box: 8 KB
+// shared memory: the ring, the column sums' `red` (2 x 8 x kBN floats), the
+// ring's mbarriers, and kHidden's two staged bf16 tiles; 1 KB to align
+// shared memory: the ring; kHidden's staged output tiles (hmid and dpre1,
+// each two 128-byte-swizzled 128 x 64 boxes, as the TMA stores read them);
+// the column sums' `red` (2 x 8 x kBN floats); the ring's mbarriers; 1 KB
+// to align
+constexpr int kRing = kStages * kStageBytes;
+constexpr int kStagedBytes = 2 * kBM * kBN * 2;
+constexpr int kRedBytes = 2 * 8 * kBN * 4;
+
+enum Kind { kHidden = 0, kDln = 1, kWgrad = 2 };
+
+__host__ __device__ constexpr int red_at(int kind) {
+  return kRing + (kind == kHidden ? kStagedBytes : 0);
+}
+constexpr size_t gemm_smem(int kind) { return 1024 + red_at(kind) + kRedBytes + 2 * kStages * 8; }
+
+struct GemmArgs {
+  long long n;  // tokens
+  int C, hidden;
+  // kHidden (hmid and dpre1 leave by the store maps)
+  const float* b1;
+  // kHidden, kDln: (mtiles, hidden + 4C) vector partial rows
+  float* partial;
+  // kDln
+  const bf16* h;
+  const float* mu;
+  const float* rstd;
+  const float* ln_s;
+  float* dxhat;
+  float* rowpart;  // (ctiles, n, 2)
+  bf16* dx;        // written here when one channel tile spans C
+  // kWgrad: out (slices, M, P), M x P tiles, token slices of `per` (a
+  // multiple of kBK)
+  float* out;
+  int M, P;
+  long long per;
+  // the tiles: gx along x, ntiles in all
+  int gx, ntiles;
 };
 
-__host__ __device__ inline BwdLayout make_bwd_layout(int C, int T, int HC, int KS) {
-  BwdLayout L;
-  L.ldx = C + 8;
-  L.ldw2 = HC + 8;
-  L.ldh = HC + 4;
-  L.ldg = HC + 8;
-  L.ldo = C + 4;
-  const size_t x_b = align128(size_t(T) * L.ldx * 2);
-  const size_t w1_b = align128(size_t(HC) * L.ldx * 2);
-  const size_t w2_b = align128(size_t(C) * L.ldw2 * 2);
-  const size_t o_b = align128(size_t(T) * L.ldo * 4);
-  const size_t h_b = align128(size_t(KS) * T * L.ldh * 4);
-  L.xs = 0;
-  L.ds = x_b;
-  L.w1s = 2 * x_b;
-  L.w2s = L.w1s + w1_b;
-  L.os = L.w1s;
-  L.hf = L.w1s + ((w1_b + w2_b) > o_b ? (w1_b + w2_b) : o_b);
-  L.df = L.hf + h_b;
-  L.gs = L.df + h_b;
-  L.st = L.gs + align128(size_t(T) * L.ldg * 2);
-  L.total = L.st + align128(size_t(2 * T) * 4);
-  return L;
+// One stage's descriptors: a K-major operand advances 32 bytes per k16
+// step inside its 128-byte rows (8-row groups 1024 bytes apart); an MN-major
+// one 16 rows of 128 bytes, with 64-wide MN atoms `lbo` bytes apart.
+template <int T>
+__device__ __forceinline__ uint64_t op_desc(uint32_t base, int kk, uint32_t lbo) {
+  return T ? gmma_desc(base + kk * 2048, lbo, 1024) : gmma_desc(base + kk * 32, 16, 1024);
 }
 
-template <bool BCOL>
-__device__ __forceinline__ const bf16* bfrag(const bf16* B, int ldb, int k, int nb) {
-  return BCOL ? B + nb * 16 * ldb + k * 16 : B + k * 16 * ldb + nb * 16;
+template <int TA, int TB>
+__device__ __forceinline__ void mma_stage(float (&acc)[64], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+    wgmma_m64n128k16<TA, TB>(acc, op_desc<TA>(a, kk, kHalfBox), op_desc<TB>(b, kk, kHalfBox));
 }
 
-// Hp (fp32, ld ldh) = A[:, k-blocks kb..ke) @ B for this warp's MT1 x NT1
-// fragments at row block mb0 and column block nb0. A is a (T x K) bf16 tile,
-// B a (K x HC) operand in shared memory, col-major (BCOL) or row-major. With
-// fewer than four fragments, even and odd k-steps go to two accumulator sets.
-template <int MT1, int NT1, bool BCOL>
-__device__ __forceinline__ void hidden_product(const bf16* A, int lda, const bf16* B, int ldb,
-                                               float* Hp, int ldh, int kb, int ke, int mb0,
-                                               int nb0) {
-  using FB = typename std::conditional<BCOL, FragB, FragBRow>::type;
-  constexpr int NACC = MT1 * NT1 >= 4 ? 1 : 2;
-  FragC c1[NACC][MT1][NT1];
+// A warp's column sums of its 16 rows at columns c and c + 1 (c = 8j +
+// 2(lane % 4)), from each thread's sums over its two rows: butterflies over
+// the 8 row lanes, then lanes 0-3 put them in the warp's row of `red` (8 x
+// kBN floats, row cw). sum8 then adds the CTA's 8 warps in order: a fixed
+// order throughout.
+__device__ __forceinline__ void col_pair(float v0, float v1, float* red, int cw, int c, int lane) {
 #pragma unroll
-  for (int p = 0; p < NACC; ++p)
-#pragma unroll
-    for (int i = 0; i < MT1; ++i)
-#pragma unroll
-      for (int jj = 0; jj < NT1; ++jj) wmma::fill_fragment(c1[p][i][jj], 0.f);
-  for (int k = kb; k < ke; k += NACC) {
-#pragma unroll
-    for (int p = 0; p < NACC; ++p) {
-      if (k + p < ke) {
-        FragA a[MT1];
-        FB b[NT1];
-#pragma unroll
-        for (int i = 0; i < MT1; ++i)
-          wmma::load_matrix_sync(a[i], A + (mb0 + i) * 16 * lda + (k + p) * 16, lda);
-#pragma unroll
-        for (int jj = 0; jj < NT1; ++jj)
-          wmma::load_matrix_sync(b[jj], bfrag<BCOL>(B, ldb, k + p, nb0 + jj), ldb);
-#pragma unroll
-        for (int i = 0; i < MT1; ++i)
-#pragma unroll
-          for (int jj = 0; jj < NT1; ++jj) wmma::mma_sync(c1[p][i][jj], a[i], b[jj], c1[p][i][jj]);
-      }
-    }
+  for (int o = 4; o < 32; o <<= 1) {
+    v0 += __shfl_xor_sync(0xffffffffu, v0, o);
+    v1 += __shfl_xor_sync(0xffffffffu, v1, o);
   }
-#pragma unroll
-  for (int i = 0; i < MT1; ++i)
-#pragma unroll
-    for (int jj = 0; jj < NT1; ++jj) {
-#pragma unroll
-      for (int p = 1; p < NACC; ++p)
-#pragma unroll
-        for (int e = 0; e < c1[0][i][jj].num_elements; ++e) c1[0][i][jj].x[e] += c1[p][i][jj].x[e];
-      wmma::store_matrix_sync(Hp + (mb0 + i) * 16 * ldh + (nb0 + jj) * 16, c1[0][i][jj], ldh,
-                              wmma::mem_row_major);
-    }
+  if (lane < 4) *reinterpret_cast<float2*>(red + cw * kBN + c) = make_float2(v0, v1);
 }
 
-// acc += A @ B: A a (T x 16*KB) bf16 tile, B a row-major (16*KB x C)
-// operand; this warp's MT2 row blocks from mb0 and nt2 column blocks from cb0.
-template <int MT2, int NT2, int KB>
-__device__ __forceinline__ void out_product(FragC (&acc)[MT2][NT2], const bf16* A, int lda,
-                                            const bf16* B, int ldb, int mb0, int cb0, int nt2) {
+__device__ __forceinline__ float sum8(const float* red, int col) {
+  float s = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < KB; ++kk) {
-    FragA a[MT2];
-#pragma unroll
-    for (int i = 0; i < MT2; ++i) wmma::load_matrix_sync(a[i], A + (mb0 + i) * 16 * lda + kk * 16, lda);
-#pragma unroll
-    for (int jj = 0; jj < NT2; ++jj) {
-      if (jj < nt2) {
-        FragBRow b;
-        wmma::load_matrix_sync(b, bfrag<false>(B, ldb, kk, cb0 + jj), ldb);
-#pragma unroll
-        for (int i = 0; i < MT2; ++i) wmma::mma_sync(acc[i][jj], a[i], b, acc[i][jj]);
-      }
-    }
+  for (int w = 0; w < 8; ++w) s += red[w * kBN + col];
+  return s;
+}
+
+// A CTA's tile: its first output row and column, the tile's x and y (for
+// the partial rows), and its k-blocks (kb0 the first, nk of them).
+struct Tile {
+  int x, y, row0, col0, kb0, nk;
+};
+
+// Tiles are numbered x fastest, `gx` of them along x. kHidden: x the hidden
+// tile, y the token tile; kDln: x the channel tile, y the token tile;
+// kWgrad: x the M x P output tile (P fastest), y the token slice.
+template <int KIND>
+__device__ __forceinline__ Tile tile_of(const GemmArgs& args, int tile) {
+  Tile t;
+  t.x = tile % args.gx;
+  t.y = tile / args.gx;
+  if constexpr (KIND == kWgrad) {
+    const int tiles_p = (args.P + kBN - 1) / kBN;
+    t.row0 = (t.x / tiles_p) * kBM;
+    t.col0 = (t.x % tiles_p) * kBN;
+    const long long t0 = static_cast<long long>(t.y) * args.per;
+    const long long t1 = t0 + args.per < args.n ? t0 + args.per : args.n;
+    t.kb0 = static_cast<int>(t0 / kBK);
+    t.nk = static_cast<int>((t1 - t0 + kBK - 1) / kBK);
+  } else {
+    t.col0 = t.x * kBN;
+    t.row0 = t.y * kBM;
+    t.kb0 = 0;
+    t.nk = KIND == kHidden ? 2 * ((args.C + kBK - 1) / kBK) : args.hidden / kBK;
   }
+  return t;
 }
 
-// T tokens per block, HC hidden units per chunk; the (T x HC) products on a
-// Grid1<T, HC, MT1, NT1> warp grid, the (T x C) accumulators on a WM2 x WN2
-// grid with MT2 row blocks and up to NT2 column blocks per warp. `partial`
-// gets one row of hidden + 4C fp32 sums per block: db1, db2, dgamma, dln_s,
-// dln_b.
-template <int T, int HC, int MT1, int NT1, int MT2, int NT2, bool FAST>
-__global__ void __launch_bounds__(kThreads, 1)
-ln_mlp_bwd_dx_kernel(const bf16* __restrict__ h, const bf16* __restrict__ g,
-                     const float* __restrict__ ln_s, const float* __restrict__ ln_b,
-                     const bf16* __restrict__ w1, const float* __restrict__ b1,
-                     const bf16* __restrict__ w2, const float* __restrict__ b2,
-                     const float* __restrict__ gamma, bf16* __restrict__ dx,
-                     bf16* __restrict__ tok, bf16* __restrict__ hmid, bf16* dpre1,
-                     float* __restrict__ partial, long long n, int C, int hidden, float eps) {
-  using G1 = Grid1<T, HC, MT1, NT1>;
-  constexpr int WM1 = G1::WM1, WN1 = G1::WN1, KS = G1::KS;
-  constexpr int WM2 = T / 16 / MT2;
-  constexpr int WN2 = kWarps / WM2;
-  static_assert(WM2 * MT2 == T / 16 && WM2 * WN2 == kWarps, "second-product warp grid");
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  const BwdLayout L = make_bwd_layout(C, T, HC, KS);
-  bf16* Xs = reinterpret_cast<bf16*>(smem + L.xs);
-  bf16* Ds = reinterpret_cast<bf16*>(smem + L.ds);
-  bf16* W1s = reinterpret_cast<bf16*>(smem + L.w1s);
-  bf16* W2s = reinterpret_cast<bf16*>(smem + L.w2s);
-  float* Os = reinterpret_cast<float*>(smem + L.os);
-  float* Hf = reinterpret_cast<float*>(smem + L.hf);
-  float* Df = reinterpret_cast<float*>(smem + L.df);
-  bf16* Gs = reinterpret_cast<bf16*>(smem + L.gs);
-  float* Mu = reinterpret_cast<float*>(smem + L.st);
-  float* Rs = Mu + T;
+// Persistent: each CTA walks over tiles blockIdx.x, + gridDim.x, ...; the
+// producer runs ahead into the next tile's k-blocks while the consumers
+// finish a tile's epilogue (kHidden stages its bf16 tiles outside the
+// ring). The maps: kHidden tok and W1 (K-major, boxes 64 x 128), dpre2
+// (K-major) and W2 (MN-major, boxes 64 x 64); kDln dpre1 (K-major) and W1
+// (MN-major); kWgrad A and B (both MN-major, token rows).
+template <int KIND, bool FAST>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+ln_mlp_bwd_gemm_kernel(const __grid_constant__ CUtensorMap ma0,
+                       const __grid_constant__ CUtensorMap mb0,
+                       const __grid_constant__ CUtensorMap ma1,
+                       const __grid_constant__ CUtensorMap mb1,
+                       const __grid_constant__ CUtensorMap ms0,
+                       const __grid_constant__ CUtensorMap ms1, const GemmArgs args) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sbase = smem_raw + (base - raw);
+  float* red = reinterpret_cast<float*>(sbase + red_at(KIND));  // [2][8][kBN]
+  const uint32_t full0 = base + red_at(KIND) + kRedBytes, empty0 = full0 + kStages * 8;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int wg = tid / 128;
+  const int kc = (args.C + kBK - 1) / kBK;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one thread keeps the ring full, across tiles
+    if (tid == 256) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < args.ntiles; tile += gridDim.x) {
+        const Tile T = tile_of<KIND>(args, tile);
+        for (int kb = 0; kb < T.nk; ++kb, ++it) {
+          const int s = it % kStages;
+          mbar_wait(empty0 + 8 * s, ((it / kStages) & 1) ^ 1);
+          const uint32_t fb = full0 + 8 * s;
+          mbar_expect_tx(fb, kStageBytes);
+          const uint32_t sa = base + s * kStageBytes, sb = sa + kOpBytes;
+          if constexpr (KIND == kHidden) {
+            if (kb < kc) {
+              tma_load(sa, &ma0, fb, kb * kBK, T.row0);  // tok rows
+              tma_load(sb, &mb0, fb, kb * kBK, T.col0);  // W1 rows
+            } else {
+              const int k = (kb - kc) * kBK;
+              tma_load(sa, &ma1, fb, k, T.row0);                  // dpre2 rows
+              tma_load(sb, &mb1, fb, T.col0, k);                  // W2 rows k.., hidden col0..
+              tma_load(sb + kHalfBox, &mb1, fb, T.col0 + 64, k);  // .. and col0 + 64..
+            }
+          } else if constexpr (KIND == kDln) {
+            tma_load(sa, &ma0, fb, kb * kBK, T.row0);  // dpre1 rows
+            tma_load(sb, &mb0, fb, T.col0, kb * kBK);  // W1 rows kb.., channels col0..
+            tma_load(sb + kHalfBox, &mb0, fb, T.col0 + 64, kb * kBK);
+          } else {
+            const int t = (T.kb0 + kb) * kBK;
+            tma_load(sa, &ma0, fb, T.row0, t);
+            tma_load(sa + kHalfBox, &ma0, fb, T.row0 + 64, t);
+            tma_load(sb, &mb0, fb, T.col0, t);
+            tma_load(sb + kHalfBox, &mb0, fb, T.col0 + 64, t);
+          }
+        }
+      }
+    }
+    return;
+  }
+
   const int lane = tid & 31;
-  const long long row0 = static_cast<long long>(blockIdx.x) * T;
-  const int nchunks = hidden / HC;
+  const int w = (tid / 32) & 3;
+  const int cw = wg * 4 + w;                     // the warp's place among the CTA's 8
+  const int r_in = wg * 64 + 16 * w + lane / 4;  // its first row in the tile; the second is +8
+  const int q = 2 * (lane % 4);                  // its first column in each 8-column group
+  int it = 0;
+  for (int tile = blockIdx.x; tile < args.ntiles; tile += gridDim.x) {
+    const Tile T = tile_of<KIND>(args, tile);
+    const int row0 = T.row0, col0 = T.col0;
+    float acc[64], acc2[64];  // acc2: dhmid of kHidden, unused by the others
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = acc2[i] = 0.f;
+
+    for (int kb = 0; kb < T.nk; ++kb, ++it) {
+      const int s = it % kStages;
+      mbar_wait(full0 + 8 * s, (it / kStages) & 1);
+      const uint32_t sa = base + s * kStageBytes, sb = sa + kOpBytes;
+      // a warpgroup's 64 rows: K-major A rows 64 * 128 bytes on; MN-major A
+      // its own 64 x 64 box
+      const uint32_t a = sa + wg * (KIND == kWgrad ? kHalfBox : 64 * 128);
+      wg_fence();
+      if constexpr (KIND == kHidden) {
+        if (kb < kc)
+          mma_stage<0, 0>(acc, a, sb);
+        else
+          mma_stage<0, 1>(acc2, a, sb);
+      } else if constexpr (KIND == kDln) {
+        mma_stage<0, 1>(acc, a, sb);
+      } else {
+        mma_stage<1, 1>(acc, a, sb);
+      }
+      wg_commit();
+      wg_wait<1>();
+      if (kb > 0) mbar_arrive(empty0 + 8 * ((it - 1) % kStages));
+    }
+    wg_wait<0>();
+    fence_acc(acc);
+    if constexpr (KIND == kHidden) fence_acc(acc2);
+    mbar_arrive(empty0 + 8 * ((it - 1) % kStages));
+
+    if constexpr (KIND == kHidden) {
+      // hmid = GELU(pre1 + b1), dpre1 = dhmid * gelu'(pre1 + b1), bf16
+      // through shared memory and out by TMA stores, which run on while the
+      // next tile multiplies (rows past n and columns past hidden are
+      // clipped by the stores); and the tile's db1 column sums of the fp32
+      // dpre1. Rows past n have zero dpre2 (TMA's fill), so they add nothing
+      // to db1. The barrier: the last tile's stores have read the staged
+      // tiles (thread 0 waited for them), and its sums have read `red`.
+      if (tid == 0) bulk_wait_read<0>();
+      consumers_sync();
+      unsigned char* staged = sbase + kRing;  // [hmid, dpre1][box 0, 1][128 rows][128 bytes]
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 8 * j + q;
+        const int hj = col0 + col;  // hidden % 64 == 0: hj and hj + 1 are both in or both out
+        const float bb0 = hj < args.hidden ? args.b1[hj] : 0.f;
+        const float bb1 = hj < args.hidden ? args.b1[hj + 1] : 0.f;
+        float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float p0 = acc[4 * j + 2 * i] + bb0, p1 = acc[4 * j + 2 * i + 1] + bb1;
+          const float d0 = acc2[4 * j + 2 * i] * gelu_grad<FAST>(p0);
+          const float d1 = acc2[4 * j + 2 * i + 1] * gelu_grad<FAST>(p1);
+          v0 += d0;
+          v1 += d1;
+          // the 16-byte chunk of (row r, column col) in its 128-byte
+          // swizzled box row: chunk ^ (r % 8), as TMA reads it
+          const int r = r_in + 8 * i;
+          const int off = (col / 64) * (kBM * 128) + r * 128 +
+                          ((((col % 64) / 8) ^ (r % 8)) * 16) + (col % 8) * 2;
+          *reinterpret_cast<__nv_bfloat162*>(staged + off) =
+              __floats2bfloat162_rn(gelu<FAST>(p0), gelu<FAST>(p1));
+          *reinterpret_cast<__nv_bfloat162*>(staged + kBM * kBN * 2 + off) =
+              __floats2bfloat162_rn(d0, d1);
+        }
+        col_pair(v0, v1, red, cw, col, lane);
+      }
+      fence_async_smem();  // the staged tiles, visible to the TMA stores
+      consumers_sync();
+      if (tid == 0) {
+        const uint32_t st0 = smem_u32(staged);
+        for (int b = 0; b < 2; ++b) {
+          tma_store(&ms0, st0 + b * kBM * 128, col0 + 64 * b, row0);
+          tma_store(&ms1, st0 + kBM * kBN * 2 + b * kBM * 128, col0 + 64 * b, row0);
+        }
+        bulk_commit();
+      }
+      if (tid < kBN && col0 + tid < args.hidden) {
+        const long long pw = args.hidden + 4LL * args.C;
+        args.partial[T.y * pw + col0 + tid] = sum8(red, tid);
+      }
+    } else if constexpr (KIND == kDln) {
+      // dxhat = dln * ln_s and xhat = (h - mu) * rstd per element; row sums
+      // of dxhat and dxhat * xhat over the tile's channels (the 4 lanes of a
+      // row), column sums of dln * xhat and dln (dln_s, dln_b). Where one
+      // tile spans C (C <= kBN) the row sums are whole and dx is finished
+      // here; else dxhat and the row sums go out to ln_mlp_bwd_rows_kernel.
+      const int C = args.C;
+      const bool whole = C <= kBN;
+      float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f}, mu[2], rs[2];
+      long long t[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        t[i] = row0 + r_in + 8 * i;
+        mu[i] = t[i] < args.n ? args.mu[t[i]] : 0.f;
+        rs[i] = t[i] < args.n ? args.rstd[t[i]] : 0.f;
+      }
+      // the thread's h pairs, all loads in flight at once (zeros outside)
+      __nv_bfloat162 hp[2][16];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int c = col0 + 8 * j + q;  // C % 16 == 0: c and c + 1 are both in or both out
+          hp[i][j] = t[i] < args.n && c < C
+                         ? *reinterpret_cast<const __nv_bfloat162*>(
+                               args.h + static_cast<size_t>(t[i]) * C + c)
+                         : __floats2bfloat162_rn(0.f, 0.f);
+        }
+      consumers_sync();  // the last tile's sums have read `red`
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = col0 + 8 * j + q;
+        float vs0 = 0.f, vs1 = 0.f, vb0 = 0.f, vb1 = 0.f;
+        if (c < C) {
+          const float ls0 = args.ln_s[c], ls1 = args.ln_s[c + 1];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            if (t[i] >= args.n) continue;
+            const float2 hv = __bfloat1622float2(hp[i][j]);
+            const float x0 = (hv.x - mu[i]) * rs[i], x1 = (hv.y - mu[i]) * rs[i];
+            const float d0 = acc[4 * j + 2 * i], d1 = acc[4 * j + 2 * i + 1];
+            const float e0 = d0 * ls0, e1 = d1 * ls1;
+            s1[i] += e0 + e1;
+            s2[i] += e0 * x0 + e1 * x1;
+            vs0 += d0 * x0;
+            vs1 += d1 * x1;
+            vb0 += d0;
+            vb1 += d1;
+            if (!whole)
+              *reinterpret_cast<float2*>(args.dxhat + static_cast<size_t>(t[i]) * C + c) =
+                  make_float2(e0, e1);
+          }
+        }
+        col_pair(vs0, vs1, red, cw, 8 * j + q, lane);
+        col_pair(vb0, vb1, red + 8 * kBN, cw, 8 * j + q, lane);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], 1);
+        s1[i] += __shfl_xor_sync(0xffffffffu, s1[i], 2);
+        s2[i] += __shfl_xor_sync(0xffffffffu, s2[i], 1);
+        s2[i] += __shfl_xor_sync(0xffffffffu, s2[i], 2);
+        if (!whole && lane % 4 == 0 && t[i] < args.n)
+          *reinterpret_cast<float2*>(args.rowpart + (T.x * args.n + t[i]) * 2) =
+              make_float2(s1[i], s2[i]);
+      }
+      if (whole) {
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int c = 8 * j + q;
+          if (c >= C) continue;
+          const float ls0 = args.ln_s[c], ls1 = args.ln_s[c + 1];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            if (t[i] >= args.n) continue;
+            const size_t o = static_cast<size_t>(t[i]) * C + c;
+            const float2 hv = __bfloat1622float2(hp[i][j]);
+            const float m1 = s1[i] / C, m2 = s2[i] / C;
+            const float x0 = (hv.x - mu[i]) * rs[i], x1 = (hv.y - mu[i]) * rs[i];
+            *reinterpret_cast<__nv_bfloat162*>(args.dx + o) = __floats2bfloat162_rn(
+                rs[i] * (acc[4 * j + 2 * i] * ls0 - m1 - x0 * m2),
+                rs[i] * (acc[4 * j + 2 * i + 1] * ls1 - m1 - x1 * m2));
+          }
+        }
+      }
+      consumers_sync();
+      if (tid < kBN && col0 + tid < C) {
+        float* prt = args.partial + T.y * (args.hidden + 4LL * C) + args.hidden;
+        prt[2 * C + col0 + tid] = sum8(red, tid);
+        prt[3 * C + col0 + tid] = sum8(red + 8 * kBN, tid);
+      }
+    } else {
+      // this slice's partial of the (M, P) product, fp32, masked
+      float* dst = args.out + static_cast<size_t>(T.y) * args.M * args.P;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int m = row0 + r_in + 8 * i;
+        if (m >= args.M) continue;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int p = col0 + 8 * j + q;
+          if (p < args.P)
+            *reinterpret_cast<float2*>(dst + static_cast<size_t>(m) * args.P + p) =
+                make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+        }
+      }
+    }
+  }
+  // the last tile's stores read shared memory until they are done
+  if constexpr (KIND == kHidden)
+    if (tid == 0) bulk_wait<0>();
+}
+
+// ---------------------------------------------------------- (i) prologue
+
+// The row kernels' layout: L lanes to a row (16 when C <= 128, else 32),
+// so 32 / L rows of a warp at a time, R such sets in flight, S 16-byte
+// segments of a row per lane (C <= 8 L S).
+template <int L>
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// 128 rows (one token tile) per block of 8 warps: mu and rstd in fp32, tok
+// = bf16(LN(h)), dpre2 = bf16(g * gamma), and the block's column sums of g *
+// gamma (db2) and of g (times b2: dgamma's b2 part) into its vector partial
+// row, the row groups' and warps' partials met in order (the warps' through
+// shared memory, 8 x 2C floats).
+template <int L, int S, int R>
+__global__ void __launch_bounds__(kThreads)
+ln_mlp_bwd_prologue_kernel(const bf16* __restrict__ h, const bf16* __restrict__ g,
+                           const float* __restrict__ ln_s, const float* __restrict__ ln_b,
+                           const float* __restrict__ b2, const float* __restrict__ gamma,
+                           bf16* __restrict__ tok, bf16* __restrict__ dpre2,
+                           float* __restrict__ mu_out, float* __restrict__ rstd_out,
+                           float* __restrict__ partial, long long n, int C, int hidden, float eps) {
+  constexpr int G = 32 / L;
+  extern __shared__ float pred[];  // [8][2C]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = lane / L, sl = lane % L;
   const int segs = C / 8;
-  float* prt = partial + static_cast<size_t>(blockIdx.x) * (hidden + 4 * C);
-
-  auto load_w1 = [&](int j) {  // rows [j*HC, j*HC+HC) of W1 (hidden, C)
-    const bf16* src = w1 + static_cast<size_t>(j) * HC * C;
-    for (int i = tid; i < HC * segs; i += kThreads) {
-      const int r = i / segs, s = i - r * segs;
-      cp_async16(W1s + r * L.ldx + s * 8, src + static_cast<size_t>(r) * C + s * 8);
-    }
-  };
-  auto load_w2 = [&](int j) {  // columns [j*HC, j*HC+HC) of W2 (C, hidden)
-    constexpr int hsegs = HC / 8;
-    for (int i = tid; i < C * hsegs; i += kThreads) {
-      const int r = i / hsegs, s = i - r * hsegs;
-      cp_async16(W2s + r * L.ldw2 + s * 8,
-                 w2 + static_cast<size_t>(r) * hidden + static_cast<size_t>(j) * HC + s * 8);
-    }
-  };
-  auto load_dpre1 = [&](int j) {  // this tile's dpre1 columns [j*HC, j*HC+HC), zeros past n
-    constexpr int hsegs = HC / 8;
-    for (int i = tid; i < T * hsegs; i += kThreads) {
-      const int t = i / hsegs, s = i - t * hsegs;
-      bf16* dst = Gs + t * L.ldg + s * 8;
-      if (row0 + t < n)
-        cp_async16(dst, dpre1 + (row0 + t) * hidden + static_cast<size_t>(j) * HC + s * 8);
-      else
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
-
-  load_w1(0);
-  cp_commit();
-
-  // LayerNorm (one warp per row, as in the forward) into Xs and tok; the
-  // cotangent times gamma, rounded to bf16, into Ds. Rows past n are zeros,
-  // so they add nothing to any sum below.
-  for (int t = warp; t < T; t += kWarps) {
-    uint4* xs = reinterpret_cast<uint4*>(Xs + t * L.ldx);
-    uint4* ds = reinterpret_cast<uint4*>(Ds + t * L.ldx);
-    const long long r = row0 + t;
-    if (r < n) {
-      const uint4* src = reinterpret_cast<const uint4*>(h + r * C);
-      uint4 raw[kMaxSegs];
+  float sdb[S][8], sg[S][8];
+#pragma unroll
+  for (int q = 0; q < S; ++q)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sdb[q][e] = sg[q][e] = 0.f;
+  for (int rr = warp * G * R; rr < kBM; rr += kWarps * G * R) {
+    const long long r0 = static_cast<long long>(blockIdx.x) * kBM + rr + grp;
+    uint4 hraw[R][S], graw[R][S];
+#pragma unroll
+    for (int u = 0; u < R; ++u)
+#pragma unroll
+      for (int q = 0; q < S; ++q)
+        if (r0 + u * G < n && sl + L * q < segs) {
+          hraw[u][q] = reinterpret_cast<const uint4*>(h + (r0 + u * G) * C)[sl + L * q];
+          graw[u][q] = reinterpret_cast<const uint4*>(g + (r0 + u * G) * C)[sl + L * q];
+        }
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      const long long r = r0 + u * G;
+      const bool ok = r < n;  // not uniform over the warp: the sums run on every lane
       float f[8];
       float s = 0.f;
 #pragma unroll
-      for (int q = 0; q < kMaxSegs; ++q) {
-        const int sg = lane + 32 * q;
-        if (sg < segs) {
-          raw[q] = src[sg];
-          unpack8(raw[q], f);
+      for (int q = 0; q < S; ++q) {
+        if (ok && sl + L * q < segs) {
+          unpack8(hraw[u][q], f);
 #pragma unroll
           for (int e = 0; e < 8; ++e) s += f[e];
         }
       }
-      const float mu = warp_sum(s) / C;
+      const float mu = row_sum<L>(s) / C;
       float var = 0.f;
 #pragma unroll
-      for (int q = 0; q < kMaxSegs; ++q) {
-        if (lane + 32 * q < segs) {
-          unpack8(raw[q], f);
+      for (int q = 0; q < S; ++q) {
+        if (ok && sl + L * q < segs) {
+          unpack8(hraw[u][q], f);
 #pragma unroll
           for (int e = 0; e < 8; ++e) var += (f[e] - mu) * (f[e] - mu);
         }
       }
-      const float rstd = rsqrtf(warp_sum(var) / C + eps);
-      if (lane == 0) {
-        Mu[t] = mu;
-        Rs[t] = rstd;
+      const float rstd = rsqrtf(row_sum<L>(var) / C + eps);
+      if (!ok) continue;
+      if (sl == 0) {
+        mu_out[r] = mu;
+        rstd_out[r] = rstd;
       }
       uint4* trow = reinterpret_cast<uint4*>(tok + r * C);
-      const uint4* grow = reinterpret_cast<const uint4*>(g + r * C);
+      uint4* drow = reinterpret_cast<uint4*>(dpre2 + r * C);
 #pragma unroll
-      for (int q = 0; q < kMaxSegs; ++q) {
-        const int sg = lane + 32 * q;
-        if (sg < segs) {
-          unpack8(raw[q], f);
+      for (int q = 0; q < S; ++q) {
+        const int sgi = sl + L * q;
+        if (sgi < segs) {
+          unpack8(hraw[u][q], f);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) f[e] = (f[e] - mu) * rstd * ln_s[sg * 8 + e] + ln_b[sg * 8 + e];
-          const uint4 u = pack8(f);
-          xs[sg] = u;
-          trow[sg] = u;
-          unpack8(grow[sg], f);
+          for (int e = 0; e < 8; ++e)
+            f[e] = (f[e] - mu) * rstd * ln_s[sgi * 8 + e] + ln_b[sgi * 8 + e];
+          trow[sgi] = pack8(f);
+          unpack8(graw[u][q], f);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) f[e] *= gamma[sg * 8 + e];
-          ds[sg] = pack8(f);
-        }
-      }
-    } else {
-      for (int sg = lane; sg < segs; sg += 32) {
-        xs[sg] = make_uint4(0u, 0u, 0u, 0u);
-        ds[sg] = make_uint4(0u, 0u, 0u, 0u);
-      }
-      if (lane == 0) {
-        Mu[t] = 0.f;
-        Rs[t] = 0.f;
-      }
-    }
-  }
-  cp_wait<0>();
-  __syncthreads();
-
-  // warp tiles of the (T x HC) products
-  const int wm1 = warp % WM1, wn1 = (warp / WM1) % WN1;
-  const int ks = warp / (WM1 * WN1);
-  const int k16 = C / 16;
-  const int kb = ks * k16 / KS, ke = (ks + 1) * k16 / KS;
-  float* Hk = Hf + ks * T * L.ldh;
-  float* Dk = Df + ks * T * L.ldh;
-  // warp tiles of the (T x C) accumulators
-  const int cblocks = C / 16;
-  const int wm2 = warp % WM2, wn2 = warp / WM2;
-  const int cb0 = wn2 * cblocks / WN2;
-  const int nt2 = (wn2 + 1) * cblocks / WN2 - cb0;
-
-  // loop 1: pre1, GELU, dhmid, dpre1
-  for (int j = 0; j < nchunks; ++j) {
-    load_w2(j);
-    cp_commit();
-    hidden_product<MT1, NT1, true>(Xs, L.ldx, W1s, L.ldx, Hk, L.ldh, kb, ke, wm1 * MT1, wn1 * NT1);
-    __syncthreads();  // pre1 partials complete; W1s free
-
-    if (j + 1 < nchunks) load_w1(j + 1);
-    cp_commit();
-
-    // pre1 + b1 -> hmid (bf16, to HBM) and gelu'(pre1) (fp32, in Hf)
-    for (int i = tid; i < T * HC; i += kThreads) {
-      const int t = i / HC, c = i - t * HC;
-      float v = b1[j * HC + c];
-#pragma unroll
-      for (int s = 0; s < KS; ++s) v += Hf[s * T * L.ldh + t * L.ldh + c];
-      Hf[t * L.ldh + c] = gelu_grad<FAST>(v);
-      if (row0 + t < n) hmid[(row0 + t) * hidden + j * HC + c] = __float2bfloat16(gelu<FAST>(v));
-    }
-    cp_wait<1>();  // W2 chunk j has landed (W1 chunk j+1 may still be in flight)
-    __syncthreads();
-
-    hidden_product<MT1, NT1, false>(Ds, L.ldx, W2s, L.ldw2, Dk, L.ldh, kb, ke, wm1 * MT1, wn1 * NT1);
-    __syncthreads();  // dhmid partials complete
-
-    // dpre1 = dhmid * gelu'(pre1): fp32 in Df for db1, bf16 to HBM
-    for (int i = tid; i < T * HC; i += kThreads) {
-      const int t = i / HC, c = i - t * HC;
-      float d = 0.f;
-#pragma unroll
-      for (int s = 0; s < KS; ++s) d += Df[s * T * L.ldh + t * L.ldh + c];
-      d *= Hf[t * L.ldh + c];
-      Df[t * L.ldh + c] = d;
-      if (row0 + t < n) dpre1[(row0 + t) * hidden + j * HC + c] = __float2bfloat16(d);
-    }
-    __syncthreads();
-    for (int c = tid; c < HC; c += kThreads) {
-      float s = 0.f;
-      for (int t = 0; t < T; ++t) s += Df[t * L.ldh + c];
-      prt[j * HC + c] = s;
-    }
-    cp_wait<0>();
-    __syncthreads();  // W1 chunk j+1 visible; this chunk's buffers free
-  }
-
-  // db2 = sum g * gamma, and dgamma's b2 * sum g (the rest of dgamma is
-  // sum_j W2 * G, added by half (b))
-  for (int c = tid; c < C; c += kThreads) {
-    const float gm = gamma[c];
-    float sdb2 = 0.f, sg = 0.f;
-    for (int t = 0; t < T && row0 + t < n; ++t) {
-      const float gv = __bfloat162float(g[(row0 + t) * C + c]);
-      sdb2 += gv * gm;
-      sg += gv;
-    }
-    prt[hidden + c] = sdb2;
-    prt[hidden + C + c] = sg * b2[c];
-  }
-
-  // loop 2: dln = dpre1 @ W1, accumulated over the hidden chunks
-  FragC acc[MT2][NT2];
-#pragma unroll
-  for (int i = 0; i < MT2; ++i)
-#pragma unroll
-    for (int jj = 0; jj < NT2; ++jj) wmma::fill_fragment(acc[i][jj], 0.f);
-  for (int j = 0; j < nchunks; ++j) {
-    load_w1(j);
-    load_dpre1(j);
-    cp_commit();
-    cp_wait<0>();
-    __syncthreads();
-    out_product<MT2, NT2, HC / 16>(acc, Gs, L.ldg, W1s, L.ldx, wm2 * MT2, cb0, nt2);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < MT2; ++i)
-#pragma unroll
-    for (int jj = 0; jj < NT2; ++jj)
-      if (jj < nt2)
-        wmma::store_matrix_sync(Os + (wm2 * MT2 + i) * 16 * L.ldo + (cb0 + jj) * 16, acc[i][jj],
-                                L.ldo, wmma::mem_row_major);
-  __syncthreads();
-
-  // dln_s = sum dln * xhat, dln_b = sum dln
-  for (int c = tid; c < C; c += kThreads) {
-    float ss = 0.f, sb = 0.f;
-    for (int t = 0; t < T && row0 + t < n; ++t) {
-      const float xh = (__bfloat162float(h[(row0 + t) * C + c]) - Mu[t]) * Rs[t];
-      const float d = Os[t * L.ldo + c];
-      ss += d * xh;
-      sb += d;
-    }
-    prt[hidden + 2 * C + c] = ss;
-    prt[hidden + 3 * C + c] = sb;
-  }
-  // LN backward per token: dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat))
-  for (int t = warp; t < T; t += kWarps) {
-    const long long r = row0 + t;
-    if (r >= n) break;
-    const uint4* src = reinterpret_cast<const uint4*>(h + r * C);
-    const float mu = Mu[t], rs = Rs[t];
-    float xh[kMaxSegs][8], dh[kMaxSegs][8];
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int q = 0; q < kMaxSegs; ++q) {
-      const int sg = lane + 32 * q;
-      if (sg < segs) {
-        float f[8];
-        unpack8(src[sg], f);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          xh[q][e] = (f[e] - mu) * rs;
-          dh[q][e] = Os[t * L.ldo + sg * 8 + e] * ln_s[sg * 8 + e];
-          s1 += dh[q][e];
-          s2 += dh[q][e] * xh[q][e];
+          for (int e = 0; e < 8; ++e) {
+            sg[q][e] += f[e];
+            f[e] *= gamma[sgi * 8 + e];
+            sdb[q][e] += f[e];
+          }
+          drow[sgi] = pack8(f);
         }
       }
     }
-    const float m1 = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
+  }
+#pragma unroll
+  for (int q = 0; q < S; ++q) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+#pragma unroll
+      for (int o = L; o < 32; o <<= 1) {
+        sdb[q][e] += __shfl_xor_sync(0xffffffffu, sdb[q][e], o);
+        sg[q][e] += __shfl_xor_sync(0xffffffffu, sg[q][e], o);
+      }
+    }
+    const int sgi = sl + L * q;
+    if (grp == 0 && sgi < segs) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        pred[warp * 2 * C + sgi * 8 + e] = sdb[q][e];
+        pred[warp * 2 * C + C + sgi * 8 + e] = sg[q][e];
+      }
+    }
+  }
+  __syncthreads();
+  float* prt = partial + blockIdx.x * (hidden + 4LL * C) + hidden;
+  for (int c = threadIdx.x; c < 2 * C; c += kThreads) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += pred[w * 2 * C + c];
+    prt[c] = c < C ? s : s * b2[c - C];
+  }
+}
+
+// -------------------------------------------------- (iii) LN backward rows
+
+// The LN backward's last step where C spans more than one channel tile:
+// per token, m1, m2 from the channel tiles' row sums (in tile order), then
+// dx = rstd * (dxhat - m1 - xhat * m2) in bf16; rows laid out as the
+// prologue's, 8 (32 / L) R rows per block.
+template <int L, int S, int R>
+__global__ void __launch_bounds__(kThreads)
+ln_mlp_bwd_rows_kernel(const bf16* __restrict__ h, const float* __restrict__ dxhat,
+                       const float* __restrict__ mu_in, const float* __restrict__ rstd_in,
+                       const float* __restrict__ rowpart, bf16* __restrict__ dx, long long n,
+                       int C) {
+  constexpr int G = 32 / L;
+  const int lane = threadIdx.x & 31;
+  const int sl = lane % L;
+  const long long r0 =
+      (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * G * R + lane / L;
+  const int segs = C / 8, ctiles = (C + kBN - 1) / kBN;
+  uint4 hraw[R][S];
+  float4 d[R][S][2];
+#pragma unroll
+  for (int u = 0; u < R; ++u)
+#pragma unroll
+    for (int q = 0; q < S; ++q)
+      if (r0 + u * G < n && sl + L * q < segs) {
+        const long long r = r0 + u * G;
+        const int sg = sl + L * q;
+        hraw[u][q] = reinterpret_cast<const uint4*>(h + r * C)[sg];
+        d[u][q][0] = reinterpret_cast<const float4*>(dxhat + r * C)[2 * sg];
+        d[u][q][1] = reinterpret_cast<const float4*>(dxhat + r * C)[2 * sg + 1];
+      }
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    const long long r = r0 + u * G;
+    if (r >= n) continue;
+    float a = 0.f, b = 0.f;
+    for (int k = 0; k < ctiles; ++k) {
+      const float2 p = *reinterpret_cast<const float2*>(rowpart + (k * n + r) * 2);
+      a += p.x;
+      b += p.y;
+    }
+    const float m1 = a / C, m2 = b / C;
+    const float mu = mu_in[r], rs = rstd_in[r];
     uint4* dst = reinterpret_cast<uint4*>(dx + r * C);
 #pragma unroll
-    for (int q = 0; q < kMaxSegs; ++q) {
-      const int sg = lane + 32 * q;
+    for (int q = 0; q < S; ++q) {
+      const int sg = sl + L * q;
       if (sg < segs) {
         float f[8];
+        unpack8(hraw[u][q], f);
+        const float dd[8] = {d[u][q][0].x, d[u][q][0].y, d[u][q][0].z, d[u][q][0].w,
+                             d[u][q][1].x, d[u][q][1].y, d[u][q][1].z, d[u][q][1].w};
 #pragma unroll
-        for (int e = 0; e < 8; ++e) f[e] = rs * (dh[q][e] - m1 - xh[q][e] * m2);
+        for (int e = 0; e < 8; ++e) f[e] = rs * (dd[e] - m1 - (f[e] - mu) * rs * m2);
         dst[sg] = pack8(f);
       }
     }
   }
-}
-
-int dx_tile(int C) { return C <= 256 ? 64 : C <= 512 ? 32 : 16; }
-
-template <int T, int HC, int MT1, int NT1, int MT2, int NT2, bool FAST>
-cudaError_t launch_dx(const bf16* h, const bf16* g, const float* ln_s, const float* ln_b,
-                      const bf16* w1, const float* b1, const bf16* w2, const float* b2,
-                      const float* gamma, bf16* dx, bf16* tok, bf16* hmid, bf16* dpre1,
-                      float* partial, long long n, int C, int hidden, float eps,
-                      cudaStream_t stream) {
-  constexpr int KS = Grid1<T, HC, MT1, NT1>::KS;
-  constexpr int WN2 = kWarps / (T / 16 / MT2);
-  if (T != dx_tile(C) || (C / 16 + WN2 - 1) / WN2 > NT2 || hidden % HC) return cudaErrorInvalidValue;
-  const BwdLayout L = make_bwd_layout(C, T, HC, KS);
-  if (L.total > kMaxSmem) return cudaErrorInvalidValue;
-  auto kern = ln_mlp_bwd_dx_kernel<T, HC, MT1, NT1, MT2, NT2, FAST>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(L.total));
-  if (e != cudaSuccess) return e;
-  const long long blocks = (n + T - 1) / T;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kern<<<static_cast<unsigned>(blocks), kThreads, L.total, stream>>>(
-      h, g, ln_s, ln_b, w1, b1, w2, b2, gamma, dx, tok, hmid, dpre1, partial, n, C, hidden, eps);
-  return cudaGetLastError();
-}
-
-template <bool FAST>
-cudaError_t dispatch_dx(const bf16* h, const bf16* g, const float* ln_s, const float* ln_b,
-                        const bf16* w1, const float* b1, const bf16* w2, const float* b2,
-                        const float* gamma, bf16* dx, bf16* tok, bf16* hmid, bf16* dpre1,
-                        float* partial, long long n, int C, int hidden, float eps,
-                        cudaStream_t st) {
-  // <T, HC, (T x HC) tile MT1 x NT1, (T x C) tile MT2 x NT2, GELU>; T = dx_tile(C)
-  if (C <= 256)
-    return launch_dx<64, 64, 1, 2, 1, 8, FAST>(h, g, ln_s, ln_b, w1, b1, w2, b2, gamma, dx, tok,
-                                               hmid, dpre1, partial, n, C, hidden, eps, st);
-  if (C <= 512)
-    return launch_dx<32, 32, 1, 1, 1, 8, FAST>(h, g, ln_s, ln_b, w1, b1, w2, b2, gamma, dx, tok,
-                                               hmid, dpre1, partial, n, C, hidden, eps, st);
-  if (C <= 768)
-    return launch_dx<16, 32, 1, 1, 1, 6, FAST>(h, g, ln_s, ln_b, w1, b1, w2, b2, gamma, dx, tok,
-                                               hmid, dpre1, partial, n, C, hidden, eps, st);
-  return launch_dx<16, 16, 1, 1, 1, 8, FAST>(h, g, ln_s, ln_b, w1, b1, w2, b2, gamma, dx, tok,
-                                             hmid, dpre1, partial, n, C, hidden, eps, st);
-}
-
-// ---------------------------------------------------------------- half (b)
-
-constexpr int kWK = 32;        // tokens per pipeline stage
-constexpr int kWLd = kWB + 8;  // bf16 row stride of a staged tile
-
-// out[m][p] = sum over tokens t of this block's slice of A[t][m] * B[t][p],
-// A (n, M) and B (n, P) bf16 row-major, out (M, P) fp32 row-major at slice
-// blockIdx.y. 8 warps on a 2 x 4 grid, each a 64 x 32 tile (4 x 2 fragments).
-__global__ void __launch_bounds__(kThreads)
-wgrad_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, float* __restrict__ out,
-             long long n, int M, int P, long long per_slice) {
-  __shared__ __align__(128) bf16 As[2][kWK][kWLd];
-  __shared__ __align__(128) bf16 Bs[2][kWK][kWLd];
-  const int tiles_p = (P + kWB - 1) / kWB;
-  const int m0 = (blockIdx.x / tiles_p) * kWB, p0 = (blockIdx.x % tiles_p) * kWB;
-  const long long t0 = static_cast<long long>(blockIdx.y) * per_slice;
-  const long long t1 = t0 + per_slice < n ? t0 + per_slice : n;
-  float* dst = out + static_cast<size_t>(blockIdx.y) * M * P;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp % 2, wp = warp / 2;
-
-  auto stage = [&](int buf, long long k0) {
-    constexpr int segs = kWB / 8;
-    for (int i = tid; i < kWK * segs; i += kThreads) {
-      const int r = i / segs, s = i - r * segs;
-      const long long t = k0 + r;
-      bf16* da = &As[buf][r][s * 8];
-      bf16* db = &Bs[buf][r][s * 8];
-      if (t < t1 && m0 + s * 8 < M) cp_async16(da, A + t * M + m0 + s * 8);
-      else *reinterpret_cast<uint4*>(da) = make_uint4(0u, 0u, 0u, 0u);
-      if (t < t1 && p0 + s * 8 < P) cp_async16(db, B + t * P + p0 + s * 8);
-      else *reinterpret_cast<uint4*>(db) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
-
-  FragC acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) wmma::fill_fragment(acc[i][jj], 0.f);
-
-  if (t0 < t1) stage(0, t0);
-  cp_commit();
-  int buf = 0;
-  for (long long k0 = t0; k0 < t1; k0 += kWK) {
-    if (k0 + kWK < t1) stage(buf ^ 1, k0 + kWK);
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kWK / 16; ++kk) {
-      FragACol a[4];
-      FragBRow b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (m0 + wm * 64 + i * 16 < M)
-          wmma::load_matrix_sync(a[i], &As[buf][kk * 16][wm * 64 + i * 16], kWLd);
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj)
-        if (p0 + wp * 32 + jj * 16 < P)
-          wmma::load_matrix_sync(b[jj], &Bs[buf][kk * 16][wp * 32 + jj * 16], kWLd);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj)
-          if (m0 + wm * 64 + i * 16 < M && p0 + wp * 32 + jj * 16 < P)
-            wmma::mma_sync(acc[i][jj], a[i], b[jj], acc[i][jj]);
-    }
-    __syncthreads();
-    buf ^= 1;
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj) {
-      const int m = m0 + wm * 64 + i * 16, p = p0 + wp * 32 + jj * 16;
-      if (m < M && p < P)
-        wmma::store_matrix_sync(dst + static_cast<size_t>(m) * P + p, acc[i][jj], P,
-                                wmma::mem_row_major);
-    }
 }
 
 // Row c of G = g^T hmid (C, hidden): dgamma[c] += sum_j W2[c][j] * G[c][j],
@@ -616,40 +826,268 @@ dw2_finish_kernel(const bf16* __restrict__ w2, const float* __restrict__ gamma,
   }
 }
 
-// The workspace: the blocks' vector rows of (a), their first column-sum pass,
-// and the slice partials of dW1 and G (when a product has more than one slice).
+// ------------------------------------------------------------------ host
+
+// The workspace, in this order: tok, dpre2 (n, C) bf16; mu, rstd (n) fp32;
+// hmid, dpre1 (n, hidden) bf16; dxhat (n, C) fp32; rowpart (ctiles, n, 2)
+// fp32; the vector partial rows (mtiles, hidden + 4C) and their column-sum
+// scratch; the token-slice partials of dW1 and of G.
+constexpr int kParts = 12;
+
 struct Work {
-  long long blocks, row;
+  long long mtiles, ctiles, row;
   Slices s1, s2;
-  size_t rows, scratch, part1, part2, total;
+  size_t off[kParts + 1];
 };
+
+// The SMs of the current device: the persistent grids' width.
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return sms;
+}
+
+// output tiles of an (M, P) weight product
+long long wgrad_tiles(int M, int P) {
+  return static_cast<long long>((M + kBM - 1) / kBM) * ((P + kBN - 1) / kBN);
+}
+
+// Token slices of a weight-grad product of `tiles` output tiles, each slice
+// a whole number of kBK-token stages, at least kMinSlice tokens and at most
+// kChunk slices (wgrad_common.cuh). The (tile, slice) units run on `sms`
+// persistent CTAs in rounds: the fewest slices that fill the rounds to 90%
+// (a tile's work spread evenly over the card), as few as will do, since
+// every slice adds a partial product to sum.
+Slices token_slices(long long n, long long tiles, int sms) {
+  const long long most = std::min<long long>(kChunk, (n + kMinSlice - 1) / kMinSlice);
+  long long s = 1;
+  if (sms > 0) {
+    s = std::max<long long>(1, std::min<long long>(most, (sms + tiles - 1) / tiles));
+    for (long long c = s; c <= most; ++c) {
+      const long long units = tiles * c, rounds = (units + sms - 1) / sms;
+      if (10 * units >= 9 * rounds * sms) {
+        s = c;
+        break;
+      }
+    }
+  }
+  const long long per = ((n + s - 1) / s + kBK - 1) / kBK * kBK;
+  return {(n + per - 1) / per, per};
+}
 
 Work plan(long long n, int C, int hidden) {
   Work w;
-  w.blocks = (n + dx_tile(C) - 1) / dx_tile(C);
+  w.mtiles = (n + kBM - 1) / kBM;
+  w.ctiles = (C + kBN - 1) / kBN;
   w.row = hidden + 4LL * C;
-  w.s1 = plan_slices(n, hidden, C);
-  w.s2 = plan_slices(n, C, hidden);
-  const long long parts = w.blocks > kChunk ? (w.blocks + kChunk - 1) / kChunk : 0;
-  w.rows = 0;
-  w.scratch = w.rows + align256(static_cast<size_t>(w.blocks * w.row) * 4);
-  w.part1 = w.scratch + align256(static_cast<size_t>(parts * w.row) * 4);
+  const int sms = sm_count();
+  w.s1 = token_slices(n, wgrad_tiles(hidden, C), sms);
+  w.s2 = token_slices(n, wgrad_tiles(C, hidden), sms);
+  const long long parts = w.mtiles > kChunk ? (w.mtiles + kChunk - 1) / kChunk : 0;
   const size_t wsize = static_cast<size_t>(hidden) * C * 4;
-  w.part2 = w.part1 + (w.s1.count > 1 ? align256(w.s1.count * wsize) : 0);
-  w.total = w.part2 + (w.s2.count > 1 ? align256(w.s2.count * wsize) : 0);
+  const size_t sizes[kParts] = {
+      static_cast<size_t>(n) * C * 2, static_cast<size_t>(n) * C * 2,
+      static_cast<size_t>(n) * 4, static_cast<size_t>(n) * 4,
+      static_cast<size_t>(n) * hidden * 2, static_cast<size_t>(n) * hidden * 2,
+      static_cast<size_t>(n) * C * 4, static_cast<size_t>(w.ctiles * n) * 8,
+      static_cast<size_t>(w.mtiles * w.row) * 4, static_cast<size_t>(parts * w.row) * 4,
+      w.s1.count > 1 ? w.s1.count * wsize : 0, w.s2.count > 1 ? w.s2.count * wsize : 0};
+  w.off[0] = 0;
+  for (int i = 0; i < kParts; ++i) w.off[i + 1] = w.off[i] + ((sizes[i] + 1023) & ~size_t(1023));
   return w;
 }
 
-// out (M, P) = A^T B over all n tokens: slices in parallel, then their sum.
-cudaError_t wgrad(const bf16* A, const bf16* B, float* out, float* part, long long n, int M,
-                  int P, Slices s, cudaStream_t st) {
-  const int tiles = ((M + kWB - 1) / kWB) * ((P + kWB - 1) / kWB);
-  float* dst = s.count > 1 ? part : out;
-  wgrad_kernel<<<dim3(tiles, static_cast<unsigned>(s.count)), kThreads, 0, st>>>(A, B, dst, n, M,
-                                                                                P, s.per);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || s.count == 1) return e;
-  return colsum(part, s.count, static_cast<long long>(M) * P, out, nullptr, st);
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D bf16 tensor map over rows of `inner` contiguous elements (`outer`
+// rows), boxes of box_inner x box_outer, 128-byte swizzle, zeros past the
+// edges.
+bool tensor_map(CUtensorMap* map, const void* ptr, long long inner, long long outer, int box_inner,
+                int box_outer) {
+  EncodeTiled fn = encoder();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t estr[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// gx x gy tiles on min(tiles, SMs) persistent CTAs; s0, s1 the store maps
+// (kHidden's hmid and dpre1), the others' unused.
+template <int KIND, bool FAST>
+cudaError_t launch_gemm(long long gx, long long gy, const CUtensorMap& a0, const CUtensorMap& b0,
+                        const CUtensorMap& a1, const CUtensorMap& b1, const CUtensorMap& s0,
+                        const CUtensorMap& s1, GemmArgs args, cudaStream_t st) {
+  if (gx * gy > 0x7fffffffLL) return cudaErrorInvalidValue;
+  args.gx = static_cast<int>(gx);
+  args.ntiles = static_cast<int>(gx * gy);
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidValue;
+  auto kern = ln_mlp_bwd_gemm_kernel<KIND, FAST>;
+  constexpr size_t smem = gemm_smem(KIND);
+  const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const int grid = args.ntiles < sms ? args.ntiles : sms;
+  kern<<<grid, kGemmThreads, smem, st>>>(a0, b0, a1, b1, s0, s1, args);
+  return cudaGetLastError();
+}
+
+// The row kernels' instances by C: <L, S, R> = <16, 1, 2> for C <= 128,
+// <32, 1, 4>, <32, 2, 2>, <32, 4, 1> for C <= 256, 512, 1024; each takes
+// 8 (32 / L) R rows a block-wide step.
+constexpr int row_step(int C) { return C <= 128 ? 32 : C <= 256 ? 32 : C <= 512 ? 16 : 8; }
+
+template <template <int, int, int> class Pick, typename... A>
+cudaError_t launch_rows(int C, unsigned blocks, size_t smem, cudaStream_t st, A... args) {
+  auto kern = C <= 128   ? Pick<16, 1, 2>::kernel
+              : C <= 256 ? Pick<32, 1, 4>::kernel
+              : C <= 512 ? Pick<32, 2, 2>::kernel
+                         : Pick<32, 4, 1>::kernel;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<blocks, kThreads, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+template <int L, int S, int R>
+struct Prologue {
+  static constexpr auto kernel = ln_mlp_bwd_prologue_kernel<L, S, R>;
+};
+template <int L, int S, int R>
+struct Rows {
+  static constexpr auto kernel = ln_mlp_bwd_rows_kernel<L, S, R>;
+};
+
+struct Inputs {
+  const bf16 *h, *g, *w1, *w2;
+  const float *ln_s, *ln_b, *b1, *b2, *gamma;
+  bf16* dx;
+  float *dw1, *dw2, *vecs;
+  char* ws;
+  long long n;
+  int C, hidden;
+  float eps;
+};
+
+template <bool FAST>
+cudaError_t run_stages(const Inputs& in, int first, int last, cudaStream_t st) {
+  const long long n = in.n;
+  const int C = in.C, H = in.hidden;
+  const Work w = plan(n, C, H);
+  bf16* tok = reinterpret_cast<bf16*>(in.ws + w.off[0]);
+  bf16* dpre2 = reinterpret_cast<bf16*>(in.ws + w.off[1]);
+  float* mu = reinterpret_cast<float*>(in.ws + w.off[2]);
+  float* rstd = reinterpret_cast<float*>(in.ws + w.off[3]);
+  bf16* hmid = reinterpret_cast<bf16*>(in.ws + w.off[4]);
+  bf16* dpre1 = reinterpret_cast<bf16*>(in.ws + w.off[5]);
+  float* dxhat = reinterpret_cast<float*>(in.ws + w.off[6]);
+  float* rowpart = reinterpret_cast<float*>(in.ws + w.off[7]);
+  float* partial = reinterpret_cast<float*>(in.ws + w.off[8]);
+  float* scratch = reinterpret_cast<float*>(in.ws + w.off[9]);
+  float* part1 = reinterpret_cast<float*>(in.ws + w.off[10]);
+  float* part2 = reinterpret_cast<float*>(in.ws + w.off[11]);
+  if (w.mtiles > 65535) return cudaErrorInvalidValue;
+  const unsigned mt = static_cast<unsigned>(w.mtiles);
+  GemmArgs args = {};
+  args.n = n;
+  args.C = C;
+  args.hidden = H;
+  args.partial = partial;
+  cudaError_t e = cudaSuccess;
+  CUtensorMap a0, b0, a1, b1, s0, s1;
+
+  if (first <= 0 && last > 0) {  // (i)
+    const size_t smem = static_cast<size_t>(kWarps) * 2 * C * 4;
+    if ((e = launch_rows<Prologue>(C, mt, smem, st, in.h, in.g, in.ln_s, in.ln_b, in.b2,
+                                   in.gamma, tok, dpre2, mu, rstd, partial, n, C, H, in.eps)) !=
+        cudaSuccess)
+      return e;
+  }
+  if (first <= 1 && last > 1) {  // (ii)
+    if (!tensor_map(&a0, tok, C, n, 64, kBM) || !tensor_map(&b0, in.w1, C, H, 64, kBN) ||
+        !tensor_map(&a1, dpre2, C, n, 64, kBM) || !tensor_map(&b1, in.w2, H, C, 64, 64) ||
+        !tensor_map(&s0, hmid, H, n, 64, kBM) || !tensor_map(&s1, dpre1, H, n, 64, kBM))
+      return cudaErrorInvalidValue;
+    args.b1 = in.b1;
+    e = launch_gemm<kHidden, FAST>((H + kBN - 1) / kBN, w.mtiles, a0, b0, a1, b1, s0, s1, args,
+                                   st);
+    if (e != cudaSuccess) return e;
+  }
+  if (first <= 2 && last > 2) {  // (iii)
+    if (!tensor_map(&a0, dpre1, H, n, 64, kBM) || !tensor_map(&b0, in.w1, C, H, 64, 64))
+      return cudaErrorInvalidValue;
+    args.h = in.h;
+    args.mu = mu;
+    args.rstd = rstd;
+    args.ln_s = in.ln_s;
+    args.dxhat = dxhat;
+    args.rowpart = rowpart;
+    args.dx = in.dx;
+    e = launch_gemm<kDln, false>(w.ctiles, w.mtiles, a0, b0, a0, b0, a0, a0, args, st);
+    if (e != cudaSuccess) return e;
+    const long long rb = (n + row_step(C) - 1) / row_step(C);
+    if (rb > 0x7fffffffLL) return cudaErrorInvalidValue;
+    if (C > kBN && (e = launch_rows<Rows>(C, static_cast<unsigned>(rb), 0, st, in.h, dxhat, mu,
+                                          rstd, rowpart, in.dx, n, C)) != cudaSuccess)
+      return e;
+  }
+  if (first <= 3 && last > 3) {  // (iv)
+    // dW1 (hidden, C) = dpre1^T tok; G (C, hidden) = g^T hmid
+    if (!tensor_map(&a0, dpre1, H, n, 64, 64) || !tensor_map(&b0, tok, C, n, 64, 64) ||
+        !tensor_map(&a1, in.g, C, n, 64, 64) || !tensor_map(&b1, hmid, H, n, 64, 64))
+      return cudaErrorInvalidValue;
+    args.M = H;
+    args.P = C;
+    args.per = w.s1.per;
+    args.out = w.s1.count > 1 ? part1 : in.dw1;
+    e = launch_gemm<kWgrad, false>(wgrad_tiles(H, C), w.s1.count, a0, b0, a0, b0, a0, a0, args,
+                                   st);
+    if (e != cudaSuccess) return e;
+    args.M = C;
+    args.P = H;
+    args.per = w.s2.per;
+    args.out = w.s2.count > 1 ? part2 : in.dw2;
+    e = launch_gemm<kWgrad, false>(wgrad_tiles(C, H), w.s2.count, a1, b1, a1, b1, a1, a1, args,
+                                   st);
+    if (e != cudaSuccess) return e;
+    const long long wn = static_cast<long long>(H) * C;
+    if (w.s1.count > 1 && (e = colsum(part1, w.s1.count, wn, in.dw1, nullptr, st)) != cudaSuccess)
+      return e;
+    if (w.s2.count > 1 && (e = colsum(part2, w.s2.count, wn, in.dw2, nullptr, st)) != cudaSuccess)
+      return e;
+    if ((e = colsum(partial, w.mtiles, w.row, in.vecs, scratch, st)) != cudaSuccess) return e;
+    dw2_finish_kernel<<<C, kThreads, 0, st>>>(in.w2, in.gamma, in.dw2, in.vecs + H + C, H);
+    if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -662,63 +1100,40 @@ int imt_ln_mlp_bwd_supported(int C, int hidden) {
   return C > 0 && C % 16 == 0 && C <= 1024 && hidden > 0 && hidden % 64 == 0;
 }
 
-// Bytes of device workspace the two halves need for n tokens.
+// Bytes of device workspace a call on n tokens needs.
 long long imt_ln_mlp_bwd_workspace_bytes(long long n, int C, int hidden) {
   if (!imt_ln_mlp_bwd_supported(C, hidden) || n <= 0) return 0;
-  return static_cast<long long>(plan(n, C, hidden).total);
+  return static_cast<long long>(plan(n, C, hidden).off[kParts]);
 }
 
-// Half (a). h and g (n, C) bf16, w1 (hidden, C) and w2 (C, hidden) bf16,
-// vectors fp32. Writes dx, tok (n, C) bf16 and hmid, dpre1 (n, hidden) bf16,
-// and the blocks' vector rows into `workspace` (of
-// imt_ln_mlp_bwd_workspace_bytes). All contiguous and 16-byte aligned.
-// gelu_fast selects the training GELU. Launches on `stream`; returns the
-// launch status (a cudaError_t; 0 is success).
-int imt_ln_mlp_bwd_dx_bf16(const void* h, const void* g, const void* ln_s, const void* ln_b,
-                           const void* w1, const void* b1, const void* w2, const void* b2,
-                           const void* gamma, void* dx, void* tok, void* hmid, void* dpre1,
-                           void* workspace, long long n, int C, int hidden, float eps,
-                           int gelu_fast, void* stream) {
-  if (!imt_ln_mlp_bwd_supported(C, hidden) || n <= 0) return cudaErrorInvalidValue;
-  float* partial = reinterpret_cast<float*>(static_cast<char*>(workspace) + plan(n, C, hidden).rows);
-  auto* f = gelu_fast ? &dispatch_dx<true> : &dispatch_dx<false>;
-  return f(static_cast<const bf16*>(h), static_cast<const bf16*>(g),
-           static_cast<const float*>(ln_s), static_cast<const float*>(ln_b),
-           static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-           static_cast<const bf16*>(w2), static_cast<const float*>(b2),
-           static_cast<const float*>(gamma), static_cast<bf16*>(dx), static_cast<bf16*>(tok),
-           static_cast<bf16*>(hmid), static_cast<bf16*>(dpre1), partial, n, C, hidden, eps,
-           static_cast<cudaStream_t>(stream));
-}
-
-// Half (b), after (a) on the same stream, with (a)'s tok, hmid and dpre1, its
-// workspace, and the cotangent g, w2 and gamma that (a) was given: dw1
-// (hidden, C) and dw2 (C, hidden) fp32, and `vecs` (hidden + 4C fp32) = db1,
-// db2, dgamma, dln_s, dln_b summed over the blocks of (a).
-int imt_ln_mlp_bwd_wgrad_bf16(const void* tok, const void* hmid, const void* dpre1,
-                              const void* g, const void* w2, const void* gamma, void* workspace,
-                              void* dw1, void* dw2, void* vecs, long long n, int C, int hidden,
-                              void* stream) {
-  if (!imt_ln_mlp_bwd_supported(C, hidden) || n <= 0) return cudaErrorInvalidValue;
-  const Work w = plan(n, C, hidden);
-  char* ws = static_cast<char*>(workspace);
+// The backward, stages [first, last) of (i) prologue, (ii) hidden products,
+// (iii) dln and dx, (iv) weight products and sums; 0 and 4 run it all. h
+// and g (n, C) bf16, w1 (hidden, C) and w2 (C, hidden) bf16, vectors fp32,
+// all contiguous and 16-byte aligned; `workspace` of
+// imt_ln_mlp_bwd_workspace_bytes bytes, 1024-byte aligned. Writes dx (n, C)
+// bf16, dw1 (hidden, C) and dw2 (C, hidden) fp32, and `vecs` (hidden + 4C
+// fp32) = db1, db2, dgamma, dln_s, dln_b. A stage run alone reads what the
+// stages before it left in the workspace. gelu_fast selects the training
+// GELU. Launches on `stream`; returns the launch status (a cudaError_t; 0 is
+// success).
+int imt_ln_mlp_bwd_bf16(const void* h, const void* g, const void* ln_s, const void* ln_b,
+                        const void* w1, const void* b1, const void* w2, const void* b2,
+                        const void* gamma, void* dx, void* dw1, void* dw2, void* vecs,
+                        void* workspace, long long n, int C, int hidden, float eps, int gelu_fast,
+                        int first, int last, void* stream) {
+  if (!imt_ln_mlp_bwd_supported(C, hidden) || n <= 0 || n > 0x7fffffffLL ||
+      reinterpret_cast<uintptr_t>(workspace) % 1024)
+    return cudaErrorInvalidValue;
+  const Inputs in = {static_cast<const bf16*>(h),      static_cast<const bf16*>(g),
+                     static_cast<const bf16*>(w1),     static_cast<const bf16*>(w2),
+                     static_cast<const float*>(ln_s),  static_cast<const float*>(ln_b),
+                     static_cast<const float*>(b1),    static_cast<const float*>(b2),
+                     static_cast<const float*>(gamma), static_cast<bf16*>(dx),
+                     static_cast<float*>(dw1),         static_cast<float*>(dw2),
+                     static_cast<float*>(vecs),        static_cast<char*>(workspace),
+                     n, C, hidden, eps};
   auto st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = wgrad(static_cast<const bf16*>(dpre1), static_cast<const bf16*>(tok),
-                        static_cast<float*>(dw1), reinterpret_cast<float*>(ws + w.part1), n,
-                        hidden, C, w.s1, st);
-  if (e != cudaSuccess) return e;
-  e = wgrad(static_cast<const bf16*>(g), static_cast<const bf16*>(hmid),
-            static_cast<float*>(dw2), reinterpret_cast<float*>(ws + w.part2), n, C, hidden, w.s2,
-            st);
-  if (e != cudaSuccess) return e;
-  e = colsum(reinterpret_cast<const float*>(ws + w.rows), w.blocks, w.row,
-             static_cast<float*>(vecs), reinterpret_cast<float*>(ws + w.scratch), st);
-  if (e != cudaSuccess) return e;
-  dw2_finish_kernel<<<C, kThreads, 0, st>>>(static_cast<const bf16*>(w2),
-                                            static_cast<const float*>(gamma),
-                                            static_cast<float*>(dw2),
-                                            static_cast<float*>(vecs) + hidden + C, hidden);
-  return cudaGetLastError();
+  return gelu_fast ? run_stages<true>(in, first, last, st) : run_stages<false>(in, first, last, st);
 }
 
 const char* imt_cuda_error_string(int err) {

@@ -122,10 +122,8 @@ def ln_mlp_bwd_library() -> ctypes.CDLL:
     lib.imt_ln_mlp_bwd_supported.restype = _I
     lib.imt_ln_mlp_bwd_workspace_bytes.argtypes = [_LL, _I, _I]
     lib.imt_ln_mlp_bwd_workspace_bytes.restype = _LL
-    lib.imt_ln_mlp_bwd_dx_bf16.argtypes = [_P] * 14 + [_LL, _I, _I, _F, _I, _P]
-    lib.imt_ln_mlp_bwd_dx_bf16.restype = _I
-    lib.imt_ln_mlp_bwd_wgrad_bf16.argtypes = [_P] * 10 + [_LL, _I, _I, _P]
-    lib.imt_ln_mlp_bwd_wgrad_bf16.restype = _I
+    lib.imt_ln_mlp_bwd_bf16.argtypes = [_P] * 14 + [_LL, _I, _I, _F, _I, _I, _I, _P]
+    lib.imt_ln_mlp_bwd_bf16.restype = _I
     return lib
 
 
@@ -174,14 +172,18 @@ def stripe_attn_bwd_library() -> ctypes.CDLL:
     return lib
 
 
+def _bn_plan(lib: ctypes.CDLL) -> None:
+    lib.imt_bn_plan.argtypes = [_LL, _I, ctypes.POINTER(_LL)]
+    lib.imt_bn_plan.restype = _I
+
+
 @functools.cache
 def bn_moments_library() -> ctypes.CDLL:
     """The BatchNorm forward statistics kernel's library (kernel 7), built on
     first call."""
     lib = _load("bn_moments")
-    lib.imt_bn_slices.argtypes = [_LL, _I, _I]
-    lib.imt_bn_slices.restype = _I
-    lib.imt_bn_moments.argtypes = [_P, _LL, _I, _LL, _I, _I, _I, _P, _P, _P]
+    _bn_plan(lib)
+    lib.imt_bn_moments.argtypes = [_P, _LL, _I, _LL, _I, _P, _P, _P]
     lib.imt_bn_moments.restype = _I
     return lib
 
@@ -191,9 +193,8 @@ def bn_dot_sums_library() -> ctypes.CDLL:
     """The BatchNorm backward sums kernel's library (kernel 8), built on first
     call."""
     lib = _load("bn_dot_sums")
-    lib.imt_bn_slices.argtypes = [_LL, _I, _I]
-    lib.imt_bn_slices.restype = _I
-    lib.imt_bn_dot_sums.argtypes = [_P, _LL, _I, _P, _LL, _I, _LL, _I, _I, _I, _P, _P, _P]
+    _bn_plan(lib)
+    lib.imt_bn_dot_sums.argtypes = [_P, _LL, _I, _P, _LL, _I, _LL, _I, _P, _P, _P]
     lib.imt_bn_dot_sums.restype = _I
     return lib
 

@@ -32,10 +32,13 @@ kernel to a twin. `use_kernel=False` takes the twins on any device.
 
 from __future__ import annotations
 
+import ctypes
 import os
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+
+from imagenet_models_tpu_torch.ops._kernels import bn_dot_sums_library, bn_moments_library
 
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}  # the kernels' operand type codes
 _MODES = ("0", "1", "full", "bwd")
@@ -112,6 +115,8 @@ def _row_stride(t: torch.Tensor) -> Optional[int]:
     evenly spaced and not overlapping, without a copy; None for any other
     layout."""
     c = t.shape[-1]
+    if t.is_contiguous():
+        return c
     try:
         rows = t.view(-1, c)
     except RuntimeError:
@@ -123,8 +128,8 @@ def _row_stride(t: torch.Tensor) -> Optional[int]:
 
 
 def _rows(name: str, t: torch.Tensor) -> Tuple[torch.Tensor, int]:
-    """`t` as (n, C) rows and their stride; raises for a layout or dtype the
-    kernels do not take."""
+    """`t` and the stride of its (n, C) rows; raises for a layout or dtype
+    the kernels do not take."""
     if t.dtype not in _DTYPES:
         raise TypeError(f"{name} takes bf16 or fp32 tensors, got {t.dtype}")
     if t.dim() < 1 or t.shape[-1] == 0:
@@ -133,35 +138,50 @@ def _rows(name: str, t: torch.Tensor) -> Tuple[torch.Tensor, int]:
     if ld is None:
         raise ValueError(f"{name} takes (..., C) tensors whose rows are evenly spaced with "
                          f"contiguous channels, got shape {tuple(t.shape)} strides {t.stride()}")
-    return t.view(-1, t.shape[-1]), ld
+    return t, ld
 
 
-def _vector(c: int, operands) -> int:
-    """Channels per load: 8 when every operand is bf16, else 4, as far as C,
-    the row strides and the pointers are aligned for 16-byte (bf16 x 4: 8
-    byte) loads; 1 otherwise."""
-    v = 8 if all(t.dtype == torch.bfloat16 for t, _ in operands) else 4
-    for t, ld in operands:
-        if c % v or ld % v or t.data_ptr() % (v * t.element_size()):
-            return 1
-    return v
+# (library, n, C) -> the call's workspace: fp32 values and ticket counters
+# (imt_bn_plan), asked once per shape
+_PLANS: Dict[Tuple[str, int, int], Tuple[int, int]] = {}
+# (device index, stream) -> the kernels' ticket counters, zeroed once: every
+# call leaves them at zero, and calls on one stream run one after another.
+# Process-wide, as the streams are: two callers on one stream share a
+# buffer that neither can find in use.
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
-def _launch(name: str, lib, fn, operands, n: int, c: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    dev = operands[0][0].device
-    v = _vector(c, operands)
-    slices = lib.imt_bn_slices(n, c, v)
-    partials = torch.empty(slices, 2 * c, dtype=torch.float32, device=dev)
-    out = torch.empty(2, c, dtype=torch.float32, device=dev)
+def _launch(name: str, lib, fn, operands, c: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of kernel 7 or 8 on `operands` ([(tensor, row stride)]):
+    one allocation, the workspace whose first 2C values are the sums. The
+    kernel picks its loads' width from the operands' types and alignment."""
+    t = operands[0][0]
+    dev = t.device
+    if dev.index != torch._C._cuda_getDevice():
+        with torch.cuda.device(dev):
+            return _launch(name, lib, fn, operands, c)
+    n = t.numel() // c
+    sizes = _PLANS.get((name, n, c))
+    if sizes is None:
+        if n == 0:
+            raise ValueError(f"{name} needs at least one row")
+        out = (ctypes.c_longlong * 2)()
+        if lib.imt_bn_plan(n, c, out) != 0:
+            raise ValueError(f"{name} does not take n={n}, C={c}")
+        sizes = _PLANS[(name, n, c)] = (out[0], out[1])
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    tickets = _TICKETS.get((dev.index, stream))
+    if tickets is None or tickets.numel() < sizes[1]:
+        tickets = _TICKETS[(dev.index, stream)] = torch.zeros(max(sizes[1], 4096),
+                                                              dtype=torch.int32, device=dev)
+    work = torch.empty(sizes[0], dtype=torch.float32, device=dev)
     args = []
-    for t, ld in operands:
-        args += [t.data_ptr(), ld, _DTYPES[t.dtype]]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*args, n, c, v, slices, partials.data_ptr(), out.data_ptr(), stream)
+    for op, ld in operands:
+        args += [op.data_ptr(), ld, _DTYPES[op.dtype]]
+    err = fn(*args, n, c, work.data_ptr(), tickets.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: {lib.imt_cuda_error_string(err).decode()}")
-    return out[0], out[1]
+    return work[:c], work[c:2 * c]
 
 
 def fused_channel_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -174,14 +194,12 @@ def fused_channel_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     `fused_channel_moments.launches` counts launches."""
     if not x.is_cuda:
         raise ValueError("fused_channel_moments needs a CUDA tensor; CPU tensors go to the twin")
-    rows, ld = _rows("fused_channel_moments", x)
-    n, c = rows.shape
-    if n == 0:
-        raise ValueError("fused_channel_moments needs at least one row")
-    from imagenet_models_tpu_torch.ops._kernels import bn_moments_library
+    return _moments(*_rows("fused_channel_moments", x))
 
+
+def _moments(x: torch.Tensor, ld: int) -> Tuple[torch.Tensor, torch.Tensor]:
     lib = bn_moments_library()
-    sums = _launch("bn_moments", lib, lib.imt_bn_moments, [(rows, ld)], n, c)
+    sums = _launch("bn_moments", lib, lib.imt_bn_moments, [(x, ld)], x.shape[-1])
     fused_channel_moments.launches += 1
     return sums
 
@@ -203,14 +221,12 @@ def fused_channel_dot_sums(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tens
     if a.shape != b.shape:
         raise ValueError(f"fused_channel_dot_sums: shapes {tuple(a.shape)} and {tuple(b.shape)} "
                          f"differ")
-    (ra, lda), (rb, ldb) = _rows("fused_channel_dot_sums", a), _rows("fused_channel_dot_sums", b)
-    n, c = ra.shape
-    if n == 0:
-        raise ValueError("fused_channel_dot_sums needs at least one row")
-    from imagenet_models_tpu_torch.ops._kernels import bn_dot_sums_library
+    return _dot_sums(_rows("fused_channel_dot_sums", a), _rows("fused_channel_dot_sums", b))
 
+
+def _dot_sums(ra, rb) -> Tuple[torch.Tensor, torch.Tensor]:
     lib = bn_dot_sums_library()
-    sums = _launch("bn_dot_sums", lib, lib.imt_bn_dot_sums, [(ra, lda), (rb, ldb)], n, c)
+    sums = _launch("bn_dot_sums", lib, lib.imt_bn_dot_sums, [ra, rb], ra[0].shape[-1])
     fused_channel_dot_sums.launches += 1
     return sums
 
@@ -224,12 +240,25 @@ def row_view(t: torch.Tensor) -> torch.Tensor:
     return t if t.dim() and _row_stride(t) is not None else t.contiguous()
 
 
+def _row_view(name: str, t: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """`row_view(t)` and its row stride, the stride found once; raises for a
+    dtype or shape the kernels do not take."""
+    ld = _row_stride(t) if t.dim() else None
+    if ld is None or t.dtype not in _DTYPES or t.shape[-1] == 0:
+        return _rows(name, t if ld is not None else t.contiguous())
+    return t, ld
+
+
 def channel_moments(x: torch.Tensor, use_kernel: Optional[bool] = None):
     """fp32 (sum(x), sum(x^2)) per channel: kernel 7 for CUDA tensors, the
     twin for CPU tensors; `use_kernel` forces one."""
     if use_kernel is None:
         use_kernel = x.is_cuda
-    return fused_channel_moments(row_view(x)) if use_kernel else plain_channel_moments(x)
+    if not use_kernel:
+        return plain_channel_moments(x)
+    if not x.is_cuda:
+        raise ValueError("fused_channel_moments needs a CUDA tensor; CPU tensors go to the twin")
+    return _moments(*_row_view("fused_channel_moments", x))
 
 
 def channel_dot_sums(a: torch.Tensor, b: torch.Tensor, use_kernel: Optional[bool] = None):
@@ -237,9 +266,12 @@ def channel_dot_sums(a: torch.Tensor, b: torch.Tensor, use_kernel: Optional[bool
     twin for CPU tensors; `use_kernel` forces one."""
     if use_kernel is None:
         use_kernel = a.is_cuda
-    if use_kernel:
-        return fused_channel_dot_sums(row_view(a), row_view(b))
-    return plain_channel_dot_sums(a, b)
+    if not use_kernel:
+        return plain_channel_dot_sums(a, b)
+    if not (a.is_cuda and b.is_cuda) or a.device != b.device or a.shape != b.shape:
+        return fused_channel_dot_sums(a, b)  # raises, with the reason
+    return _dot_sums(_row_view("fused_channel_dot_sums", a),
+                     _row_view("fused_channel_dot_sums", b))
 
 
 class BNTrainFunction(torch.autograd.Function):

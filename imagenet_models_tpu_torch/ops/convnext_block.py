@@ -285,70 +285,62 @@ def fused_ln_mlp(h: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma,
 fused_ln_mlp.launches = 0
 
 
-def ln_mlp_bwd_dx(h: torch.Tensor, g: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma,
-                  eps: float = 1e-6, gelu_impl: str = "exact"):
-    """Half (a) of kernel 2: recompute the forward per token tile, write dx
-    and the bf16 operands of the weight-grad products (tok, hmid_c, dpre1_c),
-    and one row of partial vector sums per block into a workspace. Returns
-    (dx, scratch): scratch is what half (b) takes, those three and the
-    workspace with the cotangent, the bf16 w2 and the fp32 gamma."""
-    _check_gelu(gelu_impl)
-    _check_tokens("fused_ln_mlp_bwd", h)
-    _check_tokens("fused_ln_mlp_bwd", g)
-    if g.shape != h.shape or g.device != h.device:
-        raise ValueError(f"cotangent {tuple(g.shape)} does not match tokens {tuple(h.shape)}")
-    w1, w2, (s, b, bb1, bb2, gm) = _kernel_operands("fused_ln_mlp_bwd", h, ln_s, ln_b, w1,
-                                                    b1, w2, b2, gamma)
-    from imagenet_models_tpu_torch.ops._kernels import ln_mlp_bwd_library
-
-    lib = ln_mlp_bwd_library()
-    n, c = h.shape
-    hidden = w1.shape[0]
-    if n == 0 or not lib.imt_ln_mlp_bwd_supported(c, hidden):
-        raise ValueError(f"fused_ln_mlp_bwd does not take N={n}, C={c}, hidden={hidden}")
-    dx = torch.empty_like(h)
-    tok = torch.empty_like(h)
-    hmid = torch.empty(n, hidden, dtype=torch.bfloat16, device=h.device)
-    dpre1 = torch.empty_like(hmid)
-    workspace = torch.empty(lib.imt_ln_mlp_bwd_workspace_bytes(n, c, hidden),
-                            dtype=torch.uint8, device=h.device)
-    if not _aligned(h, g, w1, w2, dx, tok, hmid, dpre1, workspace):
-        raise ValueError("fused_ln_mlp_bwd needs 16-byte aligned tokens and weights")
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = lib.imt_ln_mlp_bwd_dx_bf16(
-            h.data_ptr(), g.data_ptr(), s.data_ptr(), b.data_ptr(), w1.data_ptr(),
-            bb1.data_ptr(), w2.data_ptr(), bb2.data_ptr(), gm.data_ptr(), dx.data_ptr(),
-            tok.data_ptr(), hmid.data_ptr(), dpre1.data_ptr(), workspace.data_ptr(), n, c,
-            hidden, float(eps), int(gelu_impl == "fast"), stream)
-    _raise_on(lib, err, "ln_mlp_bwd_dx")
-    return dx, (tok, hmid, dpre1, g, w2, gm, workspace)
+# kernel 2's stages, as imt_ln_mlp_bwd_bf16 numbers them
+BWD_STAGES = ("prologue", "hidden", "dln", "wgrad")
 
 
-def ln_mlp_bwd_wgrad(scratch) -> Tuple[torch.Tensor, ...]:
-    """Half (b) of kernel 2: dW1 = dpre1_c^T tok and G = g^T hmid_c as tiled
-    products over token slices, then the slices' partials and the vector
-    partial rows of half (a) summed in a fixed order; dW2 = gamma * G, and
-    dgamma gains sum_j W2 * G (pre2 is never formed). Returns fp32 (dln_s,
-    dln_b, dw1, db1, dw2, db2, dgamma)."""
-    from imagenet_models_tpu_torch.ops._kernels import ln_mlp_bwd_library
+class _Bwd:
+    """One call of kernel 2: its checked operands, outputs and workspace.
+    `run(first, last)` launches stages [first, last) of BWD_STAGES; a stage
+    run alone reads what the stages before it left in the workspace."""
 
-    lib = ln_mlp_bwd_library()
-    tok, hmid, dpre1, g, w2, gamma, workspace = scratch
-    n, c = tok.shape
-    hidden = hmid.shape[1]
-    dw1 = torch.empty(hidden, c, dtype=torch.float32, device=tok.device)
-    dw2 = torch.empty(c, hidden, dtype=torch.float32, device=tok.device)
-    vecs = torch.empty(hidden + 4 * c, dtype=torch.float32, device=tok.device)
-    with torch.cuda.device(tok.device):
-        stream = torch.cuda.current_stream(tok.device).cuda_stream
-        err = lib.imt_ln_mlp_bwd_wgrad_bf16(
-            tok.data_ptr(), hmid.data_ptr(), dpre1.data_ptr(), g.data_ptr(), w2.data_ptr(),
-            gamma.data_ptr(), workspace.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
-            vecs.data_ptr(), n, c, hidden, stream)
-    _raise_on(lib, err, "ln_mlp_bwd_wgrad")
-    db1, db2, dgamma, dln_s, dln_b = torch.split(vecs, [hidden, c, c, c, c])
-    return dln_s, dln_b, dw1, db1, dw2, db2, dgamma
+    def __init__(self, h, g, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, gelu_impl):
+        _check_gelu(gelu_impl)
+        _check_tokens("fused_ln_mlp_bwd", h)
+        _check_tokens("fused_ln_mlp_bwd", g)
+        if g.shape != h.shape or g.device != h.device:
+            raise ValueError(f"cotangent {tuple(g.shape)} does not match tokens {tuple(h.shape)}")
+        w1, w2, vecs = _kernel_operands("fused_ln_mlp_bwd", h, ln_s, ln_b, w1, b1, w2, b2, gamma)
+        from imagenet_models_tpu_torch.ops._kernels import ln_mlp_bwd_library
+
+        self.lib = lib = ln_mlp_bwd_library()
+        n, c = h.shape
+        hidden = w1.shape[0]
+        if n == 0 or not lib.imt_ln_mlp_bwd_supported(c, hidden):
+            raise ValueError(f"fused_ln_mlp_bwd does not take N={n}, C={c}, hidden={hidden}")
+        size = lib.imt_ln_mlp_bwd_workspace_bytes(n, c, hidden)
+        self.dx = torch.empty_like(h)
+        self.dw1 = torch.empty(hidden, c, dtype=torch.float32, device=h.device)
+        self.dw2 = torch.empty(c, hidden, dtype=torch.float32, device=h.device)
+        self.vecs = torch.empty(hidden + 4 * c, dtype=torch.float32, device=h.device)
+        raw = torch.empty(size + 1024, dtype=torch.uint8, device=h.device)
+        skip = -raw.data_ptr() % 1024  # the kernel wants 1024-byte aligned parts
+        self.workspace = raw[skip:skip + size]
+        if not _aligned(h, g, w1, w2, self.dx):
+            raise ValueError("fused_ln_mlp_bwd needs 16-byte aligned tokens and weights")
+        self.args = (h.data_ptr(), g.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
+                     w1.data_ptr(), vecs[2].data_ptr(), w2.data_ptr(), vecs[3].data_ptr(),
+                     vecs[4].data_ptr(), self.dx.data_ptr(), self.dw1.data_ptr(),
+                     self.dw2.data_ptr(), self.vecs.data_ptr(), self.workspace.data_ptr(),
+                     n, c, hidden, float(eps), int(gelu_impl == "fast"))
+        self.keep = (w1, w2, vecs)  # the converted operands live as long as the call
+        self.device = h.device
+
+    def run(self, first: int = 0, last: int = len(BWD_STAGES)) -> None:
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            err = self.lib.imt_ln_mlp_bwd_bf16(*self.args, first, last, stream)
+        _raise_on(self.lib, err, "ln_mlp_bwd")
+
+
+def ln_mlp_bwd_pipeline(h: torch.Tensor, g: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma,
+                        eps: float = 1e-6, gelu_impl: str = "exact") -> _Bwd:
+    """Kernel 2 run once through all its stages, kept so that each stage can
+    be launched again on its own (`.run(k, k + 1)`): for timing the pipeline
+    stage by stage. Not counted in `fused_ln_mlp_bwd.launches`."""
+    call = _Bwd(h, g, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, gelu_impl)
+    call.run()
+    return call
 
 
 def fused_ln_mlp_bwd(h: torch.Tensor, g: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma,
@@ -358,14 +350,18 @@ def fused_ln_mlp_bwd(h: torch.Tensor, g: torch.Tensor, ln_s, ln_b, w1, b1, w2, b
     Replaces `_fused_ln_mlp_bwd_pallas` (ops/convnext_block.py:474). Returns
     (dx, dln_s, dln_b, dw1, db1, dw2, db2, dgamma) as `plain_ln_mlp_bwd` does:
     each gradient in its input's dtype (the kernel sums in fp32), weights in
-    torch Linear layout. Raises on anything the kernel does not take.
+    torch Linear layout. The kernel is a pipeline of GEMM-shaped stages
+    (BWD_STAGES, csrc/ln_mlp_bwd.cu). Raises on anything it does not take.
     `fused_ln_mlp_bwd.launches` counts calls that launched it.
     """
-    dx, scratch = ln_mlp_bwd_dx(h, g, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, gelu_impl)
-    grads = ln_mlp_bwd_wgrad(scratch)
+    call = _Bwd(h, g, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, gelu_impl)
+    call.run()
     fused_ln_mlp_bwd.launches += 1
+    c, hidden = h.shape[1], call.dw1.shape[0]
+    db1, db2, dgamma, dln_s, dln_b = torch.split(call.vecs, [hidden, c, c, c, c])
+    grads = (dln_s, dln_b, call.dw1, db1, call.dw2, db2, dgamma)
     params = (ln_s, ln_b, w1, b1, w2, b2, gamma)
-    return (dx,) + tuple(d.to(p.dtype) for d, p in zip(grads, params))
+    return (call.dx,) + tuple(d.to(p.dtype) for d, p in zip(grads, params))
 
 
 fused_ln_mlp_bwd.launches = 0

@@ -344,6 +344,57 @@ def test_kernels_read_channel_slices_and_4d_maps_on_cuda():
 
 
 @pytest.mark.cuda
+def test_dot_sums_read_channel_slices_on_cuda():
+    """Kernel 8 on operands whose rows are 3C apart (channel slices of a
+    wider map), one of them off a 16-byte boundary."""
+    gen = _cuda()
+    wide = torch.randn(4, 14, 14, 3 * 96, generator=gen, device="cuda").bfloat16()
+    for a, b in ((wide[..., 96:192], wide[..., :96]), (wide[..., 1:97], wide[..., 192:])):
+        ref = tbn.plain_channel_dot_sums(a, b)
+        got = tbn.fused_channel_dot_sums(a, b)
+        ad, bd = a.double().reshape(-1, 96), b.double().reshape(-1, 96)
+        _assert_sums_close(got, ref, (ad.sum(0), (ad * bd).sum(0)))
+
+
+@pytest.mark.cuda
+def test_dot_sums_tickets_across_shapes_on_cuda():
+    """The last-block tickets are left at zero by every call: calls on
+    shapes of other plans in turn (one row, odd rows, one and many slice
+    groups, a channel slice) give each shape the bits of its first call."""
+    gen = _cuda()
+    wide = torch.randn(6, 7, 7, 3 * 64, generator=gen, device="cuda").bfloat16()
+    cases = [torch.randn(1, 64, generator=gen, device="cuda"),
+             torch.randn(777, 96, generator=gen, device="cuda").bfloat16(),
+             torch.randn(8 * 7 * 7, 1024, generator=gen, device="cuda").bfloat16(),
+             torch.randn(8 * 112 * 112, 64, generator=gen, device="cuda").bfloat16(),
+             wide[..., 64:128]]
+    first = [[t.clone() for t in tbn.fused_channel_dot_sums(x, x)] for x in cases]
+    for _ in range(2):
+        for x, ref in zip(cases, first):
+            got = tbn.fused_channel_dot_sums(x, x)
+            assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_dot_sums_on_two_streams_on_cuda():
+    """Calls in flight on two streams at once: each stream has its own
+    tickets, and both give the bits of a call on the default stream."""
+    gen = _cuda()
+    x = torch.randn(8 * 14 * 14, 1024, generator=gen, device="cuda").bfloat16()
+    ref = [t.clone() for t in tbn.fused_channel_dot_sums(x, x)]
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(4):
+        for st in streams:
+            with torch.cuda.stream(st):
+                outs.append(tbn.fused_channel_dot_sums(x, x))
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, r) for out in outs for g, r in zip(out, ref))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["full", "bwd"])
 def test_bn_train_on_cuda_runs_the_kernels(mode, monkeypatch):
     monkeypatch.setattr(tbn, "_PALLAS_BN_MODE", mode)

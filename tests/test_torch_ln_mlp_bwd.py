@@ -20,11 +20,12 @@ from imagenet_models_tpu_torch.ops import convnext_block as tcb
 NAMES = ("dx", "dln_s", "dln_b", "dw1", "db1", "dw2", "db2", "dgamma")
 
 
-def _args(c: int, n: int, seed: int = 0):
-    """numpy inputs in JAX layout: h (n, c), ln_s, ln_b, w1 (c, 4c), b1,
-    w2 (4c, c), b2, gamma, and a cotangent g (n, c)."""
+def _args(c: int, n: int, seed: int = 0, hidden: int = 0):
+    """numpy inputs in JAX layout: h (n, c), ln_s, ln_b, w1 (c, hidden), b1,
+    w2 (hidden, c), b2, gamma, and a cotangent g (n, c); hidden 4c unless
+    given."""
     rng = np.random.default_rng(seed)
-    hid = 4 * c
+    hid = hidden or 4 * c
     f = lambda *s, scale=1.0, shift=0.0: (rng.standard_normal(s) * scale + shift).astype(np.float32)
     return (f(n, c), f(c, scale=0.1, shift=1.0), f(c, scale=0.1),
             f(c, hid, scale=c ** -0.5), f(hid, scale=0.1),
@@ -51,10 +52,14 @@ def _assert_close(got, ref, rel):
 
 
 # N = 70 and 2 x 5 x 7 tokens: no tile of 8, 16 or 64 divides them; at
-# N = 128 a 64-token Pallas tile makes the JAX side add two tiles' sums.
+# N = 128 a 64-token Pallas tile makes the JAX side add two tiles' sums; the
+# last case has a hidden width other than 4C (the kernel takes any multiple
+# of 64 on the card; the twin is held to JAX here at a narrow one).
 @pytest.mark.parametrize("gelu_impl", ["exact", "fast"])
-@pytest.mark.parametrize("c,hw,tile", [(8, (5, 7), None), (16, (5, 7), None), (16, (8, 8), "64")])
-def test_twin_matches_pallas_backward_interpret(c, hw, tile, gelu_impl, monkeypatch):
+@pytest.mark.parametrize("c,hw,tile,hidden", [(8, (5, 7), None, 0), (16, (5, 7), None, 0),
+                                              (16, (8, 8), "64", 0), (16, (5, 7), None, 40)],
+                         ids=["8-hw0-None", "16-hw1-None", "16-hw2-64", "16-hw1-None-hidden40"])
+def test_twin_matches_pallas_backward_interpret(c, hw, tile, hidden, gelu_impl, monkeypatch):
     import jax
     import jax.numpy as jnp
     from jax.experimental.pallas import tpu as pltpu
@@ -64,7 +69,7 @@ def test_twin_matches_pallas_backward_interpret(c, hw, tile, gelu_impl, monkeypa
     if tile:
         monkeypatch.setenv("IMTPU_LNMLP_BWD_TILE", tile)
     n = 2 * hw[0] * hw[1]
-    args, g = _args(c, n, seed=c)
+    args, g = _args(c, n, seed=c, hidden=hidden)
     jargs = [jnp.asarray(a) for a in args]
     jargs[0] = jargs[0].reshape(2, *hw, c)
     with jax.default_device(jax.devices("cpu")[0]), jax.default_matmul_precision("highest"):
@@ -124,11 +129,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tcb.plain_ln_mlp(*targs, gelu_impl="tanh")
 
 
-def _cuda_args(c, n, seed, dtype=torch.bfloat16):
+def _cuda_args(c, n, seed, dtype=torch.bfloat16, hidden=0):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
-    args, g = _args(c, n, seed)
+    args, g = _args(c, n, seed, hidden)
     return ([t.cuda() for t in _torch_args(args, dtype)],
             torch.from_numpy(g).to(dtype).cuda())
 
@@ -153,6 +158,39 @@ def test_backward_kernel_matches_twin_on_cuda(c, n, gelu_impl):
     ref = tcb.plain_ln_mlp_bwd(args[0], g, *args[1:], gelu_impl=gelu_impl)
     torch.cuda.synchronize()
     _assert_kernel_close(got, ref)
+
+
+# the kernel's 128-token and 128-column tiles: one token, a few, one tile
+# less or more than k tiles; C from 64 to 1024 with 688 = 43 x 16 (not a
+# multiple of the 64-wide loads); a hidden width other than 4C
+@pytest.mark.cuda
+@pytest.mark.parametrize("gelu_impl", ["exact", "fast"])
+@pytest.mark.parametrize("c,n,hidden", [(64, 1, 0), (96, 17, 0), (96, 128 * 3 - 1, 0),
+                                        (96, 128 * 3 + 1, 0), (688, 128 * 2 + 1, 0),
+                                        (768, 128 - 1, 0), (1024, 128 + 1, 0),
+                                        (96, 128 * 5 + 3, 256)])
+def test_backward_kernel_tiles_and_edges_on_cuda(c, n, hidden, gelu_impl):
+    args, g = _cuda_args(c, n, seed=10, hidden=hidden)
+    got = tcb.fused_ln_mlp_bwd(args[0], g, *args[1:], gelu_impl=gelu_impl)
+    again = tcb.fused_ln_mlp_bwd(args[0], g, *args[1:], gelu_impl=gelu_impl)
+    ref = tcb.plain_ln_mlp_bwd(args[0], g, *args[1:], gelu_impl=gelu_impl)
+    torch.cuda.synchronize()
+    _assert_kernel_close(got, ref)
+    # no float atomics: the same bits on every run
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_backward_pipeline_stages_rerun_on_cuda():
+    """Each stage launched again alone reads what the earlier ones left and
+    gives the same outputs."""
+    args, g = _cuda_args(192, 700, seed=11)
+    call = tcb.ln_mlp_bwd_pipeline(args[0], g, *args[1:], gelu_impl="fast")
+    first = [t.clone() for t in (call.dx, call.dw1, call.dw2, call.vecs)]
+    for k in range(len(tcb.BWD_STAGES)):
+        call.run(k, k + 1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, (call.dx, call.dw1, call.dw2, call.vecs)))
 
 
 @pytest.mark.cuda
