@@ -24,12 +24,16 @@ blocks on the JAX package's fused-branch entry `convnext_branch_apply`
 1. device: the card's name and power limit;
 2. build: compile every CUDA kernel from `csrc/`, one nvcc per source, all
    started together;
-3. kernels 1 and 2: each against its plain-PyTorch twin at the shapes the
-   paths give it (the four stage shapes of B=64 and a ragged N=152, and
-   those of B=128 for the training kernels): the LN+MLP forward with exact
-   and with fast GELU, and the backward (kernel 2) with both, every output;
-   times in turns (twin, kernel, kernel, twin) from CUDA events, the forward
-   at B=64 (both GELUs) and the training kernels at B=128;
+3. kernels 1 and 2: each against its plain-PyTorch twin with both GELUs,
+   bit-equal between two runs, at the four stage shapes of B=64, a ragged
+   N=152 and BWD_EDGE_SHAPES (C = 64, 688, 1024; N = 1, 17, ragged tiles;
+   hidden other than 4C), kernel 1 also at the stage shapes of B=256 (the
+   eval batch) and B=128 (the train batch), kernel 2 at those of B=128, every
+   output; times in turns (twin, kernel, kernel, twin) from CUDA events,
+   kernel 1 at B=64 and B=256 with the exact GELU and at B=64 and B=128
+   with the fast one, kernel 2 at B=128, each also stage by stage and
+   beside its products as torch.matmul calls; kernel 1's registers and
+   SASS counts (HGMMA in its GEMM stages);
 4. ConvNeXt serving: four uint8 requests of 32 images through the kernel
    path, with launch counts per request, logits checked against the plain
    path, and one eval step;
@@ -172,7 +176,14 @@ blocks on the JAX package's fused-branch entry `convnext_branch_apply`
    logits against the plain composition and an fp32 model, one eval step,
    eval img/s of both routes in turns; six train steps of phase 6's recipe
    with 18 + 18 launches each, one plain-composition step checked as in
-   phase 6, train img/s and the peak memory of both routes.
+   phase 6, train img/s and the peak memory of both routes;
+26. fp32 models (dtype None, the factories' default) of map_convnext_tiny,
+   ga_convnext_tiny, ga_cswin_tiny and map_maxvit_tiny_tf_224 under the
+   default dispatch, which sends fp32 CUDA tensors to the fp32 instances of
+   kernels 1-6: each instance against its twin at the models' shapes (B=2),
+   then one serving call and one train step per model beside the plain
+   path's, logits and loss checked against it, and each model's kernels
+   launched.
 
 Any failure raises and exits non-zero. The last lines are a JSON summary of
 the kernels, the card's name and power limit, and
@@ -452,7 +463,8 @@ DW_ARMS = (("1", "kernel"), ("0", "kernel"), ("0", "plain"))
 # the switch's arms timed in phase 16: (IMTPU_PALLAS_BN, path)
 BN_ARMS = (("full", "kernel"), ("full", "plain"), ("bwd", "kernel"), ("0", "kernel"))
 # the device kernels of kernels 1 and 2 (csrc/ln_mlp_fwd.cu, csrc/ln_mlp_bwd.cu)
-LN_MLP_KERNEL_NAMES = ("ln_mlp_fwd_kernel", "ln_mlp_bwd_prologue_kernel", "ln_mlp_bwd_gemm_kernel",
+LN_MLP_KERNEL_NAMES = ("ln_mlp_fwd_prologue_kernel", "ln_mlp_fwd_gemm_kernel",
+                       "ln_mlp_bwd_prologue_kernel", "ln_mlp_bwd_gemm_kernel",
                        "ln_mlp_bwd_rows_kernel", "colsum_kernel", "dw2_finish_kernel")
 # the card's published dense peaks (H100 SXM, NVIDIA's data sheet)
 PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FP32_FLOPS = 989e12, 3.35e12, 67e12
@@ -511,17 +523,19 @@ def bound_ms(n: int, c: int, backward: bool) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def ln_mlp_args(n: int, c: int, gen, hidden: int = 0):
+def ln_mlp_args(n: int, c: int, gen, hidden: int = 0, dtype=None):
+    """Tokens and weights in `dtype` (bf16 unless given), vectors fp32."""
     import torch
 
     def randn(*shape, scale=1.0, shift=0.0):
         return torch.randn(*shape, generator=gen, device="cuda") * scale + shift
 
+    dt = dtype or torch.bfloat16
     hid = hidden or 4 * c
-    return (randn(n, c).to(torch.bfloat16),
+    return (randn(n, c).to(dt),
             randn(c, scale=0.1, shift=1.0), randn(c, scale=0.1),
-            randn(hid, c, scale=c ** -0.5).to(torch.bfloat16), randn(hid, scale=0.1),
-            randn(c, hid, scale=hid ** -0.5).to(torch.bfloat16), randn(c, scale=0.1),
+            randn(hid, c, scale=c ** -0.5).to(dt), randn(hid, scale=0.1),
+            randn(c, hid, scale=hid ** -0.5).to(dt), randn(c, scale=0.1),
             randn(c))
 
 
@@ -531,61 +545,99 @@ def rel_err(got, ref) -> float:
 
 
 def compare_forward(args, gelu_impl: str, tag: str) -> dict:
-    """One forward kernel launch against its twin on the same inputs; raises
-    past KERNEL_RTOL."""
+    """One launch of kernel 1 against its twin on the same inputs, and a
+    second launch against the first; raises past KERNEL_RTOL or if the second
+    gives other bits."""
     import torch
 
     from imagenet_models_tpu_torch.ops.convnext_block import fused_ln_mlp, plain_ln_mlp
 
     n, c = args[0].shape
+    hidden = args[3].shape[0]
     with torch.inference_mode():
         got = fused_ln_mlp(*args, gelu_impl=gelu_impl)
+        again = fused_ln_mlp(*args, gelu_impl=gelu_impl)
         ref = plain_ln_mlp(*args, gelu_impl=gelu_impl)
         torch.cuda.synchronize()
         if got.shape != ref.shape or not torch.isfinite(got.float()).all():
-            raise AssertionError(f"forward kernel output at ({n}, {c}) is malformed")
+            raise AssertionError(f"forward kernel output at ({n}, {c}, {hidden}) is malformed")
+        same = torch.equal(got, again)
         err = (got.float() - ref.float()).abs().max().item()
         ratio = rel_err(got, ref)
-    log(f"[kernels] ln_mlp_fwd[{gelu_impl}] {tag}N={n} C={c}: max|kernel-twin|/max|twin| = "
-        f"{ratio:.4g} (tol {KERNEL_RTOL})")
-    if not ratio <= KERNEL_RTOL:
+    log(f"[kernels] ln_mlp_fwd[{gelu_impl}] {tag}N={n} C={c} hidden={hidden}: "
+        f"max|kernel-twin|/max|twin| = {ratio:.4g} (tol {KERNEL_RTOL}); bit-equal across two "
+        f"runs: {same}")
+    if not (ratio <= KERNEL_RTOL and same):
         raise AssertionError(f"forward kernel ({gelu_impl}) disagrees with its twin at "
-                             f"({n}, {c}): {ratio}")
-    return {"n": n, "c": c, "max_abs_err": err, "err_over_max_twin": ratio}
+                             f"({n}, {c}, {hidden}): {ratio}, or moved between runs ({same})")
+    return {"n": n, "c": c, "hidden": hidden, "gelu": gelu_impl, "max_abs_err": err,
+            "err_over_max_twin": ratio, "bit_equal": same}
 
 
 def check_forward(gelu_impl: str, time_batches):
-    """Forward kernel vs twin at the B=64 stage shapes and the ragged one,
-    and at the stage shapes of each batch in `time_batches`, where it is
-    also timed per launch ({batch: rows})."""
+    """Kernel 1 vs its twin with `gelu_impl` at the B=64 stage shapes, the
+    ragged one and BWD_EDGE_SHAPES, and with both GELUs at the stage shapes
+    of each batch in `time_batches`, each bit-equal across two runs; at the
+    latter, with `gelu_impl`, also timed per launch in turns with the twin
+    ({batch: rows}), each stage of its pipeline alone (`ln_mlp_fwd_pipeline`),
+    and, as a yardstick of the tensor cores and not the same function, its
+    two products as torch.matmul calls at the same shapes (which the port
+    never calls)."""
     import torch
 
-    from imagenet_models_tpu_torch.ops.convnext_block import fused_ln_mlp, plain_ln_mlp
+    from imagenet_models_tpu_torch.ops.convnext_block import (
+        FWD_STAGES, fused_ln_mlp, ln_mlp_fwd_pipeline, plain_ln_mlp)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for n, c in stage_shapes(64) + [RAGGED_SHAPE]:
-        args = ln_mlp_args(n, c, gen)
+    for n, c, hidden in ([(n, c, 0) for n, c in stage_shapes(64) + [RAGGED_SHAPE]]
+                         + list(BWD_EDGE_SHAPES)):
+        args = ln_mlp_args(n, c, gen, hidden)
         rows.append(compare_forward(args, gelu_impl, ""))
         del args
     times = {}
     for time_batch, (n, c) in [(b, nc) for b in time_batches for nc in stage_shapes(b)]:
         args = ln_mlp_args(n, c, gen)
-        rows.append(compare_forward(args, gelu_impl, f"B={time_batch} "))
+        rows += [compare_forward(args, gi, f"B={time_batch} ") for gi in ("exact", "fast")]
         iters = max(3, min(50, 2_000_000 // n))
         with torch.inference_mode():
             t = in_turns({"kernel": lambda: fused_ln_mlp(*args, gelu_impl=gelu_impl),
                           "plain": lambda: plain_ln_mlp(*args, gelu_impl=gelu_impl)}, iters)
+            call = ln_mlp_fwd_pipeline(*args, gelu_impl=gelu_impl)
+            stages = {name: cuda_ms(lambda k=k: call.run(k, k + 1), iters)
+                      for k, name in enumerate(FWD_STAGES)}
+            del call
+            h, w1, w2 = args[0], args[3], args[5]
+            mid = torch.randn(n, 4 * c, generator=gen, device="cuda").to(torch.bfloat16)
+            matmul_ms = cuda_ms(lambda: (h @ w1.t(), mid @ w2.t()), iters)
         bound, by = bound_ms(n, c, backward=False)
         row = {"n": n, "c": c, "ms": sum(t["kernel"]) / 2, "plain_ms": sum(t["plain"]) / 2,
-               "bound_ms": bound, "bound_by": by, "turns": t}
+               "stages_ms": stages, "matmul2_ms": matmul_ms, "bound_ms": bound, "bound_by": by,
+               "turns": t}
         times.setdefault(time_batch, []).append(row)
         log(f"[kernels] ln_mlp_fwd[{gelu_impl}] B={time_batch} N={n} C={c}: kernel "
-            f"{row['ms']:.4f} ms, twin {row['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}) "
-            f"(twin,kernel,kernel,twin: {t['plain'][0]:.4f},{t['kernel'][0]:.4f},"
-            f"{t['kernel'][1]:.4f},{t['plain'][1]:.4f})")
-        del args
+            f"{row['ms']:.4f} ms (" + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+            + f" alone), twin {row['plain_ms']:.4f} ms, two torch.matmul products "
+            f"{matmul_ms:.4f} ms, bound {bound:.4f} ms ({by}) (twin,kernel,kernel,twin: "
+            f"{t['plain'][0]:.4f},{t['kernel'][0]:.4f},{t['kernel'][1]:.4f},{t['plain'][1]:.4f})")
+        del args, mid
+    for time_batch, batch_times in times.items():
+        per = {k: weighted(batch_times, k, STAGE_DEPTHS)
+               for k in ("ms", "plain_ms", "matmul2_ms", "bound_ms")}
+        log(f"[kernels] ln_mlp_fwd[{gelu_impl}] per map_convnext_tiny forward at "
+            f"B={time_batch}: kernel {per['ms']:.4f} ms, twin {per['plain_ms']:.4f} ms, two "
+            f"torch.matmul products {per['matmul2_ms']:.4f} ms, bound {per['bound_ms']:.4f} ms")
     return rows, times
+
+
+def check_forward_code(build) -> dict:
+    """Kernel 1's code report: the GEMM stages' SASS must hold wgmma (HGMMA)
+    instructions, where cuobjdump could read it."""
+    code = code_report(build, "ln_mlp_fwd")
+    gemms = {k: v for k, v in code["sass"].items() if "ln_mlp_fwd_gemm_kernel" in k}
+    if gemms and not all(v.get("HGMMA") for v in gemms.values()):
+        raise AssertionError(f"kernel 1's GEMM stages hold no wgmma instruction: {gemms}")
+    return code
 
 
 BWD_NAMES = ("dx", "dln_s", "dln_b", "dw1", "db1", "dw2", "db2", "dgamma")
@@ -1113,10 +1165,11 @@ def weighted(times, key, weights):
 
 # ---------------------------------------------------------------- MaxViT
 
-def attn_args(b, h, w, nh, ps, gen):
+def attn_args(b, h, w, nh, ps, gen, dtype=None):
     """Inputs of the partition-attention kernels at a (b, h, w) map of nh
-    heads of 32: qkv bf16 with q scaled by 32**-0.5 as the model scales it,
-    an fp32 bias of 0.1 N(0, 1), and a bf16 cotangent."""
+    heads of 32: qkv in `dtype` (bf16 unless given) with q scaled by
+    32**-0.5 as the model scales it, an fp32 bias of 0.1 N(0, 1), and a
+    cotangent in `dtype`."""
     import torch
 
     c, t = 32 * nh, ps[0] * ps[1]
@@ -1124,7 +1177,8 @@ def attn_args(b, h, w, nh, ps, gen):
     qkv[..., :c] *= 32 ** -0.5
     bias = 0.1 * torch.randn(nh, t, t, generator=gen, device="cuda")
     g = torch.randn(b, h, w, c, generator=gen, device="cuda")
-    return qkv.to(torch.bfloat16), bias, g.to(torch.bfloat16)
+    dt = dtype or torch.bfloat16
+    return qkv.to(dt), bias, g.to(dt)
 
 
 def attn_bound_ms(b, h, w, nh, ps, backward: bool) -> tuple:
@@ -1468,18 +1522,20 @@ def train_maxvit(counters=None, steps: int = TRAIN_STEPS, tag: str = "maxvit-",
 
 # ---------------------------------------------------------------- GA-CSWin
 
-def stripe_args(b, h, w, c, gen):
+def stripe_args(b, h, w, c, gen, dtype=None):
     """Inputs of the stripe kernels at a (b, h, w) map of c channels, laid out
-    as the model gives them: q, k, v as channel slices of a bf16 (b, h, w, 6c)
-    qkv map (the first half-channel branch of a block of 2c channels), taps
-    0.2 N(0, 1), bias 0.1 N(0, 1), and the cotangent as a channel slice of a
-    (b, h, w, 2c) map (the gradient of the two branches' concat)."""
+    as the model gives them: q, k, v as channel slices of a (b, h, w, 6c) qkv
+    map in `dtype` (bf16 unless given; the first half-channel branch of a
+    block of 2c channels), taps 0.2 N(0, 1), bias 0.1 N(0, 1), and the
+    cotangent as a channel slice of a (b, h, w, 2c) map (the gradient of the
+    two branches' concat)."""
     import torch
 
-    qkv = torch.randn(b, h, w, 6 * c, generator=gen, device="cuda").to(torch.bfloat16)
+    dt = dtype or torch.bfloat16
+    qkv = torch.randn(b, h, w, 6 * c, generator=gen, device="cuda").to(dt)
     w9 = 0.2 * torch.randn(9, c, generator=gen, device="cuda")
     wb = 0.1 * torch.randn(1, c, generator=gen, device="cuda")
-    g = torch.randn(b, h, w, 2 * c, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(b, h, w, 2 * c, generator=gen, device="cuda").to(dt)
     return qkv[..., :c], qkv[..., 2 * c:3 * c], qkv[..., 4 * c:5 * c], w9, wb, g[..., :c]
 
 
@@ -1745,7 +1801,7 @@ def serve_branches(card: str, name: str, counters, launches: int, tag: str, arms
     scale = plain.abs().max().item()
     err = (outputs[0] - plain).abs().max().item()
     fp32 = create_model(name, generator=torch.Generator().manual_seed(SEED), **model_kw)
-    ref = make_serving_fn(fp32, use_kernel=False)(requests[0])  # the kernels are bf16 only
+    ref = make_serving_fn(fp32)(requests[0])  # the default dispatch: the kernels' fp32 instances
     del fp32
     err32 = (outputs[0] - ref).abs().max().item() / ref.abs().max().item()
     agree = (outputs[0].argmax(-1) == ref.argmax(-1)).float().mean().item()
@@ -3502,6 +3558,200 @@ def branch_path(card: str) -> dict:
             "launches": {"fwd": launches[0], "bwd": launches[1]}}
 
 
+# ---------------------------------------------------------------- fp32 models
+
+# phase 26: an fp32 model (dtype None, the factories' default, as JAX's CLI
+# computes without --amp) of each family whose path holds kernels 1-6, at a
+# small batch under the default dispatch, which sends its fp32 CUDA tensors to
+# the kernels' fp32 instances: (model, the wrappers that must launch in its
+# eval forward, and in its train step). MaxViT's eval forward takes the
+# composition route, not kernel 3.
+FP32_BATCH = 2
+FP32_MODELS = (
+    ("map_convnext_tiny", ("fused_ln_mlp",), ("fused_ln_mlp", "fused_ln_mlp_bwd")),
+    (GA_CONVNEXT, ("fused_ln_mlp",), ("fused_ln_mlp", "fused_ln_mlp_bwd")),
+    (GA_CSWIN, ("fused_stripe_attention",),
+     ("fused_stripe_attention", "fused_stripe_attention_bwd")),
+    (MAXVIT, (), ("fused_partition_attention", "fused_partition_attention_bwd")))
+# an fp32 instance against its twin: exact fp32 products on both sides, fp32
+# sums in other orders (the weight gradients over up to 6272 tokens here)
+FP32_KERNEL_RTOL = 1e-4
+# fp32 serving logits and train loss through the kernels' fp32 instances
+# against the plain path's: the same fp32 function, its sums in other orders
+# through the depth of the model
+FP32_DISPATCH_RTOL = 1e-4
+
+
+def fp32_kernel_counters():
+    """Kernels 1-6's wrappers, by name."""
+    from imagenet_models_tpu_torch.ops import convnext_block as cb
+    from imagenet_models_tpu_torch.ops import partition_attention as pa
+    from imagenet_models_tpu_torch.ops import stripe_attention as sa
+
+    return {f.__name__: f for f in (cb.fused_ln_mlp, cb.fused_ln_mlp_bwd,
+                                    pa.fused_partition_attention,
+                                    pa.fused_partition_attention_bwd,
+                                    sa.fused_stripe_attention, sa.fused_stripe_attention_bwd)}
+
+
+def check_fp32_kernels(card: str) -> list:
+    """The fp32 instances of kernels 1-6 against their twins at the shapes of
+    phase 26's models (B=2): kernel 1 with both GELUs and kernel 2 with the
+    training one at map_convnext_tiny's four stage shapes and ga_convnext's
+    gram layers, kernels 3 and 4 at MaxViT's three stage shapes (block and
+    grid), kernels 5 and 6 at GA-CSWin's stripes that take them; every output
+    within FP32_KERNEL_RTOL of the twin's largest |value|, kernel 2's outputs
+    bit-equal between two runs; and each timed per launch in turns with its
+    twin (twin, kernel, kernel, twin)."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import convnext_block as cb
+    from imagenet_models_tpu_torch.ops import partition_attention as pa
+    from imagenet_models_tpu_torch.ops import stripe_attention as sa
+
+    f32 = torch.float32
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    rows = []
+
+    def hold(kernel, tag, kern, plain, rerun=False):
+        got, ref = kern(), plain()
+        got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+        same = not rerun or all(torch.equal(a, b) for a, b in zip(got, kern()))
+        errs = [rel_err(a, b) for a, b in zip(got, ref)]
+        ok = same and all(a.dtype == b.dtype == f32 and a.shape == b.shape and e <= FP32_KERNEL_RTOL
+                          for a, b, e in zip(got, ref, errs))
+        del got, ref
+        t = in_turns({"kernel": kern, "plain": plain}, 10)
+        ms = {k: sum(v) / 2 for k, v in t.items()}
+        log(f"[fp32] {kernel} fp32 instance {tag}: max|kernel-twin|/max|twin| per output "
+            + ", ".join(f"{e:.3g}" for e in errs) + f" (tol {FP32_KERNEL_RTOL})"
+            + ("" if same else "; NOT bit-equal across two runs")
+            + f"; kernel {ms['kernel']:.4f} ms, twin {ms['plain']:.4f} ms (twin,kernel,kernel,"
+            f"twin: {t['plain'][0]:.4f},{t['kernel'][0]:.4f},{t['kernel'][1]:.4f},"
+            f"{t['plain'][1]:.4f}) on {card}")
+        if not ok:
+            raise AssertionError(f"the fp32 instance of {kernel} disagrees with its twin at {tag}")
+        rows.append({"kernel": kernel, "tag": tag, "err_over_max_twin": errs, "ms": ms["kernel"],
+                     "plain_ms": ms["plain"], "turns": t})
+
+    with torch.no_grad():
+        for n, c in stage_shapes(FP32_BATCH) + [(FP32_BATCH * 14 * 14, 192)]:
+            args = ln_mlp_args(n, c, gen, dtype=f32)
+            g = torch.randn(n, c, generator=gen, device="cuda")
+            for gi in ("exact", "fast"):
+                hold("ln_mlp_fwd", f"N={n} C={c} [{gi}]",
+                     lambda: cb.fused_ln_mlp(*args, gelu_impl=gi),
+                     lambda: cb.plain_ln_mlp(*args, gelu_impl=gi))
+            hold("ln_mlp_bwd", f"N={n} C={c} [fast]",
+                 lambda: cb.fused_ln_mlp_bwd(args[0], g, *args[1:], gelu_impl="fast"),
+                 lambda: cb.plain_ln_mlp_bwd(args[0], g, *args[1:], gelu_impl="fast"), True)
+        for side, c, nh in MAXVIT_STAGES:
+            qkv, bias, g = attn_args(FP32_BATCH, side, side, nh, PS, gen, dtype=f32)
+            for part in ("block", "grid"):
+                tag = f"B={FP32_BATCH} {side}x{side} C={c} [{part}]"
+                hold("partition_attn_fwd", tag,
+                     lambda: pa.fused_partition_attention(qkv, bias, part, PS, nh),
+                     lambda: pa.plain_partition_attention(qkv, bias, part, PS, nh))
+                hold("partition_attn_bwd", tag,
+                     lambda: pa.fused_partition_attention_bwd(qkv, bias, g, part, PS, nh),
+                     lambda: pa.plain_partition_attention_bwd(qkv, bias, g, part, PS, nh), True)
+        for name, side, ws, c, nh, launches in CSWIN_STRIPES:
+            if not launches:
+                continue
+            q, k, v, w9, wb, g = stripe_args(FP32_BATCH, side, side, c, gen, dtype=f32)
+            scale = (c // nh) ** -0.5
+            tag = f"{name} B={FP32_BATCH} {side}x{side} ws={ws} C={c}"
+            hold("stripe_attn_fwd", tag,
+                 lambda: sa.fused_stripe_attention(q, k, v, w9, wb, ws, nh, scale),
+                 lambda: sa.plain_stripe_attention(q, k, v, w9, wb, ws=ws, nh=nh, scale=scale))
+            hold("stripe_attn_bwd", tag,
+                 lambda: sa.fused_stripe_attention_bwd(q, k, v, w9, wb, g, ws, nh, scale),
+                 lambda: sa.plain_stripe_attention_bwd(q, k, v, w9, wb, g, ws=ws, nh=nh,
+                                                       scale=scale), True)
+    return rows
+
+
+def fp32_dispatch(card: str) -> dict:
+    """Phase 26: the fp32 instances against their twins (`check_fp32_kernels`),
+    then per model of FP32_MODELS, one serving call (eval forward) and one
+    train step (the GA recipe's LAMB and loss) under the default dispatch,
+    each beside the same call on the plain path (use_kernel=False) from the
+    same weights: logits and loss finite and within FP32_DISPATCH_RTOL of the
+    plain path's, a finite grad norm, and each of the model's kernels
+    launched (every counter set to 0 just before the call, read just
+    after)."""
+    import torch
+
+    from imagenet_models_tpu_torch import create_model
+    from imagenet_models_tpu_torch.serving import make_serving_fn
+    from imagenet_models_tpu_torch.train.losses import create_loss_fn
+    from imagenet_models_tpu_torch.train.optim import create_optimizer
+    from imagenet_models_tpu_torch.train.state import create_train_state, make_train_step
+
+    checks = check_fp32_kernels(card)
+    counters = fp32_kernel_counters()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    request = torch.randint(0, 256, (FP32_BATCH, IMG, IMG, 3), generator=gen, device="cuda",
+                            dtype=torch.uint8)
+    images = torch.randn(FP32_BATCH, IMG, IMG, 3, generator=gen, device="cuda")
+    targets = torch.rand(FP32_BATCH, 1000, generator=gen, device="cuda")
+    loss_fn = create_loss_fn(bce_loss=True, smoothing=0.1, mixup_active=True)
+
+    def counted(fn):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        return out, {k: c.launches for k, c in counters.items() if c.launches}
+
+    result = {"kernel_checks": checks}
+    for name, eval_kernels, train_kernels in FP32_MODELS:
+        runs = {}
+        for path, use_kernel in (("kernel", None), ("plain", False)):
+            model = create_model(name, generator=torch.Generator().manual_seed(SEED))
+            if next(model.parameters()).dtype != torch.float32:
+                raise AssertionError(f"{name} was not built as an fp32 model by default")
+            logits, eval_launches = counted(
+                lambda: make_serving_fn(model, use_kernel=use_kernel)(request))
+            opt = create_optimizer("lamb", **GA_RECIPE)
+            state = create_train_state(model, opt)
+            step = make_train_step(model, opt, loss_fn, dec_lam=-0.8, use_kernel=use_kernel)
+            torch.cuda.manual_seed(SEED)  # the heads' dropouts draw from the default generator
+            (state, m), train_launches = counted(
+                lambda: step(state, images, targets,
+                             torch.Generator(device="cuda").manual_seed(SEED)))
+            runs[path] = {"logits": logits, "eval_launches": eval_launches,
+                          "train_launches": train_launches,
+                          **{k: v.item() for k, v in m.items()}}
+            del model, state, step, opt
+            torch.cuda.empty_cache()
+        k, p = runs["kernel"], runs["plain"]
+        err = rel_err(k["logits"], p["logits"])
+        loss_err = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+        log(f"[fp32] {name}, fp32 compute, default dispatch, B={FP32_BATCH}: serving logits "
+            f"{tuple(k['logits'].shape)} {k['logits'].dtype}, vs the plain path "
+            f"max|diff|/max|plain| {err:.3g}; train step loss {k['loss']:.6f} (plain "
+            f"{p['loss']:.6f}, rel diff {loss_err:.3g}; tol {FP32_DISPATCH_RTOL}), grad_norm "
+            f"{k['grad_norm']:.6f} (plain {p['grad_norm']:.6f}); launches at eval "
+            f"{k['eval_launches']}, in the train step {k['train_launches']}; plain path "
+            f"{p['eval_launches']}, {p['train_launches']} on {card}")
+        finite = all(v == v and abs(v) != float("inf") for r in runs.values()
+                     for key, v in r.items() if key in ("loss", "grad_norm"))
+        ok = (k["logits"].shape == (FP32_BATCH, 1000) and torch.isfinite(k["logits"]).all().item()
+              and finite and err <= FP32_DISPATCH_RTOL and loss_err <= FP32_DISPATCH_RTOL
+              and all(k["eval_launches"].get(w) for w in eval_kernels)
+              and all(k["train_launches"].get(w) for w in train_kernels)
+              and not p["eval_launches"] and not p["train_launches"])
+        if not ok:
+            raise AssertionError(f"the fp32 {name} failed under the default dispatch, or did not "
+                                 f"launch its kernels: {err}, {loss_err}, {k['eval_launches']}, "
+                                 f"{k['train_launches']}, plain {p['eval_launches']}, "
+                                 f"{p['train_launches']}")
+        result[name] = {"logits_vs_plain": err, "loss_vs_plain": loss_err,
+                        **{f"{path}_{key}": v for path, r in runs.items()
+                           for key, v in r.items() if key != "logits"}}
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -3529,8 +3779,9 @@ def main() -> int:
                 log(f"[build]   {name}: {line.strip()}")
 
     # map_convnext_tiny: kernels 1 and 2, serving and the train step
-    fwd_rows, fwd_times = check_forward("exact", (64,))
+    fwd_rows, fwd_times = check_forward("exact", (64, BENCH_BATCH))
     fast_rows, fast_times = check_forward("fast", (64, TRAIN_BATCH))
+    fwd_code = check_forward_code(builds["ln_mlp_fwd"])
     bwd_rows, bwd_times = check_backward()
     model, serve_launches, logits_check = serve()
     bench, runs = throughput(model, card)
@@ -3637,6 +3888,9 @@ def main() -> int:
     branch_rows, branch_times_b128, branch_totals = check_branch(card)
     branch = branch_path(card)
 
+    # phase 26: fp32 models of the families of kernels 1-6 under the default dispatch
+    fp32 = fp32_dispatch(card)
+
     def entry(name, source, replaces, launches, errs, times, weights):
         return {"name": name, "route": "cuda",
                 "source": f"imagenet_models_tpu_torch/csrc/{source}",
@@ -3656,10 +3910,16 @@ def main() -> int:
                  "bwd": [max(r["max_abs_err"]["dqkv"], r["max_abs_err"]["dbias"])
                          for r in attn_rows]}
     kernels = [
+        # per map_convnext_tiny forward at B=64 and at B=256 (the eval batch),
+        # exact GELU, and per train step's forward at B=128 (fast GELU)
         entry("ln_mlp_fwd", "ln_mlp_fwd.cu", "convnext_block.py:341", serve_launches,
-              errs(fwd_rows), fwd_times[64], STAGE_DEPTHS),
+              errs(r for r in fwd_rows if r["gelu"] == "exact"), fwd_times[64], STAGE_DEPTHS),
+        entry("ln_mlp_fwd_b256", "ln_mlp_fwd.cu", "convnext_block.py:341", serve_launches,
+              errs(r for r in fwd_rows if r["gelu"] == "exact"), fwd_times[BENCH_BATCH],
+              STAGE_DEPTHS),
         entry("ln_mlp_fwd_fast", "ln_mlp_fwd.cu", "convnext_block.py:341", train_launches["fwd"],
-              errs(fast_rows), fast_times[TRAIN_BATCH], STAGE_DEPTHS),
+              errs(r for r in fast_rows if r["gelu"] == "fast"), fast_times[TRAIN_BATCH],
+              STAGE_DEPTHS),
         entry("ln_mlp_bwd", "ln_mlp_bwd.cu", "convnext_block.py:474", train_launches["bwd"],
               errs(bwd_rows), bwd_times, STAGE_DEPTHS),
         entry("partition_attn_fwd", "partition_attn_fwd.cu", "partition_attention.py:286",
@@ -3721,6 +3981,7 @@ def main() -> int:
         "build_seconds": {n: b.seconds for n, b in builds.items()},
         "forward_checks": fwd_rows, "forward_times": fwd_times,
         "forward_fast_checks": fast_rows, "forward_fast_times": fast_times,
+        "forward_code": fwd_code,
         "backward_checks": bwd_rows, "backward_times_b128": bwd_times,
         "serving": logits_check, "serving_launches": serve_launches,
         "eval_img_s": bench, "eval_img_s_turns": runs,
@@ -3755,6 +4016,7 @@ def main() -> int:
         "tlnmlp": tlnmlp,
         "convnext_branch": {"checks": branch_rows, "times_b128": branch_times_b128,
                             "per_forward_and_step_ms": branch_totals, **branch},
+        "fp32_dispatch": fp32,
         "kernels": kernels}, indent=2))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,6 +1,8 @@
-// Device helpers shared by the LN+MLP forward (ln_mlp_fwd.cu) and backward
-// (ln_mlp_bwd.cu) kernels: cp.async copies, bf16 packing, warp sums, the wmma
-// fragment types and warp grid, and the two GELU implementations.
+// Helpers shared by the LN+MLP forward (ln_mlp_fwd.cu) and backward
+// (ln_mlp_bwd.cu) kernels and the fused branch (convnext_branch_common.cuh):
+// cp.async copies, bf16 packing, warp sums, the warp grid of the branch's
+// wmma products, the two GELU implementations, and the launch of the
+// row-wise kernels by C.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -18,7 +20,6 @@ typedef __nv_bfloat16 bf16;
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr size_t kMaxSmem = 232448;  // 227 KB per block on sm_90
-constexpr int kMaxSegs = 4;          // 16-byte segments of a row per lane: C <= 1024
 
 __host__ __device__ constexpr size_t align128(size_t b) { return (b + 127) & ~size_t(127); }
 
@@ -53,11 +54,6 @@ __device__ __forceinline__ uint4 pack8(const float* f) {
   for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
   return u;
 }
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragBRow;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
 // Warp grid of a (T x HC) product over 8 warps: MT1 x NT1 fragments per warp
 // on a WM1 x WN1 grid, and the reduction split KS ways over the warps left
@@ -115,6 +111,37 @@ __device__ __forceinline__ float gelu_grad(float v) {
   if (FAST) return gelu_grad_fast(v);
   return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
          v * 0.3989422804014327f * expf(-0.5f * v * v);
+}
+
+// ------------------------------------------------------ row-wise kernels
+
+// The row kernels of kernels 1 and 2 (one token row per L lanes, 16 when
+// C <= 128, else 32; so 32 / L rows of a warp at a time, R such sets in
+// flight, S 16-byte segments of a row per lane, C <= 8 L S): a sum over
+// the L lanes of a row.
+template <int L>
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// The row kernels' instances by C: <L, S, R> = <16, 1, 2> for C <= 128,
+// <32, 1, 4>, <32, 2, 2>, <32, 4, 1> for C <= 256, 512, 1024; each takes
+// 8 (32 / L) R rows a block-wide step.
+constexpr int row_step(int C) { return C <= 128 ? 32 : C <= 256 ? 32 : C <= 512 ? 16 : 8; }
+
+template <template <int, int, int> class Pick, typename... A>
+cudaError_t launch_rows(int C, unsigned blocks, size_t smem, cudaStream_t st, A... args) {
+  auto kern = C <= 128   ? Pick<16, 1, 2>::kernel
+              : C <= 256 ? Pick<32, 1, 4>::kernel
+              : C <= 512 ? Pick<32, 2, 2>::kernel
+                         : Pick<32, 4, 1>::kernel;
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  kern<<<blocks, kThreads, smem, st>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace imt

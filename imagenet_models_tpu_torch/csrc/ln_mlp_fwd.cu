@@ -1,4 +1,4 @@
-// Fused ConvNeXt branch body, forward, for Hopper (sm_90a):
+// Fused ConvNeXt branch body, forward, for Hopper (sm_90a): kernel 1.
 //   out = (GELU(LN(h) @ W1^T + b1) @ W2^T + b2) * gamma,  per token.
 //
 // Replaces the TPU kernel `_kernel` / `_fused_ln_mlp_pallas` in
@@ -6,331 +6,351 @@
 //
 // Numerics (the Pallas kernel's): LayerNorm with fp32 statistics (two-pass
 // mean and variance, eps given); LN'd tokens cast to bf16; first product in
-// bf16 with fp32 accumulation, + b1 in fp32; GELU in fp32, cast to bf16 (exact
-// erff at eval, the minimax erf fit in training: two instances); second
-// product with fp32 accumulation, + b2, * gamma in fp32; one final cast to
-// bf16.
+// bf16 with fp32 sums, + b1 in fp32; GELU in fp32, cast to bf16 (exact erff
+// at eval, the minimax erf fit in training: two instances); second product
+// with fp32 sums, + b2, * gamma in fp32; one final cast to bf16. No sum is
+// split across CTAs and nothing is added with atomics: the same inputs give
+// the same bits on every run.
 //
-// What bounds it on the H100. Per token the kernel reads and writes C bf16
-// values but does 16*C*C flops (two C x 4C products), so at every ConvNeXt
-// width it is far above the card's ~295 flop/byte balance point: it is bound
-// by tensor-core issue and by how well the weights are staged, not by HBM.
-// The (N, 4C) hidden activation is the traffic the fusion removes: written
-// and read back in bf16 it would be 16 bytes per token per channel.
+// What bounds it on the H100. Two products of N x hidden x C (4*N*C^2 flops
+// each at hidden = 4C) against 4 bytes per token per channel of tokens in
+// and out: far above the card's ~295 flop/byte balance, so the work is bound
+// by the tensor cores, 0.03 ms at peak per launch at the B=64 stage shapes
+// of map_convnext_tiny and 0.12 ms at B=256. The earlier design (one block
+// of 8 warps per tile of 16-64 tokens, wmma, all of W1 and W2 streamed
+// through shared memory for every tile, the hidden tile kept on chip) moved
+// 16*C^2 bytes of weights per tile at 16-64 flops per byte and ran 9-19x
+// over that bound. This one is kernel 2's machinery (hopper_gemm.cuh): two
+// GEMM-shaped kernels with 128 x 128 tiles on `wgmma` (m64n128k16, fp32 sums
+// in registers) fed by TMA into a four-stage ring of shared memory that a
+// producer warp keeps full, with mbarriers, while two consumer warpgroups of
+// 64 rows each multiply; persistent CTAs walk over the tiles, so the producer
+// loads the next tile while the consumers finish one, and each weight byte
+// serves 128 tokens:
 //
-// Design. The TPU kernel keeps both whole weight matrices resident in VMEM
-// with token tiles of up to 8192; on Hopper W1+W2 at C=768 are 4.7 MB, far
-// beyond the 227 KB of shared memory. So:
-//   * one block of 8 warps per tile of T tokens (T = 64, 32 or 16 by width);
-//   * the LN'd bf16 tile stays in shared memory for the whole block;
-//   * a loop over hidden chunks of HC units streams a W1 row block (HC x C)
-//     and a W2 column block (C x HC) through shared memory with cp.async;
-//     W2 chunk j loads while the first product of chunk j runs, and W1
-//     chunk j+1 loads while GELU and the second product of chunk j run;
-//   * the hidden chunk goes to shared memory in fp32, gets b1 and GELU, and is
-//     cast to bf16 there: it never reaches HBM;
-//   * the (T, C) fp32 output accumulator stays in registers (nvcuda::wmma
-//     16x16x16 bf16 fragments) across the whole hidden loop;
-//   * both products run on register-blocked warp tiles, so a fragment loaded
-//     from shared memory feeds several mmas (measured on an H100: the wmma
-//     phases were 55-70% of the kernel's time when each mma loaded its own);
-//   * the ragged last tile is masked: rows past N are zeros on the way in and
-//     are not stored on the way out.
-// wgmma, TMA and persistent blocks are left for later work.
+//  (i)   ln_mlp_fwd_prologue_kernel, a warp (16 lanes at C <= 128) per token
+//        row, several rows in flight, memory-bound: tok = bf16(LN(h)) into
+//        the workspace. No statistics are kept: the backward recomputes them.
+//  (ii)  ln_mlp_fwd_gemm_kernel<kHid>: pre1 = tok W1^T (K = C) on 128 tokens
+//        x 128 hidden units; the epilogue writes hmid = bf16(GELU(pre1 + b1))
+//        into swizzled shared memory, and a TMA store takes it to the
+//        workspace while the next tile multiplies.
+//  (iii) ln_mlp_fwd_gemm_kernel<kOut>: hmid W2^T (K = hidden; W2 is (C,
+//        hidden), a K-major B operand) on 128 tokens x 128 channels; the
+//        epilogue writes bf16((acc + b2) * gamma) the same way to out.
+//
+// Ragged edges (N not a multiple of 128, C = 64 or 688 = 43 x 16 in a
+// 64-deep k-block or a 128-wide channel tile, hidden tiles of 64) take TMA's
+// zero fill on the loads and the store maps' clipping on the stores: one
+// path. What remains over the bound: hmid (N x hidden bf16) is written and
+// read back through HBM, 16 bytes per token per channel (about 2.6 ms per
+// B=256 forward at 3.35 TB/s, most of it at stages 0-1); the GELU epilogue
+// (exact erff at eval) runs on the CUDA cores between a tile's products and
+// the next tile's, not beside them: both consumer warpgroups work on one
+// tile; and at stages 2-3 tiles too small for the L2's rate.
+//
+// fp32 tokens (an fp32 model) take the fp32 instance of ln_mlp_f32.cuh: the
+// same three stages with no cast to bf16, on the CUDA cores.
 
+#include "hopper_gemm.cuh"
 #include "ln_mlp_common.cuh"
+#include "ln_mlp_f32.cuh"
 
 namespace {
 
 using namespace imt;
 
-// Shared-memory plan, identical on host and device. Region 0 holds the LN'd
-// tile and both weight chunks during the loop and the fp32 output tile in the
-// epilogue; the hidden chunk (fp32 partial sums, then bf16) follows it.
-struct Layout {
-  int ldx, ldw2, ldh, ldg, ldo;
-  size_t xs, w1s, w2s, os, hf, gs, total;
+// ---------------------------------------------------------- (i) prologue
+
+// tok = bf16(LN(h)) for 8 (32 / L) R rows a block, in ln_mlp_common.cuh's
+// row layout: all of a lane's loads in flight at once, then per row the mean
+// and the centred second moment in fp32 from the same registers.
+template <int L, int S, int R>
+__global__ void __launch_bounds__(kThreads)
+ln_mlp_fwd_prologue_kernel(const bf16* __restrict__ h, const float* __restrict__ ln_s,
+                           const float* __restrict__ ln_b, bf16* __restrict__ tok, long long n,
+                           int C, float eps) {
+  constexpr int G = 32 / L;
+  const int lane = threadIdx.x & 31;
+  const int sl = lane % L;
+  const long long r0 =
+      (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * G * R + lane / L;
+  const int segs = C / 8;
+  uint4 hraw[R][S];
+#pragma unroll
+  for (int u = 0; u < R; ++u)
+#pragma unroll
+    for (int q = 0; q < S; ++q)
+      if (r0 + u * G < n && sl + L * q < segs)
+        hraw[u][q] = reinterpret_cast<const uint4*>(h + (r0 + u * G) * C)[sl + L * q];
+#pragma unroll
+  for (int u = 0; u < R; ++u) {
+    const long long r = r0 + u * G;
+    const bool ok = r < n;  // not uniform over the warp: the sums run on every lane
+    float f[8];
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < S; ++q) {
+      if (ok && sl + L * q < segs) {
+        unpack8(hraw[u][q], f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s += f[e];
+      }
+    }
+    const float mu = row_sum<L>(s) / C;
+    float var = 0.f;
+#pragma unroll
+    for (int q = 0; q < S; ++q) {
+      if (ok && sl + L * q < segs) {
+        unpack8(hraw[u][q], f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) var += (f[e] - mu) * (f[e] - mu);
+      }
+    }
+    const float rstd = rsqrtf(row_sum<L>(var) / C + eps);
+    if (!ok) continue;
+    uint4* trow = reinterpret_cast<uint4*>(tok + r * C);
+#pragma unroll
+    for (int q = 0; q < S; ++q) {
+      const int sgi = sl + L * q;
+      if (sgi < segs) {
+        unpack8(hraw[u][q], f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          f[e] = (f[e] - mu) * rstd * ln_s[sgi * 8 + e] + ln_b[sgi * 8 + e];
+        trow[sgi] = pack8(f);
+      }
+    }
+  }
+}
+
+template <int L, int S, int R>
+struct Prologue {
+  static constexpr auto kernel = ln_mlp_fwd_prologue_kernel<L, S, R>;
 };
 
-__host__ __device__ inline Layout make_layout(int C, int T, int HC, int ksplit) {
-  Layout L;
-  L.ldx = C + 8;    // bf16 rows of the LN'd tile and of the W1 chunk
-  L.ldw2 = HC + 8;  // bf16 rows of the W2 chunk
-  L.ldh = HC + 4;   // fp32 rows of the hidden chunk
-  L.ldg = HC + 8;   // bf16 rows of the GELU'd hidden chunk
-  L.ldo = C + 4;    // fp32 rows of the output tile
-  const size_t xs_b = align128(size_t(T) * L.ldx * 2);
-  const size_t w1_b = align128(size_t(HC) * L.ldx * 2);
-  const size_t w2_b = align128(size_t(C) * L.ldw2 * 2);
-  const size_t os_b = align128(size_t(T) * L.ldo * 4);
-  L.xs = 0;
-  L.w1s = xs_b;
-  L.w2s = xs_b + w1_b;
-  L.os = 0;
-  const size_t region0 = (xs_b + w1_b + w2_b) > os_b ? (xs_b + w1_b + w2_b) : os_b;
-  L.hf = region0;
-  L.gs = L.hf + align128(size_t(ksplit) * T * L.ldh * 4);
-  L.total = L.gs + align128(size_t(T) * L.ldg * 2);
-  return L;
-}
+// ------------------------------------------------------ (ii), (iii) GEMMs
 
-// T tokens per block, HC hidden units per chunk. Both products run on
-// register-blocked warp tiles: per k-step a warp loads its A and B fragments
-// once and issues every mma between them.
-//  * first product, (T/16) x (HC/16) fragments: Grid1<T, HC, MT1, NT1>; with
-//    fewer than four fragments per warp, two accumulator sets (even and odd
-//    k-steps) keep independent mmas in flight;
-//  * second product, (T/16) x (C/16) fragments: a WM2 x WN2 warp grid, MT2 row
-//    blocks and up to NT2 column blocks per warp (C/16 need not split evenly);
-//    these accumulators live across the whole hidden loop.
-template <int T, int HC, int MT1, int NT1, int MT2, int NT2, int MINB, bool FAST>
-__global__ void __launch_bounds__(kThreads, MINB)
-ln_mlp_fwd_kernel(const bf16* __restrict__ h, const float* __restrict__ ln_s,
-                  const float* __restrict__ ln_b, const bf16* __restrict__ w1,
-                  const float* __restrict__ b1, const bf16* __restrict__ w2,
-                  const float* __restrict__ b2, const float* __restrict__ gamma,
-                  bf16* __restrict__ out, long long n, int C, int hidden, float eps) {
-  constexpr int WM1 = Grid1<T, HC, MT1, NT1>::WM1;
-  constexpr int KS = Grid1<T, HC, MT1, NT1>::KS;
-  constexpr int NACC = MT1 * NT1 >= 4 ? 1 : 2;
-  constexpr int WM2 = T / 16 / MT2;
-  constexpr int WN2 = kWarps / WM2;
-  static_assert(WM2 * MT2 == T / 16 && WM2 * WN2 == kWarps, "second-product warp grid");
+// shared memory: the ring; the staged output tile (two 128-byte-swizzled
+// 128 x 64 boxes, as the TMA store reads them); the ring's mbarriers; 1 KB
+// to align
+constexpr int kStagedBytes = kBM * kBN * 2;
+constexpr size_t kGemmSmem = 1024 + kRing + kStagedBytes + 2 * kStages * 8;
 
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = make_layout(C, T, HC, KS);
-  bf16* Xs = reinterpret_cast<bf16*>(smem + L.xs);
-  bf16* W1s = reinterpret_cast<bf16*>(smem + L.w1s);
-  bf16* W2s = reinterpret_cast<bf16*>(smem + L.w2s);
-  float* Os = reinterpret_cast<float*>(smem + L.os);
-  float* Hf = reinterpret_cast<float*>(smem + L.hf);
-  bf16* Gs = reinterpret_cast<bf16*>(smem + L.gs);
+enum Kind { kHid = 0, kOut = 1 };
+
+struct GemmArgs {
+  const float* bias;   // b1 (kHid) or b2 (kOut), one per output column
+  const float* gamma;  // kOut
+  int cols;            // output columns: hidden (kHid) or C (kOut), a multiple of 16
+  int nk;              // k-blocks of a tile: ceil(C / 64) (kHid) or hidden / 64 (kOut)
+  int gx, ntiles;      // output-column tiles; tiles in all, numbered column tile fastest
+};
+
+// Persistent: each CTA walks over tiles blockIdx.x, + gridDim.x, ...; the
+// producer runs ahead into the next tile's k-blocks while the consumers
+// finish a tile's epilogue. The maps: ma the token-major A operand (tok or
+// hmid, boxes 64 x 128), mb the K-major B operand (W1 or W2 rows, boxes 64
+// x 128), ms the store map of the output (hmid or out, boxes 64 x 128).
+template <int KIND, bool FAST>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+ln_mlp_fwd_gemm_kernel(const __grid_constant__ CUtensorMap ma,
+                       const __grid_constant__ CUtensorMap mb,
+                       const __grid_constant__ CUtensorMap ms, const GemmArgs args) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* staged = smem_raw + (base - raw) + kRing;  // [box 0, 1][128 rows][128 bytes]
+  const uint32_t full0 = base + kRing + kStagedBytes, empty0 = full0 + kStages * 8;
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int wg = tid / 128;
+
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 256);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // producer: one thread keeps the ring full, across tiles
+    if (tid == 256) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < args.ntiles; tile += gridDim.x) {
+        const int row0 = (tile / args.gx) * kBM, col0 = (tile % args.gx) * kBN;
+        for (int kb = 0; kb < args.nk; ++kb, ++it) {
+          const int s = it % kStages;
+          mbar_wait(empty0 + 8 * s, ((it / kStages) & 1) ^ 1);
+          const uint32_t fb = full0 + 8 * s;
+          mbar_expect_tx(fb, kStageBytes);
+          const uint32_t sa = base + s * kStageBytes;
+          tma_load(sa, &ma, fb, kb * kBK, row0);             // token rows
+          tma_load(sa + kOpBytes, &mb, fb, kb * kBK, col0);  // weight rows
+        }
+      }
+    }
+    return;
+  }
+
   const int lane = tid & 31;
-  const long long row0 = static_cast<long long>(blockIdx.x) * T;
-  const int nchunks = hidden / HC;
-  const int segs = C / 8;
+  const int w = (tid / 32) & 3;
+  const int r_in = wg * 64 + 16 * w + lane / 4;  // its first row in the tile; the second is +8
+  const int q = 2 * (lane % 4);                  // its first column in each 8-column group
+  int it = 0;
+  for (int tile = blockIdx.x; tile < args.ntiles; tile += gridDim.x) {
+    const int row0 = (tile / args.gx) * kBM, col0 = (tile % args.gx) * kBN;
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 
-  auto load_w1 = [&](int j) {  // rows [j*HC, j*HC+HC) of W1 (hidden, C)
-    const bf16* src = w1 + static_cast<size_t>(j) * HC * C;
-    for (int i = tid; i < HC * segs; i += kThreads) {
-      const int r = i / segs, s = i - r * segs;
-      cp_async16(W1s + r * L.ldx + s * 8, src + static_cast<size_t>(r) * C + s * 8);
+    for (int kb = 0; kb < args.nk; ++kb, ++it) {
+      const int s = it % kStages;
+      mbar_wait(full0 + 8 * s, (it / kStages) & 1);
+      const uint32_t sa = base + s * kStageBytes;
+      wg_fence();
+      mma_stage<0, 0>(acc, sa + wg * 64 * 128, sa + kOpBytes);  // the warpgroup's 64 rows
+      wg_commit();
+      wg_wait<1>();
+      if (kb > 0) mbar_arrive(empty0 + 8 * ((it - 1) % kStages));
     }
-  };
-  auto load_w2 = [&](int j) {  // columns [j*HC, j*HC+HC) of W2 (C, hidden)
-    constexpr int hsegs = HC / 8;
-    for (int i = tid; i < C * hsegs; i += kThreads) {
-      const int r = i / hsegs, s = i - r * hsegs;
-      cp_async16(W2s + r * L.ldw2 + s * 8,
-                 w2 + static_cast<size_t>(r) * hidden + static_cast<size_t>(j) * HC + s * 8);
+    wg_wait<0>();
+    fence_acc(acc);
+    mbar_arrive(empty0 + 8 * ((it - 1) % kStages));
+
+    // The epilogue, in fp32 and one cast: kHid bf16(GELU(acc + b1)), kOut
+    // bf16((acc + b2) * gamma), staged in shared memory and out by a TMA
+    // store, which runs on while the next tile multiplies (rows past n and
+    // columns past `cols` are clipped by the store map). The barrier: the
+    // last tile's store has read the staged tile (thread 0 waited for it).
+    if (tid == 0) bulk_wait_read<0>();
+    consumers_sync();
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 8 * j + q;
+      const int cj = col0 + col;  // cols % 16 == 0: cj and cj + 1 are both in or both out
+      const bool in = cj < args.cols;
+      const float bb0 = in ? args.bias[cj] : 0.f, bb1 = in ? args.bias[cj + 1] : 0.f;
+      float g0 = 1.f, g1 = 1.f;
+      if constexpr (KIND == kOut) {
+        g0 = in ? args.gamma[cj] : 0.f;
+        g1 = in ? args.gamma[cj + 1] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float v0 = acc[4 * j + 2 * i] + bb0, v1 = acc[4 * j + 2 * i + 1] + bb1;
+        if constexpr (KIND == kHid) {
+          v0 = gelu<FAST>(v0);
+          v1 = gelu<FAST>(v1);
+        } else {
+          v0 *= g0;
+          v1 *= g1;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(staged + staged_offset(r_in + 8 * i, col)) =
+            __floats2bfloat162_rn(v0, v1);
+      }
     }
-  };
-
-  load_w1(0);
-  cp_commit();
-
-  // LayerNorm, one warp per row, 16-byte loads: mean, then the centred second
-  // moment from the same registers, then the normalized row into Xs.
-  for (int t = warp; t < T; t += kWarps) {
-    uint4* xs = reinterpret_cast<uint4*>(Xs + t * L.ldx);
-    const long long r = row0 + t;
-    if (r < n) {
-      const uint4* src = reinterpret_cast<const uint4*>(h + r * C);
-      uint4 raw[kMaxSegs];
-      float f[8];
-      float s = 0.f;
-#pragma unroll
-      for (int q = 0; q < kMaxSegs; ++q) {
-        const int sg = lane + 32 * q;
-        if (sg < segs) {
-          raw[q] = src[sg];
-          unpack8(raw[q], f);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) s += f[e];
-        }
-      }
-      const float mu = warp_sum(s) / C;
-      float var = 0.f;
-#pragma unroll
-      for (int q = 0; q < kMaxSegs; ++q) {
-        if (lane + 32 * q < segs) {
-          unpack8(raw[q], f);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) var += (f[e] - mu) * (f[e] - mu);
-        }
-      }
-      const float rstd = rsqrtf(warp_sum(var) / C + eps);
-#pragma unroll
-      for (int q = 0; q < kMaxSegs; ++q) {
-        const int sg = lane + 32 * q;
-        if (sg < segs) {
-          unpack8(raw[q], f);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) f[e] = (f[e] - mu) * rstd * ln_s[sg * 8 + e] + ln_b[sg * 8 + e];
-          xs[sg] = pack8(f);
-        }
-      }
-    } else {
-      for (int sg = lane; sg < segs; sg += 32) xs[sg] = make_uint4(0u, 0u, 0u, 0u);
+    fence_async_smem();  // the staged tile, visible to the TMA store
+    consumers_sync();
+    if (tid == 0) {
+      const uint32_t st0 = smem_u32(staged);
+      for (int b = 0; b < 2; ++b)
+        if (col0 + 64 * b < args.cols) tma_store(&ms, st0 + b * kBM * 128, col0 + 64 * b, row0);
+      bulk_commit();
     }
   }
-  cp_wait<0>();
-  __syncthreads();
-
-  // first-product warp tile
-  const int wm1 = warp % WM1, wn1 = (warp / WM1) % Grid1<T, HC, MT1, NT1>::WN1;
-  const int jb0 = wn1 * NT1;
-  const int ks = warp / (WM1 * Grid1<T, HC, MT1, NT1>::WN1);
-  const int k16 = C / 16;
-  const int kb = ks * k16 / KS, ke = (ks + 1) * k16 / KS;
-  // second-product warp tile
-  const int cblocks = C / 16;
-  const int wm2 = warp % WM2, wn2 = warp / WM2;
-  const int cb0 = wn2 * cblocks / WN2;
-  const int nt2 = (wn2 + 1) * cblocks / WN2 - cb0;
-
-  FragC acc[MT2][NT2];
-#pragma unroll
-  for (int i = 0; i < MT2; ++i)
-#pragma unroll
-    for (int jj = 0; jj < NT2; ++jj) wmma::fill_fragment(acc[i][jj], 0.f);
-
-  for (int j = 0; j < nchunks; ++j) {
-    load_w2(j);
-    cp_commit();
-
-    // first product: Hf[ks] = Xs[:, k-slice ks] @ W1chunk^T
-    {
-      FragC c1[NACC][MT1][NT1];
-#pragma unroll
-      for (int p = 0; p < NACC; ++p)
-#pragma unroll
-        for (int i = 0; i < MT1; ++i)
-#pragma unroll
-          for (int jj = 0; jj < NT1; ++jj) wmma::fill_fragment(c1[p][i][jj], 0.f);
-      for (int k = kb; k < ke; k += NACC) {
-#pragma unroll
-        for (int p = 0; p < NACC; ++p) {
-          if (k + p < ke) {
-            FragA a[MT1];
-            FragB b[NT1];
-#pragma unroll
-            for (int i = 0; i < MT1; ++i)
-              wmma::load_matrix_sync(a[i], Xs + (wm1 * MT1 + i) * 16 * L.ldx + (k + p) * 16, L.ldx);
-#pragma unroll
-            for (int jj = 0; jj < NT1; ++jj)
-              wmma::load_matrix_sync(b[jj], W1s + (jb0 + jj) * 16 * L.ldx + (k + p) * 16, L.ldx);
-#pragma unroll
-            for (int i = 0; i < MT1; ++i)
-#pragma unroll
-              for (int jj = 0; jj < NT1; ++jj) wmma::mma_sync(c1[p][i][jj], a[i], b[jj], c1[p][i][jj]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < MT1; ++i)
-#pragma unroll
-        for (int jj = 0; jj < NT1; ++jj) {
-#pragma unroll
-          for (int p = 1; p < NACC; ++p)
-#pragma unroll
-            for (int e = 0; e < c1[0][i][jj].num_elements; ++e) c1[0][i][jj].x[e] += c1[p][i][jj].x[e];
-          wmma::store_matrix_sync(Hf + ks * T * L.ldh + (wm1 * MT1 + i) * 16 * L.ldh + (jb0 + jj) * 16,
-                                  c1[0][i][jj], L.ldh, wmma::mem_row_major);
-        }
-    }
-    __syncthreads();  // W1 chunk consumed, Hf complete
-
-    if (j + 1 < nchunks) load_w1(j + 1);
-    cp_commit();
-
-    // + b1, GELU in fp32, cast to bf16
-    for (int i = tid; i < T * HC; i += kThreads) {
-      const int t = i / HC, c = i - t * HC;
-      float v = b1[j * HC + c];
-#pragma unroll
-      for (int s = 0; s < KS; ++s) v += Hf[s * T * L.ldh + t * L.ldh + c];
-      Gs[t * L.ldg + c] = __float2bfloat16(gelu<FAST>(v));
-    }
-    cp_wait<1>();  // W2 chunk j has landed (W1 chunk j+1 may still be in flight)
-    __syncthreads();
-
-    // second product: acc += Gs @ W2chunk^T
-#pragma unroll
-    for (int kk = 0; kk < HC / 16; ++kk) {
-      FragA a[MT2];
-#pragma unroll
-      for (int i = 0; i < MT2; ++i)
-        wmma::load_matrix_sync(a[i], Gs + (wm2 * MT2 + i) * 16 * L.ldg + kk * 16, L.ldg);
-#pragma unroll
-      for (int jj = 0; jj < NT2; ++jj) {
-        if (jj < nt2) {
-          FragB b;
-          wmma::load_matrix_sync(b, W2s + (cb0 + jj) * 16 * L.ldw2 + kk * 16, L.ldw2);
-#pragma unroll
-          for (int i = 0; i < MT2; ++i) wmma::mma_sync(acc[i][jj], a[i], b, acc[i][jj]);
-        }
-      }
-    }
-    cp_wait<0>();
-    __syncthreads();  // W1 chunk j+1 visible; W2s and Gs free
-  }
-
-  // epilogue: fp32 tile through shared memory, + b2, * gamma, one cast
-#pragma unroll
-  for (int i = 0; i < MT2; ++i)
-#pragma unroll
-    for (int jj = 0; jj < NT2; ++jj)
-      if (jj < nt2)
-        wmma::store_matrix_sync(Os + (wm2 * MT2 + i) * 16 * L.ldo + (cb0 + jj) * 16, acc[i][jj],
-                                L.ldo, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < T * segs; i += kThreads) {
-    const int t = i / segs, sg = i - t * segs;
-    const long long r = row0 + t;
-    if (r < n) {
-      const float* o = Os + t * L.ldo + sg * 8;
-      float f[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) f[e] = (o[e] + b2[sg * 8 + e]) * gamma[sg * 8 + e];
-      reinterpret_cast<uint4*>(out + r * C)[sg] = pack8(f);
-    }
-  }
+  // the last tile's store reads shared memory until it is done
+  if (tid == 0) bulk_wait<0>();
 }
 
-template <int T, int HC, int MT1, int NT1, int MT2, int NT2, int MINB, bool FAST>
-cudaError_t launch(const bf16* h, const float* ln_s, const float* ln_b, const bf16* w1,
-                   const float* b1, const bf16* w2, const float* b2, const float* gamma,
-                   bf16* out, long long n, int C, int hidden, float eps, cudaStream_t stream) {
-  constexpr int KS = Grid1<T, HC, MT1, NT1>::KS;
-  constexpr int WN2 = kWarps / (T / 16 / MT2);
-  if ((C / 16 + WN2 - 1) / WN2 > NT2 || hidden % HC) return cudaErrorInvalidValue;
-  const Layout L = make_layout(C, T, HC, KS);
-  if (L.total > kMaxSmem) return cudaErrorInvalidValue;
-  auto kern = ln_mlp_fwd_kernel<T, HC, MT1, NT1, MT2, NT2, MINB, FAST>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       static_cast<int>(L.total));
+// ------------------------------------------------------------------ host
+
+// The workspace: tok (n, C) and hmid (n, hidden), bf16, each 1024-byte
+// aligned.
+struct Work {
+  size_t tok, hmid, total;
+};
+
+Work plan(long long n, int C, int hidden) {
+  const auto up = [](size_t b) { return (b + 1023) & ~size_t(1023); };
+  Work w;
+  w.tok = 0;
+  w.hmid = up(static_cast<size_t>(n) * C * 2);
+  w.total = w.hmid + up(static_cast<size_t>(n) * hidden * 2);
+  return w;
+}
+
+// gx x gy tiles on min(tiles, SMs) persistent CTAs.
+template <int KIND, bool FAST>
+cudaError_t launch_gemm(long long gx, long long gy, const CUtensorMap& a, const CUtensorMap& b,
+                        const CUtensorMap& s, GemmArgs args, cudaStream_t st) {
+  if (gx * gy > 0x7fffffffLL) return cudaErrorInvalidValue;
+  args.gx = static_cast<int>(gx);
+  args.ntiles = static_cast<int>(gx * gy);
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidValue;
+  auto kern = ln_mlp_fwd_gemm_kernel<KIND, FAST>;
+  const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             static_cast<int>(kGemmSmem));
   if (e != cudaSuccess) return e;
-  const long long blocks = (n + T - 1) / T;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kern<<<static_cast<unsigned>(blocks), kThreads, L.total, stream>>>(
-      h, ln_s, ln_b, w1, b1, w2, b2, gamma, out, n, C, hidden, eps);
+  const int grid = args.ntiles < sms ? args.ntiles : sms;
+  kern<<<grid, kGemmThreads, kGemmSmem, st>>>(a, b, s, args);
   return cudaGetLastError();
 }
 
+struct Inputs {
+  const bf16 *h, *w1, *w2;
+  const float *ln_s, *ln_b, *b1, *b2, *gamma;
+  bf16* out;
+  char* ws;
+  long long n;
+  int C, hidden;
+  float eps;
+};
+
 template <bool FAST>
-cudaError_t dispatch(const bf16* h, const float* ln_s, const float* ln_b, const bf16* w1,
-                     const float* b1, const bf16* w2, const float* b2, const float* gamma,
-                     bf16* out, long long n, int C, int hidden, float eps, cudaStream_t st) {
-  // <T, HC, first-product tile MT1 x NT1, second-product tile MT2 x NT2, min blocks/SM, GELU>
-  if (C <= 128) return launch<64, 64, 1, 2, 1, 4, 2, FAST>(h, ln_s, ln_b, w1, b1, w2, b2, gamma, out, n, C, hidden, eps, st);
-  if (C <= 256) return launch<64, 64, 1, 2, 2, 4, 2, FAST>(h, ln_s, ln_b, w1, b1, w2, b2, gamma, out, n, C, hidden, eps, st);
-  if (C <= 384) return launch<64, 64, 2, 2, 4, 3, 1, FAST>(h, ln_s, ln_b, w1, b1, w2, b2, gamma, out, n, C, hidden, eps, st);
-  if (C <= 768) return launch<32, 32, 2, 2, 2, 6, 1, FAST>(h, ln_s, ln_b, w1, b1, w2, b2, gamma, out, n, C, hidden, eps, st);
-  return launch<16, 32, 1, 2, 1, 8, 1, FAST>(h, ln_s, ln_b, w1, b1, w2, b2, gamma, out, n, C, hidden, eps, st);
+cudaError_t run_stages(const Inputs& in, int first, int last, cudaStream_t st) {
+  const long long n = in.n;
+  const int C = in.C, H = in.hidden;
+  const Work w = plan(n, C, H);
+  bf16* tok = reinterpret_cast<bf16*>(in.ws + w.tok);
+  bf16* hmid = reinterpret_cast<bf16*>(in.ws + w.hmid);
+  const long long mtiles = (n + kBM - 1) / kBM;
+  cudaError_t e = cudaSuccess;
+  CUtensorMap a, b, s;
+  GemmArgs args = {};
+
+  if (first <= 0 && last > 0) {  // (i)
+    const long long rb = (n + row_step(C) - 1) / row_step(C);
+    if (rb > 0x7fffffffLL) return cudaErrorInvalidValue;
+    e = launch_rows<Prologue>(C, static_cast<unsigned>(rb), 0, st, in.h, in.ln_s, in.ln_b, tok, n,
+                              C, in.eps);
+    if (e != cudaSuccess) return e;
+  }
+  if (first <= 1 && last > 1) {  // (ii)
+    if (!tensor_map(&a, tok, C, n, 64, kBM) || !tensor_map(&b, in.w1, C, H, 64, kBN) ||
+        !tensor_map(&s, hmid, H, n, 64, kBM))
+      return cudaErrorInvalidValue;
+    args.bias = in.b1;
+    args.cols = H;
+    args.nk = (C + kBK - 1) / kBK;
+    e = launch_gemm<kHid, FAST>((H + kBN - 1) / kBN, mtiles, a, b, s, args, st);
+    if (e != cudaSuccess) return e;
+  }
+  if (first <= 2 && last > 2) {  // (iii)
+    if (!tensor_map(&a, hmid, H, n, 64, kBM) || !tensor_map(&b, in.w2, H, C, 64, kBN) ||
+        !tensor_map(&s, in.out, C, n, 64, kBM))
+      return cudaErrorInvalidValue;
+    args.bias = in.b2;
+    args.gamma = in.gamma;
+    args.cols = C;
+    args.nk = H / kBK;
+    e = launch_gemm<kOut, false>((C + kBN - 1) / kBN, mtiles, a, b, s, args, st);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -343,21 +363,59 @@ int imt_ln_mlp_fwd_supported(int C, int hidden) {
   return C > 0 && C % 16 == 0 && C <= 1024 && hidden > 0 && hidden % 64 == 0;
 }
 
-// h (n, C) bf16, w1 (hidden, C) bf16, w2 (C, hidden) bf16, vectors fp32,
-// out (n, C) bf16; all contiguous and 16-byte aligned. gelu_fast selects the
-// training GELU (the minimax erf fit) over exact erf. Launches on `stream`
-// and returns the launch status (a cudaError_t; 0 is success).
+// Bytes of device workspace a call on n tokens needs.
+long long imt_ln_mlp_fwd_workspace_bytes(long long n, int C, int hidden) {
+  if (!imt_ln_mlp_fwd_supported(C, hidden) || n <= 0) return 0;
+  return static_cast<long long>(plan(n, C, hidden).total);
+}
+
+// The forward, stages [first, last) of (i) the LN prologue, (ii) the hidden
+// product and GELU, (iii) the output product and layer scale; 0 and 3 run it
+// all. h (n, C) bf16, w1 (hidden, C) and w2 (C, hidden) bf16, vectors fp32,
+// out (n, C) bf16; all contiguous and 16-byte aligned; `workspace` of
+// imt_ln_mlp_fwd_workspace_bytes bytes, 1024-byte aligned. A stage run alone
+// reads what the stages before it left in the workspace. gelu_fast selects
+// the training GELU (the minimax erf fit) over exact erf. Launches on
+// `stream`; returns the launch status (a cudaError_t; 0 is success).
 int imt_ln_mlp_fwd_bf16(const void* h, const void* ln_s, const void* ln_b, const void* w1,
                         const void* b1, const void* w2, const void* b2, const void* gamma,
-                        void* out, long long n, int C, int hidden, float eps, int gelu_fast,
-                        void* stream) {
-  if (!imt_ln_mlp_fwd_supported(C, hidden) || n <= 0) return cudaErrorInvalidValue;
-  auto* f = gelu_fast ? &dispatch<true> : &dispatch<false>;
-  return f(static_cast<const bf16*>(h), static_cast<const float*>(ln_s),
-           static_cast<const float*>(ln_b), static_cast<const bf16*>(w1),
-           static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-           static_cast<const float*>(b2), static_cast<const float*>(gamma),
-           static_cast<bf16*>(out), n, C, hidden, eps, static_cast<cudaStream_t>(stream));
+                        void* out, void* workspace, long long n, int C, int hidden, float eps,
+                        int gelu_fast, int first, int last, void* stream) {
+  if (!imt_ln_mlp_fwd_supported(C, hidden) || n <= 0 || n > 0x7fffffffLL ||
+      reinterpret_cast<uintptr_t>(workspace) % 1024)
+    return cudaErrorInvalidValue;
+  const Inputs in = {static_cast<const bf16*>(h),      static_cast<const bf16*>(w1),
+                     static_cast<const bf16*>(w2),     static_cast<const float*>(ln_s),
+                     static_cast<const float*>(ln_b),  static_cast<const float*>(b1),
+                     static_cast<const float*>(b2),    static_cast<const float*>(gamma),
+                     static_cast<bf16*>(out),          static_cast<char*>(workspace),
+                     n, C, hidden, eps};
+  auto st = static_cast<cudaStream_t>(stream);
+  return gelu_fast ? run_stages<true>(in, first, last, st) : run_stages<false>(in, first, last, st);
+}
+
+// Bytes of device workspace a call of the fp32 instance on n tokens needs.
+long long imt_ln_mlp_fwd_f32_workspace_bytes(long long n, int C, int hidden) {
+  if (!imt_ln_mlp_fwd_supported(C, hidden) || n <= 0) return 0;
+  return static_cast<long long>(imt::f32::fwd_workspace_bytes(n, C, hidden));
+}
+
+// As imt_ln_mlp_fwd_bf16 with fp32 h, w1, w2 and out, and a workspace of
+// imt_ln_mlp_fwd_f32_workspace_bytes bytes.
+int imt_ln_mlp_fwd_f32(const void* h, const void* ln_s, const void* ln_b, const void* w1,
+                       const void* b1, const void* w2, const void* b2, const void* gamma,
+                       void* out, void* workspace, long long n, int C, int hidden, float eps,
+                       int gelu_fast, int first, int last, void* stream) {
+  if (!imt_ln_mlp_fwd_supported(C, hidden) || n <= 0 ||
+      reinterpret_cast<uintptr_t>(workspace) % 1024)
+    return cudaErrorInvalidValue;
+  auto fwd = gelu_fast ? &imt::f32::forward<true> : &imt::f32::forward<false>;
+  return fwd(static_cast<const float*>(h), static_cast<const float*>(ln_s),
+             static_cast<const float*>(ln_b), static_cast<const float*>(w1),
+             static_cast<const float*>(b1), static_cast<const float*>(w2),
+             static_cast<const float*>(b2), static_cast<const float*>(gamma),
+             static_cast<float*>(out), static_cast<char*>(workspace), n, C, hidden, eps, first,
+             last, static_cast<cudaStream_t>(stream));
 }
 
 const char* imt_cuda_error_string(int err) {

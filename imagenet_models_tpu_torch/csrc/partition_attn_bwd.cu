@@ -34,7 +34,9 @@
 //     number of blocks per head depends on the shapes alone.
 // As the forward, this first version runs its five products on the FMA units
 // in fp32 and takes about 19x its byte bound on an H100 (PERF.md):
-// tensor-core tiles are left for later work.
+// tensor-core tiles are left for later work. The fp32 instance (an fp32 map
+// and cotangent, fp32 dqkv) is the same with every rounding to the operand
+// type gone, as the TPU kernel runs fp32 operands.
 
 #include "partition_attn_common.cuh"
 
@@ -48,16 +50,17 @@ constexpr int kLdf = 33;            // fp32 row stride of the dk / dv accumulato
 constexpr int kBlocksTarget = 528;  // blocks per launch over all heads: 4 per SM of 132
 
 // Shared-memory plan, identical on host and device: the q, k, v, g slices
-// (bf16), the dk and dv accumulators (fp32), the chunk's p and bf16(ds)
-// (bf16, R rows of 32*NJ), and with `acc_in_smem` the block's dbias partial.
+// (of E), the dk and dv accumulators (fp32), the chunk's p and E(ds) (of E,
+// R rows of 32*NJ), and with `acc_in_smem` the block's dbias partial.
 struct Layout {
   size_t q, k, v, g, dk, dv, pc, dsc, acc, total;
 };
 
+template <typename E>
 __host__ __device__ inline Layout make_layout(int T, int NJ, int R, int acc_in_smem) {
   Layout L;
-  const size_t slice = size_t(T) * kLdw * 4, facc = size_t(T) * kLdf * 4;
-  const size_t chunk = size_t(R) * 32 * NJ * 2;
+  const size_t slice = size_t(T) * Slot<E>::kLdw * 4, facc = size_t(T) * kLdf * 4;
+  const size_t chunk = size_t(R) * 32 * NJ * sizeof(E);
   L.q = 0;
   L.k = L.q + slice;
   L.v = L.k + slice;
@@ -71,22 +74,22 @@ __host__ __device__ inline Layout make_layout(int T, int NJ, int R, int acc_in_s
   return L;
 }
 
-template <int NJ>
+template <typename E, int NJ>
 __global__ void __launch_bounds__(kThreads)
-partition_attn_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
-                          const bf16* __restrict__ gout, bf16* __restrict__ dqkv,
+partition_attn_bwd_kernel(const E* __restrict__ qkv, const float* __restrict__ bias,
+                          const E* __restrict__ gout, E* __restrict__ dqkv,
                           float* __restrict__ partials, Geometry g, long long windows, int R,
                           int acc_in_smem) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout(g.T, NJ, R, acc_in_smem);
+  const Layout L = make_layout<E>(g.T, NJ, R, acc_in_smem);
   uint32_t* Qs = reinterpret_cast<uint32_t*>(smem + L.q);
   uint32_t* Ks = reinterpret_cast<uint32_t*>(smem + L.k);
   uint32_t* Vs = reinterpret_cast<uint32_t*>(smem + L.v);
   uint32_t* Gs = reinterpret_cast<uint32_t*>(smem + L.g);
   float* dKs = reinterpret_cast<float*>(smem + L.dk);
   float* dVs = reinterpret_cast<float*>(smem + L.dv);
-  bf16* Pc = reinterpret_cast<bf16*>(smem + L.pc);
-  bf16* DSc = reinterpret_cast<bf16*>(smem + L.dsc);
+  E* Pc = reinterpret_cast<E*>(smem + L.pc);
+  E* DSc = reinterpret_cast<E*>(smem + L.dsc);
   const int T = g.T, TP = 32 * NJ;
   const int h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -114,38 +117,38 @@ partition_attn_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict_
       // rows of the chunk: p, dp, ds per key; dq per channel
       for (int i = r0 + warp; i < r0 + rows; i += kWarps) {
         float r[kD], p[NJ], ds[NJ];
-        load_row(Qs, i, r);
-        softmax_row<NJ>(r, Ks, bh + static_cast<size_t>(i) * T, T, lane, p);
-        load_row(Gs, i, r);
+        load_row<E>(Qs, i, r);
+        softmax_row<E, NJ>(r, Ks, bh + static_cast<size_t>(i) * T, T, lane, p);
+        load_row<E>(Gs, i, r);
         float rs = 0.f;
 #pragma unroll
         for (int k = 0; k < NJ; ++k) {
           const int j = k * 32 + lane;
-          ds[k] = j < T ? dot_row(r, Vs, j) : 0.f;  // dp
+          ds[k] = j < T ? dot_row<E>(r, Vs, j) : 0.f;  // dp
           rs = fmaf(ds[k], p[k], rs);
         }
         rs = warp_sum(rs);
-        bf16* prow = Pc + (i - r0) * TP;
-        bf16* dsrow = DSc + (i - r0) * TP;
+        E* prow = Pc + (i - r0) * TP;
+        E* dsrow = DSc + (i - r0) * TP;
 #pragma unroll
         for (int k = 0; k < NJ; ++k) {
           const int j = k * 32 + lane;
           ds[k] = p[k] * (ds[k] - rs);
           if (j < T) acc[i * T + j] += ds[k];
-          ds[k] = round_bf16(ds[k]);
-          prow[j] = __float2bfloat16(p[k]);
-          dsrow[j] = __float2bfloat16(ds[k]);
+          ds[k] = Slot<E>::round(ds[k]);
+          prow[j] = Slot<E>::cast(p[k]);
+          dsrow[j] = Slot<E>::cast(ds[k]);
         }
-        const float dq = mix_rows<NJ>(ds, Ks, T, lane);
-        dqkv[token_pixel(g, win, i) * C3 + h * kD + lane] = __float2bfloat16(dq);
+        const float dq = mix_rows<E, NJ>(ds, Ks, T, lane);
+        dqkv[token_pixel(g, win, i) * C3 + h * kD + lane] = Slot<E>::cast(dq);
       }
       __syncthreads();
-      // dv[j] += sum_i p[i][j] g[i],  dk[j] += sum_i bf16(ds)[i][j] q[i]
+      // dv[j] += sum_i p[i][j] g[i],  dk[j] += sum_i E(ds)[i][j] q[i]
       for (int j = warp; j < T; j += kWarps) {
         float dv = 0.f, dk = 0.f;
         for (int ii = 0; ii < rows; ++ii) {
-          dv = fmaf(__bfloat162float(Pc[ii * TP + j]), elem(Gs, r0 + ii, lane), dv);
-          dk = fmaf(__bfloat162float(DSc[ii * TP + j]), elem(Qs, r0 + ii, lane), dk);
+          dv = fmaf(to_f(Pc[ii * TP + j]), elem<E>(Gs, r0 + ii, lane), dv);
+          dk = fmaf(to_f(DSc[ii * TP + j]), elem<E>(Qs, r0 + ii, lane), dk);
         }
         dVs[j * kLdf + lane] += dv;
         dKs[j * kLdf + lane] += dk;
@@ -153,9 +156,9 @@ partition_attn_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict_
       __syncthreads();
     }
     for (int j = warp; j < T; j += kWarps) {
-      bf16* row = dqkv + token_pixel(g, win, j) * C3 + h * kD + lane;
-      row[g.C] = __float2bfloat16(dKs[j * kLdf + lane]);
-      row[2 * g.C] = __float2bfloat16(dVs[j * kLdf + lane]);
+      E* row = dqkv + token_pixel(g, win, j) * C3 + h * kD + lane;
+      row[g.C] = Slot<E>::cast(dKs[j * kLdf + lane]);
+      row[2 * g.C] = Slot<E>::cast(dVs[j * kLdf + lane]);
       dKs[j * kLdf + lane] = dVs[j * kLdf + lane] = 0.f;
     }
   }
@@ -180,12 +183,13 @@ __global__ void partition_attn_dbias_kernel(const float* __restrict__ partials,
 
 // Rows per chunk and where the dbias partial lives: the partial in shared
 // memory if any chunk size lets it fit, the largest chunk that fits.
+template <typename E>
 bool plan(int T, int NJ, int* R, int* acc_in_smem) {
   const int full = (T + kWarps - 1) / kWarps * kWarps;
   const int sizes[] = {full, 64, 32, 16, 8};
   for (int in_smem = 1; in_smem >= 0; --in_smem)
     for (int r : sizes)
-      if (r <= full && make_layout(T, NJ, r, in_smem).total <= kMaxSmem) {
+      if (r <= full && make_layout<E>(T, NJ, r, in_smem).total <= kMaxSmem) {
         *R = r;
         *acc_in_smem = in_smem;
         return true;
@@ -193,14 +197,14 @@ bool plan(int T, int NJ, int* R, int* acc_in_smem) {
   return false;
 }
 
-template <int NJ>
-cudaError_t launch(const bf16* qkv, const float* bias, const bf16* gout, bf16* dqkv,
+template <typename E, int NJ>
+cudaError_t launch(const E* qkv, const float* bias, const E* gout, E* dqkv,
                    float* partials, float* dbias, const Geometry& g, long long windows,
                    int blocks, cudaStream_t stream) {
   int R = 0, acc_in_smem = 0;
-  if (!plan(g.T, NJ, &R, &acc_in_smem)) return cudaErrorInvalidValue;
-  const size_t smem = make_layout(g.T, NJ, R, acc_in_smem).total;
-  auto kern = partition_attn_bwd_kernel<NJ>;
+  if (!plan<E>(g.T, NJ, &R, &acc_in_smem)) return cudaErrorInvalidValue;
+  const size_t smem = make_layout<E>(g.T, NJ, R, acc_in_smem).total;
+  auto kern = partition_attn_bwd_kernel<E, NJ>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -214,18 +218,50 @@ cudaError_t launch(const bf16* qkv, const float* bias, const bf16* gout, bf16* d
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
 // Blocks per head for `windows` windows and nh heads: about kBlocksTarget
-// blocks in all, at most one per window. The partials buffer holds
-// nh * blocks * T * T floats.
-int imt_partition_attn_bwd_blocks(long long windows, int nh) {
+// blocks in all, at most one per window.
+int blocks_for(long long windows, int nh) {
   long long b = (kBlocksTarget + nh - 1) / nh;
   if (b > windows) b = windows;
   return static_cast<int>(b < 1 ? 1 : b);
 }
+
+template <typename E>
+int run(const void* qkv, const void* bias, const void* g, void* dqkv, void* partials, void* dbias,
+        int B, int H, int W, int C, int nh, int ph, int pw, int grid, int blocks, void* stream) {
+  if (B <= 0 || nh <= 0 || ph <= 0 || pw <= 0 || C != kD * nh || H % ph || W % pw ||
+      ph * pw > kMaxT)
+    return cudaErrorInvalidValue;
+  const Geometry geo = make_geometry(H, W, C, nh, ph, pw, grid);
+  const long long windows = static_cast<long long>(B) * geo.wr * geo.wc;
+  if (blocks != blocks_for(windows, nh) || nh > 65535)
+    return cudaErrorInvalidValue;
+  const E* q = static_cast<const E*>(qkv);
+  const float* b = static_cast<const float*>(bias);
+  const E* go = static_cast<const E*>(g);
+  E* d = static_cast<E*>(dqkv);
+  float* part = static_cast<float*>(partials);
+  float* db = static_cast<float*>(dbias);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch ((geo.T + 31) / 32) {
+    case 1: return launch<E, 1>(q, b, go, d, part, db, geo, windows, blocks, st);
+    case 2: return launch<E, 2>(q, b, go, d, part, db, geo, windows, blocks, st);
+    case 3: return launch<E, 3>(q, b, go, d, part, db, geo, windows, blocks, st);
+    case 4: return launch<E, 4>(q, b, go, d, part, db, geo, windows, blocks, st);
+    case 5: return launch<E, 5>(q, b, go, d, part, db, geo, windows, blocks, st);
+    case 6: return launch<E, 6>(q, b, go, d, part, db, geo, windows, blocks, st);
+    case 7: return launch<E, 7>(q, b, go, d, part, db, geo, windows, blocks, st);
+    default: return launch<E, 8>(q, b, go, d, part, db, geo, windows, blocks, st);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Blocks per head for `windows` windows and nh heads. The partials buffer
+// holds nh * blocks * T * T floats.
+int imt_partition_attn_bwd_blocks(long long windows, int nh) { return blocks_for(windows, nh); }
 
 // qkv (B, H, W, 3C) bf16, bias (nh, T, T) fp32, g (B, H, W, C) bf16 ->
 // dqkv (B, H, W, 3C) bf16 and dbias (nh, T, T) fp32; partials is scratch of
@@ -235,30 +271,16 @@ int imt_partition_attn_bwd_blocks(long long windows, int nh) {
 int imt_partition_attn_bwd_bf16(const void* qkv, const void* bias, const void* g, void* dqkv,
                                 void* partials, void* dbias, int B, int H, int W, int C, int nh,
                                 int ph, int pw, int grid, int blocks, void* stream) {
-  if (B <= 0 || nh <= 0 || ph <= 0 || pw <= 0 || C != kD * nh || H % ph || W % pw ||
-      ph * pw > kMaxT)
-    return cudaErrorInvalidValue;
-  const Geometry geo = make_geometry(H, W, C, nh, ph, pw, grid);
-  const long long windows = static_cast<long long>(B) * geo.wr * geo.wc;
-  if (blocks != imt_partition_attn_bwd_blocks(windows, nh) || nh > 65535)
-    return cudaErrorInvalidValue;
-  const bf16* q = static_cast<const bf16*>(qkv);
-  const float* b = static_cast<const float*>(bias);
-  const bf16* go = static_cast<const bf16*>(g);
-  bf16* d = static_cast<bf16*>(dqkv);
-  float* part = static_cast<float*>(partials);
-  float* db = static_cast<float*>(dbias);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((geo.T + 31) / 32) {
-    case 1: return launch<1>(q, b, go, d, part, db, geo, windows, blocks, st);
-    case 2: return launch<2>(q, b, go, d, part, db, geo, windows, blocks, st);
-    case 3: return launch<3>(q, b, go, d, part, db, geo, windows, blocks, st);
-    case 4: return launch<4>(q, b, go, d, part, db, geo, windows, blocks, st);
-    case 5: return launch<5>(q, b, go, d, part, db, geo, windows, blocks, st);
-    case 6: return launch<6>(q, b, go, d, part, db, geo, windows, blocks, st);
-    case 7: return launch<7>(q, b, go, d, part, db, geo, windows, blocks, st);
-    default: return launch<8>(q, b, go, d, part, db, geo, windows, blocks, st);
-  }
+  return run<bf16>(qkv, bias, g, dqkv, partials, dbias, B, H, W, C, nh, ph, pw, grid, blocks,
+                   stream);
+}
+
+// As imt_partition_attn_bwd_bf16 with an fp32 qkv map, cotangent and dqkv.
+int imt_partition_attn_bwd_f32(const void* qkv, const void* bias, const void* g, void* dqkv,
+                               void* partials, void* dbias, int B, int H, int W, int C, int nh,
+                               int ph, int pw, int grid, int blocks, void* stream) {
+  return run<float>(qkv, bias, g, dqkv, partials, dbias, B, H, W, C, nh, ph, pw, grid, blocks,
+                    stream);
 }
 
 const char* imt_cuda_error_string(int err) {

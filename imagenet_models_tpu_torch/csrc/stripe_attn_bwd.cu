@@ -41,7 +41,9 @@
 //     source lies outside every stripe (the dy != 0 taps of ws = 1) add no
 //     term and come out exactly 0, as the TPU kernel skips them.
 // As the forward, this first version runs its products on the FMA units in
-// fp32; tensor-core tiles are left for later work.
+// fp32; tensor-core tiles are left for later work. The fp32 instance (fp32
+// maps and cotangent, fp32 dq, dk, dv) is the same with every rounding to the
+// operand type gone, as the TPU kernel runs fp32 operands.
 
 #include "stripe_attn_common.cuh"
 
@@ -56,16 +58,17 @@ constexpr int kQuantities = kTaps + 1;  // dw9's 9 taps and dwb
 constexpr int kBlocksTarget = 528;  // blocks per launch over all heads: 4 per SM of 132
 
 // Shared-memory plan, identical on host and device: the q, k, v, g slices
-// (bf16), the dk and dv accumulators (fp32), the chunk's p and bf16(ds)
-// (bf16, R rows of 32*NJ).
+// (of E), the dk and dv accumulators (fp32), the chunk's p and E(ds) (of E,
+// R rows of 32*NJ).
 struct Layout {
   size_t q, k, v, g, dk, dv, pc, dsc, total;
 };
 
+template <typename E>
 __host__ __device__ inline Layout make_layout(int T, int NJ, int R) {
   Layout L;
-  const size_t slice = size_t(T) * kLdw * 4, facc = size_t(T) * kLdf * 4;
-  const size_t chunk = size_t(R) * 32 * NJ * 2;
+  const size_t slice = size_t(T) * Slot<E>::kLdw * 4, facc = size_t(T) * kLdf * 4;
+  const size_t chunk = size_t(R) * 32 * NJ * sizeof(E);
   L.q = 0;
   L.k = L.q + slice;
   L.v = L.k + slice;
@@ -81,11 +84,12 @@ __host__ __device__ inline Layout make_layout(int T, int NJ, int R) {
 // Quantity qq of the weight gradients over one stripe, channel c: the bias's
 // (qq = 9) sum of g, or tap qq's sum of v[a+dx][y+dy] * g[a][y] over the
 // tokens whose source lies inside the stripe, tokens in order.
+template <typename E>
 __device__ __forceinline__ float stripe_dw(int qq, const uint32_t* Vs, const uint32_t* Gs,
                                            const Stripes& g, int c) {
   float sum = 0.f;
   if (qq == kTaps) {
-    for (int t = 0; t < g.T; ++t) sum += elem(Gs, t, c);
+    for (int t = 0; t < g.T; ++t) sum += elem<E>(Gs, t, c);
     return sum;
   }
   const int dx = qq / 3 - 1, dy = qq % 3 - 1;
@@ -95,28 +99,28 @@ __device__ __forceinline__ float stripe_dw(int qq, const uint32_t* Vs, const uin
     for (int y = 0; y < g.ws; ++y) {
       const int yy = y + dy;
       if (yy < 0 || yy >= g.ws) continue;
-      sum = fmaf(elem(Vs, aa * g.ws + yy, c), elem(Gs, a * g.ws + y, c), sum);
+      sum = fmaf(elem<E>(Vs, aa * g.ws + yy, c), elem<E>(Gs, a * g.ws + y, c), sum);
     }
   }
   return sum;
 }
 
-template <int NJ, int D>
+template <typename E, int NJ, int D>
 __global__ void __launch_bounds__(kThreads)
-stripe_attn_bwd_kernel(Operand q, Operand k, Operand v, Operand gout, const float* __restrict__ w9,
-                       bf16* __restrict__ dq, bf16* __restrict__ dk, bf16* __restrict__ dv,
-                       float* __restrict__ partials, Stripes g, long long stripes, int R,
-                       float qscale, float scale) {
+stripe_attn_bwd_kernel(Operand<E> q, Operand<E> k, Operand<E> v, Operand<E> gout,
+                       const float* __restrict__ w9, E* __restrict__ dq, E* __restrict__ dk,
+                       E* __restrict__ dv, float* __restrict__ partials, Stripes g,
+                       long long stripes, int R, float qscale, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout(g.T, NJ, R);
+  const Layout L = make_layout<E>(g.T, NJ, R);
   uint32_t* Qs = reinterpret_cast<uint32_t*>(smem + L.q);
   uint32_t* Ks = reinterpret_cast<uint32_t*>(smem + L.k);
   uint32_t* Vs = reinterpret_cast<uint32_t*>(smem + L.v);
   uint32_t* Gs = reinterpret_cast<uint32_t*>(smem + L.g);
   float* dKs = reinterpret_cast<float*>(smem + L.dk);
   float* dVs = reinterpret_cast<float*>(smem + L.dv);
-  bf16* Pc = reinterpret_cast<bf16*>(smem + L.pc);
-  bf16* DSc = reinterpret_cast<bf16*>(smem + L.dsc);
+  E* Pc = reinterpret_cast<E*>(smem + L.pc);
+  E* DSc = reinterpret_cast<E*>(smem + L.dsc);
   const int T = g.T, TP = 32 * NJ;
   const int h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -134,61 +138,61 @@ stripe_attn_bwd_kernel(Operand q, Operand k, Operand v, Operand gout, const floa
   for (int j = warp; j < T; j += kWarps) dKs[j * kLdf + lane] = dVs[j * kLdf + lane] = 0.f;
 
   for (long long s = blockIdx.x; s < stripes; s += gridDim.x) {
-    load_stripe<D, true>(q, h * D, g, s, Qs, tid, kThreads, qscale);
-    load_stripe<D, false>(k, h * D, g, s, Ks, tid, kThreads, 1.f);
-    load_stripe<D, false>(v, h * D, g, s, Vs, tid, kThreads, 1.f);
-    load_stripe<D, false>(gout, h * D, g, s, Gs, tid, kThreads, 1.f);
+    load_stripe<E, D, true>(q, h * D, g, s, Qs, tid, kThreads, qscale);
+    load_stripe<E, D, false>(k, h * D, g, s, Ks, tid, kThreads, 1.f);
+    load_stripe<E, D, false>(v, h * D, g, s, Vs, tid, kThreads, 1.f);
+    load_stripe<E, D, false>(gout, h * D, g, s, Gs, tid, kThreads, 1.f);
     __syncthreads();
     for (int r0 = 0; r0 < T; r0 += R) {
       const int rows = T - r0 < R ? T - r0 : R;
       // rows of the chunk: p, dp, ds per key; dq per channel
       for (int i = r0 + warp; i < r0 + rows; i += kWarps) {
         float r[D], p[NJ], ds[NJ];
-        load_row<D>(Qs, i, r);
-        softmax_row<NJ, D>(r, Ks, T, lane, p);
-        load_row<D>(Gs, i, r);
+        load_row<E, D>(Qs, i, r);
+        softmax_row<E, NJ, D>(r, Ks, T, lane, p);
+        load_row<E, D>(Gs, i, r);
         float rs = 0.f;
 #pragma unroll
         for (int kk = 0; kk < NJ; ++kk) {
           const int j = kk * 32 + lane;
-          ds[kk] = j < T ? dot_row<D>(r, Vs, j) : 0.f;  // dp
+          ds[kk] = j < T ? dot_row<E, D>(r, Vs, j) : 0.f;  // dp
           rs = fmaf(ds[kk], p[kk], rs);
         }
         rs = warp_sum(rs);
-        bf16* prow = Pc + (i - r0) * TP;
-        bf16* dsrow = DSc + (i - r0) * TP;
+        E* prow = Pc + (i - r0) * TP;
+        E* dsrow = DSc + (i - r0) * TP;
 #pragma unroll
         for (int kk = 0; kk < NJ; ++kk) {
           const int j = kk * 32 + lane;
-          ds[kk] = round_bf16(p[kk] * (ds[kk] - rs));
-          prow[j] = __float2bfloat16(p[kk]);
-          dsrow[j] = __float2bfloat16(ds[kk]);
+          ds[kk] = Slot<E>::round(p[kk] * (ds[kk] - rs));
+          prow[j] = Slot<E>::cast(p[kk]);
+          dsrow[j] = Slot<E>::cast(ds[kk]);
         }
-        const float dqv = imt_pa::mix_rows<NJ>(ds, Ks, T, c) * scale;
-        if (lane < D) dq[stripe_pixel(g, s, i) * g.C + ch] = __float2bfloat16(dqv);
+        const float dqv = imt_pa::mix_rows<E, NJ>(ds, Ks, T, c) * scale;
+        if (lane < D) dq[stripe_pixel(g, s, i) * g.C + ch] = Slot<E>::cast(dqv);
       }
       __syncthreads();
-      // dv[j] += sum_i p[i][j] g[i],  dk[j] += sum_i bf16(ds)[i][j] qs[i]
+      // dv[j] += sum_i p[i][j] g[i],  dk[j] += sum_i E(ds)[i][j] qs[i]
       for (int j = warp; j < T; j += kWarps) {
         float adv = 0.f, adk = 0.f;
         for (int ii = 0; ii < rows; ++ii) {
-          adv = fmaf(__bfloat162float(Pc[ii * TP + j]), elem(Gs, r0 + ii, c), adv);
-          adk = fmaf(__bfloat162float(DSc[ii * TP + j]), elem(Qs, r0 + ii, c), adk);
+          adv = fmaf(to_f(Pc[ii * TP + j]), elem<E>(Gs, r0 + ii, c), adv);
+          adk = fmaf(to_f(DSc[ii * TP + j]), elem<E>(Qs, r0 + ii, c), adk);
         }
         dVs[j * kLdf + lane] += adv;
         dKs[j * kLdf + lane] += adk;
       }
       __syncthreads();
     }
-    acc0 += stripe_dw(warp, Vs, Gs, g, c);
-    if (two) acc1 += stripe_dw(warp + kWarps, Vs, Gs, g, c);
+    acc0 += stripe_dw<E>(warp, Vs, Gs, g, c);
+    if (two) acc1 += stripe_dw<E>(warp + kWarps, Vs, Gs, g, c);
     for (int j = warp; j < T; j += kWarps) {
       const int a = j / g.ws, y = j - a * g.ws;
-      const float lepe = lepe_t_at(Gs, a, y, g, c, w);
+      const float lepe = lepe_t_at<E>(Gs, a, y, g, c, w);
       if (lane < D) {
         const long long px = stripe_pixel(g, s, j) * g.C + ch;
-        dk[px] = __float2bfloat16(dKs[j * kLdf + lane]);
-        dv[px] = __float2bfloat16(dVs[j * kLdf + lane] + lepe);
+        dk[px] = Slot<E>::cast(dKs[j * kLdf + lane]);
+        dv[px] = Slot<E>::cast(dVs[j * kLdf + lane] + lepe);
       }
       dKs[j * kLdf + lane] = dVs[j * kLdf + lane] = 0.f;
     }
@@ -220,25 +224,26 @@ __global__ void stripe_attn_dw_kernel(const float* __restrict__ partials, float*
 }
 
 // Rows per chunk: the largest that fits in shared memory.
+template <typename E>
 bool plan(int T, int NJ, int* R) {
   const int full = (T + kWarps - 1) / kWarps * kWarps;
   const int sizes[] = {full, 64, 32, 16, 8};
   for (int r : sizes)
-    if (r <= full && make_layout(T, NJ, r).total <= kMaxSmem) {
+    if (r <= full && make_layout<E>(T, NJ, r).total <= kMaxSmem) {
       *R = r;
       return true;
     }
   return false;
 }
 
-template <int NJ, int D>
-cudaError_t launch(Operand q, Operand k, Operand v, Operand go, const float* w9, bf16* dq, bf16* dk,
-                   bf16* dv, float* partials, float* dw9, float* dwb, const Stripes& g,
+template <typename E, int NJ, int D>
+cudaError_t launch(Operand<E> q, Operand<E> k, Operand<E> v, Operand<E> go, const float* w9, E* dq,
+                   E* dk, E* dv, float* partials, float* dw9, float* dwb, const Stripes& g,
                    long long stripes, int blocks, float qscale, float scale, cudaStream_t stream) {
   int R = 0;
-  if (!plan(g.T, NJ, &R)) return cudaErrorInvalidValue;
-  const size_t smem = make_layout(g.T, NJ, R).total;
-  auto kern = stripe_attn_bwd_kernel<NJ, D>;
+  if (!plan<E>(g.T, NJ, &R)) return cudaErrorInvalidValue;
+  const size_t smem = make_layout<E>(g.T, NJ, R).total;
+  auto kern = stripe_attn_bwd_kernel<E, NJ, D>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -252,14 +257,14 @@ cudaError_t launch(Operand q, Operand k, Operand v, Operand go, const float* w9,
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_d(Operand q, Operand k, Operand v, Operand go, const float* w9, bf16* dq,
-                     bf16* dk, bf16* dv, float* part, float* dw9, float* dwb, const Stripes& g,
+template <typename E, int D>
+cudaError_t launch_d(Operand<E> q, Operand<E> k, Operand<E> v, Operand<E> go, const float* w9,
+                     E* dq, E* dk, E* dv, float* part, float* dw9, float* dwb, const Stripes& g,
                      long long stripes, int blocks, float qscale, float scale, cudaStream_t st) {
   switch ((g.T + 31) / 32) {
 #define IMT_CASE(NJ)                                                                       \
   case NJ:                                                                                 \
-    return launch<NJ, D>(q, k, v, go, w9, dq, dk, dv, part, dw9, dwb, g, stripes, blocks, \
+    return launch<E, NJ, D>(q, k, v, go, w9, dq, dk, dv, part, dw9, dwb, g, stripes, blocks, \
                          qscale, scale, st);
     IMT_CASE(1)
     IMT_CASE(2)
@@ -270,23 +275,61 @@ cudaError_t launch_d(Operand q, Operand k, Operand v, Operand go, const float* w
     IMT_CASE(7)
 #undef IMT_CASE
     default:
-      return launch<8, D>(q, k, v, go, w9, dq, dk, dv, part, dw9, dwb, g, stripes, blocks, qscale,
-                          scale, st);
+      return launch<E, 8, D>(q, k, v, go, w9, dq, dk, dv, part, dw9, dwb, g, stripes, blocks,
+                             qscale, scale, st);
   }
+}
+
+// Blocks per head for `stripes` stripes and nh heads: about kBlocksTarget
+// blocks in all, at most one per stripe.
+int blocks_for(long long stripes, int nh) {
+  long long b = (kBlocksTarget + nh - 1) / nh;
+  if (b > stripes) b = stripes;
+  return static_cast<int>(b < 1 ? 1 : b);
+}
+
+// The C entries' body for operand type E; pixel strides are multiples of
+// 16 bytes.
+template <typename E>
+int run(const void* q, long long ldq, const void* k, long long ldk, const void* v, long long ldv,
+        const void* g, long long ldg, const void* w9, void* dq, void* dk, void* dv, void* partials,
+        void* dw9, void* dwb, int B, int H, int W, int C, int nh, int ws, int blocks, float qscale,
+        float scale, void* stream) {
+  constexpr int kPer = Slot<E>::kPerVec;
+  if (B <= 0 || H <= 0 || nh <= 0 || ws <= 0 || C % nh || W % ws || H * ws > kMaxT ||
+      ldq % kPer || ldk % kPer || ldv % kPer || ldg % kPer || ldq < C || ldk < C || ldv < C ||
+      ldg < C)
+    return cudaErrorInvalidValue;
+  const int D = C / nh;
+  const Stripes geo = make_stripes(H, W, C, nh, ws);
+  const long long stripes = static_cast<long long>(B) * geo.per_img;
+  if (blocks != blocks_for(stripes, nh) || nh > 65535) return cudaErrorInvalidValue;
+  const Operand<E> oq{static_cast<const E*>(q), ldq}, ok{static_cast<const E*>(k), ldk},
+      ov{static_cast<const E*>(v), ldv}, og{static_cast<const E*>(g), ldg};
+  const float* w = static_cast<const float*>(w9);
+  E* a = static_cast<E*>(dq);
+  E* b = static_cast<E*>(dk);
+  E* c = static_cast<E*>(dv);
+  float* part = static_cast<float*>(partials);
+  float* d9 = static_cast<float*>(dw9);
+  float* db = static_cast<float*>(dwb);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 32)
+    return launch_d<E, 32>(oq, ok, ov, og, w, a, b, c, part, d9, db, geo, stripes, blocks, qscale,
+                           scale, st);
+  if (D == 24)
+    return launch_d<E, 24>(oq, ok, ov, og, w, a, b, c, part, d9, db, geo, stripes, blocks, qscale,
+                           scale, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Blocks per head for `stripes` stripes and nh heads: about kBlocksTarget
-// blocks in all, at most one per stripe. The partials buffer holds
-// nh * blocks * 10 * (C / nh) floats.
-int imt_stripe_attn_bwd_blocks(long long stripes, int nh) {
-  long long b = (kBlocksTarget + nh - 1) / nh;
-  if (b > stripes) b = stripes;
-  return static_cast<int>(b < 1 ? 1 : b);
-}
+// Blocks per head for `stripes` stripes and nh heads. The partials buffer
+// holds nh * blocks * 10 * (C / nh) floats.
+int imt_stripe_attn_bwd_blocks(long long stripes, int nh) { return blocks_for(stripes, nh); }
 
 // q, k, v, g (B, H, W, *) bf16 with pixel strides ldq, ldk, ldv, ldg (as for
 // imt_stripe_attn_fwd_bf16), w9 (9, C) fp32 -> dq, dk, dv (B, H, W, C) bf16
@@ -300,30 +343,19 @@ int imt_stripe_attn_bwd_bf16(const void* q, long long ldq, const void* k, long l
                              const void* w9, void* dq, void* dk, void* dv, void* partials,
                              void* dw9, void* dwb, int B, int H, int W, int C, int nh, int ws,
                              int blocks, float qscale, float scale, void* stream) {
-  if (B <= 0 || H <= 0 || nh <= 0 || ws <= 0 || C % nh || W % ws || H * ws > kMaxT ||
-      ldq % 8 || ldk % 8 || ldv % 8 || ldg % 8 || ldq < C || ldk < C || ldv < C || ldg < C)
-    return cudaErrorInvalidValue;
-  const int D = C / nh;
-  const Stripes geo = make_stripes(H, W, C, nh, ws);
-  const long long stripes = static_cast<long long>(B) * geo.per_img;
-  if (blocks != imt_stripe_attn_bwd_blocks(stripes, nh) || nh > 65535) return cudaErrorInvalidValue;
-  const Operand oq{static_cast<const bf16*>(q), ldq}, ok{static_cast<const bf16*>(k), ldk},
-      ov{static_cast<const bf16*>(v), ldv}, og{static_cast<const bf16*>(g), ldg};
-  const float* w = static_cast<const float*>(w9);
-  bf16* a = static_cast<bf16*>(dq);
-  bf16* b = static_cast<bf16*>(dk);
-  bf16* c = static_cast<bf16*>(dv);
-  float* part = static_cast<float*>(partials);
-  float* d9 = static_cast<float*>(dw9);
-  float* db = static_cast<float*>(dwb);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 32)
-    return launch_d<32>(oq, ok, ov, og, w, a, b, c, part, d9, db, geo, stripes, blocks, qscale,
-                        scale, st);
-  if (D == 24)
-    return launch_d<24>(oq, ok, ov, og, w, a, b, c, part, d9, db, geo, stripes, blocks, qscale,
-                        scale, st);
-  return cudaErrorInvalidValue;
+  return run<bf16>(q, ldq, k, ldk, v, ldv, g, ldg, w9, dq, dk, dv, partials, dw9, dwb, B, H, W, C,
+                   nh, ws, blocks, qscale, scale, stream);
+}
+
+// As imt_stripe_attn_bwd_bf16 with fp32 maps (pixel strides multiples of 4),
+// cotangent and dq, dk, dv; qscale and scale are both the fp32 scale.
+int imt_stripe_attn_bwd_f32(const void* q, long long ldq, const void* k, long long ldk,
+                            const void* v, long long ldv, const void* g, long long ldg,
+                            const void* w9, void* dq, void* dk, void* dv, void* partials,
+                            void* dw9, void* dwb, int B, int H, int W, int C, int nh, int ws,
+                            int blocks, float qscale, float scale, void* stream) {
+  return run<float>(q, ldq, k, ldk, v, ldv, g, ldg, w9, dq, dk, dv, partials, dw9, dwb, B, H, W, C,
+                    nh, ws, blocks, qscale, scale, stream);
 }
 
 const char* imt_cuda_error_string(int err) {

@@ -16,7 +16,9 @@
 // fp32 from exact products of bf16 operands; softmax in fp32 as
 // exp(s - max) / sum; p rounded to bf16; p.v in fp32 from exact products; the
 // LePE in fp32 from the fp32 taps and bias, added to the fp32 attention
-// output; one cast at the output.
+// output; one cast at the output. The fp32 instance (fp32 maps, for an fp32
+// model) is the same with every rounding to the operand type gone: q times
+// the fp32 scale, p kept in fp32.
 //
 // What bounds it on the H100: bytes. Per token and head it reads 3 x 2D
 // bytes of q, k, v and writes 2D, and does 4*T*D flops (12.5 kflop at
@@ -50,11 +52,12 @@ using namespace imt_sa;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 
-template <int NJ, int D>
+template <typename E, int NJ, int D>
 __global__ void __launch_bounds__(kThreads)
-stripe_attn_fwd_kernel(Operand q, Operand k, Operand v, const float* __restrict__ w9,
-                       const float* __restrict__ wb, bf16* __restrict__ out, Stripes g,
+stripe_attn_fwd_kernel(Operand<E> q, Operand<E> k, Operand<E> v, const float* __restrict__ w9,
+                       const float* __restrict__ wb, E* __restrict__ out, Stripes g,
                        float qscale) {
+  constexpr int kLdw = Slot<E>::kLdw;
   extern __shared__ __align__(16) uint32_t smem[];
   uint32_t* Qs = smem;
   uint32_t* Ks = Qs + g.T * kLdw;
@@ -63,9 +66,9 @@ stripe_attn_fwd_kernel(Operand q, Operand k, Operand v, const float* __restrict_
   const int h = blockIdx.y;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  load_stripe<D, true>(q, h * D, g, s, Qs, tid, kThreads, qscale);
-  load_stripe<D, false>(k, h * D, g, s, Ks, tid, kThreads, 1.f);
-  load_stripe<D, false>(v, h * D, g, s, Vs, tid, kThreads, 1.f);
+  load_stripe<E, D, true>(q, h * D, g, s, Qs, tid, kThreads, qscale);
+  load_stripe<E, D, false>(k, h * D, g, s, Ks, tid, kThreads, 1.f);
+  load_stripe<E, D, false>(v, h * D, g, s, Vs, tid, kThreads, 1.f);
   // lanes past D (D = 24) repeat channel D-1 and write nothing
   const int c = lane < D ? lane : D - 1;
   const int ch = h * D + c;
@@ -77,20 +80,20 @@ stripe_attn_fwd_kernel(Operand q, Operand k, Operand v, const float* __restrict_
 
   for (int i = warp; i < g.T; i += kWarps) {
     float r[D], p[NJ];
-    load_row<D>(Qs, i, r);
-    softmax_row<NJ, D>(r, Ks, g.T, lane, p);
-    const float o = imt_pa::mix_rows<NJ>(p, Vs, g.T, c);
+    load_row<E, D>(Qs, i, r);
+    softmax_row<E, NJ, D>(r, Ks, g.T, lane, p);
+    const float o = imt_pa::mix_rows<E, NJ>(p, Vs, g.T, c);
     const int a = i / g.ws, y = i - a * g.ws;
-    const float l = lepe_at(Vs, a, y, g, c, w, bias);
-    if (lane < D) out[stripe_pixel(g, s, i) * g.C + ch] = __float2bfloat16(o + l);
+    const float l = lepe_at<E>(Vs, a, y, g, c, w, bias);
+    if (lane < D) out[stripe_pixel(g, s, i) * g.C + ch] = Slot<E>::cast(o + l);
   }
 }
 
-template <int NJ, int D>
-cudaError_t launch(Operand q, Operand k, Operand v, const float* w9, const float* wb, bf16* out,
-                   const Stripes& g, long long stripes, float qscale, cudaStream_t stream) {
-  const size_t smem = size_t(3) * g.T * kLdw * 4;
-  auto kern = stripe_attn_fwd_kernel<NJ, D>;
+template <typename E, int NJ, int D>
+cudaError_t launch(Operand<E> q, Operand<E> k, Operand<E> v, const float* w9, const float* wb,
+                   E* out, const Stripes& g, long long stripes, float qscale, cudaStream_t stream) {
+  const size_t smem = size_t(3) * g.T * Slot<E>::kLdw * 4;
+  auto kern = stripe_attn_fwd_kernel<E, NJ, D>;
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
@@ -99,19 +102,44 @@ cudaError_t launch(Operand q, Operand k, Operand v, const float* w9, const float
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_d(Operand q, Operand k, Operand v, const float* w9, const float* wb, bf16* out,
-                     const Stripes& g, long long stripes, float qscale, cudaStream_t st) {
+template <typename E, int D>
+cudaError_t launch_d(Operand<E> q, Operand<E> k, Operand<E> v, const float* w9, const float* wb,
+                     E* out, const Stripes& g, long long stripes, float qscale, cudaStream_t st) {
   switch ((g.T + 31) / 32) {
-    case 1: return launch<1, D>(q, k, v, w9, wb, out, g, stripes, qscale, st);
-    case 2: return launch<2, D>(q, k, v, w9, wb, out, g, stripes, qscale, st);
-    case 3: return launch<3, D>(q, k, v, w9, wb, out, g, stripes, qscale, st);
-    case 4: return launch<4, D>(q, k, v, w9, wb, out, g, stripes, qscale, st);
-    case 5: return launch<5, D>(q, k, v, w9, wb, out, g, stripes, qscale, st);
-    case 6: return launch<6, D>(q, k, v, w9, wb, out, g, stripes, qscale, st);
-    case 7: return launch<7, D>(q, k, v, w9, wb, out, g, stripes, qscale, st);
-    default: return launch<8, D>(q, k, v, w9, wb, out, g, stripes, qscale, st);
+    case 1: return launch<E, 1, D>(q, k, v, w9, wb, out, g, stripes, qscale, st);
+    case 2: return launch<E, 2, D>(q, k, v, w9, wb, out, g, stripes, qscale, st);
+    case 3: return launch<E, 3, D>(q, k, v, w9, wb, out, g, stripes, qscale, st);
+    case 4: return launch<E, 4, D>(q, k, v, w9, wb, out, g, stripes, qscale, st);
+    case 5: return launch<E, 5, D>(q, k, v, w9, wb, out, g, stripes, qscale, st);
+    case 6: return launch<E, 6, D>(q, k, v, w9, wb, out, g, stripes, qscale, st);
+    case 7: return launch<E, 7, D>(q, k, v, w9, wb, out, g, stripes, qscale, st);
+    default: return launch<E, 8, D>(q, k, v, w9, wb, out, g, stripes, qscale, st);
   }
+}
+
+// The C entries' body for operand type E; pixel strides are multiples of
+// 16 bytes.
+template <typename E>
+int run(const void* q, long long ldq, const void* k, long long ldk, const void* v, long long ldv,
+        const void* w9, const void* wb, void* out, int B, int H, int W, int C, int nh, int ws,
+        float qscale, void* stream) {
+  constexpr int kPer = Slot<E>::kPerVec;
+  if (B <= 0 || H <= 0 || nh <= 0 || ws <= 0 || C % nh || W % ws || H * ws > kMaxT ||
+      ldq % kPer || ldk % kPer || ldv % kPer || ldq < C || ldk < C || ldv < C)
+    return cudaErrorInvalidValue;
+  const int D = C / nh;
+  const Stripes g = make_stripes(H, W, C, nh, ws);
+  const long long stripes = static_cast<long long>(B) * g.per_img;
+  if (stripes > 0x7fffffffLL || nh > 65535) return cudaErrorInvalidValue;
+  const Operand<E> oq{static_cast<const E*>(q), ldq}, ok{static_cast<const E*>(k), ldk},
+      ov{static_cast<const E*>(v), ldv};
+  const float* w = static_cast<const float*>(w9);
+  const float* b = static_cast<const float*>(wb);
+  E* o = static_cast<E*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 32) return launch_d<E, 32>(oq, ok, ov, w, b, o, g, stripes, qscale, st);
+  if (D == 24) return launch_d<E, 24>(oq, ok, ov, w, b, o, g, stripes, qscale, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -128,22 +156,16 @@ int imt_stripe_attn_fwd_bf16(const void* q, long long ldq, const void* k, long l
                              const void* v, long long ldv, const void* w9, const void* wb,
                              void* out, int B, int H, int W, int C, int nh, int ws, float qscale,
                              void* stream) {
-  if (B <= 0 || H <= 0 || nh <= 0 || ws <= 0 || C % nh || W % ws || H * ws > kMaxT ||
-      ldq % 8 || ldk % 8 || ldv % 8 || ldq < C || ldk < C || ldv < C)
-    return cudaErrorInvalidValue;
-  const int D = C / nh;
-  const Stripes g = make_stripes(H, W, C, nh, ws);
-  const long long stripes = static_cast<long long>(B) * g.per_img;
-  if (stripes > 0x7fffffffLL || nh > 65535) return cudaErrorInvalidValue;
-  const Operand oq{static_cast<const bf16*>(q), ldq}, ok{static_cast<const bf16*>(k), ldk},
-      ov{static_cast<const bf16*>(v), ldv};
-  const float* w = static_cast<const float*>(w9);
-  const float* b = static_cast<const float*>(wb);
-  bf16* o = static_cast<bf16*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 32) return launch_d<32>(oq, ok, ov, w, b, o, g, stripes, qscale, st);
-  if (D == 24) return launch_d<24>(oq, ok, ov, w, b, o, g, stripes, qscale, st);
-  return cudaErrorInvalidValue;
+  return run<bf16>(q, ldq, k, ldk, v, ldv, w9, wb, out, B, H, W, C, nh, ws, qscale, stream);
+}
+
+// As imt_stripe_attn_fwd_bf16 with fp32 maps (pixel strides multiples of 4)
+// and output; qscale is the fp32 softmax scale.
+int imt_stripe_attn_fwd_f32(const void* q, long long ldq, const void* k, long long ldk,
+                            const void* v, long long ldv, const void* w9, const void* wb,
+                            void* out, int B, int H, int W, int C, int nh, int ws, float qscale,
+                            void* stream) {
+  return run<float>(q, ldq, k, ldk, v, ldv, w9, wb, out, B, H, W, C, nh, ws, qscale, stream);
 }
 
 const char* imt_cuda_error_string(int err) {

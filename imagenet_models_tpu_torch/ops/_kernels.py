@@ -105,12 +105,17 @@ def _load(name: str) -> ctypes.CDLL:
 
 @functools.cache
 def ln_mlp_fwd_library() -> ctypes.CDLL:
-    """The LN+MLP forward kernel's library, built on first call."""
+    """The LN+MLP forward kernel's library (kernel 1), built on first call."""
     lib = _load("ln_mlp_fwd")
-    lib.imt_ln_mlp_fwd_bf16.argtypes = [_P] * 9 + [_LL, _I, _I, _F, _I, _P]
-    lib.imt_ln_mlp_fwd_bf16.restype = _I
     lib.imt_ln_mlp_fwd_supported.argtypes = [_I, _I]
     lib.imt_ln_mlp_fwd_supported.restype = _I
+    lib.imt_ln_mlp_fwd_workspace_bytes.argtypes = [_LL, _I, _I]
+    lib.imt_ln_mlp_fwd_workspace_bytes.restype = _LL
+    for dt in ("bf16", "f32"):
+        getattr(lib, f"imt_ln_mlp_fwd_{dt}").argtypes = [_P] * 10 + [_LL, _I, _I, _F, _I, _I, _I, _P]
+        getattr(lib, f"imt_ln_mlp_fwd_{dt}").restype = _I
+    lib.imt_ln_mlp_fwd_f32_workspace_bytes.argtypes = [_LL, _I, _I]
+    lib.imt_ln_mlp_fwd_f32_workspace_bytes.restype = _LL
     return lib
 
 
@@ -122,8 +127,11 @@ def ln_mlp_bwd_library() -> ctypes.CDLL:
     lib.imt_ln_mlp_bwd_supported.restype = _I
     lib.imt_ln_mlp_bwd_workspace_bytes.argtypes = [_LL, _I, _I]
     lib.imt_ln_mlp_bwd_workspace_bytes.restype = _LL
-    lib.imt_ln_mlp_bwd_bf16.argtypes = [_P] * 14 + [_LL, _I, _I, _F, _I, _I, _I, _P]
-    lib.imt_ln_mlp_bwd_bf16.restype = _I
+    for dt in ("bf16", "f32"):
+        getattr(lib, f"imt_ln_mlp_bwd_{dt}").argtypes = [_P] * 14 + [_LL, _I, _I, _F, _I, _I, _I, _P]
+        getattr(lib, f"imt_ln_mlp_bwd_{dt}").restype = _I
+    lib.imt_ln_mlp_bwd_f32_workspace_bytes.argtypes = [_LL, _I, _I]
+    lib.imt_ln_mlp_bwd_f32_workspace_bytes.restype = _LL
     return lib
 
 
@@ -132,8 +140,9 @@ def partition_attn_fwd_library() -> ctypes.CDLL:
     """The partition-attention forward kernel's library (kernel 3), built on
     first call."""
     lib = _load("partition_attn_fwd")
-    lib.imt_partition_attn_fwd_bf16.argtypes = [_P] * 3 + [_I] * 8 + [_P]
-    lib.imt_partition_attn_fwd_bf16.restype = _I
+    for dt in ("bf16", "f32"):
+        getattr(lib, f"imt_partition_attn_fwd_{dt}").argtypes = [_P] * 3 + [_I] * 8 + [_P]
+        getattr(lib, f"imt_partition_attn_fwd_{dt}").restype = _I
     return lib
 
 
@@ -144,8 +153,9 @@ def partition_attn_bwd_library() -> ctypes.CDLL:
     lib = _load("partition_attn_bwd")
     lib.imt_partition_attn_bwd_blocks.argtypes = [_LL, _I]
     lib.imt_partition_attn_bwd_blocks.restype = _I
-    lib.imt_partition_attn_bwd_bf16.argtypes = [_P] * 6 + [_I] * 9 + [_P]
-    lib.imt_partition_attn_bwd_bf16.restype = _I
+    for dt in ("bf16", "f32"):
+        getattr(lib, f"imt_partition_attn_bwd_{dt}").argtypes = [_P] * 6 + [_I] * 9 + [_P]
+        getattr(lib, f"imt_partition_attn_bwd_{dt}").restype = _I
     return lib
 
 
@@ -154,8 +164,10 @@ def stripe_attn_fwd_library() -> ctypes.CDLL:
     """The stripe-attention + LePE forward kernel's library (kernel 5), built
     on first call."""
     lib = _load("stripe_attn_fwd")
-    lib.imt_stripe_attn_fwd_bf16.argtypes = [_P, _LL] * 3 + [_P] * 3 + [_I] * 6 + [_F, _P]
-    lib.imt_stripe_attn_fwd_bf16.restype = _I
+    for dt in ("bf16", "f32"):
+        getattr(lib, f"imt_stripe_attn_fwd_{dt}").argtypes = ([_P, _LL] * 3 + [_P] * 3 + [_I] * 6
+                                                              + [_F, _P])
+        getattr(lib, f"imt_stripe_attn_fwd_{dt}").restype = _I
     return lib
 
 
@@ -166,9 +178,10 @@ def stripe_attn_bwd_library() -> ctypes.CDLL:
     lib = _load("stripe_attn_bwd")
     lib.imt_stripe_attn_bwd_blocks.argtypes = [_LL, _I]
     lib.imt_stripe_attn_bwd_blocks.restype = _I
-    lib.imt_stripe_attn_bwd_bf16.argtypes = ([_P, _LL] * 4 + [_P] * 7 + [_I] * 7
-                                             + [_F, _F, _P])
-    lib.imt_stripe_attn_bwd_bf16.restype = _I
+    for dt in ("bf16", "f32"):
+        getattr(lib, f"imt_stripe_attn_bwd_{dt}").argtypes = ([_P, _LL] * 4 + [_P] * 7 + [_I] * 7
+                                                              + [_F, _F, _P])
+        getattr(lib, f"imt_stripe_attn_bwd_{dt}").restype = _I
     return lib
 
 

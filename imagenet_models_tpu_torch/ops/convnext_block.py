@@ -4,11 +4,13 @@ Dense(4C) -> GELU -> Dense(C) -> layer-scale, forward and backward.
 Port of imagenet_models_tpu/ops/convnext_block.py. The depthwise conv stays
 with the framework (`F.conv2d`, as it is XLA's in JAX); with IMTPU_DW_WGRAD
 at "1" its weight gradient is kernel 9 (`ops/dw_conv.py`). The LN+MLP is two
-hand-written CUDA kernels: the forward (`csrc/ln_mlp_fwd.cu`, wrapper
-`fused_ln_mlp`) and the backward (`csrc/ln_mlp_bwd.cu`, wrapper
-`fused_ln_mlp_bwd`), joined by the autograd function `LnMlpFunction`. Beside
-them are their plain-PyTorch twins `plain_ln_mlp` and `plain_ln_mlp_bwd`,
-which have the kernels' numerics.
+hand-written CUDA kernels, each a pipeline of a row-wise stage and GEMM-shaped
+stages on Hopper's wgmma and TMA: the forward, kernel 1 (`csrc/ln_mlp_fwd.cu`,
+wrapper `fused_ln_mlp`, stage by stage `ln_mlp_fwd_pipeline`) and the
+backward, kernel 2 (`csrc/ln_mlp_bwd.cu`, wrapper `fused_ln_mlp_bwd`, stage by
+stage `ln_mlp_bwd_pipeline`), joined by the autograd function
+`LnMlpFunction`. Beside them are their plain-PyTorch twins `plain_ln_mlp` and
+`plain_ln_mlp_bwd`, which have the kernels' numerics.
 
 GELU: "exact" (erf) at eval, "fast" (the single-segment minimax fit of erf,
 and of the GELU derivative in the backward) in training, as
@@ -21,7 +23,9 @@ layer scale through `ln_mlp_apply`, where `use_transformer_lnmlp` allows it
 Dispatch rule: a CPU tensor goes to the twin, with autograd through it (JAX's
 CPU path is autodiff of its plain ops); a CUDA tensor goes to the kernels, or
 raises. There is no fallback from a kernel to a twin. `use_kernel=False` runs
-the twin on any device, to compare against.
+the twin on any device, to compare against. The kernels take bf16 tokens and,
+for fp32 models, fp32 tokens: each has an fp32 instance (`csrc/ln_mlp_f32.cuh`)
+with no cast to bf16, as the TPU kernels run an fp32 map.
 """
 
 from __future__ import annotations
@@ -211,25 +215,30 @@ def plain_ln_mlp_bwd(h: torch.Tensor, g: torch.Tensor, ln_s, ln_b, w1, b1, w2, b
             db1.to(b1.dtype), dw2.to(w2.dtype), db2.to(b2.dtype), dgamma.to(gamma.dtype))
 
 
+# the tokens' dtypes the kernels take: each has an instance of its own
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
 def _check_tokens(name: str, h: torch.Tensor) -> None:
     if not h.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors; CPU tensors go to the plain twin")
-    if h.dtype != torch.bfloat16:
-        raise TypeError(f"{name} takes bf16 tokens, got {h.dtype}")
+    if h.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name} takes bf16 or fp32 tokens, got {h.dtype}")
     if h.dim() != 2 or not h.is_contiguous():
         raise ValueError(f"{name} takes contiguous (N, C) tokens, got {tuple(h.shape)}")
 
 
 def _kernel_operands(name: str, h: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma):
-    """Weights in bf16 and vectors in fp32, contiguous, checked against h."""
+    """Weights in h's dtype (JAX casts them to h.dtype) and vectors in fp32,
+    contiguous, checked against h."""
     c = h.shape[1]
     hidden = w1.shape[0]
     if w1.shape != (hidden, c) or w2.shape != (c, hidden):
         raise ValueError(f"weights {tuple(w1.shape)}, {tuple(w2.shape)} do not fit C={c}")
     if any(t.device != h.device for t in (ln_s, ln_b, w1, b1, w2, b2, gamma)):
         raise ValueError(f"{name}: all tensors must be on one device")
-    w1 = w1.to(torch.bfloat16).contiguous()
-    w2 = w2.to(torch.bfloat16).contiguous()
+    w1 = w1.to(h.dtype).contiguous()
+    w2 = w2.to(h.dtype).contiguous()
     vecs = [v.float().contiguous() for v in (ln_s, ln_b, b1, b2, gamma)]
     for v, size in zip(vecs, (c, c, hidden, c, c)):
         if v.numel() != size:
@@ -246,40 +255,91 @@ def _aligned(*tensors: torch.Tensor) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
+def _workspace(nbytes: int, device) -> torch.Tensor:
+    """`nbytes` of scratch from the caching allocator, 1024-byte aligned, as
+    the kernels' workspaces must be."""
+    raw = torch.empty(nbytes + 1024, dtype=torch.uint8, device=device)
+    skip = -raw.data_ptr() % 1024
+    return raw[skip:skip + nbytes]
+
+
+# kernel 1's stages, as imt_ln_mlp_fwd_bf16 numbers them
+FWD_STAGES = ("prologue", "hidden", "output")
+
+
+class _Fwd:
+    """One call of kernel 1: its checked operands, output and workspace.
+    `run(first, last)` launches stages [first, last) of FWD_STAGES; a stage
+    run alone reads what the stages before it left in the workspace."""
+
+    def __init__(self, h, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, gelu_impl):
+        _check_gelu(gelu_impl)
+        _check_tokens("fused_ln_mlp", h)
+        w1, w2, vecs = _kernel_operands("fused_ln_mlp", h, ln_s, ln_b, w1, b1, w2, b2, gamma)
+        from imagenet_models_tpu_torch.ops._kernels import ln_mlp_fwd_library
+
+        self.lib = lib = ln_mlp_fwd_library()
+        n, c = h.shape
+        hidden = w1.shape[0]
+        if not lib.imt_ln_mlp_fwd_supported(c, hidden):
+            raise ValueError(f"fused_ln_mlp does not take C={c}, hidden={hidden}")
+        self.out = torch.empty_like(h)
+        if not _aligned(h, w1, w2, self.out):
+            raise ValueError("fused_ln_mlp needs 16-byte aligned tokens and weights")
+        self.n = n
+        if n == 0:
+            return
+        if h.dtype == torch.float32:
+            self.entry = lib.imt_ln_mlp_fwd_f32
+            size = lib.imt_ln_mlp_fwd_f32_workspace_bytes(n, c, hidden)
+        else:
+            self.entry = lib.imt_ln_mlp_fwd_bf16
+            size = lib.imt_ln_mlp_fwd_workspace_bytes(n, c, hidden)
+        self.workspace = _workspace(size, h.device)
+        self.args = (h.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(), w1.data_ptr(),
+                     vecs[2].data_ptr(), w2.data_ptr(), vecs[3].data_ptr(), vecs[4].data_ptr(),
+                     self.out.data_ptr(), self.workspace.data_ptr(), n, c, hidden, float(eps),
+                     int(gelu_impl == "fast"))
+        self.keep = (w1, w2, vecs)  # the converted operands live as long as the call
+        self.device = h.device
+
+    def run(self, first: int = 0, last: int = len(FWD_STAGES)) -> None:
+        if self.n == 0:
+            return
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            err = self.entry(*self.args, first, last, stream)
+        _raise_on(self.lib, err, "ln_mlp_fwd")
+
+
+def ln_mlp_fwd_pipeline(h: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma,
+                        eps: float = 1e-6, gelu_impl: str = "exact") -> _Fwd:
+    """Kernel 1 run once through all its stages, kept so that each stage can
+    be launched again on its own (`.run(k, k + 1)`): for timing the pipeline
+    stage by stage. Not counted in `fused_ln_mlp.launches`."""
+    call = _Fwd(h, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, gelu_impl)
+    call.run()
+    return call
+
+
 def fused_ln_mlp(h: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma,
                  eps: float = 1e-6, gelu_impl: str = "exact") -> torch.Tensor:
-    """The CUDA LN+MLP forward kernel on (N, C) bf16 tokens.
+    """Kernel 1, the CUDA LN+MLP forward, on (N, C) bf16 or fp32 tokens.
 
     Replaces `_fused_ln_mlp_pallas` (ops/convnext_block.py:341). Weights in
-    torch Linear layout, (4C, C) and (C, 4C), cast to bf16 here as JAX casts
-    them to h.dtype; vectors fp32. Raises on anything the kernel does not
-    take, including CPU tensors. `fused_ln_mlp.launches` counts launches.
+    torch Linear layout, (4C, C) and (C, 4C), cast to h.dtype here as JAX
+    casts them; vectors fp32. The kernel is a pipeline of a row-wise LN and
+    two GEMM-shaped stages (FWD_STAGES, csrc/ln_mlp_fwd.cu) over a workspace
+    from the caching allocator; fp32 tokens take its fp32 instance. Raises on
+    anything it does not take, including CPU tensors. `fused_ln_mlp.launches`
+    counts calls that launched it.
     """
-    _check_gelu(gelu_impl)
-    _check_tokens("fused_ln_mlp", h)
-    w1, w2, (s, b, bb1, bb2, g) = _kernel_operands("fused_ln_mlp", h, ln_s, ln_b, w1, b1,
-                                                   w2, b2, gamma)
-    from imagenet_models_tpu_torch.ops._kernels import ln_mlp_fwd_library
-
-    lib = ln_mlp_fwd_library()
-    n, c = h.shape
-    hidden = w1.shape[0]
-    if not lib.imt_ln_mlp_fwd_supported(c, hidden):
-        raise ValueError(f"fused_ln_mlp does not take C={c}, hidden={hidden}")
-    out = torch.empty_like(h)
-    if not _aligned(h, w1, w2, out):
-        raise ValueError("fused_ln_mlp needs 16-byte aligned tokens and weights")
-    if n == 0:
-        return out
-    with torch.cuda.device(h.device):
-        stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = lib.imt_ln_mlp_fwd_bf16(
-            h.data_ptr(), s.data_ptr(), b.data_ptr(), w1.data_ptr(), bb1.data_ptr(),
-            w2.data_ptr(), bb2.data_ptr(), g.data_ptr(), out.data_ptr(),
-            n, c, hidden, float(eps), int(gelu_impl == "fast"), stream)
-    _raise_on(lib, err, "ln_mlp_fwd")
+    call = _Fwd(h, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, gelu_impl)
+    if call.n == 0:
+        return call.out
+    call.run()
     fused_ln_mlp.launches += 1
-    return out
+    return call.out
 
 
 fused_ln_mlp.launches = 0
@@ -298,6 +358,9 @@ class _Bwd:
         _check_gelu(gelu_impl)
         _check_tokens("fused_ln_mlp_bwd", h)
         _check_tokens("fused_ln_mlp_bwd", g)
+        if g.dtype != h.dtype:
+            raise TypeError(f"fused_ln_mlp_bwd takes a cotangent of the tokens' dtype (bf16 or "
+                            f"fp32), got {g.dtype} for {h.dtype} tokens")
         if g.shape != h.shape or g.device != h.device:
             raise ValueError(f"cotangent {tuple(g.shape)} does not match tokens {tuple(h.shape)}")
         w1, w2, vecs = _kernel_operands("fused_ln_mlp_bwd", h, ln_s, ln_b, w1, b1, w2, b2, gamma)
@@ -308,14 +371,17 @@ class _Bwd:
         hidden = w1.shape[0]
         if n == 0 or not lib.imt_ln_mlp_bwd_supported(c, hidden):
             raise ValueError(f"fused_ln_mlp_bwd does not take N={n}, C={c}, hidden={hidden}")
-        size = lib.imt_ln_mlp_bwd_workspace_bytes(n, c, hidden)
         self.dx = torch.empty_like(h)
         self.dw1 = torch.empty(hidden, c, dtype=torch.float32, device=h.device)
         self.dw2 = torch.empty(c, hidden, dtype=torch.float32, device=h.device)
         self.vecs = torch.empty(hidden + 4 * c, dtype=torch.float32, device=h.device)
-        raw = torch.empty(size + 1024, dtype=torch.uint8, device=h.device)
-        skip = -raw.data_ptr() % 1024  # the kernel wants 1024-byte aligned parts
-        self.workspace = raw[skip:skip + size]
+        if h.dtype == torch.float32:
+            self.entry = lib.imt_ln_mlp_bwd_f32
+            size = lib.imt_ln_mlp_bwd_f32_workspace_bytes(n, c, hidden)
+        else:
+            self.entry = lib.imt_ln_mlp_bwd_bf16
+            size = lib.imt_ln_mlp_bwd_workspace_bytes(n, c, hidden)
+        self.workspace = _workspace(size, h.device)
         if not _aligned(h, g, w1, w2, self.dx):
             raise ValueError("fused_ln_mlp_bwd needs 16-byte aligned tokens and weights")
         self.args = (h.data_ptr(), g.data_ptr(), vecs[0].data_ptr(), vecs[1].data_ptr(),
@@ -329,7 +395,7 @@ class _Bwd:
     def run(self, first: int = 0, last: int = len(BWD_STAGES)) -> None:
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device).cuda_stream
-            err = self.lib.imt_ln_mlp_bwd_bf16(*self.args, first, last, stream)
+            err = self.entry(*self.args, first, last, stream)
         _raise_on(self.lib, err, "ln_mlp_bwd")
 
 
@@ -345,13 +411,15 @@ def ln_mlp_bwd_pipeline(h: torch.Tensor, g: torch.Tensor, ln_s, ln_b, w1, b1, w2
 
 def fused_ln_mlp_bwd(h: torch.Tensor, g: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma,
                      eps: float = 1e-6, gelu_impl: str = "exact") -> Tuple[torch.Tensor, ...]:
-    """Kernel 2, the CUDA LN+MLP backward, on (N, C) bf16 tokens and cotangent.
+    """Kernel 2, the CUDA LN+MLP backward, on (N, C) bf16 or fp32 tokens and a
+    cotangent of their dtype.
 
     Replaces `_fused_ln_mlp_bwd_pallas` (ops/convnext_block.py:474). Returns
     (dx, dln_s, dln_b, dw1, db1, dw2, db2, dgamma) as `plain_ln_mlp_bwd` does:
     each gradient in its input's dtype (the kernel sums in fp32), weights in
     torch Linear layout. The kernel is a pipeline of GEMM-shaped stages
-    (BWD_STAGES, csrc/ln_mlp_bwd.cu). Raises on anything it does not take.
+    (BWD_STAGES, csrc/ln_mlp_bwd.cu); fp32 tokens take its fp32 instance.
+    Raises on anything it does not take.
     `fused_ln_mlp_bwd.launches` counts calls that launched it.
     """
     call = _Bwd(h, g, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, gelu_impl)

@@ -29,7 +29,9 @@ Dispatch rule (as the LN+MLP's): a CPU tensor goes to the forward twin, and
 autograd through it gives the gradient (JAX's CPU path is autodiff of its
 plain twin); a CUDA tensor goes to the kernels, or raises. There is no
 fallback from a kernel to a twin. `use_kernel=False` runs the twin on any
-device, to compare against.
+device, to compare against. The kernels take bf16 maps and, for fp32 models,
+fp32 maps: each has an fp32 instance with no rounding to bf16, as the TPU
+kernels run fp32 operands.
 """
 
 from __future__ import annotations
@@ -41,6 +43,8 @@ import torch
 PART_TYPES = ("block", "grid")
 HEAD_DIM = 32   # the kernels' head width (MaxViT's dim_head)
 MAX_TOKENS = 256  # the kernels' largest window (16 x 16, the 512 px models)
+# the maps' dtypes the kernels take, and the suffix of each instance's C entry
+KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
 def _check_geometry(qkv: torch.Tensor, part_type: str, ps, nh: int) -> Tuple[int, ...]:
@@ -131,8 +135,8 @@ def _check_kernel_operands(name: str, qkv: torch.Tensor, bias: torch.Tensor, par
     contiguous fp32 tensor and the geometry."""
     if not qkv.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors; CPU tensors go to the plain twin")
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"{name} takes a bf16 qkv map, got {qkv.dtype}")
+    if qkv.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name} takes a bf16 or fp32 qkv map, got {qkv.dtype}")
     if not qkv.is_contiguous():
         raise ValueError(f"{name} takes a contiguous qkv map")
     geo = _check_geometry(qkv, part_type, ps, nh)
@@ -156,8 +160,9 @@ def _raise_on(lib, err: int, what: str) -> None:
 
 def fused_partition_attention(qkv: torch.Tensor, bias: torch.Tensor, part_type: str, ps,
                               nh: int) -> torch.Tensor:
-    """Kernel 3, the CUDA partition-attention forward, on a bf16 (B, H, W, 3C)
-    map and an fp32 (nh, T, T) bias; returns (B, H, W, C) bf16.
+    """Kernel 3, the CUDA partition-attention forward, on a bf16 or fp32
+    (B, H, W, 3C) map and an fp32 (nh, T, T) bias; returns (B, H, W, C) in
+    the map's dtype.
 
     Replaces `_fwd_pallas` (ops/partition_attention.py:286). Raises on
     anything the kernel does not take, CPU tensors included.
@@ -172,9 +177,9 @@ def fused_partition_attention(qkv: torch.Tensor, bias: torch.Tensor, part_type: 
         return out
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = lib.imt_partition_attn_fwd_bf16(qkv.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                                              b, h, w, c, nh, ph, pw, int(part_type == "grid"),
-                                              stream)
+        entry = getattr(lib, f"imt_partition_attn_fwd_{KERNEL_DTYPES[qkv.dtype]}")
+        err = entry(qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, c, nh, ph, pw,
+                    int(part_type == "grid"), stream)
     _raise_on(lib, err, "partition_attn_fwd")
     fused_partition_attention.launches += 1
     return out
@@ -186,9 +191,9 @@ fused_partition_attention.launches = 0
 def fused_partition_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
                                   part_type: str, ps, nh: int
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel 4, the CUDA partition-attention backward: (dqkv bf16
-    (B, H, W, 3C), dbias fp32 (nh, T, T)) from the bf16 map, the bias and
-    the bf16 cotangent g (B, H, W, C).
+    """Kernel 4, the CUDA partition-attention backward: (dqkv (B, H, W, 3C)
+    in the map's dtype, dbias fp32 (nh, T, T)) from the bf16 or fp32 map, the
+    bias and the cotangent g (B, H, W, C) of the map's dtype.
 
     Replaces `_bwd_pallas` (ops/partition_attention.py:310). Each block sums
     its windows' dbias into a partial of its own; a second pass adds the
@@ -196,10 +201,10 @@ def fused_partition_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, g: torc
     `fused_partition_attention_bwd.launches` counts calls that launched it."""
     bias, (b, h, w, c, ph, pw) = _check_kernel_operands("fused_partition_attention_bwd", qkv,
                                                         bias, part_type, ps, nh)
-    if (g.shape != (b, h, w, c) or g.dtype != torch.bfloat16 or g.device != qkv.device
+    if (g.shape != (b, h, w, c) or g.dtype != qkv.dtype or g.device != qkv.device
             or not g.is_contiguous() or g.data_ptr() % 16):
         raise ValueError(f"fused_partition_attention_bwd: the cotangent must be a contiguous "
-                         f"bf16 ({b}, {h}, {w}, {c}) map on the qkv's device, got "
+                         f"{qkv.dtype} ({b}, {h}, {w}, {c}) map on the qkv's device, got "
                          f"{g.dtype} {tuple(g.shape)}")
     from imagenet_models_tpu_torch.ops._kernels import partition_attn_bwd_library
 
@@ -214,10 +219,10 @@ def fused_partition_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, g: torc
     dbias = torch.empty(nh, t, t, dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        err = lib.imt_partition_attn_bwd_bf16(qkv.data_ptr(), bias.data_ptr(), g.data_ptr(),
-                                              dqkv.data_ptr(), partials.data_ptr(),
-                                              dbias.data_ptr(), b, h, w, c, nh, ph, pw,
-                                              int(part_type == "grid"), blocks, stream)
+        entry = getattr(lib, f"imt_partition_attn_bwd_{KERNEL_DTYPES[qkv.dtype]}")
+        err = entry(qkv.data_ptr(), bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+                    partials.data_ptr(), dbias.data_ptr(), b, h, w, c, nh, ph, pw,
+                    int(part_type == "grid"), blocks, stream)
     _raise_on(lib, err, "partition_attn_bwd")
     fused_partition_attention_bwd.launches += 1
     return dqkv, dbias

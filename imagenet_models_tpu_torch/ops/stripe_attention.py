@@ -35,7 +35,9 @@ Dispatch rule (as the other kernels'): a CPU tensor goes to the forward twin,
 and autograd through it gives the gradient (JAX's CPU path is autodiff of its
 plain twin); a CUDA tensor goes to the kernels, or raises. There is no
 fallback from a kernel to a twin. `use_kernel=False` runs the twin on any
-device, to compare against.
+device, to compare against. The kernels take bf16 maps and, for fp32 models,
+fp32 maps: each has an fp32 instance with no rounding to bf16 (q times the
+fp32 scale), as the TPU kernels run fp32 operands.
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ import torch.nn.functional as F
 
 HEAD_DIMS = (24, 32)  # the kernels' head widths (GA-CSWin-T/S: 32; -B: 24)
 MAX_TOKENS = 256      # the kernels' longest stripe (H * ws)
+# the maps' dtypes the kernels take, and the suffix of each instance's C entry
+KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 # The gate's tallest stripe. The JAX package engages its kernel only for
 # h <= 16 (its IMTPU_STRIPE_MAXH default): at ga_cswin 224 px that is the
 # 14x14 stage 3, the stage-5 block and the gram layers, while the 56x56 and
@@ -173,22 +177,27 @@ def _pixel_ld(t: torch.Tensor) -> Optional[int]:
     return ld
 
 
+def _strided_ok(t: torch.Tensor, ld: Optional[int]) -> bool:
+    """Whether the kernels read `t` in 16-byte steps: a pixel stride of whole
+    16-byte units and a 16-byte aligned start."""
+    return ld is not None and (ld * t.element_size()) % 16 == 0 and t.data_ptr() % 16 == 0
+
+
 def pixel_rows(t: torch.Tensor) -> torch.Tensor:
     """`t` itself when the kernels can read it in place (evenly spaced pixels
     of contiguous channels, 16-byte aligned); otherwise a contiguous copy."""
-    ld = _pixel_ld(t)
-    if ld is None or ld % 8 or t.data_ptr() % 16:
+    if not _strided_ok(t, _pixel_ld(t)):
         return t.contiguous()
     return t
 
 
-def _check_operand(name: str, what: str, t: torch.Tensor, shape, device) -> int:
+def _check_operand(name: str, what: str, t: torch.Tensor, shape, device, dtype) -> int:
     ld = _pixel_ld(t) if t.dim() == 4 else None
-    if (tuple(t.shape) != tuple(shape) or t.dtype != torch.bfloat16 or t.device != device
-            or ld is None or ld % 8 or t.data_ptr() % 16):
-        raise ValueError(f"{name}: {what} must be a bf16 {tuple(shape)} map on {device} with "
-                         f"contiguous channels, evenly spaced pixels (a pixel stride that is a "
-                         f"multiple of 8) and a 16-byte aligned start, got {t.dtype} "
+    if (tuple(t.shape) != tuple(shape) or t.dtype != dtype or t.device != device
+            or not _strided_ok(t, ld)):
+        raise ValueError(f"{name}: {what} must be a {dtype} {tuple(shape)} map on {device} with "
+                         f"contiguous channels, evenly spaced pixels (a pixel stride of whole "
+                         f"16-byte units) and a 16-byte aligned start, got {t.dtype} "
                          f"{tuple(t.shape)} strides {t.stride()} on {t.device}")
     return ld
 
@@ -199,10 +208,11 @@ def _check_kernel_operands(name: str, q, k, v, w9, wb, ws: int, nh: int):
     geometry."""
     if not q.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors; CPU tensors go to the plain twin")
-    if q.dtype != torch.bfloat16:
-        raise TypeError(f"{name} takes bf16 q, k, v maps, got {q.dtype}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name} takes bf16 or fp32 q, k, v maps, got {q.dtype}")
     b, h, w, c = _check_geometry(q, k, v, ws, nh)
-    lds = [_check_operand(name, nm, t, q.shape, q.device) for nm, t in (("q", q), ("k", k), ("v", v))]
+    lds = [_check_operand(name, nm, t, q.shape, q.device, q.dtype)
+           for nm, t in (("q", q), ("k", k), ("v", v))]
     d = c // nh
     if d not in HEAD_DIMS or h * ws > MAX_TOKENS:
         raise ValueError(f"{name} takes heads of width {HEAD_DIMS} and stripes of at most "
@@ -219,15 +229,21 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {lib.imt_cuda_error_string(err).decode()}")
 
 
+def _scale_in(scale: float, dtype: torch.dtype) -> float:
+    """The softmax scale as q's dtype holds it (`_scaled`)."""
+    return float(torch.tensor(scale, dtype=dtype))
+
+
 def _bf16_scale(scale: float) -> float:
-    return float(torch.tensor(scale, dtype=torch.bfloat16))
+    return _scale_in(scale, torch.bfloat16)
 
 
 def fused_stripe_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w9: torch.Tensor,
                            wb: torch.Tensor, ws: int, nh: int, scale: float) -> torch.Tensor:
-    """Kernel 5, the CUDA stripe-attention + LePE forward, on bf16 (B, H, W, C)
-    q, k, v maps (each may be a channel slice of a wider map) and fp32 taps
-    w9 (9, C) and bias wb (1, C); returns the contiguous bf16 (B, H, W, C).
+    """Kernel 5, the CUDA stripe-attention + LePE forward, on bf16 or fp32
+    (B, H, W, C) q, k, v maps (each may be a channel slice of a wider map) and
+    fp32 taps w9 (9, C) and bias wb (1, C); returns the contiguous
+    (B, H, W, C) map in q's dtype.
 
     Replaces `_vs_fwd_pallas` (ops/stripe_attention.py:264). Raises on
     anything the kernel does not take, CPU tensors included.
@@ -242,9 +258,10 @@ def fused_stripe_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w9
         return out
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.imt_stripe_attn_fwd_bf16(q.data_ptr(), ldq, k.data_ptr(), ldk, v.data_ptr(), ldv,
-                                           w9.data_ptr(), wb.data_ptr(), out.data_ptr(),
-                                           b, h, w, c, nh, ws, _bf16_scale(scale), stream)
+        entry = getattr(lib, f"imt_stripe_attn_fwd_{KERNEL_DTYPES[q.dtype]}")
+        err = entry(q.data_ptr(), ldq, k.data_ptr(), ldk, v.data_ptr(), ldv, w9.data_ptr(),
+                    wb.data_ptr(), out.data_ptr(), b, h, w, c, nh, ws, _scale_in(scale, q.dtype),
+                    stream)
     _raise_on(lib, err, "stripe_attn_fwd")
     fused_stripe_attention.launches += 1
     return out
@@ -256,9 +273,10 @@ fused_stripe_attention.launches = 0
 def fused_stripe_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                w9: torch.Tensor, wb: torch.Tensor, g: torch.Tensor, ws: int,
                                nh: int, scale: float) -> Tuple[torch.Tensor, ...]:
-    """Kernel 6, the CUDA stripe-attention + LePE backward: (dq, dk, dv bf16
-    (B, H, W, C), dw9 fp32 (9, C), dwb fp32 (1, C)) from the inputs of kernel
-    5 and the bf16 cotangent g (which may be a channel slice too).
+    """Kernel 6, the CUDA stripe-attention + LePE backward: (dq, dk, dv
+    (B, H, W, C) in q's dtype, dw9 fp32 (9, C), dwb fp32 (1, C)) from the
+    inputs of kernel 5 and the cotangent g of q's dtype (which may be a
+    channel slice too).
 
     Replaces `_vs_bwd_pallas` (ops/stripe_attention.py:284). Each block sums
     the dw9 and dwb of its stripes into a partial of its own; a second pass
@@ -266,7 +284,7 @@ def fused_stripe_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     run. `fused_stripe_attention_bwd.launches` counts calls that launched it."""
     name = "fused_stripe_attention_bwd"
     (ldq, ldk, ldv), w9, wb, (b, h, w, c) = _check_kernel_operands(name, q, k, v, w9, wb, ws, nh)
-    ldg = _check_operand(name, "the cotangent", g, q.shape, q.device)
+    ldg = _check_operand(name, "the cotangent", g, q.shape, q.device, q.dtype)
     from imagenet_models_tpu_torch.ops._kernels import stripe_attn_bwd_library
 
     lib = stripe_attn_bwd_library()
@@ -280,11 +298,11 @@ def fused_stripe_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     dwb = torch.empty(1, c, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.imt_stripe_attn_bwd_bf16(q.data_ptr(), ldq, k.data_ptr(), ldk, v.data_ptr(), ldv,
-                                           g.data_ptr(), ldg, w9.data_ptr(), dq.data_ptr(),
-                                           dk.data_ptr(), dv.data_ptr(), partials.data_ptr(),
-                                           dw9.data_ptr(), dwb.data_ptr(), b, h, w, c, nh, ws,
-                                           blocks, _bf16_scale(scale), float(scale), stream)
+        entry = getattr(lib, f"imt_stripe_attn_bwd_{KERNEL_DTYPES[q.dtype]}")
+        err = entry(q.data_ptr(), ldq, k.data_ptr(), ldk, v.data_ptr(), ldv, g.data_ptr(), ldg,
+                    w9.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                    partials.data_ptr(), dw9.data_ptr(), dwb.data_ptr(), b, h, w, c, nh, ws,
+                    blocks, _scale_in(scale, q.dtype), float(scale), stream)
     _raise_on(lib, err, "stripe_attn_bwd")
     fused_stripe_attention_bwd.launches += 1
     return dq, dk, dv, dw9, dwb

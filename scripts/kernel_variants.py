@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time copies of kernels 9 and 13 on the card beside the built kernels and
 the library calls, in turns, at the shapes of chip_smoke.py's phases 18 and
-21; with a baseline, kernels 2 and 8 of another checkout beside this one's.
+21; with a baseline, kernels 1, 2, 9, 12 and 13 of another checkout beside
+this one's.
 
     python3 scripts/kernel_variants.py [--baseline DIR] [--out DIR]
 
@@ -14,16 +15,19 @@ the numerics is held to float64 sums (chip_smoke.DW_SUM_RTOL). Kernel 13
 `--baseline DIR` (the `csrc/` of another checkout, for example an earlier
 commit unpacked with `git archive`), both kernels and kernel 12 are also
 built from there and timed in turns with this checkout's, and kernel 12's
-output bits are compared; and kernels 2 and 8 of that checkout, through a
-copy of its host code (its C interface: PR 9's, before kernel 2 became a
-pipeline of stages and kernel 8 one launch), are timed in turns with this
-checkout's wrappers: kernel 2 at the four B=128 stage shapes of
-map_convnext_tiny and per train step (3/3/9/3 launches), kernel 8 at every
-BatchNorm shape of map_resnet50's B=128 train step and per step, beside
-`torch.batch_norm_backward_reduce`. Every library is built with nvcc by
-hand into `--out` (one process per source, all started together), with the
-registers and SASS counts of this checkout's kernels 2, 9 and 13
-(chip_smoke.code_report). Needs one NVIDIA GPU.
+output bits are compared; and kernels 1 and 2 of that checkout (one whose
+kernel 1 has the one-launch C interface, without a workspace or stages, and
+whose kernel 2 has this checkout's) are timed in turns with this checkout's:
+kernel 1 through a copy of the one-launch wrapper's host code at the four
+B=256 stage shapes of map_convnext_tiny with the exact GELU (per eval
+forward) and the B=128 ones with the fast GELU (per train step's forward),
+and its host time per call at one token tile (each checkout's whole wrapper
+and each build's C entry); kernel 2 through this checkout's host code, at the four B=128
+stage shapes and per train step (3/3/9/3 launches), its outputs also held to
+the baseline's bits. Every library is built with nvcc by hand into `--out`
+(one process per source, all started together), with the registers and SASS
+counts of this checkout's kernels 1, 2, 9 and 13 (chip_smoke.code_report).
+Needs one NVIDIA GPU.
 """
 
 from __future__ import annotations
@@ -141,175 +145,214 @@ def window_run(lib, q, k, v, bias):
     return out
 
 
-def old_bn_lib(path):
+def old_fwd_lib(path):
     lib = ctypes.CDLL(str(path))
-    lib.imt_bn_slices.argtypes = [LL, I, I]
-    lib.imt_bn_slices.restype = I
-    lib.imt_bn_dot_sums.argtypes = [P, LL, I, P, LL, I, LL, I, I, I, P, P, P]
-    lib.imt_bn_dot_sums.restype = I
+    lib.imt_ln_mlp_fwd_bf16.argtypes = [P] * 9 + [LL, I, I, ctypes.c_float, I, P]
+    lib.imt_ln_mlp_fwd_bf16.restype = I
+    lib.imt_ln_mlp_fwd_supported.argtypes = [I, I]
+    lib.imt_ln_mlp_fwd_supported.restype = I
+    lib.imt_cuda_error_string.argtypes = [I]
+    lib.imt_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def old_dot_sums(lib, a, b):
-    """The baseline's kernel 8 through a copy of its wrapper's host code
-    (PR 9's ops/batch_norm.py `_launch`): the slice plan asked each call,
-    two allocations, the device context, two launches."""
-    import torch
-
-    from imagenet_models_tpu_torch.ops import batch_norm as bn
-
-    c = a.shape[-1]
-    n = a.numel() // c
-    operands = [(a, bn._row_stride(a)), (b, bn._row_stride(b))]
-    v = 8 if all(t.dtype == torch.bfloat16 for t, _ in operands) else 4
-    if any(c % v or ld % v or t.data_ptr() % (v * t.element_size()) for t, ld in operands):
-        v = 1
-    slices = lib.imt_bn_slices(n, c, v)
-    partials = torch.empty(slices, 2 * c, dtype=torch.float32, device=a.device)
-    out = torch.empty(2, c, dtype=torch.float32, device=a.device)
-    args = []
-    for t, ld in operands:
-        args += [t.data_ptr(), ld, bn._DTYPES[t.dtype]]
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.imt_bn_dot_sums(*args, n, c, v, slices, partials.data_ptr(), out.data_ptr(),
-                                  stream)
-    assert err == 0, err
-    return out[0], out[1]
-
-
-def old_bwd_lib(path):
-    lib = ctypes.CDLL(str(path))
-    lib.imt_ln_mlp_bwd_workspace_bytes.argtypes = [LL, I, I]
-    lib.imt_ln_mlp_bwd_workspace_bytes.restype = LL
-    lib.imt_ln_mlp_bwd_dx_bf16.argtypes = [P] * 14 + [LL, I, I, ctypes.c_float, I, P]
-    lib.imt_ln_mlp_bwd_dx_bf16.restype = I
-    lib.imt_ln_mlp_bwd_wgrad_bf16.argtypes = [P] * 10 + [LL, I, I, P]
-    lib.imt_ln_mlp_bwd_wgrad_bf16.restype = I
-    return lib
-
-
-def old_ln_mlp_bwd(lib, h, g, ln_s, ln_b, w1, b1, w2, b2, gamma, fast=True):
-    """The baseline's kernel 2 (halves (a) and (b)) through a copy of its
-    wrappers' host code (PR 9's ops/convnext_block.py `ln_mlp_bwd_dx` and
-    `ln_mlp_bwd_wgrad`); bf16 weights and fp32 vectors as given."""
+def old_ln_mlp_fwd(lib, h, ln_s, ln_b, w1, b1, w2, b2, gamma, fast):
+    """The baseline's kernel 1 through a copy of its wrapper's host code
+    (the one-launch `fused_ln_mlp` of ops/convnext_block.py, before the
+    workspace and stages); bf16 weights and fp32 vectors as given."""
     import torch
 
     n, c = h.shape
-    hidden = w1.shape[0]
-    dx, tok = torch.empty_like(h), torch.empty_like(h)
-    hmid = torch.empty(n, hidden, dtype=torch.bfloat16, device=h.device)
-    dpre1 = torch.empty_like(hmid)
-    ws = torch.empty(lib.imt_ln_mlp_bwd_workspace_bytes(n, c, hidden), dtype=torch.uint8,
-                     device=h.device)
-    stream = torch.cuda.current_stream().cuda_stream
-    err = lib.imt_ln_mlp_bwd_dx_bf16(
-        h.data_ptr(), g.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
-        b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(), dx.data_ptr(),
-        tok.data_ptr(), hmid.data_ptr(), dpre1.data_ptr(), ws.data_ptr(), n, c, hidden, 1e-6,
-        int(fast), stream)
+    out = torch.empty_like(h)
+    err = lib.imt_ln_mlp_fwd_bf16(h.data_ptr(), ln_s.data_ptr(), ln_b.data_ptr(), w1.data_ptr(),
+                                  b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), gamma.data_ptr(),
+                                  out.data_ptr(), n, c, w1.shape[0], 1e-6, int(fast),
+                                  torch.cuda.current_stream().cuda_stream)
     assert err == 0, err
-    dw1 = torch.empty(hidden, c, dtype=torch.float32, device=h.device)
-    dw2 = torch.empty(c, hidden, dtype=torch.float32, device=h.device)
-    vecs = torch.empty(hidden + 4 * c, dtype=torch.float32, device=h.device)
-    err = lib.imt_ln_mlp_bwd_wgrad_bf16(
-        tok.data_ptr(), hmid.data_ptr(), dpre1.data_ptr(), g.data_ptr(), w2.data_ptr(),
-        gamma.data_ptr(), ws.data_ptr(), dw1.data_ptr(), dw2.data_ptr(), vecs.data_ptr(), n, c,
-        hidden, stream)
-    assert err == 0, err
-    return dx, dw1, dw2, vecs
+    return out
 
 
-def kernel2(old, card: str) -> dict:
-    """Kernel 2 of this checkout and of the baseline in turns at the B=128
-    stage shapes; both held to the twin (chip_smoke.KERNEL_RTOL)."""
+def old_fused_ln_mlp(lib, h, ln_s, ln_b, w1, b1, w2, b2, gamma, eps=1e-6, gelu_impl="exact"):
+    """A copy of the baseline's whole one-launch `fused_ln_mlp` wrapper
+    (checks, operand casts, output allocation, the device context and the C
+    entry), through this checkout's check helpers, which do the same work."""
     import torch
 
     from imagenet_models_tpu_torch.ops import convnext_block as cb
 
+    cb._check_gelu(gelu_impl)
+    cb._check_tokens("fused_ln_mlp", h)
+    w1, w2, (s, b, bb1, bb2, g) = cb._kernel_operands("fused_ln_mlp", h, ln_s, ln_b, w1, b1, w2,
+                                                      b2, gamma)
+    n, c = h.shape
+    hidden = w1.shape[0]
+    if not lib.imt_ln_mlp_fwd_supported(c, hidden):
+        raise ValueError(f"fused_ln_mlp does not take C={c}, hidden={hidden}")
+    out = torch.empty_like(h)
+    if not cb._aligned(h, w1, w2, out):
+        raise ValueError("fused_ln_mlp needs 16-byte aligned tokens and weights")
+    if n == 0:
+        return out
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = lib.imt_ln_mlp_fwd_bf16(
+            h.data_ptr(), s.data_ptr(), b.data_ptr(), w1.data_ptr(), bb1.data_ptr(),
+            w2.data_ptr(), bb2.data_ptr(), g.data_ptr(), out.data_ptr(),
+            n, c, hidden, float(eps), int(gelu_impl == "fast"), stream)
+    cb._raise_on(lib, err, "ln_mlp_fwd")
+    return out
+
+
+def kernel1(old, card: str) -> dict:
+    """Kernel 1 of this checkout and of the baseline in turns at the B=256
+    stage shapes with the exact GELU (one eval forward) and the B=128 ones
+    with the fast GELU (one train step's forward); both held to the twin
+    (chip_smoke.KERNEL_RTOL)."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import convnext_block as cb
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    result = {}
+    for batch, gelu in ((cs.BENCH_BATCH, "exact"), (cs.TRAIN_BATCH, "fast")):
+        rows = []
+        for n, c in cs.stage_shapes(batch):
+            args = cs.ln_mlp_args(n, c, gen)
+            fast = gelu == "fast"
+            with torch.inference_mode():
+                ref = cb.plain_ln_mlp(*args, gelu_impl=gelu)
+                errs = {"this checkout": cs.rel_err(cb.fused_ln_mlp(*args, gelu_impl=gelu), ref),
+                        "baseline": cs.rel_err(old_ln_mlp_fwd(old, *args, fast), ref)}
+                if not all(e <= cs.KERNEL_RTOL for e in errs.values()):
+                    raise AssertionError(f"kernel 1 at ({n}, {c}) disagrees with its twin: {errs}")
+                del ref
+                fns = {"this checkout": lambda: cb.fused_ln_mlp(*args, gelu_impl=gelu),
+                       "baseline": lambda: old_ln_mlp_fwd(old, *args, fast)}
+                iters = max(3, min(50, 2_000_000 // n))
+                warm_up(fns, 2)
+                turns = cs.in_turns(fns, iters, order=tuple(fns))
+            ms = {arm: sum(t) / 2 for arm, t in turns.items()}
+            cs.log(f"[kernel 1] {gelu} B={batch} N={n} C={c}: "
+                   + ", ".join(f"{arm} {v:.4f}" for arm, v in ms.items()) + f" ms on {card}")
+            rows.append({"n": n, "c": c, "ms": ms, "turns": turns, "vs_twin": errs})
+            del args
+        total = per_unit(rows, cs.STAGE_DEPTHS)
+        what = "eval forward" if gelu == "exact" else "train step's forward"
+        cs.log(f"[kernel 1] per map_convnext_tiny {what}, B={batch}: "
+               + ", ".join(f"{arm} {v:.4f}" for arm, v in total.items()) + f" ms on {card}")
+        result[f"B={batch} {gelu}"] = {"rows": rows, "per_forward_ms": total}
+    result["host_us"] = kernel1_host(old, card)
+    return result
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Microseconds of host time a call of `fn` takes to enqueue its work:
+    `calls` calls timed by the host clock before the one synchronisation
+    after them (at a size whose device work is shorter than the host's)."""
+    import torch
+
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def kernel1_host(old, card: str) -> dict:
+    """Kernel 1's host time per call at one token tile of stage 0's width
+    (N = 128, C = 96), in turns: each checkout's whole wrapper (this one's:
+    checks, workspace, the C entry's tensor maps and three launches; the
+    baseline's: checks, output, one launch, through a copy of its host code)
+    and each checkout's C entry alone (this one's `_Fwd.run` on a kept call;
+    the baseline's bare C call)."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import convnext_block as cb
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 1)
+    args = cs.ln_mlp_args(128, 96, gen)
+    with torch.inference_mode():
+        call = cb.ln_mlp_fwd_pipeline(*args)
+        fns = {"this checkout, wrapper": lambda: cb.fused_ln_mlp(*args),
+               "baseline, wrapper": lambda: old_fused_ln_mlp(old, *args),
+               "this checkout, C entry": call.run,
+               "baseline, C entry": lambda: old_ln_mlp_fwd(old, *args, False)}
+        turns = {arm: [] for arm in fns}
+        for arm in tuple(fns) + tuple(fns)[::-1]:
+            turns[arm].append(host_us(fns[arm]))
+    us = {arm: sum(t) / 2 for arm, t in turns.items()}
+    cs.log("[kernel 1] host time per call, N=128 C=96: "
+           + ", ".join(f"{arm} {v:.1f}" for arm, v in us.items()) + f" us on {card}")
+    return {"us": us, "turns": turns}
+
+
+def bwd_lib(path):
+    """A build of kernel 2 with this checkout's C interface, which the
+    baseline shares."""
+    lib = ctypes.CDLL(str(path))
+    lib.imt_ln_mlp_bwd_bf16.argtypes = [P] * 14 + [LL, I, I, ctypes.c_float, I, I, I, P]
+    lib.imt_ln_mlp_bwd_bf16.restype = I
+    lib.imt_cuda_error_string.argtypes = [I]
+    lib.imt_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def run_bwd(lib, args, g):
+    """One call of kernel 2 from the library `lib`, through this checkout's
+    host code (`_Bwd`: operands, outputs, workspace, one launch of all its
+    stages)."""
+    from imagenet_models_tpu_torch.ops import convnext_block as cb
+
+    call = cb._Bwd(args[0], g, *args[1:], 1e-6, "fast")
+    call.lib = lib
+    call.run()
+    return call
+
+
+def kernel2(old, card: str) -> dict:
+    """Kernel 2 of this checkout and of the baseline in turns at the B=128
+    stage shapes, through this checkout's host code: both held to the twin
+    (chip_smoke.KERNEL_RTOL), and to each other's bits (kernel 2's device
+    code is the baseline's; only its helpers moved to hopper_gemm.cuh)."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import _kernels
+    from imagenet_models_tpu_torch.ops import convnext_block as cb
+
+    new = _kernels.ln_mlp_bwd_library()
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 3)
     rows = []
     for n, c in cs.stage_shapes(cs.TRAIN_BATCH):
         args = cs.ln_mlp_args(n, c, gen)
         g = torch.randn(n, c, generator=gen, device="cuda").to(torch.bfloat16)
         ref = cb.plain_ln_mlp_bwd(args[0], g, *args[1:], gelu_impl="fast")
-        got = old_ln_mlp_bwd(old, args[0], g, *args[1:])
-        errs = {"baseline dx": cs.rel_err(got[0], ref[0]),
-                "baseline dw1": cs.rel_err(got[1], ref[3])}
-        new = cb.fused_ln_mlp_bwd(args[0], g, *args[1:], gelu_impl="fast")
-        errs.update({"this checkout dx": cs.rel_err(new[0], ref[0]),
-                     "this checkout dw1": cs.rel_err(new[3], ref[3])})
-        if not all(e <= cs.KERNEL_RTOL for e in errs.values()):
-            raise AssertionError(f"kernel 2 at ({n}, {c}) disagrees with its twin: {errs}")
-        del ref, got, new
-        fns = {"this checkout": lambda: cb.fused_ln_mlp_bwd(args[0], g, *args[1:],
-                                                            gelu_impl="fast"),
-               "baseline": lambda: old_ln_mlp_bwd(old, args[0], g, *args[1:])}
+        calls = {"this checkout": run_bwd(new, args, g), "baseline": run_bwd(old, args, g)}
+        errs = {f"{arm} {k}": cs.rel_err(getattr(call, k), ref[i])
+                for arm, call in calls.items() for k, i in (("dx", 0), ("dw1", 3))}
+        same = all(torch.equal(getattr(calls["this checkout"], k), getattr(calls["baseline"], k))
+                   for k in ("dx", "dw1", "dw2", "vecs"))
+        if not (all(e <= cs.KERNEL_RTOL for e in errs.values()) and same):
+            raise AssertionError(f"kernel 2 at ({n}, {c}) disagrees with its twin or with the "
+                                 f"baseline's bits: {errs}, {same}")
+        del ref, calls
+        fns = {"this checkout": lambda: run_bwd(new, args, g),
+               "baseline": lambda: run_bwd(old, args, g)}
         iters = max(3, min(30, 1_000_000 // n))
         warm_up(fns, 2)
         turns = cs.in_turns(fns, iters, order=tuple(fns))
         ms = {arm: sum(t) / 2 for arm, t in turns.items()}
         cs.log(f"[kernel 2] B={cs.TRAIN_BATCH} N={n} C={c}: "
-               + ", ".join(f"{arm} {v:.4f}" for arm, v in ms.items()) + f" ms on {card}")
-        rows.append({"n": n, "c": c, "ms": ms, "turns": turns, "vs_twin": errs})
+               + ", ".join(f"{arm} {v:.4f}" for arm, v in ms.items())
+               + f" ms on {card}; the baseline's bits: {same}")
+        rows.append({"n": n, "c": c, "ms": ms, "turns": turns, "vs_twin": errs,
+                     "baseline_bits": same})
         del args, g
     step = per_unit(rows, cs.STAGE_DEPTHS)
     cs.log(f"[kernel 2] per map_convnext_tiny train step: "
-           + ", ".join(f"{arm} {v:.4f}" for arm, v in step.items()) + f" ms on {card}")
-    return {"rows": rows, "per_step_ms": step}
-
-
-def kernel8(old, card: str) -> dict:
-    """Kernel 8 of this checkout and of the baseline, and
-    `torch.batch_norm_backward_reduce`, in turns at every BatchNorm shape of
-    map_resnet50's B=128 train step (chip_smoke.bn_census); both kernels held
-    to float64 sums (chip_smoke.BN_SUM_RTOL)."""
-    import torch
-
-    from imagenet_models_tpu_torch import create_model
-    from imagenet_models_tpu_torch.ops import batch_norm as bn
-
-    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 13)
-    model = create_model(cs.RESNET, dtype=torch.bfloat16,
-                         generator=torch.Generator().manual_seed(cs.SEED))
-    images = torch.randn(cs.TRAIN_BATCH, cs.IMG, cs.IMG, 3, generator=gen, device="cuda")
-    census = cs.bn_census(model, images)
-    del model, images
-    torch.cuda.empty_cache()
-    rows = []
-    for (shape, _), count in census.items():
-        c = shape[-1]
-        x = (torch.randn(*shape, generator=gen, device="cuda") * 2 + 0.5).to(torch.bfloat16)
-        dy = torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
-        x64, dy64 = x.reshape(-1, c).double(), dy.reshape(-1, c).double()
-        exact = (dy64.sum(0), (dy64 * x64).sum(0))
-        size = (dy64.abs().sum(0), (dy64 * x64).abs().sum(0))
-        errs = {}
-        for arm, got in (("this checkout", bn.fused_channel_dot_sums(dy, x)),
-                         ("baseline", old_dot_sums(old, dy, x))):
-            errs[arm] = max(((o.double() - e).abs() / z.clamp_min(1e-30)).max().item()
-                            for o, e, z in zip(got, exact, size))
-        if not all(e <= cs.BN_SUM_RTOL for e in errs.values()):
-            raise AssertionError(f"kernel 8 at {shape} disagrees with float64: {errs}")
-        xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
-        mean, invstd = torch.batch_norm_stats(xn, 1e-5)
-        weight = torch.ones(c, device="cuda")
-        fns = {"this checkout": lambda: bn.fused_channel_dot_sums(dy, x),
-               "baseline": lambda: old_dot_sums(old, dy, x),
-               "batch_norm_backward_reduce": lambda: torch.batch_norm_backward_reduce(
-                   dyn, xn, mean, invstd, weight, False, True, True)}
-        iters = max(5, min(100, 400_000_000 // x.numel()))
-        with torch.inference_mode():
-            warm_up(fns)
-            turns = cs.in_turns(fns, iters, order=tuple(fns))
-        ms = {arm: sum(t) / 2 for arm, t in turns.items()}
-        cs.log(f"[kernel 8] {shape} x{count}: "
-               + ", ".join(f"{arm} {v:.4f}" for arm, v in ms.items()) + f" ms on {card}")
-        rows.append({"shape": list(shape), "count": count, "ms": ms, "turns": turns,
-                     "vs_fp64": errs})
-        del x, dy, xn, dyn, x64, dy64
-    step = per_unit(rows, [r["count"] for r in rows])
-    cs.log(f"[kernel 8] per {cs.RESNET} train step: "
            + ", ".join(f"{arm} {v:.4f}" for arm, v in step.items()) + f" ms on {card}")
     return {"rows": rows, "per_step_ms": step}
 
@@ -423,17 +466,17 @@ def main() -> int:
         copy.write_text(text)
         jobs.append((f"dw7_wgrad_copy{i}", copy))
     if args.baseline:
-        for name in ("dw7_wgrad", "window_attn_heads_fwd", "window_attn_fwd", "ln_mlp_bwd",
-                     "bn_dot_sums"):
+        for name in ("dw7_wgrad", "window_attn_heads_fwd", "window_attn_fwd", "ln_mlp_fwd",
+                     "ln_mlp_bwd"):
             jobs.append((f"baseline_{name}", args.baseline / f"{name}.cu"))
         jobs.append(("window_attn_fwd", CSRC / "window_attn_fwd.cu"))
-    jobs.append(("ln_mlp_bwd", CSRC / "ln_mlp_bwd.cu"))
+    jobs += [("ln_mlp_fwd", CSRC / "ln_mlp_fwd.cu"), ("ln_mlp_bwd", CSRC / "ln_mlp_bwd.cu")]
     t0 = time.perf_counter()
     built = build(jobs, args.out)
     cs.log(f"[build] {len(built)} of {len(jobs)} libraries in {time.perf_counter() - t0:.1f} s")
     from imagenet_models_tpu_torch.ops._kernels import Build
 
-    for name in ("dw7_wgrad", "window_attn_heads_fwd", "ln_mlp_bwd"):
+    for name in ("dw7_wgrad", "window_attn_heads_fwd", "ln_mlp_fwd", "ln_mlp_bwd"):
         if name in built:
             log = (args.out / f"{name}.nvcc.log").read_text()
             report = cs.code_report(Build(built[name], 0.0, log), name)
@@ -459,9 +502,9 @@ def main() -> int:
         result["kernel 12 digests"] = digests
         from imagenet_models_tpu_torch.ops import _kernels
 
-        _kernels.build_all(["ln_mlp_bwd", "bn_dot_sums"])  # the package's own builds
-        result["kernel 2"] = kernel2(old_bwd_lib(built["baseline_ln_mlp_bwd"]), card)
-        result["kernel 8"] = kernel8(old_bn_lib(built["baseline_bn_dot_sums"]), card)
+        _kernels.build_all(["ln_mlp_fwd", "ln_mlp_bwd"])  # the package's own builds
+        result["kernel 1"] = kernel1(old_fwd_lib(built["baseline_ln_mlp_fwd"]), card)
+        result["kernel 2"] = kernel2(bwd_lib(built["baseline_ln_mlp_bwd"]), card)
     (args.out / "kernel_variants.json").write_text(json.dumps(result, indent=1))
     return 0
 

@@ -16,11 +16,11 @@ import torch
 from imagenet_models_tpu_torch.ops import convnext_block as tcb
 
 
-def _args(c: int, n: int, seed: int = 0):
-    """numpy inputs: h (n, c), then ln_s, ln_b, w1 (c, 4c) in JAX layout, b1,
-    w2 (4c, c), b2, gamma."""
+def _args(c: int, n: int, seed: int = 0, hidden: int = 0):
+    """numpy inputs: h (n, c), then ln_s, ln_b, w1 (c, hidden) in JAX layout,
+    b1, w2 (hidden, c), b2, gamma; hidden 4c unless given."""
     rng = np.random.default_rng(seed)
-    hid = 4 * c
+    hid = hidden or 4 * c
     f = lambda *s, scale=1.0, shift=0.0: (rng.standard_normal(s) * scale + shift).astype(np.float32)
     return (f(n, c), f(c, scale=0.1, shift=1.0), f(c, scale=0.1),
             f(c, hid, scale=c ** -0.5), f(hid, scale=0.1),
@@ -34,15 +34,19 @@ def _torch_args(args, dtype=torch.float32):
     return (h.to(dtype), s, b, w1.t().contiguous(), b1, w2.t().contiguous(), b2, g)
 
 
-# n = 77 is not a multiple of any tile either implementation might use
-@pytest.mark.parametrize("c,n", [(96, 128), (96, 77), (128, 128), (128, 77)])
-def test_twin_matches_jax_plain(c, n):
+# n = 77 is not a multiple of any tile either implementation might use; the
+# CUDA kernel's edges: C = 64 (one padded k-block) with hidden 256, C = 688
+# (43 x 16, a ragged channel tile) at a ragged N, and a hidden width other
+# than 4C (hidden tiles of 64)
+@pytest.mark.parametrize("c,n,hidden", [(96, 128, 0), (96, 77, 0), (128, 128, 0), (128, 77, 0),
+                                        (64, 77, 256), (688, 19, 0), (96, 77, 256)])
+def test_twin_matches_jax_plain(c, n, hidden):
     import jax
     import jax.numpy as jnp
 
     from imagenet_models_tpu.ops import convnext_block as jcb
 
-    args = _args(c, n)
+    args = _args(c, n, hidden=hidden)
     with jax.default_matmul_precision("highest"):
         ref = np.asarray(jcb.plain_ln_mlp(*map(jnp.asarray, args)))
     got = tcb.plain_ln_mlp(*_torch_args(args)).numpy()
@@ -134,8 +138,10 @@ def test_kernel_wrapper_refuses_what_it_cannot_take_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; the kernel has no CPU mode")
     args = [t.cuda() for t in _torch_args(_args(96, 50, seed=6), torch.bfloat16)]
-    with pytest.raises(TypeError, match="bf16"):
-        tcb.ln_mlp(args[0].float(), *args[1:])
+    # the kernels take bf16 and fp32 tokens (each has an instance); fp16 is
+    # refused, and on the card never falls back to the twin
+    with pytest.raises(TypeError, match="bf16 or fp32"):
+        tcb.ln_mlp(args[0].half(), *args[1:])
     # an input that needs a gradient goes through the autograd function of
     # the forward and backward kernels
     out = tcb.ln_mlp(*args[:3], args[3].requires_grad_(), *args[4:])
@@ -143,3 +149,55 @@ def test_kernel_wrapper_refuses_what_it_cannot_take_on_cuda():
     wide = [t.cuda() for t in _torch_args(_args(1040, 8, seed=6), torch.bfloat16)]
     with torch.no_grad(), pytest.raises(ValueError, match="C=1040"):
         tcb.ln_mlp(*wide)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gelu_impl", ["exact", "fast"])
+@pytest.mark.parametrize("c,n,hidden", [(64, 1, 256), (64, 300, 256), (688, 257, 0), (688, 77, 0),
+                                        (96, 643, 256), (1024, 129, 0), (768, 152, 0),
+                                        # a B=256 eval forward's stage-0 and stage-3 tokens
+                                        (96, 256 * 56 * 56, 0), (768, 256 * 7 * 7, 0)])
+def test_kernel_edges_match_twin_on_cuda(c, n, hidden, gelu_impl):
+    """The redesigned kernel's edges (padded k-blocks, ragged channel and
+    token tiles, hidden tiles of 64) and the eval batch's sizes, with both
+    GELUs: within 1e-2 of the twin's largest |output|, and the same bits on a
+    second run (no sum is split across blocks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = [t.cuda() for t in _torch_args(_args(c, n, seed=9, hidden=hidden), torch.bfloat16)]
+    with torch.no_grad():
+        got = tcb.fused_ln_mlp(*args, gelu_impl=gelu_impl)
+        again = tcb.fused_ln_mlp(*args, gelu_impl=gelu_impl)
+        ref = tcb.plain_ln_mlp(*args, gelu_impl=gelu_impl).float()
+    assert torch.equal(got, again)
+    assert (got.float() - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gelu_impl", ["exact", "fast"])
+@pytest.mark.parametrize("c,n,hidden", [(96, 2 * 56 * 56, 0), (768, 2 * 49, 0), (64, 77, 256),
+                                        (688, 19, 0), (96, 1, 256)])
+def test_fp32_instances_match_twins_on_cuda(c, n, hidden, gelu_impl):
+    """Kernels 1 and 2 on fp32 tokens (an fp32 model) run their fp32
+    instances: both sum fp32 products in other orders than the twins, so
+    every output is within 1e-4 of the twin's largest |value|, and a second
+    run gives the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = [t.cuda() for t in _torch_args(_args(c, n, seed=10, hidden=hidden))]
+    g = torch.from_numpy(np.random.default_rng(11).standard_normal((n, c)).astype(np.float32))
+    g = g.cuda()
+    with torch.no_grad():
+        got = tcb.fused_ln_mlp(*args, gelu_impl=gelu_impl)
+        assert torch.equal(got, tcb.fused_ln_mlp(*args, gelu_impl=gelu_impl))
+        grads = tcb.fused_ln_mlp_bwd(args[0], g, *args[1:], gelu_impl=gelu_impl)
+        again = tcb.fused_ln_mlp_bwd(args[0], g, *args[1:], gelu_impl=gelu_impl)
+        refs = (tcb.plain_ln_mlp(*args, gelu_impl=gelu_impl),) + tcb.plain_ln_mlp_bwd(
+            args[0], g, *args[1:], gelu_impl=gelu_impl)
+    for name, o, r in zip(("out", "dx", "dln_s", "dln_b", "dw1", "db1", "dw2", "db2", "dgamma"),
+                          (got,) + grads, refs):
+        assert o.dtype == torch.float32 and o.shape == r.shape, name
+        assert (o - r).abs().max().item() <= 1e-4 * r.abs().max().item(), name
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))

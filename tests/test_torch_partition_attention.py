@@ -198,8 +198,8 @@ def test_autograd_on_cuda_runs_both_kernels():
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_cannot_take_on_cuda():
     qkv, bias, g = _cuda_inputs(1, 14, 14, 2, PS, seed=9)
-    with pytest.raises(TypeError, match="bf16"):
-        tpa.fused_partition_attention(qkv.float(), bias, "block", PS, 2)
+    with pytest.raises(TypeError, match="bf16 or fp32"):  # fp16; fp32 has an instance
+        tpa.fused_partition_attention(qkv.half(), bias, "block", PS, 2)
     with pytest.raises(ValueError, match="contiguous"):
         tpa.fused_partition_attention(qkv.transpose(1, 2), bias, "block", PS, 2)
     with pytest.raises(ValueError, match="bias"):
@@ -213,3 +213,21 @@ def test_wrappers_refuse_what_the_kernels_cannot_take_on_cuda():
     with pytest.raises(ValueError, match="256"):  # T = 289
         tpa.fused_partition_attention(big, torch.zeros(2, 289, 289, device="cuda"), "block",
                                       (17, 17), 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", ["block", "grid"])
+@pytest.mark.parametrize("b,h,w,nh,ps", [(2, 14, 14, 2, (7, 7)), (1, 32, 32, 2, (16, 16)),
+                                         (2, 12, 15, 2, (4, 5))])
+def test_fp32_instances_match_twins_on_cuda(b, h, w, nh, ps, part):
+    """Kernels 3 and 4 on an fp32 map (an fp32 model) run their fp32
+    instances, with no rounding to bf16: fp32 sums in other orders than the
+    twins', within 1e-4 of the twin's largest |value|."""
+    qkv, bias, g = (t.float() for t in _cuda_inputs(b, h, w, nh, ps, seed=10))
+    out = tpa.fused_partition_attention(qkv, bias, part, ps, nh)
+    dq, db = tpa.fused_partition_attention_bwd(qkv, bias, g, part, ps, nh)
+    dq_ref, db_ref = tpa.plain_partition_attention_bwd(qkv, bias, g, part, ps, nh)
+    for got, ref in ((out, tpa.plain_partition_attention(qkv, bias, part, ps, nh)),
+                     (dq, dq_ref), (db, db_ref)):
+        assert got.dtype == ref.dtype == torch.float32 and got.shape == ref.shape
+        assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()

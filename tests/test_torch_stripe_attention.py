@@ -303,8 +303,8 @@ def test_wrappers_refuse_what_the_kernels_cannot_take_on_cuda():
     from imagenet_models_tpu_torch.ops import stripe_attention as sa
 
     q, k, v, w9, wb, g = _cuda_inputs(1, 14, 14, 64, seed=9)
-    with pytest.raises(TypeError, match="bf16"):
-        sa.fused_stripe_attention(q.float(), k, v, w9, wb, 7, 2, 0.25)
+    with pytest.raises(TypeError, match="bf16 or fp32"):  # fp16; fp32 has an instance
+        sa.fused_stripe_attention(q.half(), k, v, w9, wb, 7, 2, 0.25)
     with pytest.raises(ValueError, match="pixels"):
         sa.fused_stripe_attention(q.transpose(1, 2), k, v, w9, wb, 7, 2, 0.25)
     with pytest.raises(ValueError, match="w9"):
@@ -316,3 +316,29 @@ def test_wrappers_refuse_what_the_kernels_cannot_take_on_cuda():
     tall = torch.zeros(1, 20, 14, 64, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="256"):  # T = 280
         sa.fused_stripe_attention(tall, tall, tall, w9, wb, 14, 2, 0.25)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sliced", [False, True])
+@pytest.mark.parametrize("b,h,w,cb,nh,ws", [(2, 14, 14, 64, 2, 7), (2, 14, 14, 96, 3, 7),
+                                            (1, 16, 32, 64, 2, 16), (2, 56, 56, 32, 1, 1)])
+def test_fp32_instances_match_twins_on_cuda(b, h, w, cb, nh, ws, sliced):
+    """Kernels 5 and 6 on fp32 maps (an fp32 model) run their fp32 instances,
+    with no rounding to bf16 (q times the fp32 scale): fp32 sums in other
+    orders than the twins', within 1e-4 of the twin's largest |value|."""
+    from imagenet_models_tpu_torch.ops import stripe_attention as sa
+
+    q, k, v, w9, wb, g = _cuda_inputs(b, h, w, cb, seed=10)
+    q, k, v, g = (t.float() for t in (q, k, v, g))
+    if sliced:  # channel slices of one fp32 qkv map, read in place
+        qkv = torch.cat([q, k, v], -1)
+        q, k, v = qkv[..., :cb], qkv[..., cb:2 * cb], qkv[..., 2 * cb:]
+        assert sa.pixel_rows(q) is q
+    scale = (cb // nh) ** -0.5
+    out = sa.fused_stripe_attention(q, k, v, w9, wb, ws, nh, scale)
+    outs = sa.fused_stripe_attention_bwd(q, k, v, w9, wb, g, ws, nh, scale)
+    refs = (sa.plain_stripe_attention(q, k, v, w9, wb, ws=ws, nh=nh, scale=scale),)
+    refs += tuple(sa.plain_stripe_attention_bwd(q, k, v, w9, wb, g, ws=ws, nh=nh, scale=scale))
+    for got, ref in zip((out,) + tuple(outs), refs):
+        assert got.dtype == ref.dtype == torch.float32 and got.shape == ref.shape
+        assert (got - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
