@@ -65,8 +65,13 @@ blocks on the JAX package's fused-branch entry `convnext_branch_apply`
 11. kernels 5 and 6 (CSWin stripe attention + LePE): against their twins at
    the five idx=0 stripe shapes of ga_cswin_tiny at B=128, ga_cswin_base's
    stage 3, a non-square map and an odd batch, every output (out; dq, dk, dv,
-   dw9, dwb), dw9 and dwb bit-equal between two runs; times per launch in
-   turns at the three B=128 shapes the path runs, beside the bound, the twin,
+   dw9, dwb), each bf16 output (summed on the tensor cores) also against the
+   float64 function of its inputs, its error at most 1.25 times the twin's,
+   every output bit-equal between two runs, the ws = 1 taps exactly 0; the
+   bf16 instances' registers and SASS counts (HMMA asserted); times per launch in
+   turns at the three B=128 shapes the path runs (and each launch's device
+   time by torch.profiler), their sums per forward and per train step,
+   beside the bound, the twin,
    and two library calls (F.scaled_dot_product_attention on stripes
    partitioned beforehand plus the LePE as a cuDNN depthwise F.conv2d; the
    partition copies timed apart); kernel 5 (and 6) beside the composition at
@@ -1559,10 +1564,57 @@ def stripe_bound_ms(b, h, w, c, nh, ws, backward: bool) -> tuple:
 STRIPE_OUTPUTS = ("out", "dq", "dk", "dv", "dw9", "dwb")
 
 
+def stripe_fp64(args, ws, nh):
+    """The float64 function of the stripe kernels' inputs: out, dq, dk, dv,
+    dw9, dwb with q times the scale rounded to the operand type (the
+    function the JAX kernel defines), and no other rounding: p and ds exact,
+    every product and sum in float64."""
+    import torch
+    import torch.nn.functional as F
+
+    from imagenet_models_tpu_torch.ops import stripe_attention as sa
+
+    q, k, v, w9, wb, g = args
+    b, h, w, c = q.shape
+    t, d = h * ws, c // nh
+    scale = d ** -0.5
+
+    def heads(x):  # (B, H, W, C) -> float64 (N, nh, T, d)
+        rows = sa._stripes(x, ws).double()
+        return rows.reshape(rows.shape[0], t, nh, d).transpose(1, 2)
+
+    def back(x):  # (N, nh, T, d) -> (B, H, W, C)
+        return sa._unstripes(x.transpose(1, 2).reshape(x.shape[0], t, c), b, h, w, ws)
+
+    def images(x):
+        return sa._stripe_images(x, ws).double()
+
+    qs, kh, vh, gh = heads(sa._scaled(q, scale)), heads(k), heads(v), heads(g)
+    taps = w9.double().t().reshape(c, 1, 3, 3)
+    p = torch.softmax(torch.matmul(qs, kh.transpose(-1, -2)), dim=-1)
+    lepe = F.conv2d(images(v), taps, padding=1, groups=c) + wb.double().reshape(1, c, 1, 1)
+    out = back(torch.matmul(p, vh)) + sa._unstripes(
+        lepe.permute(0, 2, 3, 1).reshape(-1, t, c), b, h, w, ws)
+    dp = torch.matmul(gh, vh.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    gi, vi = images(g), images(v)
+    dv_lepe = F.conv2d(gi, taps.flip(-1, -2), padding=1, groups=c).permute(0, 2, 3, 1)
+    dv = back(torch.matmul(p.transpose(-1, -2), gh)) + sa._unstripes(
+        dv_lepe.reshape(-1, t, c), b, h, w, ws)
+    vp = F.pad(vi, (1, 1, 1, 1))
+    dw9 = torch.stack([(vp[:, :, i:i + h, j:j + ws] * gi).sum(dim=(0, 2, 3))
+                       for i in range(3) for j in range(3)])
+    return (out, back(torch.matmul(ds, kh) * scale), back(torch.matmul(ds.transpose(-1, -2), qs)),
+            dv, dw9, gi.sum(dim=(0, 2, 3)).reshape(1, c))
+
+
 def compare_stripe(args, ws, nh, tag) -> dict:
     """Kernels 5 and 6 against their twins on the same inputs, every output
-    (out; dq, dk, dv, dw9, dwb); raises past KERNEL_RTOL, or if dw9 and dwb
-    differ in any bit between two runs of kernel 6."""
+    (out; dq, dk, dv, dw9, dwb); each bf16 output also against the float64
+    function of the inputs (`stripe_fp64`), no farther from it than
+    FLASH_FP64_RATIO times the twin; raises past KERNEL_RTOL or the ratio, if
+    any output of either kernel differs in a bit between two runs, or if a
+    dy != 0 tap of ws = 1 (no source in the stripe) is not exactly 0."""
     import torch
 
     from imagenet_models_tpu_torch.ops import stripe_attention as sa
@@ -1571,12 +1623,14 @@ def compare_stripe(args, ws, nh, tag) -> dict:
     scale = (q.shape[-1] // nh) ** -0.5
     got = (sa.fused_stripe_attention(q, k, v, w9, wb, ws, nh, scale),
            *sa.fused_stripe_attention_bwd(q, k, v, w9, wb, g, ws, nh, scale))
+    again = (sa.fused_stripe_attention(q, k, v, w9, wb, ws, nh, scale),
+             *sa.fused_stripe_attention_bwd(q, k, v, w9, wb, g, ws, nh, scale))
     ref = (sa.plain_stripe_attention(q, k, v, w9, wb, ws=ws, nh=nh, scale=scale),
            *sa.plain_stripe_attention_bwd(q, k, v, w9, wb, g, ws=ws, nh=nh, scale=scale))
-    again = sa.fused_stripe_attention_bwd(q, k, v, w9, wb, g, ws, nh, scale)
+    exact = stripe_fp64(args, ws, nh)
     torch.cuda.synchronize()
-    ratios, errs = {}, {}
-    for name, o, r in zip(STRIPE_OUTPUTS, got, ref):
+    ratios, errs, fp64, fp64_ratio = {}, {}, {}, {}
+    for name, o, r, x in zip(STRIPE_OUTPUTS, got, ref, exact):
         if o.shape != r.shape or o.dtype != r.dtype:
             raise AssertionError(f"stripe attention {name} {tag}: {tuple(o.shape)} {o.dtype}, "
                                  f"twin {tuple(r.shape)} {r.dtype}")
@@ -1584,15 +1638,29 @@ def compare_stripe(args, ws, nh, tag) -> dict:
             raise AssertionError(f"stripe attention {name} {tag} is not finite")
         ratios[name] = rel_err(o, r)
         errs[name] = (o.float() - r.float()).abs().max().item()
-    same = torch.equal(again[3], got[4]) and torch.equal(again[4], got[5])
+        fp64[name] = ((o.double() - x).abs().max().item(), (r.double() - x).abs().max().item())
+        fp64_ratio[name] = fp64[name][0] / max(fp64[name][1], 1e-30)
+    del exact
+    same = {name: torch.equal(a, b) for name, a, b in zip(STRIPE_OUTPUTS, got, again)}
+    bf16 = [n for n, o in zip(STRIPE_OUTPUTS, got) if o.dtype == torch.bfloat16]
     log(f"[kernels] stripe_attn {tag}: max|kernel-twin|/max|twin| "
         + " ".join(f"{k}={v:.3g}" for k, v in ratios.items())
-        + f" (tol {KERNEL_RTOL}); dw9, dwb bit-equal across runs: {same}")
+        + f" (tol {KERNEL_RTOL}); max|err| vs float64, kernel/twin "
+        + " ".join(f"{k}={fp64[k][0]:.3g}/{fp64[k][1]:.3g}" for k in STRIPE_OUTPUTS)
+        + f" (bf16 outputs' limit {FLASH_FP64_RATIO}x); bit-equal across runs: "
+        + ("all" if all(same.values()) else str(same)))
     bad = [k for k, v in ratios.items() if not v <= KERNEL_RTOL]
-    if bad or not same:
-        raise AssertionError(f"stripe attention kernels disagree with their twins {tag} in {bad}, "
-                             f"or their weight gradients moved between runs ({same})")
-    return {"tag": tag, "ratios": ratios, "max_abs_err": errs}
+    far = [k for k in bf16 if not fp64_ratio[k] <= FLASH_FP64_RATIO]
+    moved = [k for k, v in same.items() if not v]
+    if ws == 1 and got[4][[0, 2, 3, 5, 6, 8]].any():  # taps with no source: exactly 0
+        raise AssertionError(f"stripe attention {tag}: dw9's dy != 0 taps of ws = 1 are not 0")
+    if bad or far or moved:
+        raise AssertionError(f"stripe attention kernels {tag}: disagree with their twins in {bad}, "
+                             f"farther from float64 than {FLASH_FP64_RATIO}x the twin in {far} "
+                             f"({fp64_ratio}), or moved between runs in {moved}")
+    return {"tag": tag, "ratios": ratios, "max_abs_err": errs,
+            "fp64_err": {k: v[0] for k, v in fp64.items()},
+            "twin_fp64_err": {k: v[1] for k, v in fp64.items()}}
 
 
 def stripe_library_fns(args, ws, nh):
@@ -1679,6 +1747,21 @@ def gate_composition(args, ws, nh, card, tag) -> dict:
     return row
 
 
+def check_stripe_code(builds) -> dict:
+    """Kernels 5 and 6's code reports: every bf16 (tensor-core) instance's
+    SASS must hold mma.sync (HMMA) instructions, where cuobjdump could read
+    it; logs the registers and spills of each instance."""
+    codes = {}
+    for name in ("stripe_attn_fwd", "stripe_attn_bwd"):
+        code = codes[name] = code_report(builds[name], name)
+        mma = {k: v.get("HMMA", 0) for k, v in code["sass"].items() if "_mma" in k}
+        log(f"[code] {name}: HMMA in each of its {len(mma)} bf16 instances: "
+            + ", ".join(f"{v}" for v in mma.values()))
+        if code["sass"] and not (mma and all(mma.values())):
+            raise AssertionError(f"{name}'s bf16 instances hold no mma instruction: {mma}")
+    return codes
+
+
 def check_stripe(card: str):
     """Kernels 5 and 6 against their twins at the five idx=0 stripe shapes of
     ga_cswin_tiny at B=128 (stages 1-3, the stage-5 block, a gram layer),
@@ -1718,18 +1801,27 @@ def check_stripe(card: str):
             with torch.inference_mode(which == "fwd"):
                 t = in_turns({"kernel": kern, "plain": plain}, iters)
             bound, by = stripe_bound_ms(TRAIN_BATCH, side, side, c, nh, ws, which == "bwd")
+            with torch.inference_mode(which == "fwd"):
+                device = device_ms_by_kernel(kern, calls=10, per_launch=True)
             row = {"stage": name, "side": side, "c": c, "heads": nh, "ws": ws,
                    "ms": sum(t["kernel"]) / 2, "plain_ms": sum(t["plain"]) / 2,
+                   "device_ms": sum(v for k, v in device.items() if k.startswith("stripe_attn")),
                    "library_ms": cuda_ms(lib[which], iters),
                    "copies_ms": cuda_ms(lib[which + "_copies"], iters),
                    "bound_ms": bound, "bound_by": by, "turns": t}
             times[which].append(row)
-            log(f"[kernels] stripe_attn_{which} {tag}: kernel {row['ms']:.4f} ms, twin "
+            log(f"[kernels] stripe_attn_{which} {tag}: kernel {row['ms']:.4f} ms (device "
+                f"{row['device_ms']:.4f} ms by the profiler), twin "
                 f"{row['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}), SDPA + depthwise conv "
                 f"{row['library_ms']:.4f} ms + partition copies {row['copies_ms']:.4f} ms "
                 f"(twin,kernel,kernel,twin: {t['plain'][0]:.4f},{t['kernel'][0]:.4f},"
                 f"{t['kernel'][1]:.4f},{t['plain'][1]:.4f})")
         del lib, args, q, k, v, g
+    for which, what in (("fwd", "forward"), ("bwd", "train step")):
+        log(f"[kernels] stripe_attn_{which} per {GA_CSWIN} {what}, B={TRAIN_BATCH}: " + ", ".join(
+            f"{key} {weighted(times[which], key, CSWIN_PATH_LAUNCHES):.4f}"
+            for key in ("ms", "device_ms", "bound_ms", "plain_ms", "library_ms", "copies_ms"))
+            + f" on {card}")
     for b, h, w, ws, c, nh, tag in extra:
         args = stripe_args(b, h, w, c, gen)
         rows.append(compare_stripe(args, ws, nh, f"{tag} B={b} {h}x{w} ws={ws} C={c} heads={nh}"))
@@ -3811,6 +3903,7 @@ def main() -> int:
     from imagenet_models_tpu_torch.ops import stripe_attention as sa
 
     stripe_rows, stripe_times, stripe_gate = check_stripe(card)
+    stripe_code = check_stripe_code(builds)
     cs_serve_launches, cs_serve = serve_branches(
         card, GA_CSWIN, (sa.fused_stripe_attention, sa.fused_stripe_attention_bwd),
         CSWIN_LAUNCHES, "cswin-")
@@ -3994,6 +4087,7 @@ def main() -> int:
                    "train_img_s": mv_bench, "train_img_s_turns": mv_runs,
                    "train_profile": mv_prof},
         "ga_cswin": {"stripe_checks": stripe_rows, "stripe_times_b128": stripe_times,
+                     "stripe_code": stripe_code,
                      "gate_b128": stripe_gate, "serving": cs_serve,
                      "serving_launches": cs_serve_launches, "train": cs_check,
                      "train_launches": cs_launches, "train_img_s": cs_bench,

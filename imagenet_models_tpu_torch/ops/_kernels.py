@@ -159,11 +159,8 @@ def partition_attn_bwd_library() -> ctypes.CDLL:
     return lib
 
 
-@functools.cache
-def stripe_attn_fwd_library() -> ctypes.CDLL:
-    """The stripe-attention + LePE forward kernel's library (kernel 5), built
-    on first call."""
-    lib = _load("stripe_attn_fwd")
+def bind_stripe_attn_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the C signatures of a build of kernel 5's library."""
     for dt in ("bf16", "f32"):
         getattr(lib, f"imt_stripe_attn_fwd_{dt}").argtypes = ([_P, _LL] * 3 + [_P] * 3 + [_I] * 6
                                                               + [_F, _P])
@@ -171,11 +168,8 @@ def stripe_attn_fwd_library() -> ctypes.CDLL:
     return lib
 
 
-@functools.cache
-def stripe_attn_bwd_library() -> ctypes.CDLL:
-    """The stripe-attention + LePE backward kernel's library (kernel 6), built
-    on first call."""
-    lib = _load("stripe_attn_bwd")
+def bind_stripe_attn_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the C signatures of a build of kernel 6's library."""
     lib.imt_stripe_attn_bwd_blocks.argtypes = [_LL, _I]
     lib.imt_stripe_attn_bwd_blocks.restype = _I
     for dt in ("bf16", "f32"):
@@ -183,6 +177,20 @@ def stripe_attn_bwd_library() -> ctypes.CDLL:
                                                               + [_F, _F, _P])
         getattr(lib, f"imt_stripe_attn_bwd_{dt}").restype = _I
     return lib
+
+
+@functools.cache
+def stripe_attn_fwd_library() -> ctypes.CDLL:
+    """The stripe-attention + LePE forward kernel's library (kernel 5), built
+    on first call."""
+    return bind_stripe_attn_fwd(_load("stripe_attn_fwd"))
+
+
+@functools.cache
+def stripe_attn_bwd_library() -> ctypes.CDLL:
+    """The stripe-attention + LePE backward kernel's library (kernel 6), built
+    on first call."""
+    return bind_stripe_attn_bwd(_load("stripe_attn_bwd"))
 
 
 def _bn_plan(lib: ctypes.CDLL) -> None:

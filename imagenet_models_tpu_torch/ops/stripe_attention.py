@@ -42,6 +42,7 @@ fp32 scale), as the TPU kernels run fp32 operands.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -229,8 +230,10 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {lib.imt_cuda_error_string(err).decode()}")
 
 
+@functools.lru_cache(maxsize=None)
 def _scale_in(scale: float, dtype: torch.dtype) -> float:
-    """The softmax scale as q's dtype holds it (`_scaled`)."""
+    """The softmax scale as q's dtype holds it (`_scaled`); cached, as every
+    launch asks for it."""
     return float(torch.tensor(scale, dtype=dtype))
 
 
@@ -270,6 +273,15 @@ def fused_stripe_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w9
 fused_stripe_attention.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_blocks(stripes: int, nh: int) -> int:
+    """Kernel 6's blocks per head (`imt_stripe_attn_bwd_blocks`), a function
+    of the shapes alone."""
+    from imagenet_models_tpu_torch.ops._kernels import stripe_attn_bwd_library
+
+    return stripe_attn_bwd_library().imt_stripe_attn_bwd_blocks(stripes, nh)
+
+
 def fused_stripe_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                w9: torch.Tensor, wb: torch.Tensor, g: torch.Tensor, ws: int,
                                nh: int, scale: float) -> Tuple[torch.Tensor, ...]:
@@ -291,11 +303,13 @@ def fused_stripe_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     stripes = b * (w // ws)
     if stripes == 0 or h == 0:
         raise ValueError(f"{name} needs at least one stripe")
-    blocks = lib.imt_stripe_attn_bwd_blocks(stripes, nh)
-    dq, dk, dv = (torch.empty(b, h, w, c, dtype=q.dtype, device=q.device) for _ in range(3))
-    partials = torch.empty(nh * blocks * 10 * (c // nh), dtype=torch.float32, device=q.device)
-    dw9 = torch.empty(9, c, dtype=torch.float32, device=q.device)
-    dwb = torch.empty(1, c, dtype=torch.float32, device=q.device)
+    blocks = _bwd_blocks(stripes, nh)
+    # two allocations per call (host time): dq, dk, dv, and the partials
+    # with dw9 and dwb
+    dq, dk, dv = torch.empty(3, b, h, w, c, dtype=q.dtype, device=q.device).unbind(0)
+    n = nh * blocks * 10 * (c // nh)
+    sums = torch.empty(n + 10 * c, dtype=torch.float32, device=q.device)
+    partials, dw9, dwb = sums[:n], sums[n:n + 9 * c].view(9, c), sums[n + 9 * c:].view(1, c)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         entry = getattr(lib, f"imt_stripe_attn_bwd_{KERNEL_DTYPES[q.dtype]}")

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""map_convnext_tiny's eval and train img/s on the card from the package of
-one checkout, measured by this checkout's chip_smoke.py: for comparing two
+"""A model's eval and train img/s on the card from the package of one
+checkout, measured by this checkout's chip_smoke.py: for comparing two
 checkouts in turns in one call.
 
-    python3 scripts/compare_trees.py [--root DIR] [--out FILE]
+    python3 scripts/compare_trees.py [--root DIR] [--model NAME] [--out FILE]
 
 DIR is the root of a checkout (default: this one); its
-`imagenet_models_tpu_torch` is imported and its LN+MLP kernels built into its
-own `_build/`. The measurement is chip_smoke.py's phases 5 and 7, loaded from
-this checkout whatever DIR is, so both checkouts are measured by one code:
-`throughput` (eval img/s at B=256, kernel and plain path in turns),
-`make_trainer` and `train_batch` (bench.py's recipe at B=128),
+`imagenet_models_tpu_torch` is imported and the model's kernels built into
+its own `_build/`. NAME is map_convnext_tiny (the default; kernels 1 and 2,
+bench.py's recipe, chip_smoke.py's `make_trainer`) or ga_cswin_tiny (kernels
+5 and 6, the GA recipe, `ga_trainer`). The measurement is chip_smoke.py's
+(phases 5 and 7, or 12 and 13), loaded from this checkout whatever DIR is,
+so both checkouts are measured by one code: `throughput` (eval img/s at
+B=256, kernel and plain path in turns), `train_batch` (B=128),
 `train_throughput` (train img/s of both paths in turns) and `profile_step`
 (the device's idle share of one kernel-path train step). Prints one JSON line
 with the card's name and power limit, and appends it to FILE with --out. Run
@@ -33,6 +35,8 @@ HERE = Path(__file__).resolve().parents[1]
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path, default=HERE)
+    ap.add_argument("--model", default="map_convnext_tiny",
+                    choices=("map_convnext_tiny", "ga_cswin_tiny"))
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     root = args.root.resolve()
@@ -54,18 +58,23 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = cs.card_line()
-    _kernels.build_all(["ln_mlp_fwd", "ln_mlp_bwd"])
-    state, opt, loss_fn = cs.make_trainer()
+    if args.model == cs.GA_CSWIN:
+        _kernels.build_all(["stripe_attn_fwd", "stripe_attn_bwd"])
+        state, opt, loss_fn = cs.ga_trainer(cs.GA_CSWIN, torch.bfloat16)
+        kw = dict(dec_lam=-0.8, ema_decay=cs.GA_EMA)
+    else:
+        _kernels.build_all(["ln_mlp_fwd", "ln_mlp_bwd"])
+        state, opt, loss_fn = cs.make_trainer()
+        kw = dict(dec_lam=-0.8, ema_decay=0.9999)
     plain_state = copy.deepcopy(state)
-    kernel = (state, make_train_step(state.model, opt, loss_fn, dec_lam=-0.8, ema_decay=0.9999))
-    plain = (plain_state, make_train_step(plain_state.model, opt, loss_fn, dec_lam=-0.8,
-                                          ema_decay=0.9999, use_kernel=False))
-    eval_img_s, eval_runs = cs.throughput(state.model, card)
+    kernel = (state, make_train_step(state.model, opt, loss_fn, **kw))
+    plain = (plain_state, make_train_step(plain_state.model, opt, loss_fn, use_kernel=False, **kw))
+    eval_img_s, eval_runs = cs.throughput(state.model, card, args.model)
     images, targets = cs.train_batch()
     train_img_s, train_runs = cs.train_throughput(kernel, plain, images, targets, card,
-                                                  "map_convnext_tiny")
-    profile = cs.profile_step(kernel, images, targets, "map_convnext_tiny")
-    result = {"root": str(args.root), "card": card, "eval_img_s": eval_img_s,
+                                                  args.model)
+    profile = cs.profile_step(kernel, images, targets, args.model)
+    result = {"root": str(args.root), "model": args.model, "card": card, "eval_img_s": eval_img_s,
               "eval_runs": eval_runs, "train_img_s": train_img_s, "train_runs": train_runs,
               "train_idle_share": profile["idle_share"]}
     line = json.dumps(result)

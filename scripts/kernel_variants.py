@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Time copies of kernels 9 and 13 on the card beside the built kernels and
 the library calls, in turns, at the shapes of chip_smoke.py's phases 18 and
-21; with a baseline, kernels 1, 2, 9, 12 and 13 of another checkout beside
-this one's.
+21; with a baseline, kernels 1, 2, 5, 6, 9, 12 and 13 of another checkout
+beside this one's.
 
-    python3 scripts/kernel_variants.py [--baseline DIR] [--out DIR]
+    python3 scripts/kernel_variants.py [--baseline DIR] [--kernels K ...] [--out DIR]
 
 Kernel 9 (`csrc/dw7_wgrad.cu`): the source as it is; copies with other tile
 plans (the `Cfg<P, WL, NC, R>` lines); and diagnostic copies with the
@@ -15,7 +15,7 @@ the numerics is held to float64 sums (chip_smoke.DW_SUM_RTOL). Kernel 13
 `--baseline DIR` (the `csrc/` of another checkout, for example an earlier
 commit unpacked with `git archive`), both kernels and kernel 12 are also
 built from there and timed in turns with this checkout's, and kernel 12's
-output bits are compared; and kernels 1 and 2 of that checkout (one whose
+output bits are compared; kernels 1 and 2 of that checkout (one whose
 kernel 1 has the one-launch C interface, without a workspace or stages, and
 whose kernel 2 has this checkout's) are timed in turns with this checkout's:
 kernel 1 through a copy of the one-launch wrapper's host code at the four
@@ -24,9 +24,20 @@ forward) and the B=128 ones with the fast GELU (per train step's forward),
 and its host time per call at one token tile (each checkout's whole wrapper
 and each build's C entry); kernel 2 through this checkout's host code, at the four B=128
 stage shapes and per train step (3/3/9/3 launches), its outputs also held to
-the baseline's bits. Every library is built with nvcc by hand into `--out`
-(one process per source, all started together), with the registers and SASS
-counts of this checkout's kernels 1, 2, 9 and 13 (chip_smoke.code_report).
+the baseline's bits; kernels 5 and 6 (`csrc/stripe_attn_{fwd,bwd}.cu`, whose
+C interface the baseline shares) through this checkout's wrappers at the
+three B=128 stripe shapes of ga_cswin_tiny's path, per forward and per train
+step, by CUDA events and by the profiler's device time (and this
+checkout's host time a call, wrapper and C entry), both held to the
+twins, with a line that says whether every bf16 instance's SASS holds
+mma.sync (HMMA), beside a diagnostic copy of kernel 5 without its LePE
+epilogue (wrong outputs; it shows the epilogue's share of the time). `--kernels` picks the sets to time
+(9, 13, 1, 2, 12, 5-6; all by default): kernel 1's comparison needs a
+baseline whose kernel 1 has the one-launch C interface, so a later baseline
+is given with `--kernels 5-6` or the like. Every library is built with nvcc by hand into
+`--out` (one process per source, all started together), with the registers
+and SASS counts of this checkout's kernels 1, 2, 5, 6, 9 and 13
+(chip_smoke.code_report).
 Needs one NVIDIA GPU.
 """
 
@@ -57,7 +68,12 @@ DW_VARIANTS = {
     "no step barrier": {
         "__syncthreads();  // the next step's rows are in; this step's are free": "__syncwarp();"},
 }
-DIAGNOSTIC = ("no products", "no global loads", "no step barrier")
+# kernel 5 copies: name -> {text in stripe_attn_fwd.cu: its replacement}
+STRIPE_VARIANTS = {"no LePE epilogue": {"add_lepe<false>(o, Vs, W, D, m0, g, lane);": ""}}
+DIAGNOSTIC = ("no products", "no global loads", "no step barrier", "no LePE epilogue")
+# the kernels the script times, by the numbers of their TPU kernels; 1, 2, 5,
+# 6 and 12 only beside a baseline
+KERNEL_SETS = ("9", "13", "1", "2", "12", "5-6")
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
@@ -69,8 +85,10 @@ def build(jobs, out: Path) -> dict:
     procs = {}
     for name, src in jobs:
         so = out / f"{name}.so"
-        procs[name] = (subprocess.Popen([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-o", str(so),
-                                         str(src)], stdout=subprocess.PIPE,
+        # -I: a copy written elsewhere finds this checkout's headers (a
+        # source's own directory is searched first)
+        procs[name] = (subprocess.Popen([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-I", str(CSRC),
+                                         "-o", str(so), str(src)], stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True), so)
     built = {}
     for name, (proc, so) in procs.items():
@@ -438,12 +456,116 @@ def kernel13(libs, card: str) -> dict:
     return {"rows": rows, "per_forward_ms": forward}
 
 
+def stripe_lib(path, fwd: bool):
+    """A build of kernel 5 (fwd) or 6 with this checkout's C interface,
+    which the baseline shares."""
+    from imagenet_models_tpu_torch.ops import _kernels
+
+    lib = ctypes.CDLL(str(path))
+    lib.imt_cuda_error_string.argtypes = [I]
+    lib.imt_cuda_error_string.restype = ctypes.c_char_p
+    return (_kernels.bind_stripe_attn_fwd if fwd else _kernels.bind_stripe_attn_bwd)(lib)
+
+
+def through(libs, fn):
+    """fn() with the package's kernel 5 and 6 libraries replaced by `libs`
+    (forward, backward), so that it runs the wrappers' own host code."""
+    from imagenet_models_tpu_torch.ops import _kernels
+
+    keep = _kernels.stripe_attn_fwd_library, _kernels.stripe_attn_bwd_library
+    _kernels.stripe_attn_fwd_library = lambda: libs[0]
+    _kernels.stripe_attn_bwd_library = lambda: libs[1]
+    try:
+        return fn()
+    finally:
+        _kernels.stripe_attn_fwd_library, _kernels.stripe_attn_bwd_library = keep
+
+
+def kernels56(arms, card: str) -> dict:
+    """Kernels 5 and 6 of each arm's build ({arm: (forward, backward)
+    libraries}) in turns at the three B=128 stripe shapes of ga_cswin_tiny's
+    path (chip_smoke's CSWIN_STRIPES: stage 3, the stage-5 block, a gram
+    layer), through this checkout's wrappers; each held to the twins
+    (chip_smoke.KERNEL_RTOL); per forward and per train step weighted by the
+    path's launches."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import stripe_attention as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 11)
+    result = {}
+    for which in ("fwd", "bwd"):
+        rows = []
+        for name, side, ws, c, nh, count in cs.CSWIN_STRIPES:
+            if not count:
+                continue
+            q, k, v, w9, wb, g = args = cs.stripe_args(cs.TRAIN_BATCH, side, side, c, gen)
+            scale = (c // nh) ** -0.5
+            if which == "fwd":
+                def call():
+                    return sa.fused_stripe_attention(q, k, v, w9, wb, ws, nh, scale)
+                ref = sa.plain_stripe_attention(q, k, v, w9, wb, ws=ws, nh=nh, scale=scale)
+            else:
+                def call():
+                    return sa.fused_stripe_attention_bwd(q, k, v, w9, wb, g, ws, nh, scale)[:3]
+                ref = sa.plain_stripe_attention_bwd(q, k, v, w9, wb, g, ws=ws, nh=nh,
+                                                    scale=scale)[:3]
+            fns = {arm: (lambda libs=libs: through(libs, call)) for arm, libs in arms.items()
+                   if which == "fwd" or arm not in DIAGNOSTIC}
+            with torch.inference_mode():
+                errs = {arm: [cs.rel_err(o, r) for o, r in zip(
+                    (fn(),) if which == "fwd" else fn(), (ref,) if which == "fwd" else ref)]
+                    for arm, fn in fns.items() if arm not in DIAGNOSTIC}
+                if not all(e <= cs.KERNEL_RTOL for v in errs.values() for e in v):
+                    raise AssertionError(f"kernel {5 if which == 'fwd' else 6} at {name} "
+                                         f"disagrees with its twin: {errs}")
+                del ref
+                warm_up(fns, 3)
+                turns = cs.in_turns(fns, 30, order=tuple(fns))
+                device = {arm: sum(v for k, v in cs.device_ms_by_kernel(
+                    fn, calls=10, per_launch=True).items() if k.startswith("stripe_attn"))
+                    for arm, fn in fns.items()}
+                host = host_us(fns["this checkout"], 100)
+            ms = {arm: sum(t) / 2 for arm, t in turns.items()}
+            cs.log(f"[kernel {5 if which == 'fwd' else 6}] {name} B={cs.TRAIN_BATCH} "
+                   f"{side}x{side} ws={ws} C={c} heads={nh} x{count}: "
+                   + ", ".join(f"{arm} {v:.4f}" for arm, v in ms.items())
+                   + " ms by CUDA events; device (the profiler) "
+                   + ", ".join(f"{arm} {v:.4f}" for arm, v in device.items())
+                   + f" ms; this checkout's host time {host:.1f} us a call on {card}")
+            rows.append({"name": name, "count": count, "ms": ms, "device_ms": device,
+                         "host_us": host, "turns": turns, "vs_twin": errs})
+            del args, q, k, v, g
+        total = per_unit(rows, [r["count"] for r in rows])
+        device = {arm: sum(r["count"] * r["device_ms"][arm] for r in rows) for arm in total}
+        what = "forward" if which == "fwd" else "train step"
+        cs.log(f"[kernel {5 if which == 'fwd' else 6}] per {cs.GA_CSWIN} {what}, "
+               f"B={cs.TRAIN_BATCH}: " + ", ".join(f"{arm} {v:.4f}" for arm, v in total.items())
+               + " ms by CUDA events; device " + ", ".join(f"{arm} {v:.4f}"
+                                                          for arm, v in device.items())
+               + f" ms on {card}")
+        result[which] = {"rows": rows, "per_unit_ms": total, "per_unit_device_ms": device}
+    torch.cuda.empty_cache()
+    return result
+
+
+def mma_line(report: dict, tag: str) -> None:
+    """Logs whether each tensor-core instance of a stripe kernel holds mma
+    (HMMA) instructions in its SASS."""
+    mma = {name: code.get("HMMA", 0) for name, code in report["sass"].items() if "_mma" in name}
+    cs.log(f"[code] {tag}: HMMA in every bf16 instance: "
+           f"{bool(mma) and all(mma.values())} ({len(mma)} instances, "
+           f"{min(mma.values(), default=0)}-{max(mma.values(), default=0)} HMMA each)")
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path, help="csrc/ of another checkout to compare with")
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "kernel_variants")
+    ap.add_argument("--kernels", nargs="+", default=list(KERNEL_SETS), choices=list(KERNEL_SETS),
+                    help="which kernels to time (default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
@@ -453,46 +575,65 @@ def main() -> int:
     card = cs.card_line()
     cs.log(f"[device] {torch.cuda.get_device_name(0)}; {card}; torch {torch.__version__}")
     args.out.mkdir(parents=True, exist_ok=True)
-    jobs = [("dw7_wgrad", CSRC / "dw7_wgrad.cu"),
-            ("window_attn_heads_fwd", CSRC / "window_attn_heads_fwd.cu")]
-    source = (CSRC / "dw7_wgrad.cu").read_text()
-    for i, (name, edits) in enumerate(DW_VARIANTS.items()):
-        text = source
-        for old, new in edits.items():
-            if old not in text:
-                raise SystemExit(f"kernel 9 copy {name!r}: {old!r} is not in the source")
-            text = text.replace(old, new)
-        copy = args.out / f"dw7_wgrad_copy{i}.cu"
-        copy.write_text(text)
-        jobs.append((f"dw7_wgrad_copy{i}", copy))
+    want = set(args.kernels)
+    if not args.baseline:
+        want &= {"9", "13"}
+    sources = {"9": ["dw7_wgrad"], "13": ["window_attn_heads_fwd"], "12": ["window_attn_fwd"],
+               "1": ["ln_mlp_fwd"], "2": ["ln_mlp_bwd"], "5-6": ["stripe_attn_fwd", "stripe_attn_bwd"]}
+    names = [n for key in KERNEL_SETS if key in want for n in sources[key]]
+    jobs = [(n, CSRC / f"{n}.cu") for n in names]
     if args.baseline:
-        for name in ("dw7_wgrad", "window_attn_heads_fwd", "window_attn_fwd", "ln_mlp_fwd",
-                     "ln_mlp_bwd"):
-            jobs.append((f"baseline_{name}", args.baseline / f"{name}.cu"))
-        jobs.append(("window_attn_fwd", CSRC / "window_attn_fwd.cu"))
-    jobs += [("ln_mlp_fwd", CSRC / "ln_mlp_fwd.cu"), ("ln_mlp_bwd", CSRC / "ln_mlp_bwd.cu")]
+        jobs += [(f"baseline_{n}", args.baseline / f"{n}.cu") for n in names]
+    if "5-6" in want:
+        source = (CSRC / "stripe_attn_fwd.cu").read_text()
+        for i, (name, edits) in enumerate(STRIPE_VARIANTS.items()):
+            text = source
+            for old, new in edits.items():
+                if old not in text:
+                    raise SystemExit(f"kernel 5 copy {name!r}: {old!r} is not in the source")
+                text = text.replace(old, new)
+            copy = args.out / f"stripe_attn_fwd_copy{i}.cu"
+            copy.write_text(text)
+            jobs.append((f"stripe_attn_fwd_copy{i}", copy))
+    if "9" in want:
+        source = (CSRC / "dw7_wgrad.cu").read_text()
+        for i, (name, edits) in enumerate(DW_VARIANTS.items()):
+            text = source
+            for old, new in edits.items():
+                if old not in text:
+                    raise SystemExit(f"kernel 9 copy {name!r}: {old!r} is not in the source")
+                text = text.replace(old, new)
+            copy = args.out / f"dw7_wgrad_copy{i}.cu"
+            copy.write_text(text)
+            jobs.append((f"dw7_wgrad_copy{i}", copy))
     t0 = time.perf_counter()
     built = build(jobs, args.out)
     cs.log(f"[build] {len(built)} of {len(jobs)} libraries in {time.perf_counter() - t0:.1f} s")
     from imagenet_models_tpu_torch.ops._kernels import Build
 
-    for name in ("dw7_wgrad", "window_attn_heads_fwd", "ln_mlp_fwd", "ln_mlp_bwd"):
+    for name in ("dw7_wgrad", "window_attn_heads_fwd", "ln_mlp_fwd", "ln_mlp_bwd",
+                 "stripe_attn_fwd", "stripe_attn_bwd"):
         if name in built:
             log = (args.out / f"{name}.nvcc.log").read_text()
             report = cs.code_report(Build(built[name], 0.0, log), name)
             (args.out / f"{name}.code.json").write_text(json.dumps(report, indent=1))
-    dw_arms = {"this checkout": built["dw7_wgrad"]}
-    if args.baseline:
-        dw_arms["baseline"] = built["baseline_dw7_wgrad"]
-    for i, name in enumerate(DW_VARIANTS):
-        if f"dw7_wgrad_copy{i}" in built:
-            dw_arms[name] = built[f"dw7_wgrad_copy{i}"]
-    heads_arms = {"this checkout": built["window_attn_heads_fwd"]}
-    if args.baseline:
-        heads_arms["baseline"] = built["baseline_window_attn_heads_fwd"]
-    result = {"card": card, "kernel 9": kernel9(dw_arms, card),
-              "kernel 13": kernel13(heads_arms, card)}
-    if args.baseline:
+            if name.startswith("stripe"):
+                mma_line(report, name)
+    result = {"card": card}
+    if "9" in want:
+        dw_arms = {"this checkout": built["dw7_wgrad"]}
+        if args.baseline:
+            dw_arms["baseline"] = built["baseline_dw7_wgrad"]
+        for i, name in enumerate(DW_VARIANTS):
+            if f"dw7_wgrad_copy{i}" in built:
+                dw_arms[name] = built[f"dw7_wgrad_copy{i}"]
+        result["kernel 9"] = kernel9(dw_arms, card)
+    if "13" in want:
+        heads_arms = {"this checkout": built["window_attn_heads_fwd"]}
+        if args.baseline:
+            heads_arms["baseline"] = built["baseline_window_attn_heads_fwd"]
+        result["kernel 13"] = kernel13(heads_arms, card)
+    if "12" in want:
         digests = {arm: cs.k12_digest(lambda q, k, v, b, lib=window_lib(built[name]):
                                       window_run(lib, q, k, v, b))
                    for arm, name in (("this checkout", "window_attn_fwd"),
@@ -500,11 +641,23 @@ def main() -> int:
         cs.log(f"[kernel 12] output digests: {digests}; the same bits: "
                f"{len(set(digests.values())) == 1}")
         result["kernel 12 digests"] = digests
+    if want & {"1", "2"}:
         from imagenet_models_tpu_torch.ops import _kernels
 
         _kernels.build_all(["ln_mlp_fwd", "ln_mlp_bwd"])  # the package's own builds
-        result["kernel 1"] = kernel1(old_fwd_lib(built["baseline_ln_mlp_fwd"]), card)
-        result["kernel 2"] = kernel2(bwd_lib(built["baseline_ln_mlp_bwd"]), card)
+        if "1" in want:
+            result["kernel 1"] = kernel1(old_fwd_lib(built["baseline_ln_mlp_fwd"]), card)
+        if "2" in want:
+            result["kernel 2"] = kernel2(bwd_lib(built["baseline_ln_mlp_bwd"]), card)
+    if "5-6" in want:
+        arms = {arm: (stripe_lib(built[f"{pre}stripe_attn_fwd"], True),
+                      stripe_lib(built[f"{pre}stripe_attn_bwd"], False))
+                for arm, pre in (("this checkout", ""), ("baseline", "baseline_"))}
+        for i, name in enumerate(STRIPE_VARIANTS):
+            if f"stripe_attn_fwd_copy{i}" in built:
+                arms[name] = (stripe_lib(built[f"stripe_attn_fwd_copy{i}"], True),
+                              arms["this checkout"][1])
+        result["kernels 5 and 6"] = kernels56(arms, card)
     (args.out / "kernel_variants.json").write_text(json.dumps(result, indent=1))
     return 0
 
