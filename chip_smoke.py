@@ -137,13 +137,14 @@ blocks on the JAX package's fused-branch entry `convnext_branch_apply`
    with the rel-pos bias; kernel 12 at the six shapes of ga_cswin_tiny's
    LePEAttention calls at B=128), at N = 144 and 256, a ragged N=50, D=24,
    heads of 64 and 128 and kernel 12 with a per-window bias, bit-equal
-   between two runs; kernel 13's bf16 output (tensor cores, no longer
-   bit-equal to its twin) also against the float64 function of its inputs,
-   its error at most 1.25 times the twin's; kernel 12's bits against PR 8's
-   build; times per launch in turns at the path shapes beside the bound, the
-   twin and F.scaled_dot_product_attention with the bias as its mask, their
-   sums per forward and the kernels' over SDPA's; kernel 13's registers and
-   SASS counts;
+   between two runs; both kernels' bf16 outputs (tensor cores, no longer
+   bit-equal to their twins) also against the float64 function of their
+   inputs, each error at most 1.25 times the twin's; kernel 12's fp32 bits
+   against the CUDA-core build's (a digest); times per launch in turns at
+   the path shapes beside the bound, the twin and
+   F.scaled_dot_product_attention with the bias as its mask, their sums per
+   forward and the kernels' over SDPA's; both kernels' registers and SASS
+   counts, HMMA asserted in each bf16 instance;
 22. map_maxvit_tiny_tf_224 with IMTPU_FLASH_ATTN at "1" (phases 22-23 set
    it through `ops.flash_attention._FLASH_ATTN`): serving with 22 launches
    of kernel 13 per request, logits against the plain path and an fp32
@@ -409,16 +410,18 @@ FLASH_EXTRA = (("13", 64, 2, 144, 32, True), ("13", 16, 2, 256, 32, True),
 # fp32 kernel vs twin: both keep every digit of p and sum in fp32 in other
 # orders (1e-7 of a sum of |terms|)
 FLASH_FP32_RTOL = 1e-5
-# kernel 13's bf16 output against the float64 function of the same inputs:
-# the tensor cores sum the products in another order than the twin, so the
-# two may round p or the output to neighbouring bf16 values and are no longer
-# bit-equal; the kernel's largest error may be at most this many times the
-# twin's, at every shape
+# kernels 12 and 13's bf16 outputs against the float64 function of the same
+# inputs: the tensor cores sum the products in another order than the twin,
+# so the two may round p or the output to neighbouring bf16 values and are no
+# longer bit-equal; a kernel's largest error may be at most this many times
+# the twin's, at every shape
 FLASH_FP64_RATIO = 1.25
-# kernel 12 (csrc/window_attn_fwd.cu, with csrc/window_attn_common.cuh) is
-# PR 8's: the SHA-256 of its outputs at `k12_digest`'s fixed inputs from the
-# PR 8 build, on an NVIDIA H100 80GB HBM3 with the CUDA 12.8 toolkit
-K12_PR8_DIGEST = "ebf52250d86aac1d93d025b8209a1e4f0d31a7752820a27491fe93e71bb5b4f7"
+# kernel 12's fp32 instance (the CUDA-core `window_attn_fwd_kernel`, with
+# csrc/window_attn_common.cuh) keeps the bits of the build that ran both
+# dtypes on the CUDA cores: the SHA-256 of its fp32 outputs at `k12_digest`'s
+# fixed inputs from that build, on an NVIDIA H100 80GB HBM3 with the CUDA
+# 12.8 toolkit
+K12_FP32_DIGEST = "cf1d7dbd7faf6530a42960db473a8191151c796f85e3604a8ff2cd3b0462e57c"
 # the SASS opcodes counted in the kernels' code reports (phases 18 and 21)
 SASS_OPCODES = ("HMUL2", "HFMA2", "FADD", "FFMA", "FMUL", "HMMA", "LDSM", "LDS", "STS", "LDG",
                 "LDGSTS", "BAR", "SHFL", "MUFU", "BRA", "HGMMA", "UTMALDG", "SYNCS")
@@ -2558,10 +2561,10 @@ def code_report(build, tag: str) -> dict:
 
 
 def k12_digest(run) -> str:
-    """The SHA-256 of kernel 12's outputs (their bits) at fixed inputs made
-    with numpy: GA-CSWin's stage-3 windows (98 tokens) with a per-window bias,
-    a ragged 50 x 24 without one and 256 tokens of 128 channels with one, in
-    bf16 and fp32. `run(q, k, v, bias)` launches a build of kernel 12."""
+    """The SHA-256 of kernel 12's fp32 outputs (their bits) at fixed inputs
+    made with numpy: GA-CSWin's stage-3 windows (98 tokens) with a per-window
+    bias, a ragged 50 x 24 without one and 256 tokens of 128 channels with
+    one. `run(q, k, v, bias)` launches a build of kernel 12."""
     import hashlib
 
     import numpy as np
@@ -2573,10 +2576,9 @@ def k12_digest(run) -> str:
     for bw, n, d, with_bias in ((256, 98, 32, True), (64, 50, 24, False), (16, 256, 128, True)):
         q, k, v = draw(bw, n, d) * d ** -0.5, draw(bw, n, d), draw(bw, n, d)
         bias = (0.5 * draw(bw, n, n)).cuda() if with_bias else None
-        for dtype, bits in ((torch.bfloat16, torch.int16), (torch.float32, torch.int32)):
-            out = run(q.to(dtype).cuda(), k.to(dtype).cuda(), v.to(dtype).cuda(), bias)
-            torch.cuda.synchronize()
-            digest.update(out.view(bits).cpu().numpy().tobytes())
+        out = run(q.cuda(), k.cuda(), v.cuda(), bias)
+        torch.cuda.synchronize()
+        digest.update(out.view(torch.int32).cpu().numpy().tobytes())
     return digest.hexdigest()
 
 
@@ -2944,16 +2946,28 @@ def flash_bound_ms(kernel: str, bw: int, heads: int, n: int, d: int, bias: bool,
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def check_flash(card: str, build):
+def flash_fp64(kernel: str, q, k, v, b):
+    """The float64 function of kernel 12's ("12") or 13's inputs: softmax(q
+    k^T [+ bias]) v, the bias per window for kernel 12, per head for 13."""
+    import torch
+
+    s = torch.matmul(q.double(), k.double().transpose(-1, -2))
+    if b is not None:
+        s = s + (b.double()[None] if kernel == "13" else b.double())
+    return torch.matmul(torch.softmax(s, -1), v.double())
+
+
+def check_flash(card: str, builds):
     """Phase 21: kernels 12 and 13 against their twins at the paths' shapes
     (MaxViT's four eval stages at B=256 for kernel 13, GA-CSWin's six shapes
     at B=128 for kernel 12) and off them (FLASH_EXTRA), in bf16 and fp32, each
-    bit-equal between two runs, kernel 13 in bf16 also against the float64
-    function of its inputs (its error at most FLASH_FP64_RATIO times the
-    twin's); kernel 12's bits against PR 8's build (K12_PR8_DIGEST);
+    bit-equal between two runs, in bf16 also against the float64 function of
+    their inputs (each error at most FLASH_FP64_RATIO times the twin's);
+    kernel 12's fp32 bits against its CUDA-core build (K12_FP32_DIGEST);
     per-launch times at the path shapes in bf16, in turns (twin, kernel,
     SDPA, SDPA, kernel, twin), beside the bound, their sums per forward and
-    the kernels' over SDPA's; kernel 13's code report. SDPA
+    the kernels' over SDPA's; both kernels' code reports, with HMMA asserted
+    in every bf16 (tensor-core) instance. SDPA
     (`F.scaled_dot_product_attention` with the bias as its mask) is the
     library yardstick; the port never calls it."""
     import torch
@@ -2984,13 +2998,12 @@ def check_flash(card: str, build):
             same = torch.equal(got, again)
             shape = tuple(q.shape)
             fp64 = ""
-            if kernel == "13" and dtype == torch.bfloat16:
+            if dtype == torch.bfloat16:
                 with torch.inference_mode():
-                    s = torch.matmul(q.double(), k.double().transpose(-1, -2)) + b.double()[None]
-                    exact = torch.matmul(torch.softmax(s, -1), v.double())
+                    exact = flash_fp64(kernel, q, k, v, b)
                     e_kernel = (got.double() - exact).abs().max().item()
                     e_twin = (ref.double() - exact).abs().max().item()
-                del s, exact
+                del exact
                 fp64 = (f", max|err| vs float64 kernel {e_kernel:.4g} twin {e_twin:.4g} (ratio "
                         f"{e_kernel / max(e_twin, 1e-30):.3f}, limit {FLASH_FP64_RATIO})")
             log(f"[kernels] window_attn{'_heads' if kernel == '13' else ''}_fwd {tag} {shape} "
@@ -3000,8 +3013,8 @@ def check_flash(card: str, build):
                 raise AssertionError(f"kernel {kernel} disagrees with its twin at {shape} "
                                      f"{dtype}: {ratio}, bit-equal {same}")
             if fp64 and not e_kernel <= FLASH_FP64_RATIO * e_twin:
-                raise AssertionError(f"kernel 13 is farther from float64 than its twin at {shape}: "
-                                     f"{e_kernel} against {e_twin}")
+                raise AssertionError(f"kernel {kernel} is farther from float64 than its twin at "
+                                     f"{shape}: {e_kernel} against {e_twin}")
             rows.append({"kernel": kernel, "tag": tag, "shape": list(shape), "dtype": str(dtype),
                          "bias": bias, "max_abs_err": (got.float() - ref.float()).abs().max().item(),
                          "err_over_max_twin": ratio,
@@ -3032,13 +3045,20 @@ def check_flash(card: str, build):
             for key in ("ms", "plain_ms", "library_ms", "bound_ms"))
             + f"; kernel over SDPA {over:.3f} (by shape {by_shape})")
     digest = k12_digest(fa.fused_window_attention)
-    log(f"[kernels] kernel 12's bits at k12_digest's inputs: {digest}; PR 8's build: "
-        f"{K12_PR8_DIGEST}")
-    if digest != K12_PR8_DIGEST:
-        raise AssertionError("kernel 12 no longer gives PR 8's bits")
-    code = code_report(build, "window_attn_heads_fwd")
+    log(f"[kernels] kernel 12's fp32 bits at k12_digest's inputs: {digest}; the CUDA-core "
+        f"build's: {K12_FP32_DIGEST}")
+    if digest != K12_FP32_DIGEST:
+        raise AssertionError("kernel 12's fp32 instance no longer gives its CUDA-core build's bits")
+    code = {}
+    for name in ("window_attn_fwd", "window_attn_heads_fwd"):
+        report = code[name] = code_report(builds[name], name)
+        mma = {k: v.get("HMMA", 0) for k, v in report["sass"].items() if "_mma" in k}
+        log(f"[code] {name}: HMMA in each of its {len(mma)} bf16 instances: "
+            + ", ".join(f"{v}" for v in mma.values()))
+        if report["sass"] and not (mma and all(mma.values())):
+            raise AssertionError(f"{name}'s bf16 instances hold no mma instruction: {mma}")
     torch.cuda.empty_cache()
-    return rows, times, {"k12_digest": digest, "code": code}
+    return rows, times, {"k12_fp32_digest": digest, "code": code}
 
 
 def flash_maxvit(card: str) -> dict:
@@ -3967,7 +3987,7 @@ def main() -> int:
     from imagenet_models_tpu_torch.ops import convnext_block as cb_ops
     from imagenet_models_tpu_torch.ops import flash_attention as fa_ops
 
-    flash_rows, flash_times, flash_extra = check_flash(card, builds["window_attn_heads_fwd"])
+    flash_rows, flash_times, flash_extra = check_flash(card, builds)
     fa_ops._FLASH_ATTN = "1"
     mv_flash = flash_maxvit(card)
     cs_flash = flash_cswin(card)

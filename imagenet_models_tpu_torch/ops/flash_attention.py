@@ -40,10 +40,14 @@ the kernel, or raises. There is no fallback from a kernel to a twin.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
+
+# builds and loads nothing at import: each library is built at its first call
+from imagenet_models_tpu_torch.ops import _kernels
 
 # IMTPU_FLASH_ATTN: "1" = MaxViT's AttentionCl (where it is not given a
 # partition) and CSWin's LePEAttention take kernels 12 and 13; "0" = their
@@ -101,20 +105,27 @@ def plain_fused_window_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torc
 
 
 def _check_operands(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    ndim: int) -> Tuple[int, ...]:
-    """Raises on q, k, v that no kernel build takes; returns q's shape."""
+                    ndim: int) -> Tuple[int, Tuple[int, int, int], Tuple[int, ...]]:
+    """Raises on q, k, v that no kernel build takes; returns their device's
+    index, their data pointers and q's shape. Each check reads each
+    attribute once: this runs on every launch, whose device time at a
+    model's shapes is of the order of the host's."""
     if not q.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors; CPU tensors go to the plain twin")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"{name} takes bf16 or fp32 q, k, v, got {q.dtype}")
-    if q.dim() != ndim or k.shape != q.shape or v.shape != q.shape:
+    dtype, shape = q.dtype, q.shape
+    if dtype not in _DTYPES:
+        raise TypeError(f"{name} takes bf16 or fp32 q, k, v, got {dtype}")
+    if len(shape) != ndim or k.shape != shape or v.shape != shape:
         raise ValueError(f"{name} takes q, k, v of one {ndim}-d shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if any(t.dtype != q.dtype or t.device != q.device for t in (k, v)):
+                         f"{tuple(shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    dev = q.get_device()
+    if k.dtype != dtype or v.dtype != dtype or k.get_device() != dev or v.get_device() != dev:
         raise ValueError(f"{name}: q, k and v must share a dtype and a device")
-    if any(not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    if (not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous())
+            or (ptrs[0] | ptrs[1] | ptrs[2]) % 16):
         raise ValueError(f"{name} takes contiguous, 16-byte aligned q, k, v")
-    return tuple(q.shape)
+    return dev, ptrs, tuple(shape)
 
 
 def _check_window(name: str, supported: Callable[[int, int], int], n: int, d: int) -> None:
@@ -138,31 +149,47 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {lib.imt_cuda_error_string(err).decode()}")
 
 
+def _launch(entry: Callable[..., int], index: int, *args) -> int:
+    """entry(*args, stream) on the current stream of CUDA device `index`,
+    passed as its raw handle (no torch.cuda.Stream is built), with that
+    device made current where it is not (a context switch only then)."""
+    if index == torch.cuda.current_device():
+        return entry(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return entry(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
+@functools.lru_cache(maxsize=None)
+def _window_supported(n: int, d: int) -> int:
+    """Kernel 12's own check of a window shape (`imt_window_attn_fwd_supported`),
+    a function of the shape alone, asked once a shape."""
+    return _kernels.window_attn_fwd_library().imt_window_attn_fwd_supported(n, d)
+
+
 def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel 12, the CUDA fused window attention, on contiguous bf16 or fp32
     (BW, N, D) q, k, v (q pre-scaled) and an optional (BW, N, N) bias (used in
     fp32); returns (BW, N, D) in q's dtype.
 
-    Replaces `fused_window_attention` (ops/flash_attention.py:64). Raises on
-    anything the kernel does not take, CPU tensors included.
+    Replaces `fused_window_attention` (ops/flash_attention.py:64). In bf16
+    its products run on the tensor cores, whose fp32 sums take another order
+    than the twin's, so the two may round p or the output to neighbouring
+    bf16 values (fp32 keeps the twin's arithmetic). Raises on anything the
+    kernel does not take, CPU tensors included.
     `fused_window_attention.launches` counts launches."""
-    from imagenet_models_tpu_torch.ops._kernels import window_attn_fwd_library
-
     name = "fused_window_attention"
-    bw, n, d = _check_operands(name, q, k, v, 3)
-    lib = window_attn_fwd_library()
-    _check_window(name, lib.imt_window_attn_fwd_supported, n, d)
+    dev, (pq, pk, pv), (bw, n, d) = _check_operands(name, q, k, v, 3)
+    lib = _kernels.window_attn_fwd_library()
+    _check_window(name, _window_supported, n, d)
     if bias is not None:
         bias = _check_bias(name, bias, (bw, n, n), q)
     out = torch.empty_like(q)
     if bw == 0:
         return out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.imt_window_attn_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                      None if bias is None else bias.data_ptr(), out.data_ptr(),
-                                      bw, n, d, int(q.dtype == torch.bfloat16), stream)
+    err = _launch(lib.imt_window_attn_fwd, dev, pq, pk, pv,
+                  None if bias is None else bias.data_ptr(), out.data_ptr(), bw, n, d,
+                  int(q.dtype == torch.bfloat16))
     _raise_on(lib, err, "window_attn_fwd")
     fused_window_attention.launches += 1
     return out
@@ -183,21 +210,16 @@ def fused_window_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     neighbouring bf16 values (fp32 keeps the twin's arithmetic). Raises on
     anything the kernel does not take, CPU tensors included.
     `fused_window_attention_heads.launches` counts launches."""
-    from imagenet_models_tpu_torch.ops._kernels import window_attn_heads_fwd_library
-
     name = "fused_window_attention_heads"
-    bw, heads, n, d = _check_operands(name, q, k, v, 4)
-    lib = window_attn_heads_fwd_library()
+    dev, (pq, pk, pv), (bw, heads, n, d) = _check_operands(name, q, k, v, 4)
+    lib = _kernels.window_attn_heads_fwd_library()
     _check_window(name, lib.imt_window_attn_heads_fwd_supported, n, d)
     bias = _check_bias(name, bias, (heads, n, n), q)
     out = torch.empty_like(q)
     if bw == 0 or heads == 0:
         return out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.imt_window_attn_heads_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                            bias.data_ptr(), out.data_ptr(), bw, heads, n, d,
-                                            int(q.dtype == torch.bfloat16), stream)
+    err = _launch(lib.imt_window_attn_heads_fwd, dev, pq, pk, pv, bias.data_ptr(),
+                  out.data_ptr(), bw, heads, n, d, int(q.dtype == torch.bfloat16))
     _raise_on(lib, err, "window_attn_heads_fwd")
     fused_window_attention_heads.launches += 1
     return out

@@ -3,18 +3,22 @@
 checkout, measured by this checkout's chip_smoke.py: for comparing two
 checkouts in turns in one call.
 
-    python3 scripts/compare_trees.py [--root DIR] [--model NAME] [--out FILE]
+    python3 scripts/compare_trees.py [--root DIR] [--model NAME] [--flash] [--out FILE]
 
 DIR is the root of a checkout (default: this one); its
 `imagenet_models_tpu_torch` is imported and the model's kernels built into
 its own `_build/`. NAME is map_convnext_tiny (the default; kernels 1 and 2,
 bench.py's recipe, chip_smoke.py's `make_trainer`) or ga_cswin_tiny (kernels
-5 and 6, the GA recipe, `ga_trainer`). The measurement is chip_smoke.py's
+5 and 6, the GA recipe, `ga_trainer`); with --flash, ga_cswin_tiny with
+IMTPU_FLASH_ATTN at "1" (`ops.flash_attention._FLASH_ATTN`, set in the
+checkout's package), so that its 61 LePEAttention calls take kernel 12.
+The measurement is chip_smoke.py's
 (phases 5 and 7, or 12 and 13), loaded from this checkout whatever DIR is,
 so both checkouts are measured by one code: `throughput` (eval img/s at
-B=256, kernel and plain path in turns), `train_batch` (B=128),
-`train_throughput` (train img/s of both paths in turns) and `profile_step`
-(the device's idle share of one kernel-path train step). Prints one JSON line
+B=256, kernel and plain path in turns), `device_ms_by_kernel` (the device
+time of one kernel-path eval forward at B=256, by kernel), `train_batch`
+(B=128), `train_throughput` (train img/s of both paths in turns) and
+`profile_step` (the device's idle share of one kernel-path train step). Prints one JSON line
 with the card's name and power limit, and appends it to FILE with --out. Run
 it from each checkout in turns (A, B, B, A) in one call to compare the two on
 one card. Needs one NVIDIA GPU.
@@ -37,8 +41,12 @@ def main() -> int:
     ap.add_argument("--root", type=Path, default=HERE)
     ap.add_argument("--model", default="map_convnext_tiny",
                     choices=("map_convnext_tiny", "ga_cswin_tiny"))
+    ap.add_argument("--flash", action="store_true",
+                    help='ga_cswin_tiny with IMTPU_FLASH_ATTN at "1" (kernel 12)')
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
+    if args.flash and args.model != "ga_cswin_tiny":
+        ap.error("--flash is for ga_cswin_tiny")
     root = args.root.resolve()
     sys.path.insert(0, str(root))
     import torch
@@ -59,7 +67,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = cs.card_line()
     if args.model == cs.GA_CSWIN:
-        _kernels.build_all(["stripe_attn_fwd", "stripe_attn_bwd"])
+        _kernels.build_all(["stripe_attn_fwd", "stripe_attn_bwd", "window_attn_fwd"])
+        if args.flash:
+            from imagenet_models_tpu_torch.ops import flash_attention
+
+            flash_attention._FLASH_ATTN = "1"
         state, opt, loss_fn = cs.ga_trainer(cs.GA_CSWIN, torch.bfloat16)
         kw = dict(dec_lam=-0.8, ema_decay=cs.GA_EMA)
     else:
@@ -70,13 +82,21 @@ def main() -> int:
     kernel = (state, make_train_step(state.model, opt, loss_fn, **kw))
     plain = (plain_state, make_train_step(plain_state.model, opt, loss_fn, use_kernel=False, **kw))
     eval_img_s, eval_runs = cs.throughput(state.model, card, args.model)
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 2)
+    x = torch.randn(cs.BENCH_BATCH, cs.IMG, cs.IMG, 3, generator=gen, device="cuda")
+    with torch.inference_mode():
+        eval_device = cs.device_ms_by_kernel(lambda: state.model(x), calls=3)
+    del x
     images, targets = cs.train_batch()
     train_img_s, train_runs = cs.train_throughput(kernel, plain, images, targets, card,
                                                   args.model)
     profile = cs.profile_step(kernel, images, targets, args.model)
-    result = {"root": str(args.root), "model": args.model, "card": card, "eval_img_s": eval_img_s,
+    result = {"root": str(args.root), "model": args.model, "flash": args.flash, "card": card,
+              "eval_img_s": eval_img_s,
               "eval_runs": eval_runs, "train_img_s": train_img_s, "train_runs": train_runs,
-              "train_idle_share": profile["idle_share"]}
+              "train_idle_share": profile["idle_share"],
+              "eval_device_ms": sum(eval_device.values()),
+              "eval_device_ms_by_kernel": dict(list(eval_device.items())[:10])}
     line = json.dumps(result)
     print(line, flush=True)
     if args.out:

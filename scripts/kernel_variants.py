@@ -14,8 +14,15 @@ the numerics is held to float64 sums (chip_smoke.DW_SUM_RTOL). Kernel 13
 (`csrc/window_attn_heads_fwd.cu`): the source as it is beside SDPA. With
 `--baseline DIR` (the `csrc/` of another checkout, for example an earlier
 commit unpacked with `git archive`), both kernels and kernel 12 are also
-built from there and timed in turns with this checkout's, and kernel 12's
-output bits are compared; kernels 1 and 2 of that checkout (one whose
+built from there and timed in turns with this checkout's; kernel 12
+(`csrc/window_attn_fwd.cu`) at the six B=128 shapes of ga_cswin_tiny's
+flash route beside SDPA and this checkout's whole wrapper, per forward, by
+CUDA events and by the profiler's device time, with its host time a call
+(this checkout's wrapper, the baseline checkout's wrapper from
+DIR/../ops/flash_attention.py where it exists, and the bare C entry), each
+build held to the twin and in bf16 to float64, the fp32 instances' output
+bits compared (`chip_smoke.k12_digest`) and HMMA looked for in every bf16
+instance; kernels 1 and 2 of that checkout (one whose
 kernel 1 has the one-launch C interface, without a workspace or stages, and
 whose kernel 2 has this checkout's) are timed in turns with this checkout's:
 kernel 1 through a copy of the one-launch wrapper's host code at the four
@@ -36,7 +43,7 @@ epilogue (wrong outputs; it shows the epilogue's share of the time). `--kernels`
 baseline whose kernel 1 has the one-launch C interface, so a later baseline
 is given with `--kernels 5-6` or the like. Every library is built with nvcc by hand into
 `--out` (one process per source, all started together), with the registers
-and SASS counts of this checkout's kernels 1, 2, 5, 6, 9 and 13
+and SASS counts of this checkout's kernels 1, 2, 5, 6, 9, 12 and 13
 (chip_smoke.code_report).
 Needs one NVIDIA GPU.
 """
@@ -456,6 +463,109 @@ def kernel13(libs, card: str) -> dict:
     return {"rows": rows, "per_forward_ms": forward}
 
 
+def host_window(lib, old, q, k, v) -> dict:
+    """Kernel 12's host time per call (`host_us`) at (q, k, v), in turns:
+    this checkout's wrapper, the baseline checkout's wrapper (the module
+    `old`, None where the baseline has none; its host code around this
+    checkout's library) and the bare C entry on a kept output and stream."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import flash_attention as fa
+
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    bw, n, d = q.shape
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), None, out.data_ptr(), bw, n, d, 1, stream)
+    fns = {"this checkout, wrapper": lambda: fa.fused_window_attention(q, k, v),
+           "C entry": lambda: lib.imt_window_attn_fwd(*args)}
+    if old is not None:
+        fns["baseline, wrapper"] = lambda: old.fused_window_attention(q, k, v)
+    turns = {arm: [] for arm in fns}
+    with torch.inference_mode():
+        for arm in tuple(fns) + tuple(fns)[::-1]:
+            turns[arm].append(host_us(fns[arm]))
+    return {"us": {arm: sum(v) / 2 for arm, v in turns.items()}, "turns": turns}
+
+
+def kernel12(libs, old, card: str) -> dict:
+    """Kernel 12 of each build ({arm: library}, called bare) in turns with
+    this checkout's whole wrapper and SDPA at the six B=128 shapes of
+    ga_cswin_tiny's flash route (chip_smoke's CSWIN_FLASH_SHAPES, no bias),
+    each build held to the twin (chip_smoke.KERNEL_RTOL) and to the float64
+    function (its error beside the twin's); per launch by CUDA events and by
+    the profiler's device time, per forward weighted by the path's launches;
+    the host time per call at the stage-3 shape (`host_window`)."""
+    import torch
+    import torch.nn.functional as F
+
+    from imagenet_models_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 21)
+    rows = []
+    for tag, windows, n, count in cs.CSWIN_FLASH_SHAPES:
+        q, k, v, _ = cs.flash_args("12", cs.TRAIN_BATCH * windows, 1, n, cs.FLASH_D, False,
+                                   torch.bfloat16, gen)
+        fns = {arm: (lambda lib=lib: window_run(lib, q, k, v, None)) for arm, lib in libs.items()}
+        fns["this checkout, wrapper"] = lambda: fa.fused_window_attention(q, k, v)
+        fns["SDPA"] = lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)
+        with torch.inference_mode():
+            ref = fa.plain_fused_window_attention(q, k, v)
+            exact = cs.flash_fp64("12", q, k, v, None)
+            twin64 = (ref.double() - exact).abs().max().item()
+            errs = {}
+            for arm in libs:
+                got = fns[arm]()
+                errs[arm] = {"vs_twin": cs.rel_err(got, ref),
+                             "fp64_ratio": (got.double() - exact).abs().max().item()
+                             / max(twin64, 1e-30)}
+            del ref, exact, got
+            if not all(e["vs_twin"] <= cs.KERNEL_RTOL for e in errs.values()):
+                raise AssertionError(f"kernel 12 at {tag} disagrees with its twin: {errs}")
+            warm_up(fns)
+            turns = cs.in_turns(fns, 20, order=tuple(fns))
+            device = {arm: sum(ms for name, ms in cs.device_ms_by_kernel(
+                fn, calls=10, per_launch=True).items() if name.startswith("window_attn"))
+                for arm, fn in fns.items() if arm != "SDPA"}
+        ms = {arm: sum(t) / 2 for arm, t in turns.items()}
+        cs.log(f"[kernel 12] {tag} {tuple(q.shape)} x{count}: "
+               + ", ".join(f"{arm} {v:.4f}" for arm, v in ms.items())
+               + " ms by CUDA events; device (the profiler) "
+               + ", ".join(f"{arm} {v:.4f}" for arm, v in device.items())
+               + "; vs twin / float64 error over the twin's: "
+               + ", ".join(f"{arm} {e['vs_twin']:.3g} / {e['fp64_ratio']:.3f}"
+                           for arm, e in errs.items()) + f" on {card}")
+        rows.append({"tag": tag, "shape": list(q.shape), "count": count, "ms": ms,
+                     "device_ms": device, "turns": turns, "errors": errs})
+        if tag == "stage3":
+            host = host_window(libs["this checkout"], old, q, k, v)
+            cs.log(f"[kernel 12] host time per call at {tag} {tuple(q.shape)}: "
+                   + ", ".join(f"{arm} {v:.1f}" for arm, v in host["us"].items())
+                   + f" us on {card}")
+        del q, k, v
+    forward = per_unit(rows, cs.CSWIN_FLASH_WEIGHTS)
+    device = {arm: sum(r["count"] * r["device_ms"][arm] for r in rows)
+              for arm in rows[0]["device_ms"]}
+    cs.log(f"[kernel 12] per {cs.GA_CSWIN} forward, B={cs.TRAIN_BATCH}: "
+           + ", ".join(f"{arm} {v:.4f}" for arm, v in forward.items())
+           + " ms by CUDA events; device "
+           + ", ".join(f"{arm} {v:.4f}" for arm, v in device.items()) + f" ms on {card}")
+    torch.cuda.empty_cache()
+    return {"rows": rows, "per_forward_ms": forward, "per_forward_device_ms": device,
+            "host_us": host}
+
+
+def load_module(path: Path, name: str):
+    """The Python module at `path` under `name`, or None where there is none."""
+    import importlib.util
+
+    if not path.exists():
+        return None
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def stripe_lib(path, fwd: bool):
     """A build of kernel 5 (fwd) or 6 with this checkout's C interface,
     which the baseline shares."""
@@ -611,13 +721,13 @@ def main() -> int:
     cs.log(f"[build] {len(built)} of {len(jobs)} libraries in {time.perf_counter() - t0:.1f} s")
     from imagenet_models_tpu_torch.ops._kernels import Build
 
-    for name in ("dw7_wgrad", "window_attn_heads_fwd", "ln_mlp_fwd", "ln_mlp_bwd",
-                 "stripe_attn_fwd", "stripe_attn_bwd"):
+    for name in ("dw7_wgrad", "window_attn_fwd", "window_attn_heads_fwd", "ln_mlp_fwd",
+                 "ln_mlp_bwd", "stripe_attn_fwd", "stripe_attn_bwd"):
         if name in built:
             log = (args.out / f"{name}.nvcc.log").read_text()
             report = cs.code_report(Build(built[name], 0.0, log), name)
             (args.out / f"{name}.code.json").write_text(json.dumps(report, indent=1))
-            if name.startswith("stripe"):
+            if name.startswith("stripe") or name == "window_attn_fwd":
                 mma_line(report, name)
     result = {"card": card}
     if "9" in want:
@@ -634,13 +744,16 @@ def main() -> int:
             heads_arms["baseline"] = built["baseline_window_attn_heads_fwd"]
         result["kernel 13"] = kernel13(heads_arms, card)
     if "12" in want:
-        digests = {arm: cs.k12_digest(lambda q, k, v, b, lib=window_lib(built[name]):
-                                      window_run(lib, q, k, v, b))
-                   for arm, name in (("this checkout", "window_attn_fwd"),
-                                     ("baseline", "baseline_window_attn_fwd"))}
-        cs.log(f"[kernel 12] output digests: {digests}; the same bits: "
+        libs = {"this checkout": window_lib(built["window_attn_fwd"]),
+                "baseline": window_lib(built["baseline_window_attn_fwd"])}
+        digests = {arm: cs.k12_digest(lambda q, k, v, b, lib=lib: window_run(lib, q, k, v, b))
+                   for arm, lib in libs.items()}
+        cs.log(f"[kernel 12] fp32 output digests: {digests}; the same bits: "
                f"{len(set(digests.values())) == 1}")
-        result["kernel 12 digests"] = digests
+        result["kernel 12 fp32 digests"] = digests
+        old = load_module(args.baseline.parent / "ops" / "flash_attention.py",
+                          "baseline_flash_attention")
+        result["kernel 12"] = kernel12(libs, old, card)
     if want & {"1", "2"}:
         from imagenet_models_tpu_torch.ops import _kernels
 

@@ -212,6 +212,12 @@ def _cuda(shape, bias_shape, dtype, seed):
     return (*qkv, None if b is None else torch.from_numpy(b).cuda())
 
 
+def _float64_reference(q, k, v, b):
+    """softmax(q k^T [+ b]) v in float64, b broadcast to the scores."""
+    s = torch.matmul(q.double(), k.double().transpose(-1, -2))
+    return torch.matmul(torch.softmax(s if b is None else s + b.double(), -1), v.double())
+
+
 def _assert_kernel_close(got, ref):
     # both sum in fp32 in other orders, and a rounded p or output may round
     # to its neighbour: 1e-2 of the largest |output| is 2.5 bf16 ulps; fp32
@@ -223,9 +229,13 @@ def _assert_kernel_close(got, ref):
 
 
 # (BW, N, D) for kernel 12: GA-CSWin's stripes (56, 98) and full window (49),
-# the 384 and 512 px windows (144, 256), a ragged 50 x 24, and heads of 128
+# the 384 and 512 px windows (144, 256), a ragged 50 x 24, and heads of 128;
+# then where its tensor-core tiles pad or split: one token, one 16-row block
+# of 8 or 16 channels, 129 keys (a second key chunk), and heads of 48 and 80
+# channels (the instances whose window blocks are counted at run time)
 GPU_SHAPES = [(64, 56, 32), (32, 98, 32), (48, 49, 32), (8, 144, 32), (4, 256, 32),
-              (5, 50, 24), (3, 256, 128), (7, 33, 64)]
+              (5, 50, 24), (3, 256, 128), (7, 33, 64), (5, 1, 8), (6, 16, 16), (4, 129, 32),
+              (3, 200, 48), (2, 112, 80)]
 
 
 @pytest.mark.cuda
@@ -233,11 +243,19 @@ GPU_SHAPES = [(64, 56, 32), (32, 98, 32), (48, 49, 32), (8, 144, 32), (4, 256, 3
 @pytest.mark.parametrize("with_bias", [False, True])
 @pytest.mark.parametrize("bw,n,d", GPU_SHAPES)
 def test_kernel12_matches_twin_on_cuda(bw, n, d, with_bias, dtype):
+    """Kernel 12 against its twin; in bf16 (tensor cores, sums in another
+    order than the twin's) also against the float64 function of the same
+    inputs: its error at most 1.25 times the twin's."""
     q, k, v, b = _cuda((bw, n, d), (bw, n, n) if with_bias else None, dtype, seed=10)
     out = tfa.fused_window_attention(q, k, v, b)
     torch.cuda.synchronize()
-    _assert_kernel_close(out, tfa.plain_fused_window_attention(q, k, v, b))
+    twin = tfa.plain_fused_window_attention(q, k, v, b)
+    _assert_kernel_close(out, twin)
     assert torch.equal(tfa.fused_window_attention(q, k, v, b), out)  # fixed sum order
+    if dtype == torch.bfloat16:
+        ref = _float64_reference(q, k, v, b)
+        err = (out.double() - ref).abs().max().item()
+        assert err <= 1.25 * (twin.double() - ref).abs().max().item(), err
 
 
 @pytest.mark.cuda
@@ -257,8 +275,7 @@ def test_kernel13_matches_twin_on_cuda(bw, h, n, d, dtype):
     _assert_kernel_close(out, twin)
     assert torch.equal(tfa.fused_window_attention_heads(q, k, v, b), out)
     if dtype == torch.bfloat16:
-        s = torch.matmul(q.double(), k.double().transpose(-1, -2)) + b.double()[None]
-        ref = torch.matmul(torch.softmax(s, -1), v.double())
+        ref = _float64_reference(q, k, v, b[None])
         err = (out.double() - ref).abs().max().item()
         assert err <= 1.25 * (twin.double() - ref).abs().max().item(), err
 
