@@ -49,11 +49,18 @@ blocks on the JAX package's fused-branch entry `convnext_branch_apply`
    torch.profiler profile of one train step;
 8. kernels 3 and 4 (partition attention): against their twins at the three
    B=128 stage shapes of the MaxViT train step, block and grid, every output
-   (out; dqkv, dbias), at T = 144 and 256 and on non-square maps; times per
-   launch in turns at B=128 beside the bound, the plain twin, and
-   F.scaled_dot_product_attention on windows partitioned beforehand (the
-   partition copies timed apart); kernel 3 beside the eval composition at
-   the B=256 stage shapes;
+   (out; dqkv, dbias), at T = 144 and 256, on non-square maps and an odd
+   batch; each output of the bf16 instances (kernel 4's summed on the tensor
+   cores) also against the float64 function of its inputs, its error at most 1.25
+   times the twin's, every output bit-equal between two runs; the fp32
+   instances' output bits against their
+   CUDA-core build's (a digest, K34_FP32_DIGEST); the code report of both
+   libraries, with HMMA asserted in kernel 4's 16 bf16 (tensor-core)
+   instances; times per launch in turns at B=128 beside the
+   bound, the plain twin, and F.scaled_dot_product_attention on windows
+   partitioned beforehand (the partition copies timed apart), with the
+   device time by the profiler; kernel 3 beside the eval composition at the
+   B=256 stage shapes;
 9. MaxViT serving: four requests (eval takes the composition: no kernel
    launch), logits against the plain path and an fp32 model, one eval step,
    eval img/s at B=256;
@@ -422,6 +429,14 @@ FLASH_FP64_RATIO = 1.25
 # fixed inputs from that build, on an NVIDIA H100 80GB HBM3 with the CUDA
 # 12.8 toolkit
 K12_FP32_DIGEST = "cf1d7dbd7faf6530a42960db473a8191151c796f85e3604a8ff2cd3b0462e57c"
+# kernels 3 and 4's fp32 instances (the CUDA-core `partition_attn_fwd_kernel`
+# and `partition_attn_bwd_kernel`, with their blocks per head) keep the bits
+# of the build that ran both dtypes on the CUDA cores: the SHA-256 of their
+# fp32 outputs at `k34_digest`'s fixed inputs from that build, on an NVIDIA
+# H100 80GB HBM3 with the CUDA 12.8 toolkit and PyTorch 2.11.0+cu128. The
+# bits are the kernels' own (no library call computes them), but another
+# nvcc may compile expf or the contractions differently and move them.
+K34_FP32_DIGEST = "47afd6a9c34981edb15f9e345ba5045031e8848a72d9b5dcf6c2c1134f9bc8b0"
 # the SASS opcodes counted in the kernels' code reports (phases 18 and 21)
 SASS_OPCODES = ("HMUL2", "HFMA2", "FADD", "FFMA", "FMUL", "HMMA", "LDSM", "LDS", "STS", "LDG",
                 "LDGSTS", "BAR", "SHFL", "MUFU", "BRA", "HGMMA", "UTMALDG", "SYNCS")
@@ -1204,34 +1219,134 @@ def attn_bound_ms(b, h, w, nh, ps, backward: bool) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def compare_attention(args, part, ps, nh, tag) -> dict:
-    """Kernels 3 and 4 against their twins on the same inputs, every output
-    (out; dqkv, dbias); raises past KERNEL_RTOL."""
+ATTN_OUTPUTS = ("out", "dqkv", "dbias")
+
+
+def attn_fp64(args, part, ps, nh):
+    """The float64 function of kernels 3 and 4's inputs: out, dqkv and dbias
+    with no rounding (p and ds exact, every product and sum in float64)."""
     import torch
 
     from imagenet_models_tpu_torch.ops import partition_attention as pa
 
     qkv, bias, g = args
-    got = {"out": pa.fused_partition_attention(qkv, bias, part, ps, nh)}
-    got["dqkv"], got["dbias"] = pa.fused_partition_attention_bwd(qkv, bias, g, part, ps, nh)
-    ref = {"out": pa.plain_partition_attention(qkv, bias, part, ps, nh)}
-    ref["dqkv"], ref["dbias"] = pa.plain_partition_attention_bwd(qkv, bias, g, part, ps, nh)
+    h, w = qkv.shape[1:3]
+    c, t = qkv.shape[-1] // 3, ps[0] * ps[1]
+    rows = pa._windows(qkv, part, ps).double()
+    n = rows.shape[0]
+    q, k, v = rows.reshape(n, t, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
+    gh = pa._windows(g, part, ps).double().reshape(n, t, nh, c // nh).transpose(1, 2)
+    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) + bias.double(), dim=-1)
+    dp = torch.matmul(gh, v.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    grads = torch.stack([torch.matmul(ds, k), torch.matmul(ds.transpose(-1, -2), q),
+                         torch.matmul(p.transpose(-1, -2), gh)])  # (3, N, nh, T, d)
+
+    def back(x):  # (N, T, k C) -> (B, H, W, k C)
+        return pa._unwindows(x, part, ps, (h, w))
+
+    return (back(torch.matmul(p, v).transpose(1, 2).reshape(n, t, c)),
+            back(grads.permute(1, 3, 0, 2, 4).reshape(n, t, 3 * c)), ds.sum(dim=0))
+
+
+def compare_attention(args, part, ps, nh, tag) -> dict:
+    """Kernels 3 and 4 against their twins on the same inputs, every output
+    (out; dqkv, dbias), and a second launch of each against the first; with
+    a bf16 map each output also against the float64 function of the inputs
+    (`attn_fp64`), no farther from it than FLASH_FP64_RATIO times the twin;
+    raises past KERNEL_RTOL or the ratio, or if an output differs in a bit
+    between the two runs."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import partition_attention as pa
+
+    qkv, bias, g = args
+
+    def kernels():
+        return (pa.fused_partition_attention(qkv, bias, part, ps, nh),
+                *pa.fused_partition_attention_bwd(qkv, bias, g, part, ps, nh))
+
+    got, again = kernels(), kernels()
+    ref = (pa.plain_partition_attention(qkv, bias, part, ps, nh),
+           *pa.plain_partition_attention_bwd(qkv, bias, g, part, ps, nh))
+    exact = attn_fp64(args, part, ps, nh) if qkv.dtype == torch.bfloat16 else None
     torch.cuda.synchronize()
-    ratios, errs = {}, {}
-    for k in got:
-        if got[k].shape != ref[k].shape or got[k].dtype != ref[k].dtype:
-            raise AssertionError(f"partition attention {k} {tag}: {tuple(got[k].shape)} "
-                                 f"{got[k].dtype}, twin {tuple(ref[k].shape)} {ref[k].dtype}")
-        if not torch.isfinite(got[k].float()).all():
+    ratios, errs, fp64 = {}, {}, {}
+    for i, k in enumerate(ATTN_OUTPUTS):
+        o, r = got[i], ref[i]
+        if o.shape != r.shape or o.dtype != r.dtype:
+            raise AssertionError(f"partition attention {k} {tag}: {tuple(o.shape)} "
+                                 f"{o.dtype}, twin {tuple(r.shape)} {r.dtype}")
+        if not torch.isfinite(o.float()).all():
             raise AssertionError(f"partition attention {k} {tag} is not finite")
-        ratios[k] = rel_err(got[k], ref[k])
-        errs[k] = (got[k].float() - ref[k].float()).abs().max().item()
+        ratios[k] = rel_err(o, r)
+        errs[k] = (o.float() - r.float()).abs().max().item()
+        if exact is not None:
+            fp64[k] = ((o.double() - exact[i]).abs().max().item(),
+                       (r.double() - exact[i]).abs().max().item())
+    del exact
+    same = {k: torch.equal(a, b) for k, a, b in zip(ATTN_OUTPUTS, got, again)}
     log(f"[kernels] partition_attn[{part}] {tag}: max|kernel-twin|/max|twin| "
-        + " ".join(f"{k}={v:.3g}" for k, v in ratios.items()) + f" (tol {KERNEL_RTOL})")
+        + " ".join(f"{k}={v:.3g}" for k, v in ratios.items()) + f" (tol {KERNEL_RTOL})"
+        + ("; max|err| vs float64, kernel/twin " + " ".join(
+            f"{k}={a:.3g}/{b:.3g}" for k, (a, b) in fp64.items())
+           + f" (limit {FLASH_FP64_RATIO}x)" if fp64 else "")
+        + "; bit-equal across runs: " + ("all" if all(same.values()) else str(same)))
     bad = [k for k, v in ratios.items() if not v <= KERNEL_RTOL]
-    if bad:
-        raise AssertionError(f"partition attention kernels disagree with their twins {tag} in {bad}")
-    return {"tag": tag, "part": part, "ratios": ratios, "max_abs_err": errs}
+    far = [k for k, (a, b) in fp64.items() if not a <= FLASH_FP64_RATIO * b]
+    moved = [k for k, v in same.items() if not v]
+    if bad or far or moved:
+        raise AssertionError(f"partition attention kernels {tag} [{part}]: disagree with their "
+                             f"twins in {bad}, farther from float64 than {FLASH_FP64_RATIO}x the "
+                             f"twin in {far} ({fp64}), or moved between runs in {moved}")
+    return {"tag": tag, "part": part, "dtype": str(qkv.dtype), "ratios": ratios,
+            "max_abs_err": errs, "fp64_err": {k: v[0] for k, v in fp64.items()},
+            "twin_fp64_err": {k: v[1] for k, v in fp64.items()}}
+
+
+def k34_digest(fwd, bwd) -> str:
+    """The SHA-256 of kernels 3 and 4's fp32 outputs (out, dqkv, dbias: their
+    bits) at fixed inputs made with numpy: block and grid windows of 49
+    tokens (B=4, 28 x 28, 4 heads), 144 (B=1, 24 x 24, 2 heads) and 256
+    (B=1, 32 x 32, 2 heads), and 4 x 5 windows of an odd batch on a
+    non-square map (B=3, 12 x 15, 2 heads). `fwd(qkv, bias, part, ps, nh)`
+    and `bwd(qkv, bias, g, part, ps, nh)` launch a build of each."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    digest = hashlib.sha256()
+    rng = np.random.default_rng(3434)
+    draw = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()
+    for b, h, w, nh, ps in ((4, 28, 28, 4, (7, 7)), (1, 24, 24, 2, (12, 12)),
+                            (1, 32, 32, 2, (16, 16)), (3, 12, 15, 2, (4, 5))):
+        c, t = 32 * nh, ps[0] * ps[1]
+        qkv, bias, g = draw(b, h, w, 3 * c), 0.1 * draw(nh, t, t), draw(b, h, w, c)
+        qkv[..., :c] *= 32 ** -0.5
+        for part in ("block", "grid"):
+            outs = (fwd(qkv, bias, part, ps, nh), *bwd(qkv, bias, g, part, ps, nh))
+            torch.cuda.synchronize()
+            for o in outs:
+                digest.update(o.contiguous().view(torch.int32).cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def check_attention_code(builds) -> dict:
+    """Kernels 3 and 4's code reports, with the registers and spills of each
+    instance: every bf16 instance of kernel 4 (16, on the tensor cores) must
+    hold mma.sync (HMMA) instructions in its SASS, where cuobjdump could read
+    it; kernel 3's instances run on the CUDA cores (the first design), and
+    hold none."""
+    codes = {name: code_report(builds[name], name)
+             for name in ("partition_attn_fwd", "partition_attn_bwd")}
+    mma = {k: v.get("HMMA", 0) for k, v in codes["partition_attn_bwd"]["sass"].items()
+           if "_mma" in k}
+    log(f"[code] partition_attn_bwd: HMMA in each of its {len(mma)} bf16 instances: "
+        + ", ".join(f"{v}" for v in mma.values()))
+    if codes["partition_attn_bwd"]["sass"] and not (len(mma) == 16 and all(mma.values())):
+        raise AssertionError(f"kernel 4's 16 bf16 instances do not all hold mma instructions: {mma}")
+    return codes
 
 
 def library_fns(args, part, ps, nh):
@@ -1272,12 +1387,15 @@ def library_fns(args, part, ps, nh):
     }
 
 
-def check_attention(card: str):
-    """Kernels 3 and 4 against their twins at the three B=128 stage shapes of
-    the train step (block and grid), at T = 144 and 256 (the 384 and 512 px
-    models) and on a non-square map; per launch at the B=128 shapes, in turns
-    (twin, kernel, kernel, twin), with the bound and the library call; kernel
-    3 beside the eval route's composition at the B=256 stage shapes."""
+def check_attention(card: str, builds):
+    """Kernels 3 and 4 against their twins (and in bf16 against float64) at
+    the three B=128 stage shapes of the train step (block and grid), at T =
+    144 and 256 (the 384 and 512 px models), on non-square maps and an odd
+    batch; the fp32 instances' bits (`k34_digest`) and both libraries' code
+    (`check_attention_code`); per launch at the B=128 shapes, in turns
+    (twin, kernel, kernel, twin), with the bound, the device time by the
+    profiler and the library call; kernel 3 beside the eval route's
+    composition at the B=256 stage shapes."""
     import torch
 
     from imagenet_models_tpu_torch.ops import partition_attention as pa
@@ -1286,11 +1404,19 @@ def check_attention(card: str):
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     rows = []
     for b, h, w, nh, ps in [(2, 96, 96, 2, (12, 12)), (1, 128, 128, 2, (16, 16)),
-                            (8, 14, 21, 3, (7, 7)), (4, 21, 14, 2, (7, 7))]:
+                            (8, 14, 21, 3, (7, 7)), (4, 21, 14, 2, (7, 7)),
+                            (3, 12, 15, 2, (4, 5))]:
         args = attn_args(b, h, w, nh, ps, gen)
         for part in ("block", "grid"):
             rows.append(compare_attention(args, part, ps, nh, f"B={b} {h}x{w} T={ps[0] * ps[1]} "
                                                                f"heads={nh}"))
+    digest = k34_digest(pa.fused_partition_attention, pa.fused_partition_attention_bwd)
+    log(f"[kernels] kernels 3 and 4's fp32 bits at k34_digest's inputs: {digest}; the CUDA-core "
+        f"build's: {K34_FP32_DIGEST}")
+    if digest != K34_FP32_DIGEST:
+        raise AssertionError("kernels 3 and 4's fp32 instances no longer give their CUDA-core "
+                             "build's bits")
+    code = check_attention_code(builds)
     times = {"fwd": [], "bwd": []}
     for side, c, nh in MAXVIT_STAGES:
         args = attn_args(TRAIN_BATCH, side, side, nh, PS, gen)
@@ -1308,25 +1434,35 @@ def check_attention(card: str):
                      lambda: pa.plain_partition_attention_bwd(qkv, bias, g, part, PS, nh))):
                 with torch.inference_mode(which == "fwd"):
                     t = in_turns({"kernel": kern, "plain": plain}, iters)
+                    device = device_ms_by_kernel(kern, calls=10, per_launch=True)
                 bound, by = attn_bound_ms(TRAIN_BATCH, side, side, nh, PS, which == "bwd")
                 row = {"side": side, "c": c, "heads": nh, "part": part,
                        "ms": sum(t["kernel"]) / 2, "plain_ms": sum(t["plain"]) / 2,
+                       "device_ms": sum(v for k, v in device.items()
+                                        if k.startswith("partition_attn")),
                        "library_ms": cuda_ms(lib[which], iters),
                        "copies_ms": cuda_ms(lib[which + "_copies"], iters),
                        "bound_ms": bound, "bound_by": by, "turns": t}
                 stage[which].append(row)
                 log(f"[kernels] partition_attn_{which}[{part}] B={TRAIN_BATCH} {side}x{side} C={c}: "
-                    f"kernel {row['ms']:.4f} ms, twin {row['plain_ms']:.4f} ms, bound "
+                    f"kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f} ms by the "
+                    f"profiler), twin {row['plain_ms']:.4f} ms, bound "
                     f"{bound:.4f} ms ({by}), SDPA {row['library_ms']:.4f} ms + partition copies "
                     f"{row['copies_ms']:.4f} ms (twin,kernel,kernel,twin: {t['plain'][0]:.4f},"
                     f"{t['kernel'][0]:.4f},{t['kernel'][1]:.4f},{t['plain'][1]:.4f})")
             del lib
         for which in ("fwd", "bwd"):  # block and grid: one launch of each per block
             mean = {k: sum(r[k] for r in stage[which]) / 2
-                    for k in ("ms", "plain_ms", "library_ms", "copies_ms", "bound_ms")}
+                    for k in ("ms", "device_ms", "plain_ms", "library_ms", "copies_ms",
+                              "bound_ms")}
             times[which].append({**mean, "bound_by": stage[which][0]["bound_by"],
                                  "rows": stage[which]})
         del args
+    for which, what in (("fwd", "kernel 3"), ("bwd", "kernel 4")):
+        log(f"[kernels] {what} per {MAXVIT} train step, B={TRAIN_BATCH}: " + ", ".join(
+            f"{key} {weighted(times[which], key, MAXVIT_STAGE_LAUNCHES):.4f}"
+            for key in ("ms", "device_ms", "bound_ms", "plain_ms", "library_ms", "copies_ms"))
+            + f" on {card}")
     # the eval route: partition -> composition -> reverse, against kernel 3
     evals = []
     with torch.inference_mode():
@@ -1348,7 +1484,7 @@ def check_attention(card: str):
                     f"{t['plain'][0]:.4f},{t['kernel'][0]:.4f},{t['kernel'][1]:.4f},"
                     f"{t['plain'][1]:.4f}) on {card}")
             del qkv, bias
-    return rows, times, evals
+    return rows, times, evals, {"fp32_digest": digest, "code": code}
 
 
 def serve_maxvit(card: str):
@@ -3907,7 +4043,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # map_maxvit_tiny_tf_224: kernels 3 and 4, serving and the train step
-    attn_rows, attn_times, attn_evals = check_attention(card)
+    attn_rows, attn_times, attn_evals, attn_extra = check_attention(card, builds)
     mv_serve = serve_maxvit(card)
     torch.cuda.empty_cache()
     mv_kernel, mv_plain, images, targets, mv_launches, mv_check = train_maxvit()
@@ -4102,7 +4238,7 @@ def main() -> int:
         "train_img_s": train_bench, "train_img_s_turns": train_runs,
         "train_profile": prof,
         "maxvit": {"attention_checks": attn_rows, "attention_times_b128": attn_times,
-                   "attention_eval_b256": attn_evals, "serving": mv_serve,
+                   "attention_eval_b256": attn_evals, **attn_extra, "serving": mv_serve,
                    "train": mv_check, "train_launches": mv_launches,
                    "train_img_s": mv_bench, "train_img_s_turns": mv_runs,
                    "train_profile": mv_prof},

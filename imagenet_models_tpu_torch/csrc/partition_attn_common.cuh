@@ -1,9 +1,15 @@
 // Device helpers shared by the partition-attention forward
 // (partition_attn_fwd.cu) and backward (partition_attn_bwd.cu) kernels: the
-// window geometry (which pixel holds token t of a window), the copy of one
-// head's 32-wide slice of a window into shared memory, and access to it for
-// both operand types: bf16 (the kernels' bf16 instances) and fp32 (their fp32
-// instances, for fp32 models, with no rounding between the steps).
+// window geometry (which pixel holds token t of a window); for the row
+// kernels (CUDA cores: the forward in both dtypes and the fp32 backward) the
+// copy of one head's 32-wide slice of a window into shared memory and access
+// to it for both operand types (the generic pieces, also used by the stripe
+// kernels' fp32 instances), a row's scores and softmax, and the mixing of
+// rows; for the bf16 backward's tensor-core tiles (mma.sync) the window's
+// first pixel and its tokens' offsets, the cp.async copy of a window's slice
+// into padded rows, the products of a 16-row slice with a chunk of keys, the
+// bias added to the score fragments, the softmax statistics, and the staged
+// 16-byte stores of a slice's fragments.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -11,6 +17,8 @@
 
 #include <cstddef>
 #include <cstdint>
+
+#include "mma_sync.cuh"
 
 namespace imt_pa {
 
@@ -200,6 +208,262 @@ __device__ __forceinline__ float mix_rows(const float* x, const uint32_t* m, int
     }
   }
   return o;
+}
+
+
+// ------------------------------------------------ bf16: windows in shared memory
+//
+// A window's head slice sits in shared memory as TP = 16 NKB rows (T padded
+// to whole 16-row blocks: 49 -> 64, 144 and 256 as they are) of kDS bf16:
+// the 32 channels plus 8, so that a row is 80 bytes, an odd number of
+// 16-byte units, and the 8 rows of an ldmatrix fall on 8 distinct groups of
+// four banks. Rows past T are zero, written once per block: the copies fill
+// only rows < T. A warp owns a 16-row slice. On kernel 4's tensor-core
+// tiles the keys come in chunks of kChunk blocks of 16 (128 keys: 16 score
+// tiles of 8, 64 fp32 registers a thread), one chunk for T <= 128, and
+// thread (g, t4) = (lane / 4, lane % 4) holds elements [g][2 t4 + 0, 1]
+// (registers 0, 1) and [g + 8][2 t4 + 0, 1] (2, 3) of each 16 x 8 tile: the
+// m16n8 accumulator layout of mma_sync.cuh, the same entries of its slice in
+// every window.
+
+constexpr int kDS = kD + 8;      // row stride of a staged slice, bf16
+constexpr int kChunk = 8;        // key blocks of 16 per chunk of scores in registers
+constexpr float kMask = -1e30f;  // JAX's mask of the padded keys
+
+// warps of a block for nkb blocks of 16 tokens: one per 16-row slice, at most 8
+__host__ __device__ constexpr int mma_warps(int nkb) { return nkb < 8 ? nkb : 8; }
+__host__ __device__ constexpr int key_chunks(int nkb) { return (nkb + kChunk - 1) / kChunk; }
+
+// token_pixel split in two, in 32-bit arithmetic but for the window's first
+// pixel: window_base(win), computed once a window, plus token_offset(t),
+// computed once a block into a table, which the copies and stores read.
+//   block: (n*H + i*ph)*W + j*pw  plus  a*W + b;
+//   grid:  (n*H + i)*W + j        plus  a*(H/ph)*W + b*(W/pw).
+__device__ __forceinline__ long long window_base(const Geometry& g, int win) {
+  const int per_img = g.wr * g.wc;
+  const int n = win / per_img, r = win - n * per_img;
+  const int i = r / g.wc, j = r - i * g.wc;
+  const long long img = static_cast<long long>(n) * g.H;
+  return g.grid ? (img + i) * g.W + j : (img + i * g.ph) * g.W + j * g.pw;
+}
+
+__device__ __forceinline__ int token_offset(const Geometry& g, int t) {
+  const int a = t / g.pw, b = t - a * g.pw;
+  return g.grid ? a * g.wr * g.W + b * g.wc : a * g.W + b;
+}
+
+// Issues the cp.async copies of the 32 channels at `coff` of the T tokens of
+// the window whose first pixel is `base`, in a map of `ld` values a pixel,
+// into rows of kDS bf16 at dst, 16 bytes each; tok holds the tokens' offsets.
+__device__ __forceinline__ void copy_window(const bf16* __restrict__ src, int ld, int coff,
+                                            long long base, const int* tok, int T, bf16* dst,
+                                            int tid, int nthreads) {
+  const bf16* from = src + base * ld + coff;
+  for (int e = tid; e < 4 * T; e += nthreads) {
+    const int t = e >> 2, c = e & 3;
+    imt_mma::cp_async16(dst + t * kDS + 8 * c, from + static_cast<long long>(tok[t]) * ld + 8 * c);
+  }
+}
+
+// The A fragments (two k16 steps) of rows m0..m0+15 of a staged slice.
+__device__ __forceinline__ void load_rows(uint32_t (&a)[2][4], const bf16* M, int m0, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+    imt_mma::ldsm_x4(a[kk], M + (m0 + (lane & 15)) * kDS + 16 * kk + 8 * (lane >> 4));
+}
+
+// The B fragments of rows r0..r0+15 of a staged slice taken as a (k = row,
+// n = channel) matrix: b[t] for channel tile t, its k halves in b[t][0] and
+// b[t][1] (ldmatrix.trans).
+__device__ __forceinline__ void load_cols(uint32_t (&b)[4][2], const bf16* M, int r0, int lane) {
+#pragma unroll
+  for (int dt = 0; dt < 2; ++dt) {
+    uint32_t r[4];
+    imt_mma::ldsm_x4_trans(r, M + (r0 + (lane & 7) + 8 * ((lane >> 3) & 1)) * kDS + 16 * dt +
+                                  8 * (lane >> 4));
+    b[2 * dt][0] = r[0];
+    b[2 * dt][1] = r[1];
+    b[2 * dt + 1][0] = r[2];
+    b[2 * dt + 1][1] = r[3];
+  }
+}
+
+// The products of a 16-row slice (A fragments a) with the rows of M of key
+// chunk kc: s[2 t2 + h] is the n8 tile of keys 16 (kChunk kc + t2) + 8 h ..,
+// for the key blocks below NKB. Exact products of bf16 values, fp32 sums;
+// the padded rows of M are zero, so their products are 0.
+template <int NKB>
+__device__ __forceinline__ void chunk_products(const bf16* M, const uint32_t (&a)[2][4], int kc,
+                                               int lane, float (&s)[2 * kChunk][4]) {
+#pragma unroll
+  for (int t2 = 0; t2 < kChunk; ++t2) {
+    if (kc * kChunk + t2 < NKB) {
+      const int key0 = 16 * (kc * kChunk + t2);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[2 * t2][e] = s[2 * t2 + 1][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        uint32_t kb[4];
+        imt_mma::ldsm_x4(kb, M + (key0 + (lane & 7) + 8 * (lane >> 4)) * kDS + 16 * kk +
+                                 8 * ((lane >> 3) & 1));
+        imt_mma::mma_bf16(s[2 * t2], a[kk], kb[0], kb[1]);
+        imt_mma::mma_bf16(s[2 * t2 + 1], a[kk], kb[2], kb[3]);
+      }
+    }
+  }
+}
+
+// What the bias adds to element e of score tile t (key block t / 2) of the
+// slice at m0: the head's bias bh[row][col] (fp32, T x T) at rows and keys
+// below T; kMask at keys from T on (the padded keys' products are 0, so
+// 0 + kMask is kMask: JAX's mask); 0 at the padded rows.
+__device__ __forceinline__ float bias_term(const float* __restrict__ bh, int T, int m0, int t, int e,
+                                           int lane) {
+  const int row = m0 + (lane >> 2) + 8 * (e >> 1);
+  const int col = 8 * t + 2 * (lane & 3) + (e & 1);
+  return col >= T ? kMask : row < T ? __ldg(bh + row * T + col) : 0.f;
+}
+
+// s of key chunk kc plus its bias terms, read through L1/L2.
+template <int NKB>
+__device__ __forceinline__ void add_bias(float (&s)[2 * kChunk][4], int kc,
+                                         const float* __restrict__ bh, int T, int m0, int lane) {
+#pragma unroll
+  for (int t = 0; t < 2 * kChunk; ++t)
+    if (kc * kChunk + t / 2 < NKB) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] += bias_term(bh, T, m0, 2 * kChunk * kc + t, e, lane);
+    }
+}
+
+// The bias terms of every key of the slice at m0 (NKB <= kChunk: one key
+// chunk), for a warp that keeps them in registers across windows.
+template <int NKB>
+__device__ __forceinline__ void bias_frags(float (&b)[2 * kChunk][4], const float* __restrict__ bh,
+                                           int T, int m0, int lane) {
+  static_assert(NKB <= kChunk, "the bias terms of one key chunk");
+#pragma unroll
+  for (int t = 0; t < 2 * NKB; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) b[t][e] = bias_term(bh, T, m0, t, e, lane);
+}
+
+// The slice's score tiles of key chunk kc: q k^T (qa: q's fragments) plus
+// the bias terms, from the registers `bfr` (kRegBias: `bias_frags`) or read
+// through L1/L2.
+template <int NKB, bool kRegBias>
+__device__ __forceinline__ void slice_scores(const bf16* Ks, const uint32_t (&qa)[2][4], int kc,
+                                             const float (&bfr)[2 * kChunk][4],
+                                             const float* __restrict__ bh, int T, int m0,
+                                             int lane, float (&s)[2 * kChunk][4]) {
+  chunk_products<NKB>(Ks, qa, kc, lane, s);
+  if constexpr (kRegBias) {
+#pragma unroll
+    for (int t = 0; t < 2 * NKB; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] += bfr[t][e];
+  } else {
+    add_bias<NKB>(s, kc, bh, T, m0, lane);
+  }
+}
+
+// The softmax statistics of the slice's rows g and g + 8: the row max of the
+// scores over every key, then the sum of exp(s - max), in fp32 (`_attend`,
+// partition_attention.py:107-115); the quad of lanes sharing a row combines
+// its parts by shuffles. `scores(kc, s)` leaves key chunk kc's scores in s.
+// With one key chunk, s holds exp(s - max) on return; with two, each pass
+// recomputes the chunk's scores.
+template <int NKB, typename Scores>
+__device__ __forceinline__ void softmax_stats(Scores scores, float (&s)[2 * kChunk][4],
+                                              float (&mx)[2], float (&sum)[2]) {
+  constexpr int NCH = key_chunks(NKB);
+  mx[0] = mx[1] = __int_as_float(0xff800000);  // -inf
+#pragma unroll
+  for (int kc = 0; kc < NCH; ++kc) {
+    scores(kc, s);
+#pragma unroll
+    for (int t = 0; t < 2 * kChunk; ++t)
+      if (kc * kChunk + t / 2 < NKB) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[t][0], s[t][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[t][2], s[t][3]));
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
+  }
+  sum[0] = sum[1] = 0.f;
+#pragma unroll
+  for (int kc = 0; kc < NCH; ++kc) {
+    if (NCH > 1) scores(kc, s);
+#pragma unroll
+    for (int t = 0; t < 2 * kChunk; ++t)
+      if (kc * kChunk + t / 2 < NKB) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[t][e] = expf(s[t][e] - mx[e >> 1]);
+          sum[e >> 1] += s[t][e];
+        }
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sum[i] += __shfl_xor_sync(kFull, sum[i], 1);
+    sum[i] += __shfl_xor_sync(kFull, sum[i], 2);
+  }
+}
+
+// exp(s - max) of key chunk kc into s: already there with one chunk,
+// recomputed with two.
+template <int NKB, typename Scores>
+__device__ __forceinline__ void chunk_exp(Scores scores, int kc, const float (&mx)[2],
+                                          float (&s)[2 * kChunk][4]) {
+  if (key_chunks(NKB) == 1) return;
+  scores(kc, s);
+#pragma unroll
+  for (int t = 0; t < 2 * kChunk; ++t)
+    if (kc * kChunk + t / 2 < NKB) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] = expf(s[t][e] - mx[e >> 1]);
+    }
+}
+
+// Stores the 16 bf16 rows of `stage` (kDS apart; the rows m0.. of a window)
+// that lie below T as 16-byte stores of the 32 channels at `coff`, at their
+// pixels base + tok[row] of a map of `ld` values a pixel: padded rows are
+// never stored. The warp's lanes; `stage` is free again on return.
+__device__ __forceinline__ void store_rows(bf16* stage, int m0, int T, long long base,
+                                           const int* tok, bf16* __restrict__ out, int ld,
+                                           int coff, int lane) {
+  bf16* to = out + base * ld + coff;
+  for (int e = lane; e < 64; e += 32) {
+    const int r = e >> 2, c = e & 3;
+    if (m0 + r < T)
+      *reinterpret_cast<uint4*>(to + static_cast<long long>(tok[m0 + r]) * ld + 8 * c) =
+          *reinterpret_cast<const uint4*>(stage + r * kDS + 8 * c);
+  }
+  __syncwarp();
+}
+
+// Stores a slice's accumulator fragments o rounded to bf16: through `stage`
+// (16 rows of kDS bf16 that only this warp touches) to 16-byte stores of
+// the 32 channels at `coff` of the slice's rows below T, at their pixels
+// base + tok[row] of a map of `ld` values a pixel. Padded rows are never
+// stored.
+__device__ __forceinline__ void store_slice(bf16* stage, const float (&o)[4][4], int m0, int T,
+                                            long long base, const int* tok,
+                                            bf16* __restrict__ out, int ld, int coff, int lane) {
+  const int gr = lane >> 2, t4 = lane & 3;
+  __syncwarp();  // every lane is done reading what `stage` held
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const int c = 8 * t + 2 * t4;
+    *reinterpret_cast<uint32_t*>(stage + gr * kDS + c) = imt_mma::pack_bf16(o[t][0], o[t][1]);
+    *reinterpret_cast<uint32_t*>(stage + (gr + 8) * kDS + c) = imt_mma::pack_bf16(o[t][2], o[t][3]);
+  }
+  __syncwarp();
+  store_rows(stage, m0, T, base, tok, out, ld, coff, lane);
 }
 
 }  // namespace imt_pa

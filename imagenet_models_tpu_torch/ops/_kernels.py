@@ -19,7 +19,9 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
@@ -96,6 +98,16 @@ def build(name: str) -> Build:
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
+def launch(entry: Callable[..., int], index: int, *args) -> int:
+    """entry(*args, stream) on the current stream of CUDA device `index`,
+    passed as its raw handle (no torch.cuda.Stream is built), with that
+    device made current where it is not (a context switch only then)."""
+    if index == torch.cuda.current_device():
+        return entry(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return entry(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
 def _load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build(name).path))
     lib.imt_cuda_error_string.argtypes = [_I]
@@ -135,28 +147,36 @@ def ln_mlp_bwd_library() -> ctypes.CDLL:
     return lib
 
 
-@functools.cache
-def partition_attn_fwd_library() -> ctypes.CDLL:
-    """The partition-attention forward kernel's library (kernel 3), built on
-    first call."""
-    lib = _load("partition_attn_fwd")
+def bind_partition_attn_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the C signatures of a build of kernel 3's library."""
     for dt in ("bf16", "f32"):
         getattr(lib, f"imt_partition_attn_fwd_{dt}").argtypes = [_P] * 3 + [_I] * 8 + [_P]
         getattr(lib, f"imt_partition_attn_fwd_{dt}").restype = _I
     return lib
 
 
-@functools.cache
-def partition_attn_bwd_library() -> ctypes.CDLL:
-    """The partition-attention backward kernel's library (kernel 4), built on
-    first call."""
-    lib = _load("partition_attn_bwd")
+def bind_partition_attn_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the C signatures of a build of kernel 4's library."""
     lib.imt_partition_attn_bwd_blocks.argtypes = [_LL, _I]
     lib.imt_partition_attn_bwd_blocks.restype = _I
     for dt in ("bf16", "f32"):
         getattr(lib, f"imt_partition_attn_bwd_{dt}").argtypes = [_P] * 6 + [_I] * 9 + [_P]
         getattr(lib, f"imt_partition_attn_bwd_{dt}").restype = _I
     return lib
+
+
+@functools.cache
+def partition_attn_fwd_library() -> ctypes.CDLL:
+    """The partition-attention forward kernel's library (kernel 3), built on
+    first call."""
+    return bind_partition_attn_fwd(_load("partition_attn_fwd"))
+
+
+@functools.cache
+def partition_attn_bwd_library() -> ctypes.CDLL:
+    """The partition-attention backward kernel's library (kernel 4), built on
+    first call."""
+    return bind_partition_attn_bwd(_load("partition_attn_bwd"))
 
 
 def bind_stripe_attn_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:

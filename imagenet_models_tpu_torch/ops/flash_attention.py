@@ -149,16 +149,6 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {lib.imt_cuda_error_string(err).decode()}")
 
 
-def _launch(entry: Callable[..., int], index: int, *args) -> int:
-    """entry(*args, stream) on the current stream of CUDA device `index`,
-    passed as its raw handle (no torch.cuda.Stream is built), with that
-    device made current where it is not (a context switch only then)."""
-    if index == torch.cuda.current_device():
-        return entry(*args, torch._C._cuda_getCurrentRawStream(index))
-    with torch.cuda.device(index):
-        return entry(*args, torch._C._cuda_getCurrentRawStream(index))
-
-
 @functools.lru_cache(maxsize=None)
 def _window_supported(n: int, d: int) -> int:
     """Kernel 12's own check of a window shape (`imt_window_attn_fwd_supported`),
@@ -187,9 +177,9 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if bw == 0:
         return out
-    err = _launch(lib.imt_window_attn_fwd, dev, pq, pk, pv,
-                  None if bias is None else bias.data_ptr(), out.data_ptr(), bw, n, d,
-                  int(q.dtype == torch.bfloat16))
+    err = _kernels.launch(lib.imt_window_attn_fwd, dev, pq, pk, pv,
+                          None if bias is None else bias.data_ptr(), out.data_ptr(), bw, n, d,
+                          int(q.dtype == torch.bfloat16))
     _raise_on(lib, err, "window_attn_fwd")
     fused_window_attention.launches += 1
     return out
@@ -218,8 +208,8 @@ def fused_window_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     out = torch.empty_like(q)
     if bw == 0 or heads == 0:
         return out
-    err = _launch(lib.imt_window_attn_heads_fwd, dev, pq, pk, pv, bias.data_ptr(),
-                  out.data_ptr(), bw, heads, n, d, int(q.dtype == torch.bfloat16))
+    err = _kernels.launch(lib.imt_window_attn_heads_fwd, dev, pq, pk, pv, bias.data_ptr(),
+                          out.data_ptr(), bw, heads, n, d, int(q.dtype == torch.bfloat16))
     _raise_on(lib, err, "window_attn_heads_fwd")
     fused_window_attention_heads.launches += 1
     return out

@@ -29,16 +29,20 @@ Dispatch rule (as the LN+MLP's): a CPU tensor goes to the forward twin, and
 autograd through it gives the gradient (JAX's CPU path is autodiff of its
 plain twin); a CUDA tensor goes to the kernels, or raises. There is no
 fallback from a kernel to a twin. `use_kernel=False` runs the twin on any
-device, to compare against. The kernels take bf16 maps and, for fp32 models,
-fp32 maps: each has an fp32 instance with no rounding to bf16, as the TPU
-kernels run fp32 operands.
+device, to compare against. The kernels take bf16 maps (kernel 4's products
+on the tensor cores, kernel 3's on the CUDA cores) and, for fp32 models, fp32
+maps: each has an fp32 instance on the CUDA cores with no rounding to bf16,
+as the TPU kernels run fp32 operands.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
+
+from imagenet_models_tpu_torch.ops import _kernels
 
 PART_TYPES = ("block", "grid")
 HEAD_DIM = 32   # the kernels' head width (MaxViT's dim_head)
@@ -130,9 +134,11 @@ def plain_partition_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, g: torc
 
 
 def _check_kernel_operands(name: str, qkv: torch.Tensor, bias: torch.Tensor, part_type: str,
-                           ps, nh: int) -> Tuple[torch.Tensor, Tuple[int, ...]]:
-    """Raises on anything the kernels do not take; returns the bias as a
-    contiguous fp32 tensor and the geometry."""
+                           ps, nh: int) -> Tuple[int, torch.Tensor, Tuple[int, ...]]:
+    """Raises on anything the kernels do not take; returns the map's device
+    index, the bias as a contiguous fp32 tensor and the geometry. Each check
+    reads each attribute once: this runs on every launch, whose device time
+    at MaxViT's stage-2 shapes is of the order of the host's."""
     if not qkv.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors; CPU tensors go to the plain twin")
     if qkv.dtype not in KERNEL_DTYPES:
@@ -145,12 +151,13 @@ def _check_kernel_operands(name: str, qkv: torch.Tensor, bias: torch.Tensor, par
     if c != nh * HEAD_DIM or t > MAX_TOKENS:
         raise ValueError(f"{name} takes heads of width {HEAD_DIM} and windows of at most "
                          f"{MAX_TOKENS} tokens, got C={c} in {nh} heads and T={t}")
-    if bias.shape != (nh, t, t) or bias.device != qkv.device:
+    dev = qkv.get_device()
+    if bias.shape != (nh, t, t) or bias.get_device() != dev:
         raise ValueError(f"{name}: bias must be ({nh}, {t}, {t}) on the qkv's device, got "
                          f"{tuple(bias.shape)} on {bias.device}")
     if qkv.data_ptr() % 16:
         raise ValueError(f"{name} needs a 16-byte aligned qkv map")
-    return bias.float().contiguous(), geo
+    return dev, bias.float().contiguous(), geo
 
 
 def _raise_on(lib, err: int, what: str) -> None:
@@ -167,25 +174,28 @@ def fused_partition_attention(qkv: torch.Tensor, bias: torch.Tensor, part_type: 
     Replaces `_fwd_pallas` (ops/partition_attention.py:286). Raises on
     anything the kernel does not take, CPU tensors included.
     `fused_partition_attention.launches` counts launches."""
-    bias, (b, h, w, c, ph, pw) = _check_kernel_operands("fused_partition_attention", qkv, bias,
-                                                        part_type, ps, nh)
-    from imagenet_models_tpu_torch.ops._kernels import partition_attn_fwd_library
-
-    lib = partition_attn_fwd_library()
+    dev, bias, (b, h, w, c, ph, pw) = _check_kernel_operands("fused_partition_attention", qkv,
+                                                             bias, part_type, ps, nh)
+    lib = _kernels.partition_attn_fwd_library()
     out = torch.empty(b, h, w, c, dtype=qkv.dtype, device=qkv.device)
     if b == 0:
         return out
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        entry = getattr(lib, f"imt_partition_attn_fwd_{KERNEL_DTYPES[qkv.dtype]}")
-        err = entry(qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w, c, nh, ph, pw,
-                    int(part_type == "grid"), stream)
+    entry = getattr(lib, f"imt_partition_attn_fwd_{KERNEL_DTYPES[qkv.dtype]}")
+    err = _kernels.launch(entry, dev, qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w,
+                          c, nh, ph, pw, int(part_type == "grid"))
     _raise_on(lib, err, "partition_attn_fwd")
     fused_partition_attention.launches += 1
     return out
 
 
 fused_partition_attention.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_blocks(windows: int, nh: int) -> int:
+    """Kernel 4's blocks per head (`imt_partition_attn_bwd_blocks`), a
+    function of the shape alone, asked once a shape."""
+    return _kernels.partition_attn_bwd_library().imt_partition_attn_bwd_blocks(windows, nh)
 
 
 def fused_partition_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
@@ -195,34 +205,32 @@ def fused_partition_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, g: torc
     in the map's dtype, dbias fp32 (nh, T, T)) from the bf16 or fp32 map, the
     bias and the cotangent g (B, H, W, C) of the map's dtype.
 
-    Replaces `_bwd_pallas` (ops/partition_attention.py:310). Each block sums
-    its windows' dbias into a partial of its own; a second pass adds the
-    partials in a fixed order, so the result is the same on every run.
-    `fused_partition_attention_bwd.launches` counts calls that launched it."""
-    bias, (b, h, w, c, ph, pw) = _check_kernel_operands("fused_partition_attention_bwd", qkv,
-                                                        bias, part_type, ps, nh)
-    if (g.shape != (b, h, w, c) or g.dtype != qkv.dtype or g.device != qkv.device
+    Replaces `_bwd_pallas` (ops/partition_attention.py:310). In bf16 its
+    products run on the tensor cores (fp32 sums in another order than the
+    twin's). Each block sums its windows' dbias into a partial of its own; a
+    second pass adds the partials in a fixed order, so the result is the
+    same on every run. `fused_partition_attention_bwd.launches` counts calls
+    that launched it."""
+    dev, bias, (b, h, w, c, ph, pw) = _check_kernel_operands("fused_partition_attention_bwd",
+                                                             qkv, bias, part_type, ps, nh)
+    if (g.shape != (b, h, w, c) or g.dtype != qkv.dtype or g.get_device() != dev
             or not g.is_contiguous() or g.data_ptr() % 16):
         raise ValueError(f"fused_partition_attention_bwd: the cotangent must be a contiguous "
                          f"{qkv.dtype} ({b}, {h}, {w}, {c}) map on the qkv's device, got "
                          f"{g.dtype} {tuple(g.shape)}")
-    from imagenet_models_tpu_torch.ops._kernels import partition_attn_bwd_library
-
-    lib = partition_attn_bwd_library()
+    lib = _kernels.partition_attn_bwd_library()
     t = ph * pw
     windows = b * (h // ph) * (w // pw)
     if windows == 0:
         raise ValueError("fused_partition_attention_bwd needs at least one window")
-    blocks = lib.imt_partition_attn_bwd_blocks(windows, nh)
+    blocks = _bwd_blocks(windows, nh)
     dqkv = torch.empty_like(qkv)
     partials = torch.empty(nh * blocks * t * t, dtype=torch.float32, device=qkv.device)
     dbias = torch.empty(nh, t, t, dtype=torch.float32, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        entry = getattr(lib, f"imt_partition_attn_bwd_{KERNEL_DTYPES[qkv.dtype]}")
-        err = entry(qkv.data_ptr(), bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
-                    partials.data_ptr(), dbias.data_ptr(), b, h, w, c, nh, ph, pw,
-                    int(part_type == "grid"), blocks, stream)
+    entry = getattr(lib, f"imt_partition_attn_bwd_{KERNEL_DTYPES[qkv.dtype]}")
+    err = _kernels.launch(entry, dev, qkv.data_ptr(), bias.data_ptr(), g.data_ptr(),
+                          dqkv.data_ptr(), partials.data_ptr(), dbias.data_ptr(), b, h, w, c, nh,
+                          ph, pw, int(part_type == "grid"), blocks)
     _raise_on(lib, err, "partition_attn_bwd")
     fused_partition_attention_bwd.launches += 1
     return dqkv, dbias

@@ -8,8 +8,11 @@ checkouts in turns in one call.
 DIR is the root of a checkout (default: this one); its
 `imagenet_models_tpu_torch` is imported and the model's kernels built into
 its own `_build/`. NAME is map_convnext_tiny (the default; kernels 1 and 2,
-bench.py's recipe, chip_smoke.py's `make_trainer`) or ga_cswin_tiny (kernels
-5 and 6, the GA recipe, `ga_trainer`); with --flash, ga_cswin_tiny with
+bench.py's recipe, chip_smoke.py's `make_trainer`), ga_cswin_tiny (kernels
+5 and 6, the GA recipe, `ga_trainer`) or map_maxvit_tiny_tf_224 (kernels 3
+and 4, which only its train step takes, the maxvit_tiny recipe,
+`maxvit_trainer`: train img/s and the idle share only, since its eval takes
+no kernel of either tree); with --flash, ga_cswin_tiny with
 IMTPU_FLASH_ATTN at "1" (`ops.flash_attention._FLASH_ATTN`, set in the
 checkout's package), so that its 61 LePEAttention calls take kernel 12.
 The measurement is chip_smoke.py's
@@ -40,7 +43,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path, default=HERE)
     ap.add_argument("--model", default="map_convnext_tiny",
-                    choices=("map_convnext_tiny", "ga_cswin_tiny"))
+                    choices=("map_convnext_tiny", "ga_cswin_tiny", "map_maxvit_tiny_tf_224"))
     ap.add_argument("--flash", action="store_true",
                     help='ga_cswin_tiny with IMTPU_FLASH_ATTN at "1" (kernel 12)')
     ap.add_argument("--out", type=Path)
@@ -74,6 +77,10 @@ def main() -> int:
             flash_attention._FLASH_ATTN = "1"
         state, opt, loss_fn = cs.ga_trainer(cs.GA_CSWIN, torch.bfloat16)
         kw = dict(dec_lam=-0.8, ema_decay=cs.GA_EMA)
+    elif args.model == cs.MAXVIT:
+        _kernels.build_all(["partition_attn_fwd", "partition_attn_bwd"])
+        state, opt, loss_fn = cs.maxvit_trainer(torch.bfloat16)
+        kw = dict(dec_lam=-0.8)
     else:
         _kernels.build_all(["ln_mlp_fwd", "ln_mlp_bwd"])
         state, opt, loss_fn = cs.make_trainer()
@@ -81,12 +88,15 @@ def main() -> int:
     plain_state = copy.deepcopy(state)
     kernel = (state, make_train_step(state.model, opt, loss_fn, **kw))
     plain = (plain_state, make_train_step(plain_state.model, opt, loss_fn, use_kernel=False, **kw))
-    eval_img_s, eval_runs = cs.throughput(state.model, card, args.model)
-    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 2)
-    x = torch.randn(cs.BENCH_BATCH, cs.IMG, cs.IMG, 3, generator=gen, device="cuda")
-    with torch.inference_mode():
-        eval_device = cs.device_ms_by_kernel(lambda: state.model(x), calls=3)
-    del x
+    eval_img_s = eval_runs = None
+    eval_device = {}
+    if args.model != cs.MAXVIT:
+        eval_img_s, eval_runs = cs.throughput(state.model, card, args.model)
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 2)
+        x = torch.randn(cs.BENCH_BATCH, cs.IMG, cs.IMG, 3, generator=gen, device="cuda")
+        with torch.inference_mode():
+            eval_device = cs.device_ms_by_kernel(lambda: state.model(x), calls=3)
+        del x
     images, targets = cs.train_batch()
     train_img_s, train_runs = cs.train_throughput(kernel, plain, images, targets, card,
                                                   args.model)
@@ -95,7 +105,7 @@ def main() -> int:
               "eval_img_s": eval_img_s,
               "eval_runs": eval_runs, "train_img_s": train_img_s, "train_runs": train_runs,
               "train_idle_share": profile["idle_share"],
-              "eval_device_ms": sum(eval_device.values()),
+              "eval_device_ms": sum(eval_device.values()) if eval_device else None,
               "eval_device_ms_by_kernel": dict(list(eval_device.items())[:10])}
     line = json.dumps(result)
     print(line, flush=True)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time copies of kernels 9 and 13 on the card beside the built kernels and
 the library calls, in turns, at the shapes of chip_smoke.py's phases 18 and
-21; with a baseline, kernels 1, 2, 5, 6, 9, 12 and 13 of another checkout
-beside this one's.
+21; with a baseline, kernels 1-6, 9, 12 and 13 of another checkout beside
+this one's.
 
     python3 scripts/kernel_variants.py [--baseline DIR] [--kernels K ...] [--out DIR]
 
@@ -38,12 +38,22 @@ step, by CUDA events and by the profiler's device time (and this
 checkout's host time a call, wrapper and C entry), both held to the
 twins, with a line that says whether every bf16 instance's SASS holds
 mma.sync (HMMA), beside a diagnostic copy of kernel 5 without its LePE
-epilogue (wrong outputs; it shows the epilogue's share of the time). `--kernels` picks the sets to time
-(9, 13, 1, 2, 12, 5-6; all by default): kernel 1's comparison needs a
+epilogue (wrong outputs; it shows the epilogue's share of the time);
+kernels 3 and 4 (`csrc/partition_attn_{fwd,bwd}.cu`, whose C interface the
+baseline shares) through this checkout's wrappers at the three B=128 stage
+shapes of map_maxvit_tiny_tf_224's train step, block and grid, beside SDPA
+(its backward for kernel 4), per launch and per train step, by CUDA events
+and by the profiler's device time, with the host time a call of this
+checkout's wrapper, the baseline's (DIR/../ops/partition_attention.py
+around this checkout's library) and the bare C entry, each build held to
+the twins, the fp32 instances' output bits compared (`chip_smoke.k34_digest`)
+and HMMA looked for in every bf16 instance of kernel 4, beside a copy of
+kernel 4 with the bias terms and the dbias sums out of registers at T <= 64.
+`--kernels` picks the sets to time (9, 13, 1, 2, 12, 5-6, 3-4; all by default): kernel 1's comparison needs a
 baseline whose kernel 1 has the one-launch C interface, so a later baseline
 is given with `--kernels 5-6` or the like. Every library is built with nvcc by hand into
 `--out` (one process per source, all started together), with the registers
-and SASS counts of this checkout's kernels 1, 2, 5, 6, 9, 12 and 13
+and SASS counts of this checkout's kernels 1-6, 9, 12 and 13
 (chip_smoke.code_report).
 Needs one NVIDIA GPU.
 """
@@ -77,10 +87,15 @@ DW_VARIANTS = {
 }
 # kernel 5 copies: name -> {text in stripe_attn_fwd.cu: its replacement}
 STRIPE_VARIANTS = {"no LePE epilogue": {"add_lepe<false>(o, Vs, W, D, m0, g, lane);": ""}}
+# kernel 4 copies: {source: {text: its replacement}}; the same function with
+# the bias terms and the dbias sums out of registers at T <= 64: read through
+# L1/L2 a window, summed in the partials buffer
+PARTITION_VARIANTS = {"bias and dbias sums out of registers": {
+    "partition_attn_bwd": {"constexpr bool kRegs = NKB <= 4;": "constexpr bool kRegs = false;"}}}
 DIAGNOSTIC = ("no products", "no global loads", "no step barrier", "no LePE epilogue")
-# the kernels the script times, by the numbers of their TPU kernels; 1, 2, 5,
-# 6 and 12 only beside a baseline
-KERNEL_SETS = ("9", "13", "1", "2", "12", "5-6")
+# the kernels the script times, by the numbers of their TPU kernels; 1, 2,
+# 3, 4, 5, 6 and 12 only beside a baseline
+KERNEL_SETS = ("9", "13", "1", "2", "12", "5-6", "3-4")
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
@@ -577,18 +592,24 @@ def stripe_lib(path, fwd: bool):
     return (_kernels.bind_stripe_attn_fwd if fwd else _kernels.bind_stripe_attn_bwd)(lib)
 
 
-def through(libs, fn):
-    """fn() with the package's kernel 5 and 6 libraries replaced by `libs`
-    (forward, backward), so that it runs the wrappers' own host code."""
+STRIPE_LIBS = ("stripe_attn_fwd", "stripe_attn_bwd")
+PARTITION_LIBS = ("partition_attn_fwd", "partition_attn_bwd")
+
+
+def through(libs, fn, names=STRIPE_LIBS):
+    """fn() with the package's libraries `names` (a forward's and a
+    backward's) replaced by `libs`, so that it runs the wrappers' own host
+    code."""
     from imagenet_models_tpu_torch.ops import _kernels
 
-    keep = _kernels.stripe_attn_fwd_library, _kernels.stripe_attn_bwd_library
-    _kernels.stripe_attn_fwd_library = lambda: libs[0]
-    _kernels.stripe_attn_bwd_library = lambda: libs[1]
+    keep = [getattr(_kernels, f"{n}_library") for n in names]
+    for n, lib in zip(names, libs):
+        setattr(_kernels, f"{n}_library", lambda lib=lib: lib)
     try:
         return fn()
     finally:
-        _kernels.stripe_attn_fwd_library, _kernels.stripe_attn_bwd_library = keep
+        for n, f in zip(names, keep):
+            setattr(_kernels, f"{n}_library", f)
 
 
 def kernels56(arms, card: str) -> dict:
@@ -659,6 +680,144 @@ def kernels56(arms, card: str) -> dict:
     return result
 
 
+def partition_lib(path, fwd: bool):
+    """A build of kernel 3 (fwd) or 4 with this checkout's C interface, which
+    the baseline shares."""
+    from imagenet_models_tpu_torch.ops import _kernels
+
+    lib = ctypes.CDLL(str(path))
+    lib.imt_cuda_error_string.argtypes = [I]
+    lib.imt_cuda_error_string.restype = ctypes.c_char_p
+    return (_kernels.bind_partition_attn_fwd if fwd else _kernels.bind_partition_attn_bwd)(lib)
+
+
+def host_partition(lib, old, which: str, args, part: str) -> dict:
+    """Kernel 3's (fwd) or 4's host time per call (`host_us`), in turns:
+    this checkout's wrapper, the baseline checkout's wrapper (the module
+    `old`, around this checkout's library) and the bare C entry on kept
+    outputs and stream."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import partition_attention as pa
+
+    qkv, bias, g = args
+    b, h, w, c3 = qkv.shape
+    c, nh, (ph, pw), grid = c3 // 3, c3 // 96, cs.PS, int(part == "grid")
+    stream = torch.cuda.current_stream().cuda_stream
+    if which == "fwd":
+        out = torch.empty(b, h, w, c, dtype=qkv.dtype, device=qkv.device)
+        ptrs = (qkv.data_ptr(), bias.data_ptr(), out.data_ptr())
+        fns = {"this checkout, wrapper": lambda: pa.fused_partition_attention(qkv, bias, part,
+                                                                              cs.PS, nh),
+               "baseline, wrapper": lambda: old.fused_partition_attention(qkv, bias, part, cs.PS,
+                                                                          nh),
+               "C entry": lambda: lib.imt_partition_attn_fwd_bf16(*ptrs, b, h, w, c, nh, ph, pw,
+                                                                  grid, stream)}
+    else:
+        blocks = lib.imt_partition_attn_bwd_blocks(b * (h // ph) * (w // pw), nh)
+        dqkv = torch.empty_like(qkv)
+        part_buf = torch.empty(nh * blocks * (ph * pw) ** 2, dtype=torch.float32, device="cuda")
+        dbias = torch.empty_like(bias)
+        ptrs = (qkv.data_ptr(), bias.data_ptr(), g.data_ptr(), dqkv.data_ptr(),
+                part_buf.data_ptr(), dbias.data_ptr())
+        fns = {"this checkout, wrapper": lambda: pa.fused_partition_attention_bwd(
+                   qkv, bias, g, part, cs.PS, nh),
+               "baseline, wrapper": lambda: old.fused_partition_attention_bwd(
+                   qkv, bias, g, part, cs.PS, nh),
+               "C entry": lambda: lib.imt_partition_attn_bwd_bf16(*ptrs, b, h, w, c, nh, ph, pw,
+                                                                  grid, blocks, stream)}
+    if old is None:
+        del fns["baseline, wrapper"]
+    turns = {arm: [] for arm in fns}
+    with torch.inference_mode(which == "fwd"):
+        for arm in tuple(fns) + tuple(fns)[::-1]:
+            turns[arm].append(host_us(fns[arm], 100))
+    return {"us": {arm: sum(v) / 2 for arm, v in turns.items()}, "turns": turns}
+
+
+def kernels34(arms, old, card: str) -> dict:
+    """Kernels 3 and 4 of each arm's build ({arm: (forward, backward)
+    libraries}) in turns with SDPA (its backward for kernel 4) at the three
+    B=128 stage shapes of map_maxvit_tiny_tf_224's train step, block and
+    grid, through this checkout's wrappers; each build held to the twins
+    (chip_smoke.KERNEL_RTOL); per launch by CUDA events and by the
+    profiler's device time, per train step weighted by the path's launches
+    (chip_smoke.MAXVIT_STAGE_LAUNCHES, block and grid averaged as phase 8
+    does); the host time per call at stage 2's block shape
+    (`host_partition`)."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import partition_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 7)
+    result, host = {}, {}
+    for which in ("fwd", "bwd"):
+        stages = []
+        for side, c, nh in cs.MAXVIT_STAGES:
+            args = cs.attn_args(cs.TRAIN_BATCH, side, side, nh, cs.PS, gen)
+            qkv, bias, g = args
+            rows = []
+            for part in ("block", "grid"):
+                if which == "fwd":
+                    def call():
+                        return (pa.fused_partition_attention(qkv, bias, part, cs.PS, nh),)
+                    ref = (pa.plain_partition_attention(qkv, bias, part, cs.PS, nh),)
+                else:
+                    def call():
+                        return pa.fused_partition_attention_bwd(qkv, bias, g, part, cs.PS, nh)
+                    ref = pa.plain_partition_attention_bwd(qkv, bias, g, part, cs.PS, nh)
+                mine = arms["this checkout"][which == "bwd"]  # arms that differ here
+                fns = {arm: (lambda libs=libs: through(libs, call, PARTITION_LIBS))
+                       for arm, libs in arms.items()
+                       if arm == "this checkout" or libs[which == "bwd"] is not mine}
+                library = cs.library_fns(args, part, cs.PS, nh)
+                fns["SDPA"] = library[which]
+                iters = max(5, min(50, 4_000_000 // (cs.TRAIN_BATCH * side * side)))
+                with torch.inference_mode(which == "fwd"):
+                    errs = {arm: [cs.rel_err(o, r) for o, r in zip(fns[arm](), ref)]
+                            for arm in fns if arm != "SDPA"}
+                    if not all(e <= cs.KERNEL_RTOL for v in errs.values() for e in v):
+                        raise AssertionError(f"kernel {3 if which == 'fwd' else 4} at {side}x"
+                                             f"{side} [{part}] disagrees with its twin: {errs}")
+                    del ref
+                    warm_up(fns, 3)
+                    turns = cs.in_turns(fns, iters, order=tuple(fns))
+                    device = {arm: sum(v for k, v in cs.device_ms_by_kernel(
+                        fn, calls=10, per_launch=True).items() if k.startswith("partition_attn"))
+                        for arm, fn in fns.items() if arm != "SDPA"}
+                    device["SDPA"] = sum(cs.device_ms_by_kernel(fns["SDPA"], calls=10).values())
+                    if side == cs.MAXVIT_STAGES[-1][0] and part == "block":
+                        host[which] = host_partition(arms["this checkout"][which == "bwd"], old,
+                                                     which, args, part)
+                ms = {arm: sum(t) / 2 for arm, t in turns.items()}
+                cs.log(f"[kernel {3 if which == 'fwd' else 4}] B={cs.TRAIN_BATCH} {side}x{side} "
+                       f"C={c} [{part}]: " + ", ".join(f"{arm} {v:.4f}" for arm, v in ms.items())
+                       + " ms by CUDA events; device (the profiler) "
+                       + ", ".join(f"{arm} {v:.4f}" for arm, v in device.items())
+                       + f" ms on {card}")
+                rows.append({"part": part, "ms": ms, "device_ms": device, "turns": turns,
+                             "vs_twin": errs})
+                del library
+            stages.append({"side": side, "c": c, "heads": nh, "rows": rows,
+                           "ms": {arm: sum(r["ms"][arm] for r in rows) / 2 for arm in rows[0]["ms"]},
+                           "device_ms": {arm: sum(r["device_ms"][arm] for r in rows) / 2
+                                         for arm in rows[0]["device_ms"]}})
+            del args, qkv, bias, g
+        step = {key: {arm: sum(n * st[key][arm] for n, st in zip(cs.MAXVIT_STAGE_LAUNCHES, stages))
+                      for arm in stages[0][key]} for key in ("ms", "device_ms")}
+        cs.log(f"[kernel {3 if which == 'fwd' else 4}] per {cs.MAXVIT} train step, "
+               f"B={cs.TRAIN_BATCH}: " + ", ".join(f"{arm} {v:.4f}" for arm, v in step["ms"].items())
+               + " ms by CUDA events; device " + ", ".join(
+                   f"{arm} {v:.4f}" for arm, v in step["device_ms"].items()) + f" ms on {card}")
+        cs.log(f"[kernel {3 if which == 'fwd' else 4}] host time per call at stage 2 [block]: "
+               + ", ".join(f"{arm} {v:.1f}" for arm, v in host[which]["us"].items())
+               + f" us on {card}")
+        result[which] = {"stages": stages, "per_step_ms": step["ms"],
+                         "per_step_device_ms": step["device_ms"], "host_us": host[which]}
+    torch.cuda.empty_cache()
+    return result
+
+
 def mma_line(report: dict, tag: str) -> None:
     """Logs whether each tensor-core instance of a stripe kernel holds mma
     (HMMA) instructions in its SASS."""
@@ -689,7 +848,8 @@ def main() -> int:
     if not args.baseline:
         want &= {"9", "13"}
     sources = {"9": ["dw7_wgrad"], "13": ["window_attn_heads_fwd"], "12": ["window_attn_fwd"],
-               "1": ["ln_mlp_fwd"], "2": ["ln_mlp_bwd"], "5-6": ["stripe_attn_fwd", "stripe_attn_bwd"]}
+               "1": ["ln_mlp_fwd"], "2": ["ln_mlp_bwd"], "5-6": ["stripe_attn_fwd", "stripe_attn_bwd"],
+               "3-4": ["partition_attn_fwd", "partition_attn_bwd"]}
     names = [n for key in KERNEL_SETS if key in want for n in sources[key]]
     jobs = [(n, CSRC / f"{n}.cu") for n in names]
     if args.baseline:
@@ -705,6 +865,17 @@ def main() -> int:
             copy = args.out / f"stripe_attn_fwd_copy{i}.cu"
             copy.write_text(text)
             jobs.append((f"stripe_attn_fwd_copy{i}", copy))
+    if "3-4" in want:
+        for i, (name, files) in enumerate(PARTITION_VARIANTS.items()):
+            for src, edits in files.items():
+                text = (CSRC / f"{src}.cu").read_text()
+                for old, new in edits.items():
+                    if old not in text:
+                        raise SystemExit(f"{src} copy {name!r}: {old!r} is not in the source")
+                    text = text.replace(old, new)
+                copy = args.out / f"{src}_copy{i}.cu"
+                copy.write_text(text)
+                jobs.append((f"{src}_copy{i}", copy))
     if "9" in want:
         source = (CSRC / "dw7_wgrad.cu").read_text()
         for i, (name, edits) in enumerate(DW_VARIANTS.items()):
@@ -722,12 +893,12 @@ def main() -> int:
     from imagenet_models_tpu_torch.ops._kernels import Build
 
     for name in ("dw7_wgrad", "window_attn_fwd", "window_attn_heads_fwd", "ln_mlp_fwd",
-                 "ln_mlp_bwd", "stripe_attn_fwd", "stripe_attn_bwd"):
+                 "ln_mlp_bwd", "stripe_attn_fwd", "stripe_attn_bwd", *PARTITION_LIBS):
         if name in built:
             log = (args.out / f"{name}.nvcc.log").read_text()
             report = cs.code_report(Build(built[name], 0.0, log), name)
             (args.out / f"{name}.code.json").write_text(json.dumps(report, indent=1))
-            if name.startswith("stripe") or name == "window_attn_fwd":
+            if name.startswith("stripe") or name in ("window_attn_fwd", "partition_attn_bwd"):
                 mma_line(report, name)
     result = {"card": card}
     if "9" in want:
@@ -771,6 +942,25 @@ def main() -> int:
                 arms[name] = (stripe_lib(built[f"stripe_attn_fwd_copy{i}"], True),
                               arms["this checkout"][1])
         result["kernels 5 and 6"] = kernels56(arms, card)
+    if "3-4" in want:
+        arms = {arm: (partition_lib(built[f"{pre}partition_attn_fwd"], True),
+                      partition_lib(built[f"{pre}partition_attn_bwd"], False))
+                for arm, pre in (("this checkout", ""), ("baseline", "baseline_"))}
+        for i, name in enumerate(PARTITION_VARIANTS):  # kernel 4 copies, this kernel 3
+            if f"partition_attn_bwd_copy{i}" in built:
+                arms[name] = (arms["this checkout"][0],
+                              partition_lib(built[f"partition_attn_bwd_copy{i}"], False))
+        from imagenet_models_tpu_torch.ops import partition_attention as pa
+
+        digests = {arm: through(arms[arm], lambda: cs.k34_digest(pa.fused_partition_attention,
+                                                                 pa.fused_partition_attention_bwd),
+                                PARTITION_LIBS) for arm in ("this checkout", "baseline")}
+        cs.log(f"[kernels 3-4] fp32 output digests: {digests}; the same bits: "
+               f"{len(set(digests.values())) == 1}")
+        result["kernels 3 and 4 fp32 digests"] = digests
+        old = load_module(args.baseline.parent / "ops" / "partition_attention.py",
+                          "baseline_partition_attention")
+        result["kernels 3 and 4"] = kernels34(arms, old, card)
     (args.out / "kernel_variants.json").write_text(json.dumps(result, indent=1))
     return 0
 
