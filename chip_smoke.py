@@ -179,10 +179,13 @@ blocks on the JAX package's fused-branch entry `convnext_branch_apply`
    backward): against their twins in bf16 and fp32 at the four B=128 stage
    shapes of map_convnext_tiny, ga_convnext_tiny's gram-layer shape, an odd
    batch, a non-square map and C = 688, every output, each bit-equal between
-   two runs; times per launch in turns at the path's bf16 shapes beside the
-   bound, the twin and the block route that does the same work today
-   (cuDNN's depthwise conv and kernel 1; kernel 2 and cuDNN's depthwise data
-   and weight gradients), and their sums per forward and per step; then
+   two runs; their fp32 bits against the first design's build's (a digest,
+   K1011_FP32_DIGEST); their code report (wgmma and TMA loads in the bf16
+   GEMM stages, no mma instruction in a bf16 instance); times per launch in
+   turns at the path's bf16 shapes beside the bound, the twin and the block
+   route that does the same work today (cuDNN's depthwise conv and kernel 1;
+   kernel 2 and cuDNN's depthwise data and weight gradients), each stage of
+   their bf16 pipelines alone, and their sums per forward and per step; then
    map_convnext_tiny with the name its blocks call bound to
    `convnext_branch_apply` for the phase (`branch_route`; the block route is
    restored afterwards): serving with 18 launches of kernel 10 per request,
@@ -310,12 +313,13 @@ CSWIN_ZERO_GRAD = ("gram_contraction.0.bias", "gram_embedding.0.bias", "qkv.bias
 # stage 1 (one block, so one leaf per group) runs no stripe kernel: the
 # paths' gradients there differ only by what the stage-3 kernels' bf16
 # roundings send down, and each group is just 1.8-2.0% from fp32, so its
-# kernel / plain distance ratio wanders with the library kernels'
-# nondeterminism. Its worst group read 1.209 (norm1.bias), 1.264
+# kernel / plain distance ratio is as much the draw of those roundings as
+# the kernels' accuracy. Its worst group read 1.209 (norm1.bias), 1.264
 # (attns.0.get_v.bias: 0.02268 / 0.01794), 1.197 (norm1.bias) and 1.149
-# (proj.bias) in four calls of the same code (H100 80GB HBM3, 700 W); the
-# other stages' groups at most 1.16 in the three calls that kept every
-# group. Held by TRAIN_GRAD_RTOL alone.
+# (proj.bias) in four calls of the same code (H100 80GB HBM3, 700 W), while
+# the resamples' backward still added by atomics; since they do not, the
+# bf16 steps are bit-equal between runs and stage 1 reads 1.239 (stripe
+# route) and 1.089 (flash route). Held by TRAIN_GRAD_RTOL alone.
 CSWIN_NOISY_STAGES = ("1",)
 # bf16 serving logits against an fp32 model with the same weights, as MaxViT's
 CSWIN_FP32_RTOL = 0.25
@@ -477,6 +481,11 @@ BRANCH_EXTRA = (("gram", 128, 14, 14, 192), ("odd batch", 3, 14, 14, 384),
 # twin with TF32 on, which compare_branch also reads) 5.2e-4 to 6.9e-4, so
 # the limit tells a kernel that drops the 3xTF32 lo terms from one that keeps them
 BRANCH_FP32_RTOL = 2.5e-4
+# kernels 10 and 11's fp32 instances (the first design's 3xTF32 wmma kernels) keep
+# their bits: the SHA-256 of their fp32 outputs at `k1011_digest`'s fixed
+# inputs from that design's build (its bf16 instances on wmma too), on an
+# NVIDIA H100 80GB HBM3 with the CUDA 12.8 toolkit and PyTorch 2.11.0+cu128
+K1011_FP32_DIGEST = "5257499a508907901764ee9bdbb173054ff288dd92044a692fdebe1a3601bac0"
 # bf16 serving logits on the branch route against an fp32 model with the same
 # weights on it, as the GA models' (CSWIN_FP32_RTOL)
 BRANCH_FP32_LOGITS_RTOL = 0.25
@@ -1329,6 +1338,33 @@ def k34_digest(fwd, bwd) -> str:
             torch.cuda.synchronize()
             for o in outs:
                 digest.update(o.contiguous().view(torch.int32).cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def k1011_digest(fwd, bwd) -> str:
+    """The SHA-256 of kernels 10 and 11's fp32 outputs (out and the ten
+    gradients: their bits) at fixed inputs made with numpy: a (2, 14, 14, 96)
+    map, an odd batch on a non-square one (3, 9, 12, 64) and (1, 7, 7, 688),
+    a ragged channel width, each with hidden 4C. `fwd(x, params)` and
+    `bwd(x, g, params)` launch a build of each."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    digest = hashlib.sha256()
+    rng = np.random.default_rng(1011)
+    draw = lambda *shape, s=1.0: torch.from_numpy(
+        (rng.standard_normal(shape) * s).astype(np.float32)).cuda()
+    for b, h, w, c in ((2, 14, 14, 96), (3, 9, 12, 64), (1, 7, 7, 688)):
+        x, g = draw(b, h, w, c), draw(b, h, w, c)
+        params = [draw(c, 1, 7, 7, s=0.1), draw(c, s=0.1), 1.0 + draw(c, s=0.1), draw(c, s=0.1),
+                  draw(4 * c, c, s=c ** -0.5), draw(4 * c, s=0.1), draw(c, 4 * c, s=(4 * c) ** -0.5),
+                  draw(c, s=0.1), draw(c)]
+        outs = (fwd(x, params), *bwd(x, g, params))
+        torch.cuda.synchronize()
+        for o in outs:
+            digest.update(o.contiguous().view(torch.int32).cpu().numpy().tobytes())
     return digest.hexdigest()
 
 
@@ -3429,18 +3465,14 @@ def compare_branch(x, g, params, tag: str) -> dict:
             "max_abs_err": {"fwd": errs["out"], "bwd": max(errs[k] for k in cbr.GRAD_NAMES)}}
 
 
-def branch_times(x, g, params, count: int, card: str, tag: str) -> tuple:
-    """Per-launch times of kernels 10 and 11 at one bf16 path shape in turns
-    (twin, kernel, block route, block route, kernel, twin), beside the bound.
-    The block route does the same work as the calls the default ConvNeXt
-    block makes today: forward, cuDNN's depthwise conv (`dw_conv7`) and
-    kernel 1 with the exact GELU; backward, kernel 2 (exact GELU) on the
-    saved conv output and cuDNN's depthwise data and weight gradients
-    (`aten.convolution_backward`). No single PyTorch call computes the branch,
-    so there is no library time."""
+def block_route_fns(x, g, params):
+    """The block route's forward and backward on the branch's inputs: the
+    same work as the calls the default ConvNeXt block makes today. Forward,
+    cuDNN's depthwise conv (`dw_conv7`) and kernel 1 with the exact GELU;
+    backward, kernel 2 (exact GELU) on the saved conv output and cuDNN's
+    depthwise data and weight gradients (`aten.convolution_backward`)."""
     import torch
 
-    from imagenet_models_tpu_torch.ops import convnext_branch as cbr
     from imagenet_models_tpu_torch.ops.convnext_block import fused_ln_mlp, fused_ln_mlp_bwd
     from imagenet_models_tpu_torch.ops.dw_conv import dw_conv7
 
@@ -3449,7 +3481,7 @@ def branch_times(x, g, params, count: int, card: str, tag: str) -> tuple:
     dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma = params
     mlp = (ln_s, ln_b, w1, b1, w2, b2, gamma)
     xn, weight = x.permute(0, 3, 1, 2), dw_w.to(x.dtype)
-    hmap = dw_conv7(x, dw_w, dw_b).contiguous().reshape(n, c)  # the block route's saved conv output
+    hmap = dw_conv7(x, dw_w, dw_b).contiguous().reshape(n, c)  # the saved conv output
     g2 = g.reshape(n, c)
 
     def block_fwd():
@@ -3461,6 +3493,21 @@ def branch_times(x, g, params, count: int, card: str, tag: str) -> tuple:
             dh.reshape(b, h, w, c).permute(0, 3, 1, 2), xn, weight, [c], [1, 1], [3, 3], [1, 1],
             False, [0, 0], c, [True, True, True])
 
+    return block_fwd, block_bwd
+
+
+def branch_times(x, g, params, count: int, card: str, tag: str) -> tuple:
+    """Per-launch times of kernels 10 and 11 at one bf16 path shape in turns
+    (twin, kernel, block route, block route, kernel, twin), beside the bound
+    and the block route (`block_route_fns`). No single PyTorch call computes
+    the branch, so there is no library time."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import convnext_branch as cbr
+
+    b, h, w, c = x.shape
+    n = b * h * w
+    block_fwd, block_bwd = block_route_fns(x, g, params)
     order = ("plain", "kernel", "block")
     rows = []
     with torch.inference_mode():
@@ -3472,19 +3519,26 @@ def branch_times(x, g, params, count: int, card: str, tag: str) -> tuple:
                          "kernel": lambda: cbr.fused_convnext_branch_bwd(x, g, *params),
                          "block": block_bwd}, max(3, min(10, 2_000_000 // n)))):
             t = in_turns(fns, iters, order=order)
+            # each stage of the kernel's bf16 pipeline alone
+            run, names = ((cbr.convnext_branch_fwd_pipeline(x, *params), cbr.FWD_STAGES)
+                          if what == "fwd" else
+                          (cbr.convnext_branch_bwd_pipeline(x, g, *params), cbr.BWD_STAGES))
+            stages = {st: cuda_ms(lambda s=s: run(s, s + 1), iters) for s, st in enumerate(names)}
             bound, by = branch_bound_ms(b, h, w, c, what == "bwd")
             row = {"tag": tag, "shape": [b, h, w, c], "count": count, "ms": sum(t["kernel"]) / 2,
                    "plain_ms": sum(t["plain"]) / 2, "block_ms": sum(t["block"]) / 2,
-                   "library_ms": None, "bound_ms": bound, "bound_by": by, "turns": t}
+                   "library_ms": None, "bound_ms": bound, "bound_by": by, "stages_ms": stages,
+                   "turns": t}
             rows.append(row)
             log(f"[branch] kernel {10 if what == 'fwd' else 11} {tag} {(b, h, w, c)} bf16 "
                 f"(x{count} per {'forward' if what == 'fwd' else 'step'}): kernel "
                 f"{row['ms']:.4f} ms, twin {row['plain_ms']:.4f} ms, block route "
-                f"{row['block_ms']:.4f} ms, bound {bound:.4f} ms ({by}) (turns twin,kernel,block,"
+                f"{row['block_ms']:.4f} ms, bound {bound:.4f} ms ({by})"
+                + "; stages alone " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+                + " (turns twin,kernel,block,"
                 f"block,kernel,twin: " + ",".join(f"{v:.4f}" for v in (
                     t["plain"][0], t["kernel"][0], t["block"][0], t["block"][1], t["kernel"][1],
                     t["plain"][1])) + f") on {card}")
-    del hmap, g2
     return rows[0], rows[1]
 
 
@@ -3523,12 +3577,20 @@ def device_ms_by_kernel(fn, calls: int = 3, want: str = "", per_launch: bool = F
 def check_branch(card: str):
     """Phase 25 (a) and (b): kernels 10 and 11 against their twins in bf16 and
     fp32 at the four B=128 stage shapes of map_convnext_tiny and at
-    BRANCH_EXTRA, bit-equal between runs; per-launch times at the path's bf16
-    shapes beside the bound, the twin and the block route, and their sums per
+    BRANCH_EXTRA, bit-equal between runs; their fp32 bits (`k1011_digest`)
+    against K1011_FP32_DIGEST; per-launch times at the path's bf16 shapes
+    beside the bound, the twin and the block route, and their sums per
     forward (18 launches of kernel 10) and per train step (18 of each)."""
     import torch
 
     from imagenet_models_tpu_torch.ops import convnext_branch as cbr
+
+    digest = k1011_digest(lambda x, p: cbr.fused_convnext_branch(x, *p),
+                          lambda x, g, p: cbr.fused_convnext_branch_bwd(x, g, *p))
+    log(f"[branch] kernels 10 and 11's fp32 bits at k1011_digest's inputs: {digest}; the first "
+        f"design's build: {K1011_FP32_DIGEST}")
+    if digest != K1011_FP32_DIGEST:
+        raise AssertionError("the fp32 instances of kernels 10 and 11 moved from their bits")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 25)
     rows, times = [], {"fwd": [], "bwd": []}
@@ -3560,7 +3622,38 @@ def check_branch(card: str):
     for what, t in totals.items():
         log(f"[branch] per map_convnext_tiny {what} at B={TRAIN_BATCH} (ms, weighted by "
             f"launches): " + ", ".join(f"{k} {v:.3f}" for k, v in t.items()) + f" on {card}")
+    totals["fp32_digest"] = digest
     return rows, times, totals
+
+
+def check_branch_code(builds) -> dict:
+    """Kernels 10 and 11's code reports, where cuobjdump could read them:
+    their bf16 GEMM stages (kernels 1 and 2's GEMM kernels, compiled into
+    these libraries) must hold wgmma (HGMMA) and TMA loads (UTMALDG), and no
+    function of a bf16 instance may hold an mma (HMMA) instruction: the first design's
+    wmma products of bf16 operands are gone. The fp32 instances keep their
+    3xTF32 wmma products (HMMA), counted apart."""
+    codes = {name: code_report(builds[name], name)
+             for name in ("convnext_branch_fwd", "convnext_branch_bwd")}
+    summary = {}
+    for name, code in codes.items():
+        sass = code["sass"]
+        if not sass:
+            continue
+        gemms = {k: (v.get("HGMMA", 0), v.get("UTMALDG", 0)) for k, v in sass.items()
+                 if "_gemm_kernel" in k}
+        bf16_mma = {k: v["HMMA"] for k, v in sass.items() if "bfloat16" in k and v.get("HMMA")}
+        fp32_mma = sum(v.get("HMMA", 0) for k, v in sass.items() if "bfloat16" not in k)
+        log(f"[code] {name}: (HGMMA, UTMALDG) in its {len(gemms)} bf16 GEMM stages: "
+            + ", ".join(f"{a}/{b}" for a, b in gemms.values())
+            + f"; HMMA in bf16 instances: {sum(bf16_mma.values())}; HMMA (3xTF32) in the fp32 "
+            f"instances: {fp32_mma}")
+        if not gemms or not all(a and b for a, b in gemms.values()) or bf16_mma:
+            raise AssertionError(f"{name}: a bf16 GEMM stage without wgmma or TMA loads, or an "
+                                 f"mma instruction in a bf16 instance: {gemms}, {bf16_mma}")
+        summary[name] = {"gemm_hgmma_utmaldg": gemms, "bf16_hmma": bf16_mma,
+                         "fp32_hmma": fp32_mma}
+    return {"codes": codes, "summary": summary}
 
 
 def branch_route():
@@ -4135,6 +4228,7 @@ def main() -> int:
     # the fused ConvNeXt branch: kernels 10 and 11 on map_convnext_tiny's 18
     # blocks through convnext_branch_apply, phase 25
     branch_rows, branch_times_b128, branch_totals = check_branch(card)
+    branch_code = check_branch_code(builds)
     branch = branch_path(card)
 
     # phase 26: fp32 models of the families of kernels 1-6 under the default dispatch
@@ -4265,7 +4359,8 @@ def main() -> int:
                   "ga_cswin": cs_flash, **flash_extra},
         "tlnmlp": tlnmlp,
         "convnext_branch": {"checks": branch_rows, "times_b128": branch_times_b128,
-                            "per_forward_and_step_ms": branch_totals, **branch},
+                            "per_forward_and_step_ms": branch_totals,
+                            "code": branch_code["summary"], **branch},
         "fp32_dispatch": fp32,
         "kernels": kernels}, indent=2))
     print(json.dumps({"kernels": kernels}))

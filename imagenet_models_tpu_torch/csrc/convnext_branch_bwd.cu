@@ -12,13 +12,39 @@
 // LayerNorm statistics in fp32); the tokens, the GELU output hmid, dpre2 =
 // g * gamma and dpre1 = (dpre2 W2) * gelu'(pre1) are rounded to x's type as
 // the products' operands, where the TPU kernel casts them; every product sums
-// in fp32 (bf16 wmma, or fp32 as 3xTF32); pre2 = hmid W2^T + b2 is formed for
-// dgamma = sum g * pre2; gelu' is the derivative of the exact GELU with the
-// A&S erf; the LayerNorm backward gives dh in fp32; dx is the correlation of
-// dh with the flipped taps, in fp32, cast once; the tap gradient is the fp32
-// sum of fp32 products x * dh, and the bias gradient the sum of dh.
+// in fp32 (bf16 on wgmma, or fp32 as 3xTF32); gelu' is the derivative of the
+// exact GELU with the A&S erf; the LayerNorm backward gives dh in fp32; dx
+// is the correlation of dh with the flipped taps, in fp32, cast once; the
+// tap gradient is the fp32 sum of fp32 products x * dh, and the bias
+// gradient the sum of dh.
 //
-// Why it is not the TPU kernel. The TPU kernel adds every grid step's
+// bf16: kernel 2's pipeline (csrc/ln_mlp_bwd.cu) with the conv in front and
+// behind, over one workspace:
+//  (i')  ring::conv_ln_kernel<true> (convnext_branch_ring.cuh): the conv
+//        recomputed from a ring of x rows in shared memory, LayerNorm, and
+//        tok, x-hat (fp32), rstd, dpre2 = bf16(g * gamma) and the blocks'
+//        partial sums of db2 and of dgamma's b2 * sum g;
+//  (ii)-(iv) kernel 2's GEMM stages (ln_mlp_bwd_stages.cuh, shared, not
+//        copied) with the A&S GELU and its derivative: hmid and dpre1, dln
+//        and the LayerNorm backward, which ends in dh in fp32 over x-hat
+//        (the twin feeds the fp32 dh to the conv's backward), and dW1 and G
+//        = g^T hmid, with dW2 = gamma * G and dgamma = sum_j W2 * G + b2 *
+//        sum g: five products, pre2 is never formed. So dW2 differs from the
+//        twin's dpre2_c^T hmid_c by the one rounding of g * gamma, as kernel
+//        2's does;
+//  (v)   ring::conv_bwd_kernel: x (bf16) and dh (fp32) read once through a
+//        ring, dx = bf16(the correlation of dh with the flipped taps), and
+//        the blocks' partials of the 49 tap sums and of ddw_b = sum dh,
+//        added in a fixed order (conv_bwd_finish_kernel).
+// dh in fp32 is N C 4 bytes, written once by (iii) and read once by (v).
+// What remains over the bound is kernel 2's (hmid and dpre1 written once
+// and read three times, the GELU epilogue), the conv's three sets of 49
+// fp32 multiply-adds per element (recomputed h, dx, taps) on the CUDA
+// cores, and x-hat and dh's fp32 traffic.
+//
+// fp32: the first design's kernels, below, bit for bit.
+//
+// Why the fp32 path is not the TPU kernel. The TPU kernel adds every grid step's
 // gradients into output blocks that stay resident, relying on steps that run
 // in order. Hopper's blocks run in parallel in no order, and a block's 227 KB
 // of shared memory holds neither W1 + W2 nor an fp32 dW partial. So the work
@@ -54,6 +80,8 @@
 // later design removes.
 
 #include "convnext_branch_common.cuh"
+#include "convnext_branch_ring.cuh"
+#include "ln_mlp_bwd_stages.cuh"
 #include "wgrad_common.cuh"
 
 namespace {
@@ -354,11 +382,8 @@ branch_bwd_tile_kernel(const E* __restrict__ x, const E* __restrict__ g,
   }
 }
 
-// Tokens per tile of (a), by type and width (the launch checks its T).
-int tile_tokens(int dtype, int C) {
-  if (dtype == kF32) return 16;
-  return C <= 256 ? 64 : C <= 512 ? 32 : 16;
-}
+// Tokens per tile of (a) (the launch checks its T).
+constexpr int kTileTokens = 16;
 
 struct TileArgs {
   const void *x, *g, *taps, *dwb, *ln_s, *ln_b, *w1, *b1, *w2, *b2, *gamma;
@@ -371,10 +396,10 @@ struct TileArgs {
 };
 
 template <typename E, int T, int HC, int MT1, int NT1, int MT2, int NT2, int Q>
-cudaError_t launch_tile(const TileArgs& a, int dtype, bool check) {
+cudaError_t launch_tile(const TileArgs& a, bool check) {
   constexpr int KS = Grid1<T, HC, MT1, NT1>::KS;
   constexpr int WN2 = kWarps / (T / 16 / MT2);
-  if (T != tile_tokens(dtype, a.C) || (a.C / 16 + WN2 - 1) / WN2 > NT2 || a.hidden % HC ||
+  if (T != kTileTokens || (a.C / 16 + WN2 - 1) / WN2 > NT2 || a.hidden % HC ||
       units_per_lane(a.C) > Q)
     return cudaErrorInvalidValue;
   const BwdLayout L = make_bwd_layout<E>(a.C, T, HC, KS);
@@ -400,15 +425,9 @@ cudaError_t launch_tile(const TileArgs& a, int dtype, bool check) {
 }
 
 // <type, T, HC, (T x HC) tile MT1 x NT1, (T x C) tile MT2 x NT2, units per
-// lane Q>: bf16 takes kernel 2's tiles by width; fp32 one small tile at
-// every width.
-cudaError_t dispatch_tile(int dtype, const TileArgs& a, bool check) {
-  if (dtype == kF32) return launch_tile<float, 16, 16, 1, 1, 1, 8, 8>(a, dtype, check);
-  if (a.C <= 128) return launch_tile<bf16, 64, 64, 1, 2, 1, 4, 1>(a, dtype, check);
-  if (a.C <= 256) return launch_tile<bf16, 64, 64, 1, 2, 1, 8, 2>(a, dtype, check);
-  if (a.C <= 512) return launch_tile<bf16, 32, 32, 1, 1, 1, 8, 4>(a, dtype, check);
-  if (a.C <= 768) return launch_tile<bf16, 16, 32, 1, 1, 1, 6, 6>(a, dtype, check);
-  return launch_tile<bf16, 16, 16, 1, 1, 1, 8, 8>(a, dtype, check);
+// lane Q>: fp32 one small tile at every width. (bf16 runs run_bf16.)
+cudaError_t dispatch_tile(const TileArgs& a, bool check) {
+  return launch_tile<float, 16, 16, 1, 1, 1, 8, 8>(a, check);
 }
 
 // ---------------------------------------------------------------- half (b)
@@ -580,15 +599,10 @@ constexpr int kMaxSlices = 65535;   // gridDim.z
 template <typename E>
 struct Pair;
 template <>
-struct Pair<bf16> {
-  using type = __nv_bfloat162;
-};
-template <>
 struct Pair<float> {
   using type = float2;
 };
 
-__device__ __forceinline__ float2 widen(__nv_bfloat162 p) { return __bfloat1622float2(p); }
 __device__ __forceinline__ float2 widen(float2 p) { return p; }
 
 struct Plan {
@@ -821,7 +835,7 @@ cudaError_t run(const void* x, const float* dh, int B, int H, int W, int C, floa
 
 // ---------------------------------------------------------------- the plan
 
-// The workspace: (a)'s scratch (tok, dpre2 (n, C) and hmid, dpre1 (n,
+// The fp32 workspace: (a)'s scratch (tok, dpre2 (n, C) and hmid, dpre1 (n,
 // hidden) in x's type; dh (n, C) fp32), its blocks' partial rows and their
 // first column-sum pass, the slice partials of dW1 and dW2 (when a product
 // has more than one slice), and the tap gradient's partials.
@@ -832,11 +846,11 @@ struct Work {
   size_t tok, dpre2, hmid, dpre1, dh, rows, scratch, part1, part2, taps, total;
 };
 
-Work plan(int dtype, int B, int H, int W, int C, int hidden) {
+Work plan_f32(int B, int H, int W, int C, int hidden) {
   Work w;
-  const size_t es = dtype == kBF16 ? 2 : 4;
+  const size_t es = sizeof(float);
   w.n = static_cast<long long>(B) * H * W;
-  w.blocks = (w.n + tile_tokens(dtype, C) - 1) / tile_tokens(dtype, C);
+  w.blocks = (w.n + kTileTokens - 1) / kTileTokens;
   w.row = hidden + 5LL * C;
   w.s1 = plan_slices(w.n, hidden, C);
   w.s2 = plan_slices(w.n, C, hidden);
@@ -862,18 +876,19 @@ bool shape_ok(int dtype, int B, int H, int W, int C, int hidden) {
   if ((dtype != kBF16 && dtype != kF32) || B <= 0 || H <= 0 || W <= 0) return false;
   if (C <= 0 || C % 16 || C > 1024 || hidden <= 0 || hidden % 64) return false;
   const long long n = static_cast<long long>(B) * H * W;
-  const long long blocks = (n + tile_tokens(dtype, C) - 1) / tile_tokens(dtype, C);
+  const long long blocks = (n + kTileTokens - 1) / kTileTokens;
   // grid limits: (a)'s and (c)'s blocks, (a)'s rows in one two-pass column sum,
   // the tap kernel's column tiles
   return static_cast<long long>(B) * H <= (1LL << 31) - 1 && (n + kWarps - 1) / kWarps <= 0x7fffffffLL &&
          (blocks + kChunk - 1) / kChunk <= 65535 && (W + tapgrad::TW - 1) / tapgrad::TW <= 65535;
 }
 
+// fp32: (a), (b) and (c) above.
 template <typename E>
-cudaError_t run_all(const TileArgs& a, int dtype, const Work& w, char* ws, int B, void* dx, void* ddw,
+cudaError_t run_all(const TileArgs& a, const Work& w, char* ws, int B, void* dx, void* ddw,
                     void* dw1, void* dw2, void* vecs) {
   cudaStream_t st = a.stream;
-  cudaError_t e = dispatch_tile(dtype, a, false);  // (a)
+  cudaError_t e = dispatch_tile(a, false);  // (a)
   if (e != cudaSuccess) return e;
   const E* tok = reinterpret_cast<const E*>(ws + w.tok);
   const E* dpre2 = reinterpret_cast<const E*>(ws + w.dpre2);
@@ -898,48 +913,397 @@ cudaError_t run_all(const TileArgs& a, int dtype, const Work& w, char* ws, int B
                          static_cast<float*>(ddw), st);
 }
 
+// ---------------------------------------------------------------- bf16 (v)
+
+}  // namespace
+
+namespace imt {
+namespace ring {
+
+// Kernel 11's last bf16 stage, on convnext_branch_ring.cuh's walk: from x
+// (bf16) and dh (fp32), dx = bf16(the fp32 correlation of dh with the
+// flipped taps, in the twin's tap order), and the block's partial sums of
+// the 49 tap gradients sum x * dh (fp32 products, not kernel 9's
+// bf16-rounded ones) and of ddw_b = sum dh; conv_bwd_finish_kernel adds the
+// blocks' partials in a fixed order.
+
+// Shared memory of conv_bwd_kernel: the x ring (8 x rw x ct bf16) and the
+// dh ring (8 x rw x ct fp32); the tap threads' partial sums (groups x 50 x
+// ct fp32) reuse them at the end.
+inline size_t bwd_smem(const Plan& p) {
+  const size_t rings = static_cast<size_t>(8) * p.rw * p.ct * 6;
+  const size_t red = static_cast<size_t>(p.groups) * kGradRows * p.ct * 4;
+  return rings > red ? rings : red;
+}
+
+// conv_bwd_kernel's plan: a channel tile of ct (a multiple of 16, the last
+// tile ragged) and a strip of kJ-column groups such that each role's items
+// (ct / 2 pairs x groups) fit its kRoleThreads; of those whose rings fit,
+// the one that keeps the most threads busy on useful columns and channels.
+inline Plan plan_bwd(int B, int H, int W, int C, int sms) {
+  Plan best = {};
+  double best_score = -1.0;
+  for (int ct = 2 * kRoleThreads; ct >= 16; ct -= 16) {
+    if (ct > C) continue;
+    Plan p = {};
+    p.B = B;
+    p.H = H;
+    p.W = W;
+    p.C = C;
+    p.ct = ct;
+    p.ctiles = (C + ct - 1) / ct;
+    const int pairs = ct / 2;
+    int groups = kRoleThreads / pairs;
+    if (groups < 1) continue;
+    const int need = (W + kJ - 1) / kJ;
+    p.groups = groups < need ? groups : need;
+    p.sw = p.groups * kJ < W ? p.groups * kJ : W;
+    p.rw = p.groups * kJ + 2 * kR;
+    p.slots = 8;
+    p.smem = bwd_smem(p);
+    if (p.smem > kRingBudget) continue;
+    const double score = static_cast<double>(pairs * p.groups) / kRoleThreads *
+                         p.sw / (p.groups * kJ + 2 * kR) * C / (static_cast<double>(p.ctiles) * ct);
+    if (score > best_score) {
+      best_score = score;
+      best = p;
+    }
+  }
+  best.strips = (W + best.sw - 1) / best.sw;
+  plan_slices(best, sms);
+  return best;
+}
+
+// ------------------------------------------------------------ conv backward
+
+// One block per (image, channel tile, strip, row slice) of plan_bwd; see
+// the top of this file. Threads [0, kRoleThreads) write dx, the others sum
+// the tap gradients; the block's 49 tap sums and its sum of dh leave as its
+// slab of `partials` (slabs x 50 x C fp32, rows 0-48 the taps, row 49 dh).
+__global__ void __launch_bounds__(kRingThreads, 1)
+conv_bwd_kernel(const Plan p, const bf16* __restrict__ x, const float* __restrict__ dh,
+                const float* __restrict__ taps, bf16* __restrict__ dx,
+                float* __restrict__ partials) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* xring = reinterpret_cast<bf16*>(smem);
+  float* dring = reinterpret_cast<float*>(smem + static_cast<size_t>(8) * p.rw * p.ct * 2);
+  const Block k = block_of(p, blockIdx.x);
+  const int tid = threadIdx.x;
+  const bool tap_role = tid >= kRoleThreads;
+  const int rt = tap_role ? tid - kRoleThreads : tid;  // the thread's place in its role
+  const int P = p.ct / 2, ct = p.ct, C = p.C;
+  const int pr = rt % P, xl = (rt / P) * kJ, c = 2 * pr;
+  const bool active = rt < P * p.groups && k.c0 + c < C;
+
+  for (int r = k.y0 - kR; r <= k.y0 + kR; ++r) {
+    issue_row(xring, p, k, x, r, slot_of(r, 8), tid);
+    issue_row(dring, p, k, dh, r, slot_of(r, 8), tid);
+  }
+  cp_commit();
+
+  // dx threads: the pair's taps; tap threads: its 49 running sums
+  float2 w[kTaps];
+  if (tap_role || !active) {
+#pragma unroll
+    for (int t = 0; t < kTaps; ++t) w[t] = make_float2(0.f, 0.f);
+  } else {
+    load_taps(w, taps, C, k.c0 + c);
+  }
+  float2 sdh = make_float2(0.f, 0.f);
+
+  for (int y = k.y0; y < k.y1; ++y) {
+    if (y + kR + 1 < k.y1 + kR) {
+      issue_row(xring, p, k, x, y + kR + 1, slot_of(y + kR + 1, 8), tid);
+      issue_row(dring, p, k, dh, y + kR + 1, slot_of(y + kR + 1, 8), tid);
+    }
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+
+    if (active && !tap_role) {
+      // dx[y][x] = sum over (ky, kx) in row-major order of dh[y + 3 - ky][x + 3 - kx] * w[ky][kx]
+      float2 acc[kJ];
+#pragma unroll
+      for (int i = 0; i < kJ; ++i) acc[i] = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int ky = 0; ky < kK; ++ky) {
+        const float2* row = reinterpret_cast<const float2*>(
+            dring + static_cast<size_t>(slot_of(y + kR - ky, 8)) * p.rw * ct);
+        float2 win[kWin];
+#pragma unroll
+        for (int m = 0; m < kWin; ++m) win[m] = row[(xl + m) * P + pr];
+#pragma unroll
+        for (int kx = 0; kx < kK; ++kx) {
+          const float2 wt = w[ky * kK + kx];
+#pragma unroll
+          for (int i = 0; i < kJ; ++i) {
+            acc[i].x = fmaf(win[i + 2 * kR - kx].x, wt.x, acc[i].x);
+            acc[i].y = fmaf(win[i + 2 * kR - kx].y, wt.y, acc[i].y);
+          }
+        }
+      }
+      const long long o = ((static_cast<long long>(k.b) * p.H + y) * p.W + k.xs0 + xl) * C + k.c0 + c;
+#pragma unroll
+      for (int i = 0; i < kJ; ++i)
+        if (xl + i < k.swv) *reinterpret_cast<uint32_t*>(dx + o + static_cast<long long>(i) * C) =
+            narrow2(acc[i].x, acc[i].y);
+    } else if (active) {
+      // the taps: w[ky][kx] += x[y + ky - 3][x + kx - 3] * dh[y][x] over the kJ columns
+      const float2* drow = reinterpret_cast<const float2*>(
+          dring + static_cast<size_t>(slot_of(y, 8)) * p.rw * ct);
+      float2 d[kJ];
+#pragma unroll
+      for (int i = 0; i < kJ; ++i) {
+        d[i] = xl + i < k.swv ? drow[(xl + i + kR) * P + pr] : make_float2(0.f, 0.f);
+        sdh.x += d[i].x;
+        sdh.y += d[i].y;
+      }
+#pragma unroll
+      for (int ky = 0; ky < kK; ++ky) {
+        const uint32_t* row = reinterpret_cast<const uint32_t*>(
+            xring + static_cast<size_t>(slot_of(y + ky - kR, 8)) * p.rw * ct);
+        float2 win[kWin];
+#pragma unroll
+        for (int m = 0; m < kWin; ++m) win[m] = widen2(row[(xl + m) * P + pr]);
+#pragma unroll
+        for (int kx = 0; kx < kK; ++kx) {
+          float2 s = w[ky * kK + kx];
+#pragma unroll
+          for (int i = 0; i < kJ; ++i) {
+            s.x = fmaf(win[i + kx].x, d[i].x, s.x);
+            s.y = fmaf(win[i + kx].y, d[i].y, s.y);
+          }
+          w[ky * kK + kx] = s;
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with the slot of row y - 3
+  }
+
+  // the tap threads' sums through shared memory (the rings are free), then
+  // the block's slab: each channel's column groups in order
+  cp_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);  // [groups][50][ct]
+  if (tap_role && rt < P * p.groups) {
+    const int j = rt / P;
+#pragma unroll
+    for (int t = 0; t < kTaps; ++t)
+      *reinterpret_cast<float2*>(red + (static_cast<size_t>(j) * kGradRows + t) * ct + c) = w[t];
+    *reinterpret_cast<float2*>(red + (static_cast<size_t>(j) * kGradRows + kTaps) * ct + c) = sdh;
+  }
+  __syncthreads();
+  float* slab = partials + k.slab * kGradRows * C;
+  for (int e = tid; e < kGradRows * ct; e += kRingThreads) {
+    const int t = e / ct, cc = e - t * ct;
+    if (k.c0 + cc >= C) continue;
+    float s = 0.f;
+    for (int j = 0; j < p.groups; ++j) s += red[(static_cast<size_t>(j) * kGradRows + t) * ct + cc];
+    slab[static_cast<long long>(t) * C + k.c0 + cc] = s;
+  }
+}
+
+// ddw[c][t] (t < 49) and ddw_b[c] = the sums over every slab of partials[s][t][c],
+// in a fixed order: a block per (row t, 32 channels), its 8 rows of threads
+// each adding every 8th slab (four running sums, then their pairs), the 8
+// rows then added in order.
+__global__ void __launch_bounds__(256)
+conv_bwd_finish_kernel(const float* __restrict__ partials, long long slabs, int C,
+                       float* __restrict__ ddw, float* __restrict__ ddw_b) {
+  constexpr int FG = 8;
+  __shared__ float part[FG][32];
+  const int t = blockIdx.x, c = blockIdx.y * 32 + threadIdx.x, row = threadIdx.y;
+  float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
+  if (c < C) {
+    const long long stride = static_cast<long long>(kGradRows) * C;
+    const float* q = partials + static_cast<long long>(t) * C + c;
+    long long i = row;
+    for (; i + 3 * FG < slabs; i += 4 * FG) {
+      s0 += q[i * stride];
+      s1 += q[(i + FG) * stride];
+      s2 += q[(i + 2 * FG) * stride];
+      s3 += q[(i + 3 * FG) * stride];
+    }
+    for (; i < slabs; i += FG) s0 += q[i * stride];
+  }
+  part[row][threadIdx.x] = (s0 + s1) + (s2 + s3);
+  __syncthreads();
+  if (row == 0 && c < C) {
+    float total = 0.f;
+#pragma unroll
+    for (int r = 0; r < FG; ++r) total += part[r][threadIdx.x];
+    if (t < kTaps)
+      ddw[static_cast<long long>(c) * kTaps + t] = total;
+    else
+      ddw_b[c] = total;
+  }
+}
+
+// Launches conv_bwd_kernel and conv_bwd_finish_kernel on plan p (plan_bwd's).
+static cudaError_t launch_conv_bwd(const Plan& p, const bf16* x, const float* dh, const float* taps,
+                                   bf16* dx, float* partials, float* ddw, float* ddw_b,
+                                   cudaStream_t st) {
+  static imt_mma::LaunchCache cache;
+  cudaError_t e = cache.prepare(reinterpret_cast<const void*>(conv_bwd_kernel), kRingBudget,
+                                kRingThreads, p.smem);
+  if (e != cudaSuccess) return e;
+  if (p.blocks() > 0x7fffffffLL || p.smem > kRingBudget || (p.C + 31) / 32 > 65535)
+    return cudaErrorInvalidValue;
+  conv_bwd_kernel<<<static_cast<unsigned>(p.blocks()), kRingThreads, p.smem, st>>>(
+      p, x, dh, taps, dx, partials);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  conv_bwd_finish_kernel<<<dim3(kGradRows, (p.C + 31) / 32), dim3(32, 8), 0, st>>>(
+      partials, p.slabs(), p.C, ddw, ddw_b);
+  return cudaGetLastError();
+}
+
+}  // namespace ring
+}  // namespace imt
+
+namespace {
+
+// ---------------------------------------------------------------- bf16
+
+// The bf16 workspace: kernel 2's (lnmlp_bwd::plan), with a vector partial
+// row for each prologue block (where those outnumber the token tiles) and
+// x-hat, then the conv backward's partial slabs.
+struct Bf16Work {
+  ring::Plan ln, conv;
+  lnmlp_bwd::Work w;
+  size_t slabs, total;
+};
+
+Bf16Work plan_bf16(int B, int H, int W, int C, int hidden) {
+  const int sms = sm_count();
+  Bf16Work b;
+  b.ln = ring::plan_ln(B, H, W, C, true, sms);
+  b.conv = ring::plan_bwd(B, H, W, C, sms);
+  b.w = lnmlp_bwd::plan(static_cast<long long>(B) * H * W, C, hidden, b.ln.blocks(), true);
+  b.slabs = b.w.off[lnmlp_bwd::kParts];
+  b.total = b.slabs + align256(static_cast<size_t>(b.conv.slabs()) * ring::kGradRows * C * 4);
+  return b;
+}
+
+// Whether the bf16 pipeline takes a (B, H, W, C) map: both rings within a
+// block's shared memory, and the grids' and column sums' limits.
+bool bf16_ok(int B, int H, int W, int C, int hidden) {
+  const long long n = static_cast<long long>(B) * H * W;
+  if (n > 0x7fffffffLL) return false;
+  const ring::Plan ln = ring::plan_ln(B, H, W, C, true, 132);
+  const ring::Plan conv = ring::plan_bwd(B, H, W, C, 132);
+  const long long prows = std::max((n + kBM - 1) / kBM, ln.blocks());
+  return ln.smem <= ring::kRingBudget && conv.smem > 0 && conv.smem <= ring::kRingBudget &&
+         ln.blocks() <= 0x7fffffffLL && conv.blocks() <= 0x7fffffffLL &&
+         (prows + kChunk - 1) / kChunk <= 65535;
+}
+
+// Stages [first, last) of (i') the conv and LayerNorm, (ii)-(iv) kernel 2's
+// GEMM stages with the A&S GELU and dh in fp32, (v) the conv's backward,
+// numbered 0-4. The vector partial rows are zeroed first: the prologue's
+// blocks and the token tiles fill different numbers of them.
+cudaError_t run_bf16(const TileArgs& a, int B, char* ws, void* dx, void* ddw, void* dw1, void* dw2,
+                     void* vecs, int first, int last) {
+  const Bf16Work b = plan_bf16(B, a.H, a.W, a.C, a.hidden);
+  const lnmlp_bwd::Buffers buf = lnmlp_bwd::buffers(b.w, ws);
+  const bf16* x = static_cast<const bf16*>(a.x);
+  const bf16* g = static_cast<const bf16*>(a.g);
+  const float* taps = static_cast<const float*>(a.taps);
+  const float* gamma = static_cast<const float*>(a.gamma);
+  float* v = static_cast<float*>(vecs);
+  cudaStream_t st = a.stream;
+  cudaError_t e = cudaSuccess;
+  if (first <= 0 && last > 0) {  // (i')
+    e = cudaMemsetAsync(buf.partial, 0, b.w.off[9] - b.w.off[8], st);
+    if (e != cudaSuccess) return e;
+    e = ring::launch_conv_ln<true>(b.ln, x, taps, static_cast<const float*>(a.dwb),
+                                   static_cast<const float*>(a.ln_s),
+                                   static_cast<const float*>(a.ln_b), a.eps, buf.tok, g, gamma,
+                                   static_cast<const float*>(a.b2), buf.xhat, buf.rstd, buf.dpre2,
+                                   buf.partial, a.hidden, st);
+    if (e != cudaSuccess) return e;
+  }
+  const lnmlp_bwd::StageInputs s = {nullptr,
+                                    g,
+                                    static_cast<const bf16*>(a.w1),
+                                    static_cast<const bf16*>(a.w2),
+                                    static_cast<const float*>(a.ln_s),
+                                    static_cast<const float*>(a.b1),
+                                    gamma,
+                                    nullptr,
+                                    static_cast<float*>(dw1),
+                                    static_cast<float*>(dw2),
+                                    v,
+                                    a.n,
+                                    a.C,
+                                    a.hidden};
+  e = lnmlp_bwd::run_gemm_stages<kGeluAS, true>(s, b.w, buf, first, last, st);  // (ii)-(iv)
+  if (e != cudaSuccess || first > 4 || last <= 4) return e;
+  return ring::launch_conv_bwd(b.conv, x, buf.xhat, taps, static_cast<bf16*>(dx),  // (v)
+                               reinterpret_cast<float*>(ws + b.slabs), static_cast<float*>(ddw),
+                               v + a.hidden + 4 * a.C, st);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Returns 1 when the kernel takes channel width C and hidden width `hidden`
 // for operand type `dtype` (0 bf16, 1 fp32): C a multiple of 16 up to 1024,
-// hidden a multiple of 64, and (a)'s tile within the block's shared memory.
+// hidden a multiple of 64, and the fp32 tile, or the bf16 rings of a 7 x 7
+// map, within a block's shared memory.
 int imt_convnext_branch_bwd_supported(int C, int hidden, int dtype) {
   if (!shape_ok(dtype, 1, 1, 1, C, hidden)) return 0;
+  if (dtype == kBF16) return bf16_ok(1, 7, 7, C, hidden);
   TileArgs a{};
   a.C = C;
   a.hidden = hidden;
-  return dispatch_tile(dtype, a, true) == cudaSuccess;
+  return dispatch_tile(a, true) == cudaSuccess;
 }
 
 // Bytes of device workspace the backward needs; 0 for a shape it does not take.
 long long imt_convnext_branch_bwd_workspace_bytes(int B, int H, int W, int C, int hidden,
                                                   int dtype) {
   if (!shape_ok(dtype, B, H, W, C, hidden)) return 0;
-  return static_cast<long long>(plan(dtype, B, H, W, C, hidden).total);
+  if (dtype == kBF16)
+    return bf16_ok(B, H, W, C, hidden)
+               ? static_cast<long long>(plan_bf16(B, H, W, C, hidden).total)
+               : 0;
+  return static_cast<long long>(plan_f32(B, H, W, C, hidden).total);
 }
 
 // x and g (B, H, W, C) NHWC of `dtype`; taps (49, C) fp32, tap ky * 7 + kx;
 // dwb, ln_s, ln_b, b2, gamma (C) and b1 (hidden) fp32; w1 (hidden, C) and w2
 // (C, hidden) of `dtype`. Writes dx like x; ddw (C, 49), dw1 (hidden, C), dw2
 // (C, hidden) and vecs (hidden + 5C: db1, db2, dgamma, dln_s, dln_b, ddw_b),
-// all fp32; `workspace` is scratch of imt_convnext_branch_bwd_workspace_bytes.
-// All contiguous and 16-byte aligned. Launches on `stream`; returns the
-// launch status (a cudaError_t; 0 is success).
+// all fp32; `workspace` is scratch of imt_convnext_branch_bwd_workspace_bytes
+// (1024-byte aligned for bf16). All contiguous and 16-byte aligned. bf16 runs
+// stages [first, last) of (i') the conv and LayerNorm, (ii) the hidden
+// products, (iii) dln and the LayerNorm backward, (iv) the weight products
+// and sums, (v) the conv's backward (0 and 5 run it all; a stage run alone
+// reads what the stages before it left in the workspace); fp32 runs it all,
+// whatever first and last say. Launches on `stream`; returns the launch
+// status (a cudaError_t; 0 is success).
 int imt_convnext_branch_bwd(const void* x, const void* g, const void* taps, const void* dwb,
                             const void* ln_s, const void* ln_b, const void* w1, const void* b1,
                             const void* w2, const void* b2, const void* gamma, void* dx, void* ddw,
                             void* dw1, void* dw2, void* vecs, void* workspace, int dtype, int B,
-                            int H, int W, int C, int hidden, float eps, void* stream) {
+                            int H, int W, int C, int hidden, float eps, int first, int last,
+                            void* stream) {
   if (!shape_ok(dtype, B, H, W, C, hidden)) return cudaErrorInvalidValue;
-  const Work w = plan(dtype, B, H, W, C, hidden);
   char* ws = static_cast<char*>(workspace);
+  if (dtype == kBF16) {
+    if (!bf16_ok(B, H, W, C, hidden) || reinterpret_cast<uintptr_t>(workspace) % 1024)
+      return cudaErrorInvalidValue;
+    const TileArgs a{x,       g,       taps,    dwb,     ln_s,    ln_b,    w1, b1, w2, b2, gamma,
+                     nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, H,  W,  static_cast<long long>(B) * H * W,
+                     C,       hidden,  eps,     static_cast<cudaStream_t>(stream)};
+    return run_bf16(a, B, ws, dx, ddw, dw1, dw2, vecs, first, last);
+  }
+  const Work w = plan_f32(B, H, W, C, hidden);
   const TileArgs a{x, g, taps, dwb, ln_s, ln_b, w1, b1, w2, b2, gamma,
                    ws + w.tok, ws + w.hmid, ws + w.dpre1, ws + w.dpre2, ws + w.dh, ws + w.rows,
                    H, W, w.n, C, hidden, eps, static_cast<cudaStream_t>(stream)};
-  if (dtype == kBF16) return run_all<bf16>(a, dtype, w, ws, B, dx, ddw, dw1, dw2, vecs);
-  return run_all<float>(a, dtype, w, ws, B, dx, ddw, dw1, dw2, vecs);
+  return run_all<float>(a, w, ws, B, dx, ddw, dw1, dw2, vecs);
 }
 
 const char* imt_cuda_error_string(int err) {

@@ -1,13 +1,15 @@
-// Device helpers of the fused ConvNeXt branch kernels (convnext_branch_fwd.cu,
-// kernel 10; convnext_branch_bwd.cu, kernel 11): the per-token depthwise 7x7
-// conv, 4-channel loads and stores of bf16 or fp32, the A&S erf GELU, and the
-// wmma products of the LN+MLP stage written once for both operand types.
+// Device helpers of the fp32 instances of the fused ConvNeXt branch kernels
+// (convnext_branch_fwd.cu, kernel 10; convnext_branch_bwd.cu, kernel 11),
+// the first design's code: the per-token depthwise 7x7 conv, 4-channel loads and
+// stores, and the wmma products of the LN+MLP stage (the A&S erf GELU is
+// ln_mlp_common.cuh's `gelu_as`). Written for an operand type E, of which
+// only fp32 is left: the bf16 instances run on convnext_branch_ring.cuh and
+// kernels 1 and 2's GEMM stages.
 //
-// Operand types. bf16 operands take the 16x16x16 bf16 wmma shape. fp32
-// operands take the 16x16x8 tf32 shape as three products (3xTF32): each value
-// v is split into hi = tf32(v) and lo = tf32(v - hi), and a*b is summed as
-// lo_a*hi_b + hi_a*lo_b + hi_a*hi_b, which keeps about 22 bits of each
-// product (tf32 alone keeps 11) with fp32 sums.
+// fp32 operands take the 16x16x8 tf32 wmma shape as three products
+// (3xTF32): each value v is split into hi = tf32(v) and lo = tf32(v - hi),
+// and a*b is summed as lo_a*hi_b + hi_a*lo_b + hi_a*hi_b, which keeps about
+// 22 bits of each product (tf32 alone keeps 11) with fp32 sums.
 #pragma once
 
 #include <type_traits>
@@ -18,16 +20,6 @@ namespace imt {
 namespace branch {
 
 // ---------------------------------------------------------------- loads, stores
-
-__device__ __forceinline__ void load4(const bf16* p, float* f) {
-  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  f[0] = a.x;
-  f[1] = a.y;
-  f[2] = b.x;
-  f[3] = b.y;
-}
 
 __device__ __forceinline__ void load4(const float* p, float* f) {
   const float4 v = __ldg(reinterpret_cast<const float4*>(p));
@@ -46,18 +38,10 @@ __device__ __forceinline__ void load4_rw(const float* p, float* f) {
   f[3] = v.w;
 }
 
-__device__ __forceinline__ void store4(bf16* p, const float* f) {
-  uint2 u;
-  *reinterpret_cast<__nv_bfloat162*>(&u.x) = __floats2bfloat162_rn(f[0], f[1]);
-  *reinterpret_cast<__nv_bfloat162*>(&u.y) = __floats2bfloat162_rn(f[2], f[3]);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
 __device__ __forceinline__ void store4(float* p, const float* f) {
   *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
 }
 
-__device__ __forceinline__ void zero4(bf16* p) { *reinterpret_cast<uint2*>(p) = make_uint2(0u, 0u); }
 __device__ __forceinline__ void zero4(float* p) {
   *reinterpret_cast<float4*>(p) = make_float4(0.f, 0.f, 0.f, 0.f);
 }
@@ -65,11 +49,8 @@ __device__ __forceinline__ void zero4(float* p) {
 template <typename E>
 __device__ __forceinline__ E to_elem(float v);
 template <>
-__device__ __forceinline__ bf16 to_elem<bf16>(float v) { return __float2bfloat16(v); }
-template <>
 __device__ __forceinline__ float to_elem<float>(float v) { return v; }
 
-__device__ __forceinline__ float to_float(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_float(float v) { return v; }
 
 // elements of a row pad: 16 bytes, so every row of a tile starts 16-byte aligned
@@ -77,28 +58,6 @@ template <typename E>
 struct Pad {
   static constexpr int value = 16 / static_cast<int>(sizeof(E));
 };
-
-// ---------------------------------------------------------------- GELU (exact, A&S erf)
-
-// Abramowitz & Stegun 7.1.26, |err| < 1.5e-7: the JAX package's `_erf_poly`
-// (imagenet_models_tpu/ops/convnext_block.py:31-39), the erf of both TPU
-// kernels.
-__device__ __forceinline__ float erf_as(float x) {
-  const float a = fabsf(x);
-  const float t = 1.0f / (1.0f + 0.3275911f * a);
-  const float poly =
-      t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
-  return copysignf(1.0f - poly * expf(-a * a), x);
-}
-
-__device__ __forceinline__ float gelu_as(float v) {
-  return 0.5f * v * (1.0f + erf_as(v * 0.70710678118654752f));
-}
-
-// d/dv of the exact GELU with the A&S erf (ops/convnext_block.py:365-369)
-__device__ __forceinline__ float gelu_grad_as(float v) {
-  return 0.5f * (1.0f + erf_as(v * 0.70710678118654752f)) + v * 0.3989422804014327f * expf(-0.5f * v * v);
-}
 
 // ---------------------------------------------------------------- depthwise 7x7
 
@@ -191,28 +150,6 @@ inline cudaError_t prefer_l1(const void* kern, size_t smem) {
 
 template <typename E>
 struct Mma;
-
-template <>
-struct Mma<bf16> {
-  static constexpr int K = 16;
-  typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> A;
-  typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> ACol;
-  typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> BCol;
-  typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> BRow;
-  typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
-  template <typename F>
-  struct Op {
-    F f;
-  };
-  template <typename F>
-  static __device__ __forceinline__ void load(Op<F>& o, const bf16* p, int ld) {
-    wmma::load_matrix_sync(o.f, p, ld);
-  }
-  template <typename FA, typename FB>
-  static __device__ __forceinline__ void mma(Acc& c, const Op<FA>& a, const Op<FB>& b) {
-    wmma::mma_sync(c, a.f, b.f, c);
-  }
-};
 
 template <>
 struct Mma<float> {

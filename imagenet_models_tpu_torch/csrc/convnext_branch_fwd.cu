@@ -13,7 +13,7 @@
 // conv in fp32 from the upcast x (bias first, then the 49 taps in row-major
 // order), so h is never rounded to x's type; LayerNorm in fp32 (two-pass
 // statistics); the normalized tokens cast to x's type; both products on
-// operands of x's type with fp32 sums (bf16 wmma; fp32 as 3xTF32, see
+// operands of x's type with fp32 sums (bf16 on wgmma; fp32 as 3xTF32, see
 // convnext_branch_common.cuh); + b1 and the exact GELU (A&S erf, as
 // `_erf_poly`) in fp32, cast to x's type; + b2, * gamma in fp32, one final
 // cast.
@@ -22,10 +22,24 @@
 // some 4 N C bytes of x and out: at every ConvNeXt width far above the card's
 // ~295 flop/byte balance, so the tensor cores bound it (0.060 ms per launch
 // at B=128 in bf16 at every stage: N C^2 is the same). The conv's 49 N C
-// multiply-adds run on the CUDA cores beside them.
+// multiply-adds run on the CUDA cores.
 //
-// Design. The TPU kernel takes whole images per grid step, with a zero-padded
-// slab of x and both weight matrices resident in VMEM. On Hopper:
+// bf16: a pipeline of three stages over a workspace, kernel 1's own
+// (csrc/ln_mlp_fwd.cu) with its LayerNorm prologue replaced:
+//  (i')  ring::conv_ln_kernel<false> (convnext_branch_ring.cuh): the conv
+//        from a ring of x rows in shared memory and LayerNorm, tok =
+//        bf16(LN(h)) into the workspace; h never leaves the block;
+//  (ii)  kernel 1's ln_mlp_fwd_gemm_kernel<kHid> (ln_mlp_fwd_stages.cuh,
+//        shared, not copied) with the A&S GELU: hmid into the workspace;
+//  (iii) its ln_mlp_fwd_gemm_kernel<kOut>: out = bf16((hmid W2^T + b2) *
+//        gamma).
+// What remains over the bound is kernel 1's (hmid's round trip through
+// device memory, the GELU epilogue) and the conv's 49 fp32 multiply-adds
+// per element on the CUDA cores.
+//
+// fp32: the first design's kernel, below, bit for bit. The TPU kernel takes whole
+// images per grid step, with a zero-padded slab of x and both weight
+// matrices resident in VMEM. On Hopper:
 //   * one block of 8 warps per tile of T consecutive tokens of the flattened
 //     (B, H, W) map (a tile may span two images; each token's window is
 //     bounds-checked within its own image, so nothing is padded or copied);
@@ -40,10 +54,11 @@
 //     wmma accumulators across the hidden loop; the ragged last tile is
 //     masked. Kernel 1 is not changed: this file keeps its own copy of the
 //     loop, written for both operand types.
-// wgmma, TMA, a shared-memory halo for the conv and persistent blocks are left
-// for later work.
 
 #include "convnext_branch_common.cuh"
+#include "convnext_branch_ring.cuh"
+#include "hopper_gemm.cuh"
+#include "ln_mlp_fwd_stages.cuh"
 
 namespace {
 
@@ -248,20 +263,43 @@ cudaError_t launch(const Args& a, bool check) {
 }
 
 // <type, T, HC, first-product tile MT1 x NT1, second-product tile MT2 x NT2,
-// units per lane Q>: bf16 takes kernel 1's tiles by width; fp32 (twice the
-// bytes, three products per step) one small tile at every width.
-cudaError_t dispatch(int dtype, const Args& a, bool check) {
-  if (dtype == kF32) return launch<float, 16, 16, 1, 1, 1, 8, 8>(a, check);
-  if (a.C <= 128) return launch<bf16, 64, 64, 1, 2, 1, 4, 1>(a, check);
-  if (a.C <= 256) return launch<bf16, 64, 64, 1, 2, 2, 4, 2>(a, check);
-  if (a.C <= 384) return launch<bf16, 64, 64, 2, 2, 4, 3, 3>(a, check);
-  if (a.C <= 768) return launch<bf16, 32, 32, 2, 2, 2, 6, 6>(a, check);
-  return launch<bf16, 16, 32, 1, 2, 1, 8, 8>(a, check);
+// units per lane Q>: fp32 (twice the bytes, three products per step) one
+// small tile at every width. (bf16 runs run_bf16.)
+cudaError_t dispatch_f32(const Args& a, bool check) {
+  return launch<float, 16, 16, 1, 1, 1, 8, 8>(a, check);
 }
 
 bool shape_ok(int dtype, int C, int hidden) {
   return (dtype == kBF16 || dtype == kF32) && C > 0 && C % 16 == 0 && C <= 1024 && hidden > 0 &&
          hidden % 64 == 0;
+}
+
+// bf16: stages [first, last) of (i') the conv and LayerNorm into the
+// workspace's tok, (ii) and (iii) kernel 1's GEMM stages with the A&S GELU.
+cudaError_t run_bf16(const Args& a, int B, char* ws, int first, int last) {
+  if (first <= 0 && last > 0) {
+    const ring::Plan p = ring::plan_ln(B, a.H, a.W, a.C, false, sm_count());
+    bf16* tok = reinterpret_cast<bf16*>(ws + lnmlp_fwd::plan(a.n, a.C, a.hidden).tok);
+    const cudaError_t e = ring::launch_conv_ln<false>(
+        p, static_cast<const bf16*>(a.x), static_cast<const float*>(a.taps),
+        static_cast<const float*>(a.dwb), static_cast<const float*>(a.ln_s),
+        static_cast<const float*>(a.ln_b), a.eps, tok, nullptr, nullptr, nullptr, nullptr,
+        nullptr, nullptr, nullptr, a.hidden, a.stream);
+    if (e != cudaSuccess) return e;
+  }
+  const lnmlp_fwd::GemmInputs g = {
+      static_cast<const bf16*>(a.w1), static_cast<const bf16*>(a.w2),
+      static_cast<const float*>(a.b1), static_cast<const float*>(a.b2),
+      static_cast<const float*>(a.gamma), static_cast<bf16*>(a.out), ws, a.n, a.C, a.hidden};
+  return lnmlp_fwd::run_gemm_stages<kGeluAS>(g, first, last, a.stream);
+}
+
+// Whether the bf16 pipeline takes a (B, H, W, C) map: the ring within a
+// block's shared memory, and kernel 1's GEMM stages' limits.
+bool bf16_ok(int B, int H, int W, int C) {
+  const long long n = static_cast<long long>(B) * H * W;
+  const ring::Plan p = ring::plan_ln(B, H, W, C, false, 132);
+  return n <= 0x7fffffffLL && p.smem <= ring::kRingBudget && p.blocks() <= 0x7fffffffLL;
 }
 
 }  // namespace
@@ -270,28 +308,50 @@ extern "C" {
 
 // Returns 1 when the kernel takes channel width C and hidden width `hidden`
 // for operand type `dtype` (0 bf16, 1 fp32): C a multiple of 16 up to 1024,
-// hidden a multiple of 64, and the tile's shared memory within the block's.
+// hidden a multiple of 64, and the fp32 tile, or the bf16 ring of a 7 x 7
+// map, within a block's shared memory.
 int imt_convnext_branch_fwd_supported(int C, int hidden, int dtype) {
   if (!shape_ok(dtype, C, hidden)) return 0;
+  if (dtype == kBF16) return bf16_ok(1, 7, 7, C);
   Args a{};
   a.C = C;
   a.hidden = hidden;
-  return dispatch(dtype, a, true) == cudaSuccess;
+  return dispatch_f32(a, true) == cudaSuccess;
+}
+
+// Bytes of device workspace a call needs (bf16: kernel 1's tok and hmid;
+// fp32: none); 0 for a shape the kernel does not take.
+long long imt_convnext_branch_fwd_workspace_bytes(int B, int H, int W, int C, int hidden,
+                                                  int dtype) {
+  if (!shape_ok(dtype, C, hidden) || B <= 0 || H <= 0 || W <= 0) return 0;
+  if (dtype == kF32) return 1;
+  if (!bf16_ok(B, H, W, C)) return 0;
+  return static_cast<long long>(
+      lnmlp_fwd::plan(static_cast<long long>(B) * H * W, C, hidden).total);
 }
 
 // x (B, H, W, C) NHWC of `dtype`; taps (49, C) fp32, tap ky * 7 + kx; dwb,
 // ln_s, ln_b, b2, gamma (C) and b1 (hidden) fp32; w1 (hidden, C) and w2 (C,
-// hidden) of `dtype`; out like x. All contiguous and 16-byte aligned.
-// Launches on `stream`; returns the launch status (a cudaError_t; 0 is
-// success).
+// hidden) of `dtype`; out like x. All contiguous and 16-byte aligned;
+// `workspace` of imt_convnext_branch_fwd_workspace_bytes bytes, 1024-byte
+// aligned. bf16 runs stages [first, last) of (i') the conv and LayerNorm,
+// (ii) the hidden product and GELU, (iii) the output product and layer
+// scale (0 and 3 run it all; a stage run alone reads what the stages before
+// it left in the workspace); fp32 is one launch, whatever first and last
+// say. Launches on `stream`; returns the launch status (a cudaError_t; 0
+// is success).
 int imt_convnext_branch_fwd(const void* x, const void* taps, const void* dwb, const void* ln_s,
                             const void* ln_b, const void* w1, const void* b1, const void* w2,
-                            const void* b2, const void* gamma, void* out, int dtype, int B, int H,
-                            int W, int C, int hidden, float eps, void* stream) {
+                            const void* b2, const void* gamma, void* out, void* workspace,
+                            int dtype, int B, int H, int W, int C, int hidden, float eps,
+                            int first, int last, void* stream) {
   if (!shape_ok(dtype, C, hidden) || B <= 0 || H <= 0 || W <= 0) return cudaErrorInvalidValue;
   const Args a{x,  taps, dwb, ln_s, ln_b, w1, b1, w2, b2, gamma, out, H, W,
                static_cast<long long>(B) * H * W, C, hidden, eps, static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, a, false);
+  if (dtype == kF32) return dispatch_f32(a, false);
+  if (!bf16_ok(B, H, W, C) || reinterpret_cast<uintptr_t>(workspace) % 1024)
+    return cudaErrorInvalidValue;
+  return run_bf16(a, B, static_cast<char*>(workspace), first, last);
 }
 
 const char* imt_cuda_error_string(int err) {

@@ -1,5 +1,7 @@
 // Hopper (sm_90a) GEMM machinery shared by the LN+MLP kernels 1
-// (ln_mlp_fwd.cu) and 2 (ln_mlp_bwd.cu): the PTX of mbarriers, TMA loads and
+// (ln_mlp_fwd.cu) and 2 (ln_mlp_bwd.cu), whose GEMM stages
+// (ln_mlp_{fwd,bwd}_stages.cuh) the fused ConvNeXt branch's kernels 10 and
+// 11 share too: the PTX of mbarriers, TMA loads and
 // stores, bulk groups and `wgmma` (inline asm, no CUTLASS); the ring of
 // shared-memory stages (128 x 128 output tiles, 64-deep k-blocks of bf16,
 // four stages, two consumer warpgroups and a producer warpgroup); and the

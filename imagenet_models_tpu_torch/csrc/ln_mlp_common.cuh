@@ -1,7 +1,7 @@
 // Helpers shared by the LN+MLP forward (ln_mlp_fwd.cu) and backward
 // (ln_mlp_bwd.cu) kernels and the fused branch (convnext_branch_common.cuh):
 // cp.async copies, bf16 packing, warp sums, the warp grid of the branch's
-// wmma products, the two GELU implementations, and the launch of the
+// wmma products, the three GELU implementations, and the launch of the
 // row-wise kernels by C.
 #pragma once
 
@@ -66,10 +66,42 @@ struct Grid1 {
                 "first-product warp grid");
 };
 
-// GELU. "exact": erff. "fast": the single-segment odd minimax fits of the
+// GELU, in three modes (GeluMode). kGeluErf, kernels 1 and 2's "exact":
+// erff. kGeluFit, their "fast": the single-segment odd minimax fits of the
 // JAX package (ops/convnext_block.py:111-129), no transcendentals:
 //   erf(z) ~ z*P8((z/2.75)^2) on |z| <= 2.75, clamped beyond;
 //   gelu'(x) - 0.5 ~ x*Q10((x/5)^2) on |x| <= 5, clamped beyond.
+// kGeluAS, the fused branch's (kernels 10 and 11, at eval and in training):
+// the exact GELU with the Abramowitz & Stegun erf, and its derivative.
+enum GeluMode { kGeluErf = 0, kGeluFit = 1, kGeluAS = 2 };
+
+// Abramowitz & Stegun 7.1.26, |err| < 1.5e-7: the JAX package's `_erf_poly`
+// (imagenet_models_tpu/ops/convnext_block.py:31-39), the erf of both TPU
+// kernels of the fused branch.
+__device__ __forceinline__ float erf_as(float x) {
+  const float a = fabsf(x);
+  const float t = 1.0f / (1.0f + 0.3275911f * a);
+  const float poly =
+      t * (0.254829592f + t * (-0.284496736f + t * (1.421413741f + t * (-1.453152027f + t * 1.061405429f))));
+  return copysignf(1.0f - poly * expf(-a * a), x);
+}
+
+__device__ __forceinline__ float gelu_as(float v) {
+  return 0.5f * v * (1.0f + erf_as(v * 0.70710678118654752f));
+}
+
+// d/dv of the exact GELU with the A&S erf (ops/convnext_block.py:365-369)
+__device__ __forceinline__ float gelu_grad_as(float v) {
+  return 0.5f * (1.0f + erf_as(v * 0.70710678118654752f)) + v * 0.3989422804014327f * expf(-0.5f * v * v);
+}
+
+// (gelu_as(v), gelu_grad_as(v)), their erf computed once
+__device__ __forceinline__ float2 gelu_as_and_grad(float v) {
+  const float e = erf_as(v * 0.70710678118654752f);
+  return make_float2(0.5f * v * (1.0f + e),
+                     0.5f * (1.0f + e) + v * 0.3989422804014327f * expf(-0.5f * v * v));
+}
+
 __device__ __forceinline__ float erf_fast(float z) {
   const float a = fminf(fabsf(z), 2.75f);
   const float u = (a * (1.0f / 2.75f)) * (a * (1.0f / 2.75f));
@@ -100,15 +132,17 @@ __device__ __forceinline__ float gelu_grad_fast(float x) {
   return 0.5f + copysignf(a * r, x);
 }
 
-template <bool FAST>
+template <int GM>
 __device__ __forceinline__ float gelu(float v) {
+  if constexpr (GM == kGeluAS) return gelu_as(v);
   const float z = v * 0.70710678118654752f;
-  return 0.5f * v * (1.f + (FAST ? erf_fast(z) : erff(z)));
+  return 0.5f * v * (1.f + (GM == kGeluFit ? erf_fast(z) : erff(z)));
 }
 
-template <bool FAST>
+template <int GM>
 __device__ __forceinline__ float gelu_grad(float v) {
-  if (FAST) return gelu_grad_fast(v);
+  if constexpr (GM == kGeluAS) return gelu_grad_as(v);
+  if (GM == kGeluFit) return gelu_grad_fast(v);
   return 0.5f * (1.f + erff(v * 0.70710678118654752f)) +
          v * 0.3989422804014327f * expf(-0.5f * v * v);
 }

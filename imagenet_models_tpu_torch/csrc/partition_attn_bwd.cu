@@ -536,18 +536,10 @@ cudaError_t launch_mma(const bf16* qkv, const float* bias, const bf16* gout, bf1
   auto kern = partition_attn_bwd_mma<NKB>;
   const size_t bytes = mma_layout(NKB).total;
   // the shared-memory limit is a per-device attribute: set once per device
-  // (on every launch past the first kMaxDevices devices)
-  constexpr int kMaxDevices = 64;
-  static bool ready[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static imt_mma::LaunchCache cache;
+  cudaError_t e = cache.prepare(reinterpret_cast<const void*>(kern), bytes,
+                                mma_warps(NKB) * 32, bytes);
   if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices || !ready[dev]) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-    if (e != cudaSuccess) return e;
-    if (dev < kMaxDevices) ready[dev] = true;
-  }
   kern<<<dim3(blocks, g.nh), mma_warps(NKB) * 32, bytes, stream>>>(qkv, bias, gout, dqkv, partials,
                                                                   g, windows);
   e = cudaGetLastError();

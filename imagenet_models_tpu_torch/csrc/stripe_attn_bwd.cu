@@ -515,13 +515,10 @@ cudaError_t launch_mma(Operand<bf16> q, Operand<bf16> k, Operand<bf16> v, Operan
   auto kern = stripe_attn_bwd_mma<NKB>;
   const int D = g.C / g.nh;
   const size_t bytes = mma_layout(NKB, D).total;
-  static bool ready = false;
-  if (!ready) {
-    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(kMaxSmem));
-    if (e != cudaSuccess) return e;
-    ready = true;
-  }
+  static imt_mma::LaunchCache cache;  // the limit, once per device
+  const cudaError_t ready = cache.prepare(reinterpret_cast<const void*>(kern), kMaxSmem,
+                                          mma_warps(NKB) * 32, bytes);
+  if (ready != cudaSuccess) return ready;
   kern<<<dim3(blocks, g.nh), mma_warps(NKB) * 32, bytes, stream>>>(
       q, k, v, go, w9, dq, dk, dv, partials, g, stripes, qscale, scale);
   cudaError_t e = cudaGetLastError();

@@ -254,31 +254,16 @@ cudaError_t launch_mma(Operand<bf16> q, Operand<bf16> k, Operand<bf16> v, const 
   auto kern = stripe_attn_fwd_mma<NKB>;
   constexpr int kBlock = mma_warps(NKB) * 32;
   const size_t bytes = mma_smem_bytes(NKB, g.C / g.nh);
-  // the largest block any shape asks for, once; then the blocks that fit on
-  // one SM at this size, cached by size
-  static bool ready = false;
-  static size_t cached_bytes = 0;
-  static int cached_per_sm = 0;
-  if (!ready) {
-    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(kMaxSmem));
-    if (e != cudaSuccess) return e;
-    ready = true;
-  }
-  if (cached_bytes != bytes) {
-    int per_sm = 0;
-    const cudaError_t e =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kBlock, bytes);
-    if (e != cudaSuccess) return e;
-    cached_per_sm = per_sm > 0 ? per_sm : 1;
-    cached_bytes = bytes;
-  }
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    sms = 132;
+  // the largest block any shape asks for, once per device; then the blocks
+  // that fit on one SM at this size, cached per device
+  static imt_mma::LaunchCache cache;
+  int per_sm = 1;
+  const cudaError_t e = cache.prepare(reinterpret_cast<const void*>(kern), kMaxSmem, kBlock,
+                                      bytes, &per_sm);
+  if (e != cudaSuccess) return e;
   // about one wave of resident blocks, spread over the heads
-  long long per_head = (static_cast<long long>(sms) * cached_per_sm + g.nh - 1) / g.nh;
+  long long per_head =
+      (static_cast<long long>(imt_mma::device_sms()) * per_sm + g.nh - 1) / g.nh;
   if (per_head > stripes) per_head = stripes;
   if (per_head < 1) per_head = 1;
   kern<<<dim3(static_cast<unsigned>(per_head), g.nh), kBlock, bytes, stream>>>(

@@ -362,31 +362,15 @@ cudaError_t launch_mma(const bf16* q, const bf16* k, const bf16* v, const float*
   const int nkb = blocks16(n), threads = mma_warps(nkb) * 32;
   const int nbuf = mma_smem_bytes(16 * nkb, 16 * DK, 2) <= kMaxSmem ? 2 : 1;
   const size_t bytes = mma_smem_bytes(16 * nkb, 16 * DK, nbuf);
-  // the largest block any window asks for, once; then the blocks that fit on
-  // one SM at this size, cached by size
-  static bool ready = false;
-  static size_t cached_bytes = 0;
-  static int cached_threads = 0, cached_per_sm = 0;
-  if (!ready) {
-    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(kMaxSmem));
-    if (e != cudaSuccess) return e;
-    ready = true;
-  }
-  if (cached_bytes != bytes || cached_threads != threads) {
-    int per_sm = 0;
-    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, bytes);
-    if (e != cudaSuccess) return e;
-    cached_per_sm = per_sm > 0 ? per_sm : 1;
-    cached_bytes = bytes;
-    cached_threads = threads;
-  }
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    sms = 132;
+  // the largest block any window asks for, once per device; then the blocks
+  // that fit on one SM at this size, cached per device
+  static imt_mma::LaunchCache cache;
+  int per_sm = 1;
+  const cudaError_t e = cache.prepare(reinterpret_cast<const void*>(kern), kMaxSmem, threads,
+                                      bytes, &per_sm);
+  if (e != cudaSuccess) return e;
   // about one wave of resident blocks
-  long long blocks = static_cast<long long>(sms) * cached_per_sm;
+  long long blocks = static_cast<long long>(imt_mma::device_sms()) * per_sm;
   if (blocks > bw) blocks = bw;
   kern<<<static_cast<unsigned>(blocks), threads, bytes, stream>>>(q, k, v, bias, out, bw, n, d,
                                                                    nbuf);

@@ -373,31 +373,16 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, const float
                         bf16* out, long long bw, int heads, int n, int d, const Layout& L,
                         cudaStream_t stream) {
   auto kern = heads_mma_kernel<DK, kOneChunk>;
-  // the largest block any window asks for, once; then the blocks that fit on
-  // one SM at this window's size, cached by size
-  static bool ready = false;
-  static size_t cached_bytes = 0;
-  static int cached_per_sm = 0;
-  if (!ready) {
-    const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(kMaxSmem));
-    if (e != cudaSuccess) return e;
-    ready = true;
-  }
-  if (cached_bytes != L.bytes) {
-    int per_sm = 0;
-    const cudaError_t e =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kMmaThreads, L.bytes);
-    if (e != cudaSuccess) return e;
-    cached_per_sm = per_sm > 0 ? per_sm : 1;
-    cached_bytes = L.bytes;
-  }
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    sms = 132;
+  // the largest block any window asks for, once per device; then the blocks
+  // that fit on one SM at this window's size, cached per device
+  static imt_mma::LaunchCache cache;
+  int per_sm = 1;
+  const cudaError_t e = cache.prepare(reinterpret_cast<const void*>(kern), kMaxSmem,
+                                      kMmaThreads, L.bytes, &per_sm);
+  if (e != cudaSuccess) return e;
   // about one wave of resident blocks, spread over the heads
-  long long per_head = (static_cast<long long>(sms) * cached_per_sm + heads - 1) / heads;
+  long long per_head =
+      (static_cast<long long>(imt_mma::device_sms()) * per_sm + heads - 1) / heads;
   if (per_head > bw) per_head = bw;
   if (per_head < 1) per_head = 1;
   kern<<<dim3(static_cast<unsigned>(per_head), heads), kMmaThreads, L.bytes, stream>>>(

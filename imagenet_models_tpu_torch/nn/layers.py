@@ -17,6 +17,7 @@ its input and parameter dtypes, as flax does.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, Optional, Tuple
 
@@ -339,20 +340,66 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+@functools.lru_cache(maxsize=None)
+def _resample_matrix(mode: str, n_in: int, n_out: int, device: torch.device) -> torch.Tensor:
+    """The (n_out, n_in) fp32 weights of one axis of the library's resample:
+    "area" is adaptive average pooling (bin i covers [floor(i*in/out),
+    ceil((i+1)*in/out))), "bilinear" is half-pixel centers with the source
+    clamped at 0, as F.interpolate with align_corners=False."""
+    m = torch.zeros(n_out, n_in, dtype=torch.float64)
+    for i in range(n_out):
+        if mode == "area":
+            lo, hi = (i * n_in) // n_out, -(-((i + 1) * n_in) // n_out)
+            m[i, lo:hi] = 1.0 / (hi - lo)
+        else:
+            src = max((i + 0.5) * n_in / n_out - 0.5, 0.0)
+            i0 = int(src)
+            frac = src - i0
+            m[i, i0] += 1.0 - frac
+            m[i, min(i0 + 1, n_in - 1)] += frac
+    return m.to(device, torch.float32)
+
+
+class _Resample(torch.autograd.Function):
+    """A resample of NHWC maps: the forward is the library's (F.interpolate
+    or F.adaptive_avg_pool2d); the backward is its transpose, two fp32
+    products with the per-axis weights, cast once. The library's CUDA
+    backwards add into the input gradient by atomics, so a train step's
+    gradients came out different in every run."""
+
+    @staticmethod
+    def forward(ctx, x, mode: str, out_hw: Tuple[int, int]):
+        ctx.mode, ctx.in_hw = mode, tuple(x.shape[1:3])
+        if mode == "area":
+            y = F.adaptive_avg_pool2d(_nchw(x), out_hw)
+        else:
+            y = F.interpolate(_nchw(x), size=out_hw, mode="bilinear", align_corners=False,
+                              antialias=False)
+        return y.permute(0, 2, 3, 1).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (h, w), (oh, ow) = ctx.in_hw, g.shape[1:3]
+        mh = _resample_matrix(ctx.mode, h, oh, g.device)
+        mw = _resample_matrix(ctx.mode, w, ow, g.device)
+        gx = torch.einsum("oh,bopc->bhpc", mh, g.float())
+        return torch.einsum("pw,bhpc->bhwc", mw, gx).to(g.dtype), None, None
+
+
 def adaptive_avg_pool(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """F.adaptive_avg_pool2d on NHWC (nn/layers.py:402-429)."""
+    """F.adaptive_avg_pool2d on NHWC (nn/layers.py:402-429), with a
+    deterministic backward (`_Resample`)."""
     if tuple(x.shape[1:3]) == tuple(out_hw):
         return x
-    return F.adaptive_avg_pool2d(_nchw(x), tuple(out_hw)).permute(0, 2, 3, 1)
+    return _Resample.apply(x, "area", tuple(out_hw))
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize, half-pixel centers, no antialias (nn/layers.py:432-440)."""
+    """Bilinear resize, half-pixel centers, no antialias (nn/layers.py:432-440),
+    with a deterministic backward (`_Resample`)."""
     if tuple(x.shape[1:3]) == tuple(out_hw):
         return x
-    y = F.interpolate(_nchw(x), size=tuple(out_hw), mode="bilinear",
-                      align_corners=False, antialias=False)
-    return y.permute(0, 2, 3, 1).to(x.dtype)
+    return _Resample.apply(x, "bilinear", tuple(out_hw))
 
 
 def scale_features(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:

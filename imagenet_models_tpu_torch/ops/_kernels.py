@@ -118,7 +118,11 @@ def _load(name: str) -> ctypes.CDLL:
 @functools.cache
 def ln_mlp_fwd_library() -> ctypes.CDLL:
     """The LN+MLP forward kernel's library (kernel 1), built on first call."""
-    lib = _load("ln_mlp_fwd")
+    return bind_ln_mlp_fwd(_load("ln_mlp_fwd"))
+
+
+def bind_ln_mlp_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the C signatures of a build of kernel 1's library."""
     lib.imt_ln_mlp_fwd_supported.argtypes = [_I, _I]
     lib.imt_ln_mlp_fwd_supported.restype = _I
     lib.imt_ln_mlp_fwd_workspace_bytes.argtypes = [_LL, _I, _I]
@@ -134,7 +138,11 @@ def ln_mlp_fwd_library() -> ctypes.CDLL:
 @functools.cache
 def ln_mlp_bwd_library() -> ctypes.CDLL:
     """The LN+MLP backward kernel's library (kernel 2), built on first call."""
-    lib = _load("ln_mlp_bwd")
+    return bind_ln_mlp_bwd(_load("ln_mlp_bwd"))
+
+
+def bind_ln_mlp_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the C signatures of a build of kernel 2's library."""
     lib.imt_ln_mlp_bwd_supported.argtypes = [_I, _I]
     lib.imt_ln_mlp_bwd_supported.restype = _I
     lib.imt_ln_mlp_bwd_workspace_bytes.argtypes = [_LL, _I, _I]
@@ -280,10 +288,16 @@ def window_attn_heads_fwd_library() -> ctypes.CDLL:
 def convnext_branch_fwd_library() -> ctypes.CDLL:
     """The fused ConvNeXt branch forward kernel's library (kernel 10), built
     on first call."""
-    lib = _load("convnext_branch_fwd")
+    return bind_convnext_branch_fwd(_load("convnext_branch_fwd"))
+
+
+def bind_convnext_branch_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the C signatures of a build of kernel 10's library."""
     lib.imt_convnext_branch_fwd_supported.argtypes = [_I] * 3
     lib.imt_convnext_branch_fwd_supported.restype = _I
-    lib.imt_convnext_branch_fwd.argtypes = [_P] * 11 + [_I] * 6 + [_F, _P]
+    lib.imt_convnext_branch_fwd_workspace_bytes.argtypes = [_I] * 6
+    lib.imt_convnext_branch_fwd_workspace_bytes.restype = _LL
+    lib.imt_convnext_branch_fwd.argtypes = [_P] * 12 + [_I] * 6 + [_F, _I, _I, _P]
     lib.imt_convnext_branch_fwd.restype = _I
     return lib
 
@@ -292,11 +306,15 @@ def convnext_branch_fwd_library() -> ctypes.CDLL:
 def convnext_branch_bwd_library() -> ctypes.CDLL:
     """The fused ConvNeXt branch backward kernel's library (kernel 11), built
     on first call."""
-    lib = _load("convnext_branch_bwd")
+    return bind_convnext_branch_bwd(_load("convnext_branch_bwd"))
+
+
+def bind_convnext_branch_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the C signatures of a build of kernel 11's library."""
     lib.imt_convnext_branch_bwd_supported.argtypes = [_I] * 3
     lib.imt_convnext_branch_bwd_supported.restype = _I
     lib.imt_convnext_branch_bwd_workspace_bytes.argtypes = [_I] * 6
     lib.imt_convnext_branch_bwd_workspace_bytes.restype = _LL
-    lib.imt_convnext_branch_bwd.argtypes = [_P] * 17 + [_I] * 6 + [_F, _P]
+    lib.imt_convnext_branch_bwd.argtypes = [_P] * 17 + [_I] * 6 + [_F, _I, _I, _P]
     lib.imt_convnext_branch_bwd.restype = _I
     return lib

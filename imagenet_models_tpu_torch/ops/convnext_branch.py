@@ -8,9 +8,12 @@ public entry `convnext_branch_apply` is the route, and this module's is its
 counterpart. No model of the port calls it either.
 
 - kernel 10, `fused_convnext_branch` (`csrc/convnext_branch_fwd.cu`): the
-  branch's forward on a (B, H, W, C) NHWC map of bf16 or fp32;
+  branch's forward on a (B, H, W, C) NHWC map of bf16 or fp32; in bf16 a
+  conv + LayerNorm prologue (`csrc/convnext_branch_ring.cuh`) and kernel 1's
+  two wgmma + TMA GEMM stages;
 - kernel 11, `fused_convnext_branch_bwd` (`csrc/convnext_branch_bwd.cu`): the
-  forward recomputed, then dx and every parameter's gradient.
+  forward recomputed, then dx and every parameter's gradient; in bf16 the
+  same prologue, kernel 2's GEMM stages and a conv-backward stage.
 
 Beside them are their plain-PyTorch twins `plain_convnext_branch` and
 `plain_convnext_branch_bwd`, which have the kernels' numerics (the TPU
@@ -44,7 +47,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from imagenet_models_tpu_torch.ops.convnext_block import _erf_poly, gelu_grad, plain_ln_mlp
+from imagenet_models_tpu_torch.ops.convnext_block import _erf_poly, _workspace, gelu_grad, plain_ln_mlp
 from imagenet_models_tpu_torch.ops.dw_conv import dw_conv7
 
 K = 7  # kernel extent (dw 7x7)
@@ -204,16 +207,16 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {lib.imt_cuda_error_string(err).decode()}")
 
 
-def fused_convnext_branch(x: torch.Tensor, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma,
-                          eps: float = 1e-6) -> torch.Tensor:
-    """Kernel 10, the CUDA branch forward, on a contiguous (B, H, W, C) NHWC
-    CUDA map of bf16 or fp32 with C a multiple of 16 up to 1024 (fp32 while
-    its tile fits in shared memory); returns x's dtype.
+# kernel 10's stages in bf16, as imt_convnext_branch_fwd numbers them (its
+# fp32 instance is one launch)
+FWD_STAGES = ("conv_ln", "hidden", "output")
 
-    Replaces `_branch_fwd_pallas` (ops/convnext_branch.py:213). Weights in the
-    port's layout, cast to x's dtype here as JAX casts them; vectors fp32.
-    Raises on anything the kernel does not take, CPU tensors included.
-    `fused_convnext_branch.launches` counts launches."""
+
+def _fwd_call(x: torch.Tensor, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma, eps: float):
+    """One call of kernel 10, checked and prepared: (out, run), where
+    run(first, last) launches stages [first, last) of FWD_STAGES (bf16; a
+    stage run alone reads what the stages before it left in the workspace)
+    or, in fp32, the one launch."""
     taps, w1, w2, (dwb, s, lb, bb1, bb2, gm) = _operands(
         "fused_convnext_branch", x, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma)
     from imagenet_models_tpu_torch.ops._kernels import convnext_branch_fwd_library
@@ -221,19 +224,56 @@ def fused_convnext_branch(x: torch.Tensor, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b
     lib = convnext_branch_fwd_library()
     b, h, w, c = x.shape
     hidden = w1.shape[0]
-    if not lib.imt_convnext_branch_fwd_supported(c, hidden, _DTYPES[x.dtype]):
+    code = _DTYPES[x.dtype]
+    nbytes = lib.imt_convnext_branch_fwd_workspace_bytes(b, h, w, c, hidden, code) if x.numel() else 1
+    if nbytes <= 0 or not lib.imt_convnext_branch_fwd_supported(c, hidden, code):
         raise ValueError(f"fused_convnext_branch does not take C={c}, hidden={hidden} in "
                          f"{x.dtype}")
     out = torch.empty_like(x)
+    workspace = _workspace(nbytes, x.device)
+    args = (x.data_ptr(), taps.data_ptr(), dwb.data_ptr(), s.data_ptr(), lb.data_ptr(),
+            w1.data_ptr(), bb1.data_ptr(), w2.data_ptr(), bb2.data_ptr(), gm.data_ptr(),
+            out.data_ptr(), workspace.data_ptr(), code, b, h, w, c, hidden, float(eps))
+    keep = (taps, w1, w2, dwb, s, lb, bb1, bb2, gm, workspace)  # alive as long as `run`
+
+    def run(first: int = 0, last: int = len(FWD_STAGES)) -> None:
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.imt_convnext_branch_fwd(*args, first, last, stream)
+        _raise_on(lib, err, "convnext_branch_fwd")
+
+    run.keep = keep
+    return out, run
+
+
+def convnext_branch_fwd_pipeline(x: torch.Tensor, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma,
+                                 eps: float = 1e-6):
+    """Kernel 10 run once through all its stages; returns its `run(first,
+    last)`, so that each stage can be launched again on its own: for timing
+    the bf16 pipeline stage by stage. Not counted in
+    `fused_convnext_branch.launches`."""
+    _, run = _fwd_call(x, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma, eps)
+    run()
+    return run
+
+
+def fused_convnext_branch(x: torch.Tensor, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma,
+                          eps: float = 1e-6) -> torch.Tensor:
+    """Kernel 10, the CUDA branch forward, on a contiguous (B, H, W, C) NHWC
+    CUDA map of bf16 or fp32 with C a multiple of 16 up to 1024; returns x's
+    dtype.
+
+    Replaces `_branch_fwd_pallas` (ops/convnext_branch.py:213). Weights in the
+    port's layout, cast to x's dtype here as JAX casts them; vectors fp32.
+    bf16 is a pipeline (FWD_STAGES, csrc/convnext_branch_fwd.cu): the conv
+    and LayerNorm, then kernel 1's two GEMM stages, over a workspace from the
+    caching allocator; fp32 is one launch. Raises on anything the kernel does
+    not take, CPU tensors included. `fused_convnext_branch.launches` counts
+    calls that launched it."""
+    out, run = _fwd_call(x, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma, eps)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.imt_convnext_branch_fwd(
-            x.data_ptr(), taps.data_ptr(), dwb.data_ptr(), s.data_ptr(), lb.data_ptr(),
-            w1.data_ptr(), bb1.data_ptr(), w2.data_ptr(), bb2.data_ptr(), gm.data_ptr(),
-            out.data_ptr(), _DTYPES[x.dtype], b, h, w, c, hidden, float(eps), stream)
-    _raise_on(lib, err, "convnext_branch_fwd")
+    run()
     fused_convnext_branch.launches += 1
     return out
 
@@ -241,17 +281,19 @@ def fused_convnext_branch(x: torch.Tensor, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b
 fused_convnext_branch.launches = 0
 
 
-def fused_convnext_branch_bwd(x: torch.Tensor, g: torch.Tensor, dw_w, dw_b, ln_s, ln_b, w1, b1,
-                              w2, b2, gamma, eps: float = 1e-6) -> Tuple[torch.Tensor, ...]:
-    """Kernel 11, the CUDA branch backward, on x and the cotangent g: contiguous
-    (B, H, W, C) NHWC CUDA maps of one dtype, bf16 or fp32. Returns
-    GRAD_NAMES' ten gradients as `plain_convnext_branch_bwd` does: dx in x's
-    dtype, the others in their parameter's (the kernel sums in fp32), the tap
-    and weight gradients the same bits on every run.
+# kernel 11's stages in bf16, as imt_convnext_branch_bwd numbers them (its
+# fp32 instance runs them all in one call)
+BWD_STAGES = ("conv_ln", "hidden", "dln", "wgrad", "conv_bwd")
 
-    Replaces `_branch_bwd_pallas` (ops/convnext_branch.py:242). Raises on
-    anything the kernel does not take. `fused_convnext_branch_bwd.launches`
-    counts calls that launched it."""
+
+def _bwd_call(x: torch.Tensor, g: torch.Tensor, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma,
+              eps: float):
+    """One call of kernel 11, checked and prepared: (gradients, run), where
+    run(first, last) launches stages [first, last) of BWD_STAGES (bf16; a
+    stage run alone reads what the stages before it left in the workspace)
+    or, in fp32, the whole backward. The gradients are GRAD_NAMES' ten as
+    the kernel writes them (dx in x's dtype, the others fp32), filled by a
+    run of every stage."""
     taps, w1c, w2c, (dwb, s, lb, bb1, bb2, gm) = _operands(
         "fused_convnext_branch_bwd", x, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
@@ -266,30 +308,65 @@ def fused_convnext_branch_bwd(x: torch.Tensor, g: torch.Tensor, dw_w, dw_b, ln_s
     b, h, w, c = x.shape
     hidden = w1c.shape[0]
     code = _DTYPES[x.dtype]
-    nbytes = lib.imt_convnext_branch_bwd_workspace_bytes(b, h, w, c, hidden, code)
+    dev = x.device
+    with torch.cuda.device(dev):  # the bf16 plan follows the card's SM count
+        nbytes = lib.imt_convnext_branch_bwd_workspace_bytes(b, h, w, c, hidden, code)
     if nbytes <= 0 or not lib.imt_convnext_branch_bwd_supported(c, hidden, code):
         raise ValueError(f"fused_convnext_branch_bwd does not take (B, H, W, C) = "
                          f"{tuple(x.shape)}, hidden={hidden} in {x.dtype}")
-    dev = x.device
-    workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    workspace = _workspace(nbytes, dev)
     dx = torch.empty_like(x)
     ddw = torch.empty(c, 1, K, K, dtype=torch.float32, device=dev)
     dw1 = torch.empty(hidden, c, dtype=torch.float32, device=dev)
     dw2 = torch.empty(c, hidden, dtype=torch.float32, device=dev)
     vecs = torch.empty(hidden + 5 * c, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.imt_convnext_branch_bwd(
-            x.data_ptr(), g.data_ptr(), taps.data_ptr(), dwb.data_ptr(), s.data_ptr(),
+    args = (x.data_ptr(), g.data_ptr(), taps.data_ptr(), dwb.data_ptr(), s.data_ptr(),
             lb.data_ptr(), w1c.data_ptr(), bb1.data_ptr(), w2c.data_ptr(), bb2.data_ptr(),
             gm.data_ptr(), dx.data_ptr(), ddw.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
-            vecs.data_ptr(), workspace.data_ptr(), code, b, h, w, c, hidden, float(eps), stream)
-    _raise_on(lib, err, "convnext_branch_bwd")
-    fused_convnext_branch_bwd.launches += 1
+            vecs.data_ptr(), workspace.data_ptr(), code, b, h, w, c, hidden, float(eps))
+    keep = (taps, w1c, w2c, dwb, s, lb, bb1, bb2, gm, workspace)  # alive as long as `run`
+
+    def run(first: int = 0, last: int = len(BWD_STAGES)) -> None:
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.imt_convnext_branch_bwd(*args, first, last, stream)
+        _raise_on(lib, err, "convnext_branch_bwd")
+
+    run.keep = keep
     db1, db2, dgamma, dln_s, dln_b, ddw_b = torch.split(vecs, [hidden, c, c, c, c, c])
-    grads = (ddw, ddw_b, dln_s, dln_b, dw1, db1, dw2, db2, dgamma)
+    return (dx, ddw, ddw_b, dln_s, dln_b, dw1, db1, dw2, db2, dgamma), run
+
+
+def convnext_branch_bwd_pipeline(x: torch.Tensor, g: torch.Tensor, dw_w, dw_b, ln_s, ln_b, w1,
+                                 b1, w2, b2, gamma, eps: float = 1e-6):
+    """Kernel 11 run once through all its stages; returns its `run(first,
+    last)`, so that each stage can be launched again on its own: for timing
+    the bf16 pipeline stage by stage. Not counted in
+    `fused_convnext_branch_bwd.launches`."""
+    _, run = _bwd_call(x, g, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma, eps)
+    run()
+    return run
+
+
+def fused_convnext_branch_bwd(x: torch.Tensor, g: torch.Tensor, dw_w, dw_b, ln_s, ln_b, w1, b1,
+                              w2, b2, gamma, eps: float = 1e-6) -> Tuple[torch.Tensor, ...]:
+    """Kernel 11, the CUDA branch backward, on x and the cotangent g: contiguous
+    (B, H, W, C) NHWC CUDA maps of one dtype, bf16 or fp32. Returns
+    GRAD_NAMES' ten gradients as `plain_convnext_branch_bwd` does: dx in x's
+    dtype, the others in their parameter's (the kernel sums in fp32), the tap
+    and weight gradients the same bits on every run.
+
+    Replaces `_branch_bwd_pallas` (ops/convnext_branch.py:242). bf16 is a
+    pipeline (BWD_STAGES, csrc/convnext_branch_bwd.cu): the conv and
+    LayerNorm, kernel 2's GEMM stages and the conv's backward, over a
+    workspace from the caching allocator. Raises on anything the kernel does
+    not take. `fused_convnext_branch_bwd.launches` counts calls that
+    launched it."""
+    grads, run = _bwd_call(x, g, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma, eps)
+    run()
+    fused_convnext_branch_bwd.launches += 1
     params = (dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma)
-    return (dx,) + tuple(d.to(p.dtype) for d, p in zip(grads, params))
+    return grads[:1] + tuple(d.to(p.dtype) for d, p in zip(grads[1:], params))
 
 
 fused_convnext_branch_bwd.launches = 0

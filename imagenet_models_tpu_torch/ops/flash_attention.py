@@ -22,10 +22,15 @@ to the input dtype, p v with fp32 sums, one cast at the output.
 There is no backward kernel, in JAX or here. As JAX's custom VJPs
 (flash_attention.py:177-192, :211-228), the autograd functions
 `WindowAttentionFunction` and `WindowAttentionHeadsFunction` save the inputs
-and pull the cotangent back through autograd of the JAX composition's copy,
-`plain_window_attention` / `plain_window_attention_heads`, recomputed from
-them: scores out of the product in the input dtype before the fp32 softmax.
-Kernel 13's gives the bias its gradient, so the rel-pos tables train.
+and pull the cotangent back through autograd of a recompute. JAX recomputes
+its composition; here the recompute is the kernel's own twin, so the
+pullback is the derivative of the function the kernel computed. In fp32
+the two are one function. In bf16 the composition rounds the scores to bf16
+before the softmax and the score gradient before its products: through it,
+a ga_cswin_tiny train step's gradients came out up to 1.241 times as far
+from fp32 as the plain route's in one (stage, parameter) group, through the
+twin 1.097 (H100). Kernel 13's pullback gives the bias its gradient, so the
+rel-pos tables train.
 
 The JAX kernels' padding of N to a multiple of 8 and D to 128, their -1e30
 key mask and their window groups (`IMTPU_FLASH_GROUP`) are TPU tile
@@ -64,7 +69,7 @@ def plain_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """JAX's composition (flash_attention.py:202-208): q, k, v (BW, N, D),
     q pre-scaled; scores out of the product in the input dtype, the bias
     added in fp32, softmax in fp32 cast to q's dtype, p v in the input
-    dtype. The pullback of kernel 12 is autograd of this."""
+    dtype."""
     s = torch.einsum("bnd,bmd->bnm", q, k).float()
     if bias is not None:
         s = s + bias.float()
@@ -75,8 +80,7 @@ def plain_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def plain_window_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  bias: torch.Tensor) -> torch.Tensor:
     """JAX's composition with a per-head shared bias (flash_attention.py:
-    170-174): q, k, v (BW, H, N, D), bias (H, N, N). The pullback of kernel
-    13 is autograd of this."""
+    170-174): q, k, v (BW, H, N, D), bias (H, N, N)."""
     s = torch.einsum("bhnd,bhmd->bhnm", q, k).float() + bias.float()[None]
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bhnm,bhmd->bhnd", p, v)
@@ -232,8 +236,9 @@ def _pullback(fn: Callable, inputs: Sequence[Optional[torch.Tensor]], g: torch.T
 
 class WindowAttentionFunction(torch.autograd.Function):
     """Window attention on CUDA: kernel 12 forward; the backward is autograd
-    of `plain_window_attention` recomputed from the saved inputs, as JAX's
-    `_fused_diff_bwd` (flash_attention.py:219-225)."""
+    of its twin `plain_fused_window_attention` recomputed from the saved
+    inputs (JAX's `_fused_diff_bwd`, flash_attention.py:219-225, recomputes
+    the composition)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias):
@@ -242,14 +247,16 @@ class WindowAttentionFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _pullback(plain_window_attention, ctx.saved_tensors, g, ctx.needs_input_grad)
+        return _pullback(plain_fused_window_attention, ctx.saved_tensors, g,
+                         ctx.needs_input_grad)
 
 
 class WindowAttentionHeadsFunction(torch.autograd.Function):
     """Window attention with a per-head bias on CUDA: kernel 13 forward; the
-    backward is autograd of `plain_window_attention_heads` recomputed from
-    the saved inputs (dbias summed over the windows), as JAX's
-    `_fused_heads_bwd` (flash_attention.py:185-189)."""
+    backward is autograd of its twin `plain_fused_window_attention_heads`
+    recomputed from the saved inputs (dbias summed over the windows; JAX's
+    `_fused_heads_bwd`, flash_attention.py:185-189, recomputes the
+    composition)."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias):
@@ -258,7 +265,7 @@ class WindowAttentionHeadsFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _pullback(plain_window_attention_heads, ctx.saved_tensors, g,
+        return _pullback(plain_fused_window_attention_heads, ctx.saved_tensors, g,
                          ctx.needs_input_grad)
 
 

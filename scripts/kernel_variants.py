@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Time copies of kernels 9 and 13 on the card beside the built kernels and
 the library calls, in turns, at the shapes of chip_smoke.py's phases 18 and
-21; with a baseline, kernels 1-6, 9, 12 and 13 of another checkout beside
-this one's.
+21; with a baseline, kernels 1-6 and 9-13 of another checkout beside this
+one's.
 
     python3 scripts/kernel_variants.py [--baseline DIR] [--kernels K ...] [--out DIR]
 
@@ -49,11 +49,25 @@ around this checkout's library) and the bare C entry, each build held to
 the twins, the fp32 instances' output bits compared (`chip_smoke.k34_digest`)
 and HMMA looked for in every bf16 instance of kernel 4, beside a copy of
 kernel 4 with the bias terms and the dbias sums out of registers at T <= 64.
-`--kernels` picks the sets to time (9, 13, 1, 2, 12, 5-6, 3-4; all by default): kernel 1's comparison needs a
+Kernels 10 and 11 (`csrc/convnext_branch_{fwd,bwd}.cu`, set 10-11): this
+checkout's and the baseline's in turns with the block route (cuDNN's
+depthwise conv and its gradients with kernels 1 and 2) at the four B=128
+stage shapes of map_convnext_tiny, per forward and per train step, by CUDA
+events and by the profiler's device time, this checkout's stage by stage
+(the baseline's kernels through copies of the first design's host code, without
+stages), both held to the twins, their fp32 output bits compared
+(`chip_smoke.k1011_digest`), wgmma and TMA loads looked for in the bf16
+GEMM stages (`chip_smoke.check_branch_code`); and kernels 1 and 2 of this
+checkout held to the baseline's bits at chip_smoke's phase-3 shapes; and
+the conv ring stages alone beside diagnostic copies (RING_VARIANTS: the
+conv, the statistics, the per-channel pass, the global reads, the conv
+backward's dx and tap roles each taken out; wrong outputs).
+`--kernels` picks the sets to time (9, 13, 1, 2, 12, 5-6, 3-4, 10-11; all by
+default): kernel 1's comparison needs a
 baseline whose kernel 1 has the one-launch C interface, so a later baseline
 is given with `--kernels 5-6` or the like. Every library is built with nvcc by hand into
 `--out` (one process per source, all started together), with the registers
-and SASS counts of this checkout's kernels 1-6, 9, 12 and 13
+and SASS counts of this checkout's kernels 1-6 and 9-13
 (chip_smoke.code_report).
 Needs one NVIDIA GPU.
 """
@@ -92,10 +106,30 @@ STRIPE_VARIANTS = {"no LePE epilogue": {"add_lepe<false>(o, Vs, W, D, m0, g, lan
 # L1/L2 a window, summed in the partials buffer
 PARTITION_VARIANTS = {"bias and dbias sums out of registers": {
     "partition_attn_bwd": {"constexpr bool kRegs = NKB <= 4;": "constexpr bool kRegs = false;"}}}
-DIAGNOSTIC = ("no products", "no global loads", "no step barrier", "no LePE epilogue")
+# kernels 10 and 11 copies, diagnostic (wrong outputs; they show where the
+# conv ring stages' time goes): name -> {file: {text: its replacement}}
+RING_VARIANTS = {
+    "no conv": {"convnext_branch_ring.cuh": {
+        "    for (int it = tid; it < items; it += kRingThreads) {":
+        "    for (int it = tid; it < 0; it += kRingThreads) {"}},
+    "no statistics": {"convnext_branch_ring.cuh": {
+        "    for (int t0 = 0; t0 < k.swv; t0 += kRingThreads / G) {":
+        "    for (int t0 = 0; t0 < 0; t0 += kRingThreads / G) {"}},
+    "no per-channel pass": {"convnext_branch_ring.cuh": {
+        "    for (int it = tid; it < P * tpp; it += kRingThreads) {":
+        "    for (int it = tid; it < 0; it += kRingThreads) {"}},
+    "no global reads": {"convnext_branch_ring.cuh": {
+        "                     valid);\n  }\n}": "                     false);\n  }\n}"}},
+    "no dx role": {"convnext_branch_bwd.cu": {
+        "    if (active && !tap_role) {": "    if (false) {"}},
+    "no tap role": {"convnext_branch_bwd.cu": {
+        "    } else if (active) {": "    } else if (false) {"}},
+}
+DIAGNOSTIC = ("no products", "no global loads", "no step barrier", "no LePE epilogue",
+              *RING_VARIANTS)
 # the kernels the script times, by the numbers of their TPU kernels; 1, 2,
 # 3, 4, 5, 6 and 12 only beside a baseline
-KERNEL_SETS = ("9", "13", "1", "2", "12", "5-6", "3-4")
+KERNEL_SETS = ("9", "13", "1", "2", "12", "5-6", "3-4", "10-11")
 P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
@@ -121,6 +155,14 @@ def build(jobs, out: Path) -> dict:
         else:
             built[name] = so
     return built
+
+
+def lib_of(path, bind):
+    """A library at `path` with the C signatures `bind` sets."""
+    lib = ctypes.CDLL(str(path))
+    lib.imt_cuda_error_string.argtypes = [I]
+    lib.imt_cuda_error_string.restype = ctypes.c_char_p
+    return bind(lib)
 
 
 def dw_lib(path):
@@ -333,12 +375,11 @@ def kernel1_host(old, card: str) -> dict:
 def bwd_lib(path):
     """A build of kernel 2 with this checkout's C interface, which the
     baseline shares."""
-    lib = ctypes.CDLL(str(path))
-    lib.imt_ln_mlp_bwd_bf16.argtypes = [P] * 14 + [LL, I, I, ctypes.c_float, I, I, I, P]
-    lib.imt_ln_mlp_bwd_bf16.restype = I
-    lib.imt_cuda_error_string.argtypes = [I]
-    lib.imt_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    def bind(lib):
+        lib.imt_ln_mlp_bwd_bf16.argtypes = [P] * 14 + [LL, I, I, ctypes.c_float, I, I, I, P]
+        lib.imt_ln_mlp_bwd_bf16.restype = I
+        return lib
+    return lib_of(path, bind)
 
 
 def run_bwd(lib, args, g):
@@ -586,10 +627,7 @@ def stripe_lib(path, fwd: bool):
     which the baseline shares."""
     from imagenet_models_tpu_torch.ops import _kernels
 
-    lib = ctypes.CDLL(str(path))
-    lib.imt_cuda_error_string.argtypes = [I]
-    lib.imt_cuda_error_string.restype = ctypes.c_char_p
-    return (_kernels.bind_stripe_attn_fwd if fwd else _kernels.bind_stripe_attn_bwd)(lib)
+    return lib_of(path, _kernels.bind_stripe_attn_fwd if fwd else _kernels.bind_stripe_attn_bwd)
 
 
 STRIPE_LIBS = ("stripe_attn_fwd", "stripe_attn_bwd")
@@ -685,10 +723,8 @@ def partition_lib(path, fwd: bool):
     the baseline shares."""
     from imagenet_models_tpu_torch.ops import _kernels
 
-    lib = ctypes.CDLL(str(path))
-    lib.imt_cuda_error_string.argtypes = [I]
-    lib.imt_cuda_error_string.restype = ctypes.c_char_p
-    return (_kernels.bind_partition_attn_fwd if fwd else _kernels.bind_partition_attn_bwd)(lib)
+    return lib_of(path,
+                  _kernels.bind_partition_attn_fwd if fwd else _kernels.bind_partition_attn_bwd)
 
 
 def host_partition(lib, old, which: str, args, part: str) -> dict:
@@ -818,6 +854,283 @@ def kernels34(arms, old, card: str) -> dict:
     return result
 
 
+BRANCH_LIBS = ("convnext_branch_fwd", "convnext_branch_bwd")
+LN_MLP_LIBS = ("ln_mlp_fwd", "ln_mlp_bwd")
+
+
+def old_branch_fwd_lib(path):
+    """A build of kernel 10 with the first design's one-launch C interface (no
+    workspace or stages)."""
+    def bind(lib):
+        lib.imt_convnext_branch_fwd_supported.argtypes = [I] * 3
+        lib.imt_convnext_branch_fwd_supported.restype = I
+        lib.imt_convnext_branch_fwd.argtypes = [P] * 11 + [I] * 6 + [ctypes.c_float, P]
+        lib.imt_convnext_branch_fwd.restype = I
+        return lib
+    return lib_of(path, bind)
+
+
+def old_branch_fwd(lib, x, params, eps=1e-6):
+    """The baseline's kernel 10 through a copy of its wrapper's host code
+    (the first design's one-launch `fused_convnext_branch` of
+    ops/convnext_branch.py), through this checkout's operand helper, which
+    does the same work."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import convnext_branch as cbr
+
+    taps, w1, w2, (dwb, s, lb, bb1, bb2, gm) = cbr._operands("fused_convnext_branch", x, *params)
+    b, h, w, c = x.shape
+    hidden = w1.shape[0]
+    if not lib.imt_convnext_branch_fwd_supported(c, hidden, cbr._DTYPES[x.dtype]):
+        raise ValueError(f"the baseline's kernel 10 does not take C={c} in {x.dtype}")
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.imt_convnext_branch_fwd(
+            x.data_ptr(), taps.data_ptr(), dwb.data_ptr(), s.data_ptr(), lb.data_ptr(),
+            w1.data_ptr(), bb1.data_ptr(), w2.data_ptr(), bb2.data_ptr(), gm.data_ptr(),
+            out.data_ptr(), cbr._DTYPES[x.dtype], b, h, w, c, hidden, float(eps), stream)
+    cbr._raise_on(lib, err, "baseline convnext_branch_fwd")
+    return out
+
+
+def old_branch_bwd_lib(path):
+    """A build of kernel 11 with the first design's C interface (no stages)."""
+    def bind(lib):
+        lib.imt_convnext_branch_bwd_supported.argtypes = [I] * 3
+        lib.imt_convnext_branch_bwd_supported.restype = I
+        lib.imt_convnext_branch_bwd_workspace_bytes.argtypes = [I] * 6
+        lib.imt_convnext_branch_bwd_workspace_bytes.restype = LL
+        lib.imt_convnext_branch_bwd.argtypes = [P] * 17 + [I] * 6 + [ctypes.c_float, P]
+        lib.imt_convnext_branch_bwd.restype = I
+        return lib
+    return lib_of(path, bind)
+
+
+def old_branch_bwd(lib, x, g, params, eps=1e-6):
+    """The baseline's kernel 11 through a copy of its wrapper's host code
+    (the first design's `fused_convnext_branch_bwd`: one call of every stage),
+    through this checkout's operand helper, which does the same work."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import convnext_branch as cbr
+
+    taps, w1c, w2c, (dwb, s, lb, bb1, bb2, gm) = cbr._operands(
+        "fused_convnext_branch_bwd", x, *params)
+    b, h, w, c = x.shape
+    hidden = w1c.shape[0]
+    code = cbr._DTYPES[x.dtype]
+    nbytes = lib.imt_convnext_branch_bwd_workspace_bytes(b, h, w, c, hidden, code)
+    if nbytes <= 0 or not lib.imt_convnext_branch_bwd_supported(c, hidden, code):
+        raise ValueError(f"the baseline's kernel 11 does not take {tuple(x.shape)}")
+    dev = x.device
+    workspace = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    dx = torch.empty_like(x)
+    ddw = torch.empty(c, 1, 7, 7, dtype=torch.float32, device=dev)
+    dw1 = torch.empty(hidden, c, dtype=torch.float32, device=dev)
+    dw2 = torch.empty(c, hidden, dtype=torch.float32, device=dev)
+    vecs = torch.empty(hidden + 5 * c, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.imt_convnext_branch_bwd(
+            x.data_ptr(), g.data_ptr(), taps.data_ptr(), dwb.data_ptr(), s.data_ptr(),
+            lb.data_ptr(), w1c.data_ptr(), bb1.data_ptr(), w2c.data_ptr(), bb2.data_ptr(),
+            gm.data_ptr(), dx.data_ptr(), ddw.data_ptr(), dw1.data_ptr(), dw2.data_ptr(),
+            vecs.data_ptr(), workspace.data_ptr(), code, b, h, w, c, hidden, float(eps), stream)
+    cbr._raise_on(lib, err, "baseline convnext_branch_bwd")
+    db1, db2, dgamma, dln_s, dln_b, ddw_b = torch.split(vecs, [hidden, c, c, c, c, c])
+    grads = (ddw, ddw_b, dln_s, dln_b, dw1, db1, dw2, db2, dgamma)
+    return (dx,) + tuple(d.to(p.dtype) for d, p in zip(grads, params))
+
+
+def branch_arms(libs):
+    """{arm: (forward(x, params), backward(x, g, params))} of kernels 10 and
+    11: this checkout's wrappers around this checkout's build; the
+    baseline's kernels through copies of its host code (the first design's C
+    interfaces, without stages)."""
+    from imagenet_models_tpu_torch.ops import convnext_branch as cbr
+
+    def arm(fwd_lib, bwd_lib, old):
+        def fwd(x, params):
+            if old:
+                return old_branch_fwd(fwd_lib, x, params)
+            return through((fwd_lib,), lambda: cbr.fused_convnext_branch(x, *params),
+                           ("convnext_branch_fwd",))
+
+        def bwd(x, g, params):
+            if old:
+                return old_branch_bwd(bwd_lib, x, g, params)
+            return through((bwd_lib,), lambda: cbr.fused_convnext_branch_bwd(x, g, *params),
+                           ("convnext_branch_bwd",))
+        return fwd, bwd
+
+    return {"this checkout": arm(libs["this fwd"], libs["this bwd"], False),
+            "baseline": arm(libs["baseline fwd"], libs["baseline bwd"], True)}
+
+
+def kernels12_bits(ln_libs, card: str) -> dict:
+    """Kernels 1 and 2 of this checkout against the baseline's bits at
+    chip_smoke's phase-3 shapes (the B=64 stage shapes, the ragged one and
+    BWD_EDGE_SHAPES), both GELUs, through this checkout's wrappers: their
+    GEMM stages now live in headers that kernels 10 and 11 share, and must
+    have moved nothing."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import convnext_block as cb
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 11)
+    shapes = ([(n, c, 0) for n, c in cs.stage_shapes(64) + [cs.RAGGED_SHAPE]]
+              + list(cs.BWD_EDGE_SHAPES))
+    moved = []
+    with torch.inference_mode():
+        for gelu in ("exact", "fast"):
+            for n, c, hidden in shapes:
+                args = cs.ln_mlp_args(n, c, gen, hidden)
+                g = torch.randn(n, c, generator=gen, device="cuda").to(torch.bfloat16)
+                outs = {}
+                for arm, (f, b) in ln_libs.items():
+                    outs[arm] = through((f, b), lambda: (
+                        (cb.fused_ln_mlp(*args, gelu_impl=gelu),)
+                        + cb.fused_ln_mlp_bwd(args[0], g, *args[1:], gelu_impl=gelu)), LN_MLP_LIBS)
+                same = all(torch.equal(a, b) for a, b in zip(outs["this checkout"],
+                                                             outs["baseline"]))
+                if not same:
+                    moved.append((gelu, n, c, hidden))
+                del args, g, outs
+    cs.log(f"[kernels 1-2] this checkout's outputs are the baseline's bits at {2 * len(shapes)} "
+           f"(GELU, shape) cases: {not moved}" + (f"; moved at {moved}" if moved else "")
+           + f" on {card}")
+    if moved:
+        raise AssertionError(f"kernels 1 and 2 moved from the baseline's bits at {moved}")
+    return {"cases": 2 * len(shapes), "moved": moved}
+
+
+def kernels1011(libs, card: str) -> dict:
+    """Kernels 10 and 11 of this checkout and of the baseline (`branch_arms`)
+    in turns with the block route (chip_smoke.block_route_fns, on this
+    checkout's kernels 1 and 2) at the four B=128 stage shapes of
+    map_convnext_tiny in bf16: each build held to the twins
+    (chip_smoke.KERNEL_RTOL, every output); per launch by CUDA events and by
+    the profiler's device time; this checkout's kernel 10 stage by stage; per
+    forward (kernel 10) and per train step (kernel 11) weighted by the
+    path's launches (chip_smoke.STAGE_DEPTHS)."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import convnext_branch as cbr
+
+    arms = branch_arms(libs)
+    ln = libs["this ln"]
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 25)
+    rows = {"fwd": [], "bwd": []}
+    for name, b, h, w, c, count in cs.BRANCH_SHAPES:
+        x, g, params = cs.branch_args(b, h, w, c, torch.bfloat16, gen)
+        block_fwd, block_bwd = cs.block_route_fns(x, g, params)
+        with torch.inference_mode():
+            ref = (cbr.plain_convnext_branch(x, *params),) + cbr.plain_convnext_branch_bwd(
+                x, g, *params)
+            errs = {}
+            for arm, (fwd, bwd) in arms.items():
+                got = (fwd(x, params),) + bwd(x, g, params)
+                errs[arm] = max(cs.rel_err(o, r) for o, r in zip(got, ref))
+                del got
+            del ref
+            if not all(e <= cs.KERNEL_RTOL for e in errs.values()):
+                raise AssertionError(f"kernels 10-11 at {name} disagree with their twins: {errs}")
+            for which in ("fwd", "bwd"):
+                if which == "fwd":
+                    fns = {arm: (lambda f=f: f(x, params)) for arm, (f, _) in arms.items()}
+                    fns["block route"] = lambda: through(ln, block_fwd, LN_MLP_LIBS)
+                else:
+                    fns = {arm: (lambda f=f: f(x, g, params)) for arm, (_, f) in arms.items()}
+                    fns["block route"] = lambda: through(ln, block_bwd, LN_MLP_LIBS)
+                iters = max(3, min(20, 4_000_000 // (b * h * w)) // (1 if which == "fwd" else 2))
+                warm_up(fns, 2)
+                turns = cs.in_turns(fns, iters, order=tuple(fns))
+                device = {arm: sum(cs.device_ms_by_kernel(fn, calls=3).values())
+                          for arm, fn in fns.items()}
+                if which == "fwd":
+                    run = through((libs["this fwd"],), lambda: cbr.convnext_branch_fwd_pipeline(
+                        x, *params), ("convnext_branch_fwd",))
+                else:
+                    run = through((libs["this bwd"],), lambda: cbr.convnext_branch_bwd_pipeline(
+                        x, g, *params), ("convnext_branch_bwd",))
+                names = cbr.FWD_STAGES if which == "fwd" else cbr.BWD_STAGES
+                stages = {st: cs.cuda_ms(lambda s=s: run(s, s + 1), iters)
+                          for s, st in enumerate(names)}
+                ms = {arm: sum(v) / 2 for arm, v in turns.items()}
+                bound, by = cs.branch_bound_ms(b, h, w, c, which == "bwd")
+                k = 10 if which == "fwd" else 11
+                cs.log(f"[kernel {k}] B={b} {h}x{w} C={c} (x{count} per "
+                       f"{'forward' if which == 'fwd' else 'step'}): "
+                       + ", ".join(f"{arm} {v:.4f}" for arm, v in ms.items())
+                       + " ms by CUDA events; device " + ", ".join(
+                           f"{arm} {v:.4f}" for arm, v in device.items())
+                       + " ms; this checkout's stages alone " + ", ".join(
+                           f"{st} {v:.4f}" for st, v in stages.items())
+                       + f"; bound {bound:.4f} ms ({by}) on {card}")
+                rows[which].append({"name": name, "shape": [b, h, w, c], "count": count,
+                                    "ms": ms, "device_ms": device, "stages_ms": stages,
+                                    "turns": turns, "bound_ms": bound, "bound_by": by,
+                                    "vs_twin": errs})
+        del x, g, params, block_fwd, block_bwd
+        torch.cuda.empty_cache()
+    result = {}
+    for which, unit in (("fwd", "forward"), ("bwd", "train step's backward")):
+        total = {key: per_unit([{"ms": r[key]} for r in rows[which]], cs.STAGE_DEPTHS)
+                 for key in ("ms", "device_ms")}
+        bound = sum(n * r["bound_ms"] for n, r in zip(cs.STAGE_DEPTHS, rows[which]))
+        cs.log(f"[kernel {10 if which == 'fwd' else 11}] per map_convnext_tiny {unit} at "
+               f"B={cs.TRAIN_BATCH}: " + ", ".join(f"{arm} {v:.4f}" for arm, v in
+                                                  total["ms"].items())
+               + " ms by CUDA events; device " + ", ".join(
+                   f"{arm} {v:.4f}" for arm, v in total["device_ms"].items())
+               + f" ms; bound {bound:.4f} ms on {card}")
+        result[which] = {"rows": rows[which], "per_unit_ms": total["ms"],
+                         "per_unit_device_ms": total["device_ms"], "bound_ms": bound}
+    return result
+
+
+def ring_stages(arms, card: str) -> dict:
+    """The conv ring stages of kernels 10 and 11 alone (kernel 10's stage 0;
+    kernel 11's stages 0 and 4), each arm's build ({arm: (forward, backward)
+    libraries}: this checkout's and the RING_VARIANTS copies) in turns at
+    the four B=128 stage shapes, per forward and per step."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import convnext_branch as cbr
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 26)
+    rows = []
+    for name, b, h, w, c, count in cs.BRANCH_SHAPES:
+        x, g, params = cs.branch_args(b, h, w, c, torch.bfloat16, gen)
+        fns = {}
+        with torch.inference_mode():
+            for arm, (fl, bl) in arms.items():
+                fwd = through((fl,), lambda: cbr.convnext_branch_fwd_pipeline(x, *params),
+                              ("convnext_branch_fwd",))
+                bwd = through((bl,), lambda: cbr.convnext_branch_bwd_pipeline(x, g, *params),
+                              ("convnext_branch_bwd",))
+                fns[(arm, "kernel 10 conv_ln")] = lambda r=fwd: r(0, 1)
+                fns[(arm, "kernel 11 conv_ln")] = lambda r=bwd: r(0, 1)
+                fns[(arm, "kernel 11 conv_bwd")] = lambda r=bwd: r(4, 5)
+            warm_up(fns, 2)
+            turns = cs.in_turns(fns, 10, order=tuple(fns))
+        ms = {key: sum(v) / 2 for key, v in turns.items()}
+        rows.append({"name": name, "count": count, "ms": ms})
+        del x, g, params
+    total = {key: sum(r["count"] * r["ms"][key] for r in rows) for key in rows[0]["ms"]}
+    for arm in arms:
+        cs.log(f"[ring stages] {arm}, per map_convnext_tiny forward or step at B={cs.TRAIN_BATCH}: "
+               + ", ".join(f"{stage} {v:.4f}" for (a, stage), v in total.items() if a == arm)
+               + f" ms (stage 0 shape: " + ", ".join(
+                   f"{v:.4f}" for (a, _), v in rows[0]["ms"].items() if a == arm)
+               + f") on {card}")
+    return {"rows": [{"name": r["name"], "ms": {f"{a} | {s}": v for (a, s), v in r["ms"].items()}}
+                     for r in rows],
+            "per_unit_ms": {f"{a} | {s}": v for (a, s), v in total.items()}}
+
+
 def mma_line(report: dict, tag: str) -> None:
     """Logs whether each tensor-core instance of a stripe kernel holds mma
     (HMMA) instructions in its SASS."""
@@ -849,8 +1162,9 @@ def main() -> int:
         want &= {"9", "13"}
     sources = {"9": ["dw7_wgrad"], "13": ["window_attn_heads_fwd"], "12": ["window_attn_fwd"],
                "1": ["ln_mlp_fwd"], "2": ["ln_mlp_bwd"], "5-6": ["stripe_attn_fwd", "stripe_attn_bwd"],
-               "3-4": ["partition_attn_fwd", "partition_attn_bwd"]}
-    names = [n for key in KERNEL_SETS if key in want for n in sources[key]]
+               "3-4": ["partition_attn_fwd", "partition_attn_bwd"],
+               "10-11": [*BRANCH_LIBS, *LN_MLP_LIBS]}
+    names = list(dict.fromkeys(n for key in KERNEL_SETS if key in want for n in sources[key]))
     jobs = [(n, CSRC / f"{n}.cu") for n in names]
     if args.baseline:
         jobs += [(f"baseline_{n}", args.baseline / f"{n}.cu") for n in names]
@@ -876,6 +1190,19 @@ def main() -> int:
                 copy = args.out / f"{src}_copy{i}.cu"
                 copy.write_text(text)
                 jobs.append((f"{src}_copy{i}", copy))
+    if "10-11" in want:
+        for i, (name, files) in enumerate(RING_VARIANTS.items()):
+            d = args.out / f"ring_copy{i}"
+            d.mkdir(exist_ok=True)
+            for src in ("convnext_branch_ring.cuh", *BRANCH_LIBS):
+                fname = src if src.endswith(".cuh") else f"{src}.cu"
+                text = (CSRC / fname).read_text()
+                for old, new in files.get(fname, {}).items():
+                    if old not in text:
+                        raise SystemExit(f"{fname} copy {name!r}: {old!r} is not in the source")
+                    text = text.replace(old, new)
+                (d / fname).write_text(text)
+            jobs += [(f"ring_copy{i}_{n}", d / f"{n}.cu") for n in BRANCH_LIBS]
     if "9" in want:
         source = (CSRC / "dw7_wgrad.cu").read_text()
         for i, (name, edits) in enumerate(DW_VARIANTS.items()):
@@ -901,6 +1228,33 @@ def main() -> int:
             if name.startswith("stripe") or name in ("window_attn_fwd", "partition_attn_bwd"):
                 mma_line(report, name)
     result = {"card": card}
+    if "10-11" in want:
+        from imagenet_models_tpu_torch.ops import _kernels
+
+        builds = {n: Build(built[n], 0.0, (args.out / f"{n}.nvcc.log").read_text())
+                  for n in BRANCH_LIBS}
+        result["kernels 10 and 11 code"] = cs.check_branch_code(builds)["summary"]
+        ln = {arm: (lib_of(built[f"{pre}ln_mlp_fwd"], _kernels.bind_ln_mlp_fwd),
+                    lib_of(built[f"{pre}ln_mlp_bwd"], _kernels.bind_ln_mlp_bwd))
+              for arm, pre in (("this checkout", ""), ("baseline", "baseline_"))}
+        libs = {"this fwd": lib_of(built["convnext_branch_fwd"], _kernels.bind_convnext_branch_fwd),
+                "this bwd": lib_of(built["convnext_branch_bwd"], _kernels.bind_convnext_branch_bwd),
+                "baseline fwd": old_branch_fwd_lib(built["baseline_convnext_branch_fwd"]),
+                "baseline bwd": old_branch_bwd_lib(built["baseline_convnext_branch_bwd"]),
+                "this ln": ln["this checkout"]}
+        digests = {arm: cs.k1011_digest(fwd, bwd) for arm, (fwd, bwd) in branch_arms(libs).items()}
+        cs.log(f"[kernels 10-11] fp32 output digests: {digests}; the same bits: "
+               f"{len(set(digests.values())) == 1}")
+        result["kernels 10 and 11 fp32 digests"] = digests
+        result["kernels 10 and 11"] = kernels1011(libs, card)
+        copies = {name: (lib_of(built[f"ring_copy{i}_convnext_branch_fwd"],
+                                _kernels.bind_convnext_branch_fwd),
+                         lib_of(built[f"ring_copy{i}_convnext_branch_bwd"],
+                                _kernels.bind_convnext_branch_bwd))
+                  for i, name in enumerate(RING_VARIANTS)}
+        result["ring stages"] = ring_stages(
+            {"this checkout": (libs["this fwd"], libs["this bwd"]), **copies}, card)
+        result["kernels 1 and 2 bits"] = kernels12_bits(ln, card)
     if "9" in want:
         dw_arms = {"this checkout": built["dw7_wgrad"]}
         if args.baseline:

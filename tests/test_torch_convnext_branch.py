@@ -344,6 +344,22 @@ def test_kernels_match_twins_on_cuda(shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 7, 7, 1024), (1, 9, 11, 896)])
+def test_bf16_kernels_take_the_widest_channels_on_cuda(shape):
+    """bf16 at C = 1024 and 896, where the channel pairs outnumber the conv +
+    LayerNorm stage's threads (a thread takes two, reloading its taps) and,
+    at 1024, that stage's ring keeps 7 rows, not 8."""
+    x, g, params = _cuda_case(shape, torch.bfloat16, seed=14)
+    with torch.no_grad():
+        out = tbr.fused_convnext_branch(x, *params)
+        grads = tbr.fused_convnext_branch_bwd(x, g, *params)
+        torch.cuda.synchronize()
+        _assert_kernel_close(out, tbr.plain_convnext_branch(x, *params), "out", torch.bfloat16)
+        for name, o, r in zip(tbr.GRAD_NAMES, grads, tbr.plain_convnext_branch_bwd(x, g, *params)):
+            _assert_kernel_close(o, r, name, torch.bfloat16)
+
+
+@pytest.mark.cuda
 def test_autograd_on_cuda_runs_the_kernels():
     x, g, params = _cuda_case((2, 14, 14, 96), torch.bfloat16, seed=12)
     leaves = [x.clone().requires_grad_()] + [p.clone().requires_grad_() for p in params]

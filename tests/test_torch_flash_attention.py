@@ -150,8 +150,9 @@ def test_dispatchers_and_gradients_match_jax(heads, with_bias):
 def test_autograd_functions_pull_back_through_the_composition(heads, monkeypatch):
     """The autograd functions' backward, run on the CPU with the kernel
     wrapper replaced by its twin: the gradients are those of `jax.vjp` of
-    JAX's plain composition (its custom VJP's pullback) in fp32, and in bf16
-    bit for bit those of autograd through the port's copy of it."""
+    JAX's plain composition (its custom VJP's pullback) in fp32, where the
+    twin is the composition's function, and in bf16 bit for bit those of
+    autograd through the twin, the kernel's own numerics."""
     import jax
     import jax.numpy as jnp
 
@@ -162,7 +163,7 @@ def test_autograd_functions_pull_back_through_the_composition(heads, monkeypatch
                         tfa.plain_fused_window_attention_heads)
     shape, bshape = ((4, 2, 49, 32), (2, 49, 49)) if heads else ((6, 98, 32), (6, 98, 98))
     fn = tfa.WindowAttentionHeadsFunction if heads else tfa.WindowAttentionFunction
-    plain = tfa.plain_window_attention_heads if heads else tfa.plain_window_attention
+    twin = tfa.plain_fused_window_attention_heads if heads else tfa.plain_fused_window_attention
     jplain = jfa.plain_window_attention_heads if heads else jfa.plain_window_attention
     q, k, v, b = _inputs(shape, bshape, seed=7)
     g = np.random.default_rng(8).standard_normal(shape).astype(np.float32)
@@ -181,9 +182,36 @@ def test_autograd_functions_pull_back_through_the_composition(heads, monkeypatch
     tq = q16.clone().requires_grad_()
     fn.apply(tq, k16, v16, bias).backward(g16)
     rq = q16.clone().requires_grad_()
-    plain(rq, k16, v16, bias).backward(g16)
+    twin(rq, k16, v16, bias).backward(g16)
     assert tq.grad.dtype == torch.bfloat16
     assert torch.equal(tq.grad, rq.grad)
+
+
+@pytest.mark.parametrize("heads", [False, True])
+def test_bf16_pullback_is_nearer_fp32_than_the_compositions(heads):
+    """In bf16 the twin's pullback, the autograd functions' backward, is
+    nearer the fp32 gradients at the same bf16 operands than autograd of the
+    composition, which rounds the scores and the score gradient to bf16:
+    each gradient (q, k, v, bias) at most 0.004 (L2 relative) from fp32 and
+    at most half the composition's distance, at scores of unit scale."""
+    shape, bshape = ((4, 2, 49, 32), (2, 49, 49)) if heads else ((6, 98, 32), (6, 98, 98))
+    twin = tfa.plain_fused_window_attention_heads if heads else tfa.plain_fused_window_attention
+    comp = tfa.plain_window_attention_heads if heads else tfa.plain_window_attention
+    q, k, v, b = (a / 0.3 for a in _inputs(shape, bshape, seed=7))
+    q16, k16, v16 = _torch(q, k, v, dtype=torch.bfloat16)
+    g16 = torch.from_numpy(np.random.default_rng(8).standard_normal(shape).astype(np.float32)
+                           ).bfloat16()
+
+    def grads(fn, dtype):
+        leaves = [t.to(dtype).requires_grad_() for t in (q16, k16, v16)]
+        bias = torch.from_numpy(b).requires_grad_()
+        fn(*leaves, bias).backward(g16.to(dtype))
+        return [t.grad.float() for t in leaves + [bias]]
+
+    ref = grads(twin, torch.float32)
+    rel = lambda a, r: ((a - r).norm() / r.norm()).item()
+    for t, c, r in zip(grads(twin, torch.bfloat16), grads(comp, torch.bfloat16), ref):
+        assert rel(t, r) <= 0.004 and rel(t, r) <= 0.5 * rel(c, r), (rel(t, r), rel(c, r))
 
 
 def test_cpu_dispatch_runs_the_twin_and_wrappers_refuse_cpu():

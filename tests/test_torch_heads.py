@@ -81,6 +81,30 @@ def test_scale_features(in_hw, out_hw):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("fn,in_hw,out_hw", [
+    ("adaptive_avg_pool", (8, 8), (2, 2)),    # GA-CSWin's 56 -> 14 and 28 -> 14
+    ("adaptive_avg_pool", (4, 6), (2, 3)),    # non-square
+    ("adaptive_avg_pool", (7, 7), (3, 3)),    # uneven bins
+    ("adaptive_avg_pool", (3, 3), (7, 7)),    # duplication up, uneven
+    ("resize_bilinear", (7, 7), (14, 14)),    # GA-CSWin's 7 -> 14
+    ("resize_bilinear", (12, 12), (5, 5)),    # down, fractional factor
+    ("resize_bilinear", (5, 8), (9, 3)),      # up one axis, down the other
+])
+def test_resample_and_its_gradient(fn, in_hw, out_hw):
+    """The resamples' values and input gradients (their own backward, the
+    transpose by per-axis weights) against JAX's functions and jax.vjp."""
+    import jax
+
+    x = _x(2, *in_hw, 5)
+    g = np.random.default_rng(3).standard_normal((2, *out_hw, 5)).astype(np.float32)
+    ref, vjp = jax.vjp(lambda a: getattr(jl, fn)(a, out_hw), jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_()
+    got = getattr(tl, fn)(tx, out_hw)
+    got.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), **TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), **TOL)
+
+
 @pytest.mark.parametrize("interleave", [1, 3])
 def test_gram_triu_normalize_fp32(interleave):
     x = _x(2, 9, 6)
