@@ -275,6 +275,11 @@ PS = (7, 7)  # its windows and grid at 224 px
 # of each kernel they give one train step: a block and a grid attention per
 # block, in 2, 2 and 5 blocks
 MAXVIT_STAGES = ((56, 64, 2), (28, 128, 4), (14, 256, 8))
+# phase 8's other shapes of kernels 3 and 4, (B, H, W, heads, window): T = 144
+# and 256 (the 384 and 512 px models), non-square maps, an odd batch with
+# windows that are not square
+ATTN_EXTRA_SHAPES = ((2, 96, 96, 2, (12, 12)), (1, 128, 128, 2, (16, 16)), (8, 14, 21, 3, (7, 7)),
+                     (4, 21, 14, 2, (7, 7)), (3, 12, 15, 2, (4, 5)))
 MAXVIT_STAGE_LAUNCHES = (4, 4, 10)
 MAXVIT_LAUNCHES = sum(MAXVIT_STAGE_LAUNCHES)
 MAXVIT_RECIPE = dict(learning_rate=8e-3, weight_decay=0.05, clip_grad=1.0)
@@ -1372,8 +1377,8 @@ def check_attention_code(builds) -> dict:
     """Kernels 3 and 4's code reports, with the registers and spills of each
     instance: every bf16 instance of kernel 4 (16, on the tensor cores) must
     hold mma.sync (HMMA) instructions in its SASS, where cuobjdump could read
-    it; kernel 3's instances run on the CUDA cores (the first design), and
-    hold none."""
+    it; kernel 3's instances run on the CUDA cores (its bf16 instances keep
+    the first design's arithmetic, and so its bits), and hold none."""
     codes = {name: code_report(builds[name], name)
              for name in ("partition_attn_fwd", "partition_attn_bwd")}
     mma = {k: v.get("HMMA", 0) for k, v in codes["partition_attn_bwd"]["sass"].items()
@@ -1439,9 +1444,7 @@ def check_attention(card: str, builds):
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     rows = []
-    for b, h, w, nh, ps in [(2, 96, 96, 2, (12, 12)), (1, 128, 128, 2, (16, 16)),
-                            (8, 14, 21, 3, (7, 7)), (4, 21, 14, 2, (7, 7)),
-                            (3, 12, 15, 2, (4, 5))]:
+    for b, h, w, nh, ps in ATTN_EXTRA_SHAPES:
         args = attn_args(b, h, w, nh, ps, gen)
         for part in ("block", "grid"):
             rows.append(compare_attention(args, part, ps, nh, f"B={b} {h}x{w} T={ps[0] * ps[1]} "

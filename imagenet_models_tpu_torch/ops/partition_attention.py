@@ -30,9 +30,11 @@ autograd through it gives the gradient (JAX's CPU path is autodiff of its
 plain twin); a CUDA tensor goes to the kernels, or raises. There is no
 fallback from a kernel to a twin. `use_kernel=False` runs the twin on any
 device, to compare against. The kernels take bf16 maps (kernel 4's products
-on the tensor cores, kernel 3's on the CUDA cores) and, for fp32 models, fp32
-maps: each has an fp32 instance on the CUDA cores with no rounding to bf16,
-as the TPU kernels run fp32 operands.
+on the tensor cores; kernel 3's on the CUDA cores, as fp32 FMA chains in the
+order of its first design, whose bf16 bits it keeps: MaxViT's first-step
+gradients move past their gate with any other order, `chip_smoke.py` phase
+10) and, for fp32 models, fp32 maps: each has an fp32 instance on the CUDA
+cores with no rounding to bf16, as the TPU kernels run fp32 operands.
 """
 
 from __future__ import annotations
@@ -52,12 +54,18 @@ KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
 def _check_geometry(qkv: torch.Tensor, part_type: str, ps, nh: int) -> Tuple[int, ...]:
+    return _geometry(qkv.shape, part_type, ps, nh)
+
+
+def _geometry(shape, part_type: str, ps, nh: int) -> Tuple[int, ...]:
+    """(B, H, W, C, ph, pw) of a (B, H, W, 3C) map cut into ph x pw windows,
+    or raises."""
     if part_type not in PART_TYPES:
         raise ValueError(f"part_type must be one of {PART_TYPES}, got {part_type!r}")
-    if qkv.dim() != 4 or qkv.shape[-1] % (3 * nh):
+    if len(shape) != 4 or shape[-1] % (3 * nh):
         raise ValueError(f"qkv must be (B, H, W, 3C) with C a multiple of {nh} heads, "
-                         f"got {tuple(qkv.shape)}")
-    b, h, w, c3 = qkv.shape
+                         f"got {tuple(shape)}")
+    b, h, w, c3 = shape
     ph, pw = ps
     if h % ph or w % pw:
         raise ValueError(f"a {h}x{w} map does not split into {ph}x{pw} windows")
@@ -133,31 +141,48 @@ def plain_partition_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, g: torc
     return _unwindows(rows, part_type, ps, (h, w)), dbias
 
 
-def _check_kernel_operands(name: str, qkv: torch.Tensor, bias: torch.Tensor, part_type: str,
-                           ps, nh: int) -> Tuple[int, torch.Tensor, Tuple[int, ...]]:
-    """Raises on anything the kernels do not take; returns the map's device
-    index, the bias as a contiguous fp32 tensor and the geometry. Each check
-    reads each attribute once: this runs on every launch, whose device time
-    at MaxViT's stage-2 shapes is of the order of the host's."""
-    if not qkv.is_cuda:
-        raise ValueError(f"{name} needs CUDA tensors; CPU tensors go to the plain twin")
-    if qkv.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"{name} takes a bf16 or fp32 qkv map, got {qkv.dtype}")
-    if not qkv.is_contiguous():
-        raise ValueError(f"{name} takes a contiguous qkv map")
-    geo = _check_geometry(qkv, part_type, ps, nh)
+@functools.lru_cache(maxsize=None)
+def _kernel_shape(name: str, shape, dtype, part_type: str, ps, nh: int,
+                  bias_shape) -> Tuple[Tuple[int, ...], str]:
+    """The checks of a launch that depend on the shapes alone, made once a
+    shape (an exception is not cached, so a refused shape raises on every
+    call): returns the geometry and the suffix of the instance's C entry."""
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name} takes a bf16 or fp32 qkv map, got {dtype}")
+    geo = _geometry(shape, part_type, ps, nh)
     b, h, w, c, ph, pw = geo
     t = ph * pw
     if c != nh * HEAD_DIM or t > MAX_TOKENS:
         raise ValueError(f"{name} takes heads of width {HEAD_DIM} and windows of at most "
                          f"{MAX_TOKENS} tokens, got C={c} in {nh} heads and T={t}")
-    dev = qkv.get_device()
-    if bias.shape != (nh, t, t) or bias.get_device() != dev:
+    if bias_shape != (nh, t, t):
         raise ValueError(f"{name}: bias must be ({nh}, {t}, {t}) on the qkv's device, got "
-                         f"{tuple(bias.shape)} on {bias.device}")
+                         f"{tuple(bias_shape)}")
+    return geo, KERNEL_DTYPES[dtype]
+
+
+def _check_kernel_operands(name: str, qkv: torch.Tensor, bias: torch.Tensor, part_type: str,
+                           ps, nh: int) -> Tuple[int, torch.Tensor, Tuple[int, ...], str]:
+    """Raises on anything the kernels do not take; returns the map's device
+    index, the bias as a contiguous fp32 tensor, the geometry and the suffix
+    of the instance's C entry. The checks of the shapes are made once a
+    shape (`_kernel_shape`), the others read each attribute once: this runs
+    on every launch, whose device time at MaxViT's stage-2 shapes is of the
+    order of the host's."""
+    if not qkv.is_cuda:
+        raise ValueError(f"{name} needs CUDA tensors; CPU tensors go to the plain twin")
+    geo, suffix = _kernel_shape(name, qkv.shape, qkv.dtype, part_type, tuple(ps), nh,
+                                bias.shape)
+    if not qkv.is_contiguous():
+        raise ValueError(f"{name} takes a contiguous qkv map")
+    dev = qkv.get_device()
+    if bias.get_device() != dev:
+        raise ValueError(f"{name}: bias must be on the qkv's device, got {bias.device}")
     if qkv.data_ptr() % 16:
         raise ValueError(f"{name} needs a 16-byte aligned qkv map")
-    return dev, bias.float().contiguous(), geo
+    if bias.dtype != torch.float32 or not bias.is_contiguous():
+        bias = bias.float().contiguous()
+    return dev, bias, geo, suffix
 
 
 def _raise_on(lib, err: int, what: str) -> None:
@@ -174,13 +199,13 @@ def fused_partition_attention(qkv: torch.Tensor, bias: torch.Tensor, part_type: 
     Replaces `_fwd_pallas` (ops/partition_attention.py:286). Raises on
     anything the kernel does not take, CPU tensors included.
     `fused_partition_attention.launches` counts launches."""
-    dev, bias, (b, h, w, c, ph, pw) = _check_kernel_operands("fused_partition_attention", qkv,
-                                                             bias, part_type, ps, nh)
+    dev, bias, (b, h, w, c, ph, pw), suffix = _check_kernel_operands(
+        "fused_partition_attention", qkv, bias, part_type, ps, nh)
     lib = _kernels.partition_attn_fwd_library()
-    out = torch.empty(b, h, w, c, dtype=qkv.dtype, device=qkv.device)
+    out = qkv.new_empty((b, h, w, c))
     if b == 0:
         return out
-    entry = getattr(lib, f"imt_partition_attn_fwd_{KERNEL_DTYPES[qkv.dtype]}")
+    entry = getattr(lib, f"imt_partition_attn_fwd_{suffix}")
     err = _kernels.launch(entry, dev, qkv.data_ptr(), bias.data_ptr(), out.data_ptr(), b, h, w,
                           c, nh, ph, pw, int(part_type == "grid"))
     _raise_on(lib, err, "partition_attn_fwd")
@@ -211,8 +236,8 @@ def fused_partition_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, g: torc
     second pass adds the partials in a fixed order, so the result is the
     same on every run. `fused_partition_attention_bwd.launches` counts calls
     that launched it."""
-    dev, bias, (b, h, w, c, ph, pw) = _check_kernel_operands("fused_partition_attention_bwd",
-                                                             qkv, bias, part_type, ps, nh)
+    dev, bias, (b, h, w, c, ph, pw), suffix = _check_kernel_operands(
+        "fused_partition_attention_bwd", qkv, bias, part_type, ps, nh)
     if (g.shape != (b, h, w, c) or g.dtype != qkv.dtype or g.get_device() != dev
             or not g.is_contiguous() or g.data_ptr() % 16):
         raise ValueError(f"fused_partition_attention_bwd: the cotangent must be a contiguous "
@@ -225,9 +250,9 @@ def fused_partition_attention_bwd(qkv: torch.Tensor, bias: torch.Tensor, g: torc
         raise ValueError("fused_partition_attention_bwd needs at least one window")
     blocks = _bwd_blocks(windows, nh)
     dqkv = torch.empty_like(qkv)
-    partials = torch.empty(nh * blocks * t * t, dtype=torch.float32, device=qkv.device)
-    dbias = torch.empty(nh, t, t, dtype=torch.float32, device=qkv.device)
-    entry = getattr(lib, f"imt_partition_attn_bwd_{KERNEL_DTYPES[qkv.dtype]}")
+    partials = bias.new_empty(nh * blocks * t * t)
+    dbias = bias.new_empty((nh, t, t))
+    entry = getattr(lib, f"imt_partition_attn_bwd_{suffix}")
     err = _kernels.launch(entry, dev, qkv.data_ptr(), bias.data_ptr(), g.data_ptr(),
                           dqkv.data_ptr(), partials.data_ptr(), dbias.data_ptr(), b, h, w, c, nh,
                           ph, pw, int(part_type == "grid"), blocks)

@@ -46,9 +46,12 @@ shapes of map_maxvit_tiny_tf_224's train step, block and grid, beside SDPA
 and by the profiler's device time, with the host time a call of this
 checkout's wrapper, the baseline's (DIR/../ops/partition_attention.py
 around this checkout's library) and the bare C entry, each build held to
-the twins, the fp32 instances' output bits compared (`chip_smoke.k34_digest`)
-and HMMA looked for in every bf16 instance of kernel 4, beside a copy of
-kernel 4 with the bias terms and the dbias sums out of registers at T <= 64.
+the twins, their bf16 outputs compared bit for bit with the baseline's at
+every shape of chip_smoke's phase 8 (`partition_bits`), the fp32 instances'
+output bits compared (`chip_smoke.k34_digest`), the registers, spills and
+SASS counts of both libraries and HMMA looked for in every bf16 instance of
+kernel 4, beside a copy of kernel 4 with the bias terms and the dbias sums
+out of registers at T <= 64.
 Kernels 10 and 11 (`csrc/convnext_branch_{fwd,bwd}.cu`, set 10-11): this
 checkout's and the baseline's in turns with the block route (cuDNN's
 depthwise conv and its gradients with kernels 1 and 2) at the four B=128
@@ -771,6 +774,43 @@ def host_partition(lib, old, which: str, args, part: str) -> dict:
     return {"us": {arm: sum(v) / 2 for arm, v in turns.items()}, "turns": turns}
 
 
+def partition_bits(arms, card: str) -> dict:
+    """Kernels 3 and 4 of this checkout's build against the baseline's, bit
+    for bit, on the bf16 inputs of chip_smoke's phase 8: ATTN_EXTRA_SHAPES
+    and the three B=128 stage shapes, block and grid, through this
+    checkout's wrappers."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import partition_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 7)
+    shapes = [*cs.ATTN_EXTRA_SHAPES,
+              *((cs.TRAIN_BATCH, side, side, nh, cs.PS) for side, _, nh in cs.MAXVIT_STAGES)]
+    rows = []
+    for b, h, w, nh, ps in shapes:
+        qkv, bias, g = cs.attn_args(b, h, w, nh, ps, gen)
+        for part in ("block", "grid"):
+            def run():
+                return (pa.fused_partition_attention(qkv, bias, part, ps, nh),
+                        *pa.fused_partition_attention_bwd(qkv, bias, g, part, ps, nh))
+            mine = through(arms["this checkout"], run, PARTITION_LIBS)
+            base = through(arms["baseline"], run, PARTITION_LIBS)
+            torch.cuda.synchronize()
+            rows.append({"shape": [b, h, w, nh, list(ps)], "part": part,
+                         "kernel 3": torch.equal(mine[0], base[0]),
+                         "kernel 4": all(map(torch.equal, mine[1:], base[1:]))})
+            del mine, base
+        del qkv, bias, g
+    same = {k: all(r[k] for r in rows) for k in ("kernel 3", "kernel 4")}
+    cs.log(f"[kernels 3-4] bf16 outputs the baseline's bits at all {len(rows)} phase-8 shapes: "
+           + ", ".join(f"{k} {v}" for k, v in same.items())
+           + ("" if all(same.values()) else "; differ at " + ", ".join(
+               f"{r['shape']} [{r['part']}] " + "/".join(k for k in same if not r[k])
+               for r in rows if not (r["kernel 3"] and r["kernel 4"])))
+           + f" on {card}")
+    return {"same": same, "rows": rows}
+
+
 def kernels34(arms, old, card: str) -> dict:
     """Kernels 3 and 4 of each arm's build ({arm: (forward, backward)
     libraries}) in turns with SDPA (its backward for kernel 4) at the three
@@ -1312,6 +1352,7 @@ def main() -> int:
         cs.log(f"[kernels 3-4] fp32 output digests: {digests}; the same bits: "
                f"{len(set(digests.values())) == 1}")
         result["kernels 3 and 4 fp32 digests"] = digests
+        result["kernels 3 and 4 bf16 bits"] = partition_bits(arms, card)
         old = load_module(args.baseline.parent / "ops" / "partition_attention.py",
                           "baseline_partition_attention")
         result["kernels 3 and 4"] = kernels34(arms, old, card)
