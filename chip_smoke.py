@@ -199,7 +199,24 @@ blocks on the JAX package's fused-branch entry `convnext_branch_apply`
    kernels 1-6: each instance against its twin at the models' shapes (B=2),
    then one serving call and one train step per model beside the plain
    path's, logits and loss checked against it, and each model's kernels
-   launched.
+   launched;
+27. the port's train and validate entries (`python -m
+   imagenet_models_tpu_torch.cli.train` / `.cli.validate`), called in this
+   process through their `main(argv)` so the launch counts can be read:
+   map_convnext_tiny at full width and depth, 224 px, bf16 (`--amp`), B=128,
+   the GA recipe (LAMB lr 5e-3 wd 0.05, BCE with smoothing 0.1, dec_lam
+   -0.8, EMA 0.9999, drop-path 0.1) on `synthetic:384` through the host
+   loader, two epochs of three steps, each with an eval of the raw and the
+   EMA model: 18 launches each of kernels 1 and 2 per train step and 18 of
+   kernel 1 per eval forward, finite losses, summary.csv with two rows,
+   checkpoint-0, checkpoint-1, last and model_best; a resume from `last`
+   that starts at epoch 2; the validate entry on model_best with and
+   without --use-ema (18 launches of kernel 1 per forward), its top-1 and
+   top-5 equal to the engine's eval of the same weights; one fp32 epoch of
+   two steps (kernels 1 and 2's fp32 instances); the loops' img/s, the data
+   time a step, the host decoder and the host's CPU. Without Pillow on the
+   host, the phase binds the entries' `create_dataset`/`create_loader` to
+   an in-memory loader of random batches of the same geometry, and says so.
 
 Any failure raises and exits non-zero. The last lines are a JSON summary of
 the kernels, the card's name and power limit, and
@@ -4096,6 +4113,228 @@ def fp32_dispatch(card: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------- the train and validate entries
+
+# phase 27: map_convnext_tiny through the port's CLI entries. synthetic:384 is
+# three batches of 128 in each split, so no epoch is cut short
+ENTRY_IMAGES = 384
+ENTRY_STEPS = ENTRY_IMAGES // TRAIN_BATCH
+ENTRY_RECIPE = ["--model", "map_convnext_tiny", "--input-size", "3", "224", "224",
+                "-b", str(TRAIN_BATCH), "--opt", "lamb", "--lr", "5e-3", "--weight-decay", "0.05",
+                "--smoothing", "0.1", "--bce-loss", "--dec-lam", "-0.8", "--model-ema",
+                "--model-ema-decay", "0.9999", "--drop-path", "0.1", "--cooldown-epochs", "0",
+                "--max-steps-per-epoch", str(ENTRY_STEPS)]
+ENTRY_DIR = Path("output") / "chip_smoke_entry"  # checkpoints: ~0.8 GB each, deleted after
+
+
+def host_cpu() -> str:
+    """The host's CPU model from /proc/cpuinfo; where a virtual machine hides
+    the name ("unknown"), its vendor, family and model numbers."""
+    try:
+        info = {}
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            key, _, value = line.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    except OSError:
+        return "unknown"
+    name = info.get("model name", "unknown")
+    if name != "unknown":
+        return name
+    return (f"unknown model name ({info.get('vendor_id', '?')} family "
+            f"{info.get('cpu family', '?')} model {info.get('model', '?')})")
+
+
+class ResidentLoader:
+    """Random NHWC float32 batches made once in memory, the host loader's
+    geometry (len, batch_size, set_epoch, mixup_enabled): the stand-in the
+    phase binds where Pillow is absent."""
+    decoder = "in-memory (no Pillow)"
+
+    def __init__(self, dataset, input_size, batch_size, is_training, **kw):
+        import numpy as np
+
+        self.batch_size, self.is_training = batch_size, is_training
+        self.n = len(dataset) // batch_size if is_training else -(-len(dataset) // batch_size)
+        self.mixup_enabled = False
+        rng = np.random.default_rng(SEED + 27)
+        self.images = rng.standard_normal((batch_size, input_size, input_size, 3), np.float32)
+        self.targets = (np.arange(batch_size) % dataset.num_classes).astype(np.int64)
+
+    def set_epoch(self, epoch):
+        pass
+
+    def __len__(self):
+        return self.n
+
+    def __iter__(self):
+        for _ in range(self.n):
+            yield self.images, self.targets
+
+
+def entry_counts(reset: bool = False) -> dict:
+    from imagenet_models_tpu_torch.ops import convnext_block as cb
+
+    if reset:
+        cb.fused_ln_mlp.launches = cb.fused_ln_mlp_bwd.launches = 0
+    return {"fwd": cb.fused_ln_mlp.launches, "bwd": cb.fused_ln_mlp_bwd.launches}
+
+
+def train_entry(card: str, resident_train_img_s: float) -> dict:
+    """Phase 27 (module docstring): the train entry, its resume, the validate
+    entry and an fp32 epoch, with the kernels' launch counts of each run
+    (set to 0 just before it, read just after)."""
+    import gc
+    import importlib.util
+    import os
+    import shutil
+
+    import torch
+
+    from imagenet_models_tpu_torch.cli import train as cli_train
+    from imagenet_models_tpu_torch.cli import validate as cli_validate
+
+    have = {m: importlib.util.find_spec(m) is not None for m in ("PIL", "yaml")}
+    cpu = host_cpu()
+    workers = min(8, os.cpu_count() or 1)
+    log(f"[entry] host: {cpu}, {os.cpu_count()} cores; Pillow "
+        f"{'present' if have['PIL'] else 'ABSENT'}, PyYAML "
+        f"{'present' if have['yaml'] else 'absent (needed only for -c)'}")
+    bound = {}
+    if not have["PIL"]:
+        from imagenet_models_tpu_torch.data.dataset import SyntheticDataset
+
+        for mod in (cli_train, cli_validate):
+            bound[mod] = (mod.create_dataset, mod.create_loader)
+            mod.create_dataset = lambda name, split="train", num_classes=1000, image_size=224, \
+                class_map=None: SyntheticDataset(ENTRY_IMAGES, num_classes, image_size)
+            mod.create_loader = ResidentLoader
+        log("[entry] Pillow is absent: create_dataset/create_loader of the entries bound to "
+            "ResidentLoader (random batches made once, the same geometry) for this phase")
+    shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+    base = [f"synthetic:{ENTRY_IMAGES}", *ENTRY_RECIPE, "-j", str(workers),
+            "--output", str(ENTRY_DIR)]
+    checks = {"host_cpu": cpu, "cores": os.cpu_count(), "pillow": have["PIL"],
+              "pyyaml": have["yaml"]}
+
+    def counted(fn):
+        entry_counts(reset=True)
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, entry_counts()
+
+    def loops(result, tag):
+        rows = []
+        for e in result["epochs"]:
+            tr, ev = e["train_stats"], e.get("eval_stats")
+            # the loop's time not spent waiting for the loader, a step: the
+            # step's own time, the device's included (the epoch's last step
+            # waits for the device when it fetches the loss)
+            step_s = (tr.seconds - tr.data_seconds) / tr.steps
+            rows.append({"epoch": e["epoch"], "train_img_s": tr.img_s,
+                         "train_data_s_per_step": tr.data_per_step,
+                         "train_other_s_per_step": step_s, "train_steps": tr.steps,
+                         "train_seconds": tr.seconds, "loss": e["train"]["loss"],
+                         "eval_img_s": ev.img_s if ev else None,
+                         "eval_ema_img_s": e["eval_ema_stats"].img_s if "eval_ema_stats" in e
+                         else None, "eval": e["eval"]})
+            log(f"[entry] {tag} epoch {e['epoch']}: loss {e['train']['loss']:.6f}; train loop "
+                f"{tr.img_s:.1f} img/s over {tr.steps} steps ({tr.seconds:.3f} s), data "
+                f"{tr.data_per_step * 1e3:.1f} ms a step, the rest {step_s * 1e3:.1f} ms a "
+                f"step ({e['train_stats'].images / tr.steps / step_s:.1f} img/s); eval loop "
+                + (f"{ev.img_s:.1f} img/s (EMA {e['eval_ema_stats'].img_s:.1f}), data "
+                   f"{ev.data_per_step * 1e3:.1f} ms a batch" if ev else "not run")
+                + f"; eval {e['eval']}; decoder {result['decoder']}; {card}")
+        return rows
+
+    def eval_batches(result):
+        return sum(e[k].steps for e in result["epochs"] for k in ("eval_stats", "eval_ema_stats")
+                   if k in e)
+
+    try:
+        # (a) train: two epochs of three steps, bf16
+        first, n = counted(lambda: cli_train.main([*base, "--amp", "--epochs", "2",
+                                                   "--experiment", "bf16"]))
+        run = Path(first["output_dir"])
+        steps = sum(e["train_stats"].steps for e in first["epochs"])
+        forwards = steps + eval_batches(first)
+        with open(run / "summary.csv") as f:
+            summary = f.read().splitlines()
+        files = sorted(os.listdir(run))
+        losses = [e["train"]["loss"] for e in first["epochs"]]
+        ok = (first["exit"] == "done" and steps == 2 * ENTRY_STEPS
+              and n == {"fwd": 18 * forwards, "bwd": 18 * steps}
+              and all(v == v and abs(v) != float("inf") for v in losses)
+              and len(summary) == 3
+              and {"checkpoint-0", "checkpoint-1", "last", "model_best"} <= set(files))
+        checks["train"] = {"launches": n, "steps": steps, "forwards": forwards,
+                           "summary": summary, "files": files, "loops": loops(first, "bf16")}
+        log(f"[entry] train entry, map_convnext_tiny B={TRAIN_BATCH} 224px bf16, 2 epochs: "
+            f"{steps} steps, {forwards} forwards (eval included); launches {n} (want "
+            f"{18 * forwards} and {18 * steps}: 18 + 18 a step, 18 an eval forward); losses "
+            f"{losses}; summary.csv {len(summary) - 1} rows; {files}")
+        if not ok:
+            raise AssertionError(f"phase 27: the train entry failed its checks: {checks['train']}")
+
+        # (b) resume from last for a third epoch
+        resumed, n = counted(lambda: cli_train.main([*base, "--amp", "--epochs", "3",
+                                                     "--experiment", "resumed",
+                                                     "--resume", str(run / "last")]))
+        rsteps = sum(e["train_stats"].steps for e in resumed["epochs"])
+        ok = (resumed["start_epoch"] == 2 and [e["epoch"] for e in resumed["epochs"]] == [2]
+              and n["bwd"] == 18 * rsteps and resumed["exit"] == "done")
+        checks["resume"] = {"start_epoch": resumed["start_epoch"], "launches": n,
+                            "loops": loops(resumed, "resumed")}
+        log(f"[entry] resumed from {run / 'last'}: starts at epoch {resumed['start_epoch']}, "
+            f"launches {n}")
+        if not ok:
+            raise AssertionError(f"phase 27: the resume failed its checks: {checks['resume']}")
+
+        # (c) the validate entry on model_best, against the engine's eval of it
+        best = first["epochs"][first["best_epoch"]]["eval"]
+        val = [f"synthetic:{ENTRY_IMAGES}", "--model", "map_convnext_tiny", "--amp",
+               "-b", str(TRAIN_BATCH), "-j", str(workers), "--checkpoint", str(run / "model_best")]
+        checks["validate"] = {}
+        for use_ema, want in ((True, (best["top1"], best["top5"])),
+                              (False, (best["raw_top1"], best["raw_top5"]))):
+            [res], n = counted(lambda: cli_validate.main(val + (["--use-ema"] if use_ema else [])))
+            batches = -(-ENTRY_IMAGES // TRAIN_BATCH)
+            got = (res["top1"], res["top5"])
+            ok = got == (round(want[0], 4), round(want[1], 4)) and n == {"fwd": 18 * batches,
+                                                                          "bwd": 0}
+            checks["validate"]["ema" if use_ema else "raw"] = {"result": res, "engine": want,
+                                                                "launches": n}
+            log(f"[entry] validate entry on model_best (epoch {first['best_epoch']})"
+                f"{' --use-ema' if use_ema else ''}: top-1 {res['top1']} top-5 {res['top5']}, "
+                f"the engine's {want}; {res['images_per_sec']} img/s; launches {n} over "
+                f"{batches} forwards")
+            if not ok:
+                raise AssertionError(f"phase 27: the validate entry disagrees with the engine or "
+                                     f"missed kernel 1: {checks['validate']}")
+
+        # (d) one fp32 epoch of two steps: kernels 1 and 2's fp32 instances
+        fp32, n = counted(lambda: cli_train.main([*base, "--epochs", "1", "--max-steps-per-epoch",
+                                                  "2", "--experiment", "fp32"]))
+        fsteps = sum(e["train_stats"].steps for e in fp32["epochs"])
+        ok = (fp32["exit"] == "done" and fsteps == 2 and n["bwd"] == 18 * fsteps
+              and n["fwd"] == 18 * (fsteps + eval_batches(fp32)))
+        checks["fp32"] = {"launches": n, "loops": loops(fp32, "fp32")}
+        if not ok:
+            raise AssertionError(f"phase 27: the fp32 epoch failed its checks: {checks['fp32']}")
+    finally:
+        for mod, (ds, ld) in bound.items():
+            mod.create_dataset, mod.create_loader = ds, ld
+        shutil.rmtree(ENTRY_DIR, ignore_errors=True)
+        gc.collect()
+    last = checks["train"]["loops"][-1]
+    log(f"[entry] map_convnext_tiny B={TRAIN_BATCH} bf16 train entry {last['train_img_s']:.1f} "
+        f"img/s (epoch 1, {last['train_steps']} steps, data {last['train_data_s_per_step'] * 1e3:.1f}"
+        f" ms a step, decoder {first['decoder']}) beside the resident-batch step of phase 7 "
+        f"{resident_train_img_s:.1f} img/s; host {cpu}; {card}")
+    torch.cuda.empty_cache()
+    return checks
+
+
 def main() -> int:
     import torch
 
@@ -4237,6 +4476,9 @@ def main() -> int:
     # phase 26: fp32 models of the families of kernels 1-6 under the default dispatch
     fp32 = fp32_dispatch(card)
 
+    # phase 27: the train and validate entries on map_convnext_tiny
+    entry_checks = train_entry(card, train_bench["kernel"])
+
     def entry(name, source, replaces, launches, errs, times, weights):
         return {"name": name, "route": "cuda",
                 "source": f"imagenet_models_tpu_torch/csrc/{source}",
@@ -4365,6 +4607,7 @@ def main() -> int:
                             "per_forward_and_step_ms": branch_totals,
                             "code": branch_code["summary"], **branch},
         "fp32_dispatch": fp32,
+        "train_entry": entry_checks,
         "kernels": kernels}, indent=2))
     print(json.dumps({"kernels": kernels}))
     print(card)

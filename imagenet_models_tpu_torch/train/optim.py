@@ -101,7 +101,9 @@ class Optimizer:
         count (`nn.layers.grouped_weights`): adaptive clipping takes their
         unit-wise norm in the JAX layout."""
         zeros = lambda: {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
-        state = {"count": 0, "grouped": dict(grouped or {})}
+        # "count" drives the bias corrections, "schedule_count" the learning
+        # rate schedule: optax keeps them in two states (set_schedule_count)
+        state = {"count": 0, "schedule_count": 0, "grouped": dict(grouped or {})}
         if self.opt in ("lamb", "adamw", "adam"):
             state["mu"], state["nu"] = zeros(), zeros()
         else:
@@ -131,8 +133,9 @@ class Optimizer:
                            state["grouped"])
         lr = self.learning_rate
         if callable(lr):
-            lr = lr(state["count"])
+            lr = lr(state["schedule_count"])
         state["count"] += 1
+        state["schedule_count"] += 1
         t = state["count"]
         decay = wd_mask(params)
         wd = self.weight_decay
@@ -184,6 +187,20 @@ class Optimizer:
             trust = torch.where((w > 0) & (u > 0), w / u, torch.ones_like(w))
             torch._foreach_mul_(du, list(trust.unbind()))
         torch._foreach_add_(ps, upd, alpha=-lr)
+
+
+def set_schedule_count(opt_state: Dict, count: int) -> Dict:
+    """Point the learning rate schedule's step count at `count` steps
+    (optim.py:42-59), in place, and return the state.
+
+    timm steps its LR scheduler by epoch, apart from the optimizer, so an
+    optimizer state that is rebuilt (--no-resume-opt) or resumed at another
+    epoch (--start-epoch, a mid-epoch recovery snapshot) must have the
+    schedule re-pointed, or the warmup and cosine would rewind while the logs
+    show the epoch's LR. The bias-correction count ("count") is left as it
+    is, as with a fresh torch optimizer."""
+    opt_state["schedule_count"] = int(count)
+    return opt_state
 
 
 def create_optimizer(opt: str = "lamb", learning_rate: Schedule = 1e-3, weight_decay: float = 0.0,

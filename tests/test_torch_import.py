@@ -1,6 +1,8 @@
 """The port imports and runs on a CPU-only host without JAX, Triton or a
 kernel build, and imports nothing of the JAX package: checked in a fresh
-interpreter, since this test process already holds jax."""
+interpreter, since this test process already holds jax. Importing it loads
+neither Pillow nor PyYAML either (the data pipeline and `-c` import them
+when they run), so it imports where they are not installed."""
 
 import json
 import os
@@ -27,7 +29,8 @@ modules = sorted(m.name for m in pkgutil.walk_packages(imagenet_models_tpu_torch
 for name in modules:
     importlib.import_module(name)
 after_import = sorted(m for m in sys.modules
-                      if m.split(".")[0] in ("jax", "flax", "imagenet_models_tpu", "triton"))
+                      if m.split(".")[0] in ("jax", "flax", "imagenet_models_tpu", "triton",
+                                             "PIL", "yaml"))
 model = create_model("map_convnext_tiny", num_classes=10, device="cpu")
 logits = make_serving_fn(model)(torch.zeros(1, 64, 64, 3, dtype=torch.uint8))
 print(json.dumps({
@@ -57,7 +60,16 @@ def test_port_imports_without_jax_and_serves_on_cpu():
                  "imagenet_models_tpu_torch.ops.dw_conv",
                  "imagenet_models_tpu_torch.models.ga_convnext",
                  "imagenet_models_tpu_torch.ops.flash_attention",
-                 "imagenet_models_tpu_torch.ops.convnext_branch"):
+                 "imagenet_models_tpu_torch.ops.convnext_branch",
+                 "imagenet_models_tpu_torch.utils.meters", "imagenet_models_tpu_torch.data.dataset",
+                 "imagenet_models_tpu_torch.data.transforms",
+                 "imagenet_models_tpu_torch.data.auto_augment",
+                 "imagenet_models_tpu_torch.data.random_erasing",
+                 "imagenet_models_tpu_torch.data.mixup", "imagenet_models_tpu_torch.data.native",
+                 "imagenet_models_tpu_torch.data.loader", "imagenet_models_tpu_torch.core.reinit",
+                 "imagenet_models_tpu_torch.train.engine", "imagenet_models_tpu_torch.ckpt.saver",
+                 "imagenet_models_tpu_torch.ckpt.pretrained", "imagenet_models_tpu_torch.cli.train",
+                 "imagenet_models_tpu_torch.cli.validate"):
         assert name in out["modules"]
     assert out["after_import"] == []   # every module, the converter included
     assert out["after_forward"] == []

@@ -7,6 +7,8 @@ Every parameter and BN statistic is randomized: init values such as a 1e-6
 layer scale or BN mean 0 / var 1 would hide whole blocks from a comparison.
 """
 
+import os
+
 import numpy as np
 import torch
 
@@ -16,6 +18,16 @@ import jax.numpy as jnp
 from imagenet_models_tpu.ckpt.torch_convert import flatten_dict, unflatten_dict
 from imagenet_models_tpu_torch.ckpt.convert import state_dict_from_jax
 from imagenet_models_tpu_torch.ops import convnext_block, flash_attention
+
+# Under pytest-xdist each worker process would run os.cpu_count() intra-op
+# threads of its own, and the workers together oversubscribe the cores many
+# times over (on an 8-core host with six busy workers, a train step of
+# mobilenet_v1 at 64 px took 4.5 s so, and 0.13 s on one thread): the
+# workers share the cores instead. Every worker imports this module while it
+# collects, so all of them set the same count.
+_XDIST_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _XDIST_WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _XDIST_WORKERS))
 
 # the JAX package's opt-in routes and the port's switches for them: JAX reads
 # its gates from the environment when it traces, the port from a module
