@@ -216,7 +216,27 @@ blocks on the JAX package's fused-branch entry `convnext_branch_apply`
    two steps (kernels 1 and 2's fp32 instances); the loops' img/s, the data
    time a step, the host decoder and the host's CPU. Without Pillow on the
    host, the phase binds the entries' `create_dataset`/`create_loader` to
-   an in-memory loader of random batches of the same geometry, and says so.
+   an in-memory loader of random batches of the same geometry, and says so;
+28. data parallelism (`parallel.mesh`, the train step's two formulations), in
+   child processes of this script (`--phase28`), so that no process group
+   outlives the phase here: (a) the train entry over NCCL at world 1,
+   `--dist-coordinator 127.0.0.1:<port> --dist-num-processes 1
+   --dist-process-id 0 --zero1`, on phase 27's recipe (map_convnext_tiny, 224
+   px, bf16, B=128, one epoch of three steps and an eval): 18 + 18 launches a
+   step, finite losses, summary.csv and `last`, and the first step's loss,
+   grad norm, weights, EMA shadow and LAMB moments bit-equal to a
+   one-process step from a copy of the same state on the same batch and
+   generators (cuDNN's deterministic algorithms in that child); then the
+   step under NCCL beside the one-process step, and the reduction's share of
+   it; (b) two processes on the one card over gloo (NCCL refuses two ranks
+   on one device): map_convnext_tiny's replicated step at B=64 a rank and
+   map_resnet50's ZeRO-1 step with synchronised BatchNorm statistics at B=32
+   a rank, drop-path 0 and no dropout, held by loss, grad norm and gradient
+   groups (phase 6's limits; the running statistics within 1e-3 for ZeRO-1)
+   to one process on the global batch (for the replicated step, with two
+   microbatches of 64: per-rank statistics are its semantics; the distances
+   to whole-batch statistics are printed), each rank's launches of kernels 1
+   and 2 counted (none of 7 and 8: synchronised statistics take plain ops).
 
 Any failure raises and exits non-zero. The last lines are a JSON summary of
 the kernels, the card's name and power limit, and
@@ -942,10 +962,10 @@ class FirstGrads:
     def init(self, params, grouped=None):
         return self.opt.init(params, grouped)
 
-    def step(self, params, grads, state):
+    def step(self, params, grads, state, **kw):
         if self.grads is None:
             self.grads = {k: g.detach().float().clone() for k, g in grads.items()}
-        self.opt.step(params, grads, state)
+        self.opt.step(params, grads, state, **kw)
 
 
 def rel_l2(got, ref) -> float:
@@ -4146,15 +4166,17 @@ def host_cpu() -> str:
 
 class ResidentLoader:
     """Random NHWC float32 batches made once in memory, the host loader's
-    geometry (len, batch_size, set_epoch, mixup_enabled): the stand-in the
-    phase binds where Pillow is absent."""
+    geometry (len, batch_size, set_epoch, mixup_enabled; a process's shard
+    of each batch): the stand-in phases 27 and 28 bind where Pillow is
+    absent."""
     decoder = "in-memory (no Pillow)"
 
-    def __init__(self, dataset, input_size, batch_size, is_training, **kw):
+    def __init__(self, dataset, input_size, batch_size, is_training, num_shards=1, **kw):
         import numpy as np
 
-        self.batch_size, self.is_training = batch_size, is_training
         self.n = len(dataset) // batch_size if is_training else -(-len(dataset) // batch_size)
+        batch_size //= num_shards
+        self.batch_size, self.is_training = batch_size, is_training
         self.mixup_enabled = False
         rng = np.random.default_rng(SEED + 27)
         self.images = rng.standard_normal((batch_size, input_size, input_size, 3), np.float32)
@@ -4169,6 +4191,22 @@ class ResidentLoader:
     def __iter__(self):
         for _ in range(self.n):
             yield self.images, self.targets
+
+
+def bind_resident_loader(mods, tag: str) -> dict:
+    """Bind `create_dataset`/`create_loader` of the entry modules `mods` to
+    ResidentLoader (where Pillow is absent); returns what to put back."""
+    from imagenet_models_tpu_torch.data.dataset import SyntheticDataset
+
+    bound = {}
+    for mod in mods:
+        bound[mod] = (mod.create_dataset, mod.create_loader)
+        mod.create_dataset = lambda name, split="train", num_classes=1000, image_size=224, \
+            class_map=None: SyntheticDataset(ENTRY_IMAGES, num_classes, image_size)
+        mod.create_loader = ResidentLoader
+    log(f"[{tag}] Pillow is absent: create_dataset/create_loader of the entries bound to "
+        "ResidentLoader (random batches made once, the same geometry) for this phase")
+    return bound
 
 
 def entry_counts(reset: bool = False) -> dict:
@@ -4199,17 +4237,7 @@ def train_entry(card: str, resident_train_img_s: float) -> dict:
     log(f"[entry] host: {cpu}, {os.cpu_count()} cores; Pillow "
         f"{'present' if have['PIL'] else 'ABSENT'}, PyYAML "
         f"{'present' if have['yaml'] else 'absent (needed only for -c)'}")
-    bound = {}
-    if not have["PIL"]:
-        from imagenet_models_tpu_torch.data.dataset import SyntheticDataset
-
-        for mod in (cli_train, cli_validate):
-            bound[mod] = (mod.create_dataset, mod.create_loader)
-            mod.create_dataset = lambda name, split="train", num_classes=1000, image_size=224, \
-                class_map=None: SyntheticDataset(ENTRY_IMAGES, num_classes, image_size)
-            mod.create_loader = ResidentLoader
-        log("[entry] Pillow is absent: create_dataset/create_loader of the entries bound to "
-            "ResidentLoader (random batches made once, the same geometry) for this phase")
+    bound = bind_resident_loader((cli_train, cli_validate), "entry") if not have["PIL"] else {}
     shutil.rmtree(ENTRY_DIR, ignore_errors=True)
     base = [f"synthetic:{ENTRY_IMAGES}", *ENTRY_RECIPE, "-j", str(workers),
             "--output", str(ENTRY_DIR)]
@@ -4333,6 +4361,446 @@ def train_entry(card: str, resident_train_img_s: float) -> dict:
         f"{resident_train_img_s:.1f} img/s; host {cpu}; {card}")
     torch.cuda.empty_cache()
     return checks
+
+
+# ---------------------------------------------------------------- data parallelism
+
+# phase 28: the multi-process paths, in child processes of this script
+# (`--phase28 ...`), so that no process group outlives the phase here
+DP_DIR = Path("output") / "chip_smoke_dp"  # 28a's run directory, deleted after
+DP_OUT = OUT_DIR / "phase28"
+DP_CONVNEXT_BATCH, DP_RESNET_BATCH = 64, 32  # 28b's rows per rank at 224 px
+DP_TIMED_STEPS = 8
+# 28b's running statistics against the one-process step: means in units of
+# the running standard deviation, variances relative
+DP_STAT_RTOL = 1e-3
+DP_TIMEOUT = 300
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dp_children(*argvs) -> list:
+    """Run `chip_smoke.py --phase28 <argv>` once per argv, all at once; log
+    each one's output, raise if any fails, return what each wrote."""
+    import os
+
+    DP_OUT.mkdir(parents=True, exist_ok=True)
+    outs = [DP_OUT / f"{'-'.join(a)}.json" for a in argvs]
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--phase28", *a,
+                               str(out)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, env=env) for a, out in zip(argvs, outs)]
+    failed = []
+    try:
+        for a, proc in zip(argvs, procs):
+            text, _ = proc.communicate(timeout=DP_TIMEOUT)
+            for line in text.splitlines():
+                log(f"  [{' '.join(a)}] {line}")
+            if proc.returncode:
+                failed.append((a, proc.returncode))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise AssertionError(f"phase 28: child processes failed: {failed}")
+    return [json.loads(out.read_text()) for out in outs]
+
+
+def finite(values) -> bool:
+    return all(v == v and abs(v) != float("inf") for v in values)
+
+
+def snapshot_state(state):
+    """A one-process copy of a train state (its model deep-copied, its
+    BatchNorms not synchronised), for the reference step."""
+    from imagenet_models_tpu_torch.nn.layers import set_bn_sync
+    from imagenet_models_tpu_torch.train.state import TrainState
+
+    ref = TrainState(step=state.step, model=copy.deepcopy(state.model),
+                     opt_state=copy.deepcopy(state.opt_state),
+                     ema_params=copy.deepcopy(state.ema_params),
+                     ema_batch_stats=copy.deepcopy(state.ema_batch_stats))
+    set_bn_sync(ref.model, None)
+    return ref
+
+
+def bits_equal(a: dict, b: dict) -> list:
+    """The keys whose tensors differ in any bit."""
+    import torch
+
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def dp_entry_child(port: str, timing_port: str, out: str) -> None:
+    """28a (child): the train entry over NCCL at world 1 with --zero1, its
+    first step held to a one-process step from a copy of the same state on
+    the same batch and generators, bit for bit; then the step time under
+    NCCL beside the non-distributed step, and the reduction's share."""
+    import importlib.util
+    import shutil
+
+    import torch
+
+    from imagenet_models_tpu_torch.cli import train as cli_train
+    from imagenet_models_tpu_torch.parallel import mesh
+    from imagenet_models_tpu_torch.train import state as state_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    # the bit-equality gate needs each step deterministic: cuDNN's
+    # deterministic algorithms (the depthwise convolutions' gradients)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    bound = {} if importlib.util.find_spec("PIL") else bind_resident_loader((cli_train,), "dp")
+    make_step = state_mod.make_train_step
+    rec = {"per_step": [], "first": None, "ref_launches": {"fwd": 0, "bwd": 0}}
+
+    def recording(*args, **kw):
+        step = make_step(*args, **kw)
+        if kw.get("group") is None:
+            return step
+
+        def wrapped(state, images, targets, generator=None):
+            first = rec["first"] is None
+            if first:
+                ref, plain = snapshot_state(state), snapshot_state(state)
+                rngs = (generator.get_state(), torch.cuda.get_rng_state())
+            before = entry_counts()
+            state, m = step(state, images, targets, generator)
+            torch.cuda.synchronize()
+            after = entry_counts()
+            rec["per_step"].append([after["fwd"] - before["fwd"], after["bwd"] - before["bwd"]])
+            if first:
+                got = {"loss": m["loss"].clone(), "grad_norm": m["grad_norm"].clone(),
+                       "params": {k: p.detach().clone() for k, p in state.params().items()},
+                       "ema": {k: v.clone() for k, v in state.ema_params.items()},
+                       "mu": {k: v.clone() for k, v in state.opt_state["mu"].items()},
+                       "nu": {k: v.clone() for k, v in state.opt_state["nu"].items()}}
+                resume = (generator.get_state(), torch.cuda.get_rng_state())
+                res = []
+                for st in (ref, plain):  # twice: the one-process step's own determinism
+                    gen = torch.Generator(device=images.device)
+                    gen.set_state(rngs[0])
+                    torch.cuda.set_rng_state(rngs[1])
+                    one = make_step(st.model, *args[1:], **{**kw, "group": None, "zero1": False})
+                    c0 = entry_counts()
+                    st, rm = one(st, images, targets, gen)
+                    c1 = entry_counts()
+                    for k in ("fwd", "bwd"):
+                        rec["ref_launches"][k] += c1[k] - c0[k]
+                    res.append({"loss": rm["loss"], "grad_norm": rm["grad_norm"],
+                                "params": st.params(), "ema": st.ema_params,
+                                "mu": st.opt_state["mu"], "nu": st.opt_state["nu"]})
+                generator.set_state(resume[0])
+                torch.cuda.set_rng_state(resume[1])
+                diff = lambda a, b: {
+                    "loss": torch.equal(a["loss"], b["loss"]),
+                    "grad_norm": torch.equal(a["grad_norm"], b["grad_norm"]),
+                    **{part: bits_equal(a[part], b[part]) for part in ("params", "ema", "mu", "nu")}}
+                rec["first"] = {"loss": got["loss"].item(), "one_process_loss": res[0]["loss"].item(),
+                                "grad_norm": got["grad_norm"].item(),
+                                "vs_one_process": diff(got, res[0]),
+                                "one_process_vs_itself": diff(res[0], res[1]),
+                                "max_param_diff": max((got["params"][k].float()
+                                                       - res[0]["params"][k].float()).abs().max().item()
+                                                      for k in got["params"])}
+                del ref, plain, res, got
+                torch.cuda.empty_cache()
+            return state, m
+
+        return wrapped
+
+    state_mod.make_train_step = recording
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    argv = [f"synthetic:{ENTRY_IMAGES}", *ENTRY_RECIPE, "--amp", "--epochs", "1", "-j", "8",
+            "--zero1", "--dist-coordinator", f"127.0.0.1:{port}", "--dist-num-processes", "1",
+            "--dist-process-id", "0", "--experiment", "zero1", "--output", str(DP_DIR)]
+    try:
+        entry_counts(reset=True)
+        t0 = time.perf_counter()
+        result = cli_train.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        total = entry_counts()
+        run = Path(result["output_dir"])
+        files = sorted(p.name for p in run.iterdir())
+        summary = (run / "summary.csv").read_text().splitlines()
+    finally:
+        state_mod.make_train_step = make_step
+        for mod, (ds, ld) in bound.items():
+            mod.create_dataset, mod.create_loader = ds, ld
+        shutil.rmtree(DP_DIR, ignore_errors=True)
+    e = result["epochs"][0]
+    evals = sum(e[k].steps for k in ("eval_stats", "eval_ema_stats") if k in e)
+    launches = {k: total[k] - rec["ref_launches"][k] for k in total}
+    check = {"exit": result["exit"], "world": result["world"], "device": result["device"],
+             "loss": e["train"]["loss"], "steps": e["train_stats"].steps, "eval_forwards": evals,
+             "launches": launches, "per_step": rec["per_step"], "first": rec["first"],
+             "files": files, "summary_rows": len(summary) - 1, "seconds": seconds,
+             "train_img_s": e["train_stats"].img_s}
+    log(f"train entry over NCCL at world 1, --zero1: {check}")
+
+    # the step under NCCL at world 1 (replicated, and ZeRO-1 with its
+    # synchronised statistics and broadcast) against the one-process step,
+    # and the reduction's share of it
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, True
+    mesh.init_distributed(f"127.0.0.1:{timing_port}", 1, 0, device=torch.device("cuda"))
+    try:
+        group = mesh.data_group()
+        images, targets = train_batch()
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        states, fns = {}, {}
+        arms = (("one_process", None, None), ("nccl_replicated", group, False),
+                ("nccl_zero1", group, None))
+        for arm, g, zero1 in arms:
+            recipe = None if zero1 is None else {
+                "opt": dict(learning_rate=5e-3, weight_decay=0.05),
+                "loss": dict(bce_loss=True, smoothing=0.1, mixup_active=True), "zero1": zero1}
+            states[arm], step = dp_trainer(g, recipe=recipe)
+            fns[arm] = lambda step=step, arm=arm: states.__setitem__(
+                arm, step(states[arm], images, targets, gen)[0])
+            for _ in range(2):  # warm-up: cuDNN's autotuning, the allocator
+                fns[arm]()
+        times = in_turns(fns, DP_TIMED_STEPS, order=[a for a, _, _ in arms])
+        st = states["nccl_zero1"]
+        params = st.params()
+        grads = [torch.randn_like(p) for p in params.values()] + [torch.zeros((), device="cuda")]
+        reduce = lambda: mesh.all_reduce_mean(grads, group)
+        bcast = lambda: mesh.broadcast_from_owners(params, st.owners, group)
+        reduce_ms, bcast_ms = cuda_ms(reduce, 10), cuda_ms(bcast, 10)
+        host_ms = {}  # the host's wall time a call: where it is near the events', the host holds it
+        for what, fn in (("all_reduce", reduce), ("broadcast", bcast)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            host_ms[what] = (time.perf_counter() - t0) * 100
+            torch.cuda.synchronize()
+            host_ms[what + "_synchronized"] = (time.perf_counter() - t0) * 100
+    finally:
+        mesh.destroy()
+    step_ms = sum(times["nccl_zero1"]) / 2
+    check["timing"] = {"step_ms": times, "all_reduce_ms": reduce_ms, "broadcast_ms": bcast_ms,
+                       "host_ms": host_ms,
+                       "reduction_share": (reduce_ms + bcast_ms) / step_ms,
+                       "grad_elements": sum(p.numel() for p in params.values())}
+    Path(out).write_text(json.dumps(check))
+
+
+def dp_trainer(group, name: str = "map_convnext_tiny", recipe=None, ema: float = 0.9999,
+               grad_accum: int = 1, model=None, dtype="bf16"):
+    """(state, step) of bench.py's recipe (or `recipe`) on a fresh `name` in
+    bf16 (or fp32: dtype None), or on `model`, over `group` (None: one
+    process), ZeRO-1 when grouped unless the recipe says otherwise; the
+    optimizer keeps its first update's gradients (`.grads`)."""
+    import torch
+
+    from imagenet_models_tpu_torch import create_model
+    from imagenet_models_tpu_torch.train.losses import create_loss_fn
+    from imagenet_models_tpu_torch.train.optim import create_optimizer
+    from imagenet_models_tpu_torch.train.state import create_train_state, make_train_step
+
+    recipe = recipe or {"opt": dict(learning_rate=5e-3, weight_decay=0.05),
+                        "loss": dict(bce_loss=True, smoothing=0.1, mixup_active=True)}
+    if model is None:
+        kw = {"ls_init_value": 1.0} if "convnext" in name else {}
+        model = create_model(name, dtype=torch.bfloat16 if dtype == "bf16" else dtype,
+                             generator=torch.Generator().manual_seed(SEED), **kw)
+    opt = FirstGrads(create_optimizer("lamb", **recipe["opt"]))
+    zero1 = group is not None and recipe.get("zero1", True)
+    state = create_train_state(model, opt, ema_decay=ema, group=group, zero1=zero1)
+    step = make_train_step(model, opt, create_loss_fn(**recipe["loss"]), dec_lam=-0.8,
+                           ema_decay=ema, grad_accum=grad_accum, group=group, zero1=zero1)
+    step.opt = opt
+    return state, step
+
+
+def group_distances(got: dict, ref: dict) -> dict:
+    """L2 distance relative to `ref` of every (stage, block parameter) group
+    of gradients (`grad_groups`), the worst group's, and all leaves'."""
+    import torch
+
+    groups = {}
+    for key, names in grad_groups(ref).items():
+        cat = lambda g: torch.cat([g[k].float().flatten() for k in names])
+        groups[f"{key[0]} {key[1]}"] = rel_l2(cat(got), cat(ref))
+    cat = lambda g: torch.cat([g[k].float().flatten() for k in ref])
+    worst = max(groups, key=groups.get)
+    return {"worst_group": worst, "worst": groups[worst], "all": rel_l2(cat(got), cat(ref)),
+            "groups": len(groups)}
+
+
+def dp_gloo_child(rank: str, port: str, out: str) -> None:
+    """28b (child): rank `rank` of two processes on the one card over gloo,
+    drop-path 0 and no dropout. (1) map_convnext_tiny's replicated step at
+    B=64 a rank, bf16; (2) map_resnet50's ZeRO-1 step with synchronised
+    BatchNorm statistics at B=32 a rank, in fp32 as phase 16 holds its
+    plain path: two bf16 runs of the BatchNorm family that differ only in
+    rounding (here cuDNN's algorithms at 32 and 64 rows) give gradients
+    about 0.4 apart, as far as bf16 lies from fp32 (§6 of PERF.md). Rank 0
+    then runs the one-process steps on the global batch and holds the
+    ranks' step to them."""
+    import torch
+    import torch.distributed as dist
+
+    from imagenet_models_tpu_torch.nn.layers import set_bn_sync
+    from imagenet_models_tpu_torch.ops import batch_norm as bn_ops
+
+    r = int(rank)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2, rank=r)
+    counts = lambda: {**entry_counts(), "bn_fwd": bn_ops.fused_channel_moments.launches,
+                      "bn_bwd": bn_ops.fused_channel_dot_sums.launches}
+    report = {"rank": r}
+    cases = (("map_convnext_tiny", DP_CONVNEXT_BATCH, None, 0.9999, "bf16"),
+             ("map_resnet50", DP_RESNET_BATCH, {**RESNET_RECIPE, "zero1": True}, 0.0, None))
+    try:
+        for name, rows, recipe, ema, dtype in cases:
+            replicated = recipe is None
+            recipe = recipe or {"opt": dict(learning_rate=5e-3, weight_decay=0.05),
+                                "loss": dict(bce_loss=True, smoothing=0.1, mixup_active=True),
+                                "zero1": False}
+            state, step = dp_trainer(dist.group.WORLD, name, recipe, ema, dtype=dtype)
+            for m in state.model.modules():
+                if isinstance(m, torch.nn.Dropout):
+                    m.p = 0.0
+            # rank 0's one-process copies of the initial model, their BatchNorms
+            # not synchronised
+            refs = [copy.deepcopy(state.model) for _ in range(2 if replicated else 1)] if r == 0 \
+                else []
+            for ref in refs:
+                set_bn_sync(ref, None)
+            g = torch.Generator(device="cuda").manual_seed(SEED + 28)
+            images = torch.randn(2 * rows, IMG, IMG, 3, generator=g, device="cuda")
+            targets = torch.rand(2 * rows, 1000, generator=g, device="cuda")
+            mine = slice(r * rows, (r + 1) * rows)
+            c0 = counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, images[mine], targets[mine],
+                            torch.Generator(device="cuda").manual_seed(SEED + r))
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            c1 = counts()
+            rec = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                   "launches": {k: c1[k] - c0[k] for k in c0}, "seconds": seconds,
+                   "formulation": "replicated" if replicated else "zero1",
+                   "dtype": "bf16" if dtype else "fp32"}
+            if r == 0:
+                # replicated: the one-process step with two microbatches of 64
+                # (each normalised by its own statistics, as each rank is) is
+                # the same function, and is gated; the one over all 128 rows
+                # (whole-batch statistics) is reported. ZeRO-1: whole-batch
+                # statistics, gated.
+                arms = [("microbatches", 2), ("whole", 1)] if replicated else [("whole", 1)]
+                for (arm, accum), model in zip(arms, refs):
+                    rst, rstep = dp_trainer(None, name, recipe, ema, grad_accum=accum, model=model)
+                    rst, rm = rstep(rst, images, targets,
+                                    torch.Generator(device="cuda").manual_seed(SEED))
+                    loss_rel = abs(rec["loss"] - rm["loss"].item()) / abs(rm["loss"].item())
+                    gnorm_rel = abs(rec["grad_norm"] - rm["grad_norm"].item()) / rm["grad_norm"].item()
+                    row = {"loss": rm["loss"].item(), "loss_rel": loss_rel, "grad_norm_rel": gnorm_rel,
+                           "grads": group_distances(step.opt.grads, rstep.opt.grads),
+                           "gated": arm == arms[0][0]}
+                    if not replicated:
+                        # a mean's difference in units of its feature's
+                        # (running) standard deviation, a variance's relative:
+                        # the means of a BatchNorm's centred input are ~0
+                        live, one = state.batch_stats(), rst.batch_stats()
+                        scale = lambda k: (one[k[:-4] + "var"].sqrt() if k.endswith("mean")
+                                           else one[k])
+                        rel = {k: ((live[k] - one[k]).abs() / scale(k)).max().item() for k in one}
+                        row["running_stats_worst"] = max(rel, key=rel.get)
+                        row["running_stats_rel"] = rel[row["running_stats_worst"]]
+                    rec[arm] = row
+                    log(f"[dp] {name} {rec['dtype']} {rec['formulation']} step, 2 ranks of {rows} over "
+                        f"gloo, vs one process on {2 * rows} rows ({arm}{', gated' if row['gated'] else ', reported'}):"
+                        f" loss rel {loss_rel:.3g} (tol {TRAIN_LOSS_RTOL}), grad norm rel "
+                        f"{gnorm_rel:.3g} (tol {TRAIN_GNORM_RTOL}), worst of {row['grads']['groups']} "
+                        f"gradient groups {row['grads']['worst']:.3g} ({row['grads']['worst_group']}; "
+                        f"tol {TRAIN_GRAD_RTOL}), all leaves {row['grads']['all']:.3g}"
+                        + (f", running statistics {row['running_stats_rel']:.3g} "
+                           f"({row['running_stats_worst']}; tol {DP_STAT_RTOL})"
+                           if "running_stats_rel" in row else ""))
+                    if row["gated"] and not (
+                            loss_rel <= TRAIN_LOSS_RTOL and gnorm_rel <= TRAIN_GNORM_RTOL
+                            and row["grads"]["worst"] <= TRAIN_GRAD_RTOL
+                            and row.get("running_stats_rel", 0.0) <= DP_STAT_RTOL):
+                        raise AssertionError(f"phase 28b: {name}'s two-rank step disagrees with "
+                                             f"one process: {row}")
+                    del rst, rstep
+            report[name] = rec
+            del state, step, refs
+            torch.cuda.empty_cache()
+            dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps(report))
+
+
+def phase28_child(argv) -> int:
+    """`chip_smoke.py --phase28 a <port> <port> <out>` or `... b <rank>
+    <port> <out>`: one child process of phase 28."""
+    kind, *rest = argv
+    {"a": dp_entry_child, "b": dp_gloo_child}[kind](*rest)
+    return 0
+
+
+def data_parallel(card: str) -> dict:
+    """Phase 28 (module docstring): 28a in one child process, then 28b in
+    two; the gates on what they report, and their timings beside the card."""
+    t0 = time.perf_counter()
+    [a] = dp_children(("a", str(free_port()), str(free_port())))
+    port = str(free_port())
+    b = dp_children(("b", "0", port), ("b", "1", port))
+    seconds = time.perf_counter() - t0
+    first = a["first"]
+    steps, blocks = a["steps"], sum(STAGE_DEPTHS)
+    equal = lambda d: d["loss"] and d["grad_norm"] and not any(d[p] for p in ("params", "ema", "mu",
+                                                                                "nu"))
+    ok = (a["exit"] == "done" and a["world"] == 1 and steps == ENTRY_STEPS
+          and a["per_step"] == [[blocks, blocks]] * steps
+          and a["launches"] == {"fwd": blocks * (steps + a["eval_forwards"]), "bwd": blocks * steps}
+          and finite([a["loss"], first["loss"]]) and a["summary_rows"] == 1
+          and {"last", "checkpoint-0", "model_best"} <= set(a["files"]))
+    log(f"[dp] 28a: train entry over NCCL at world 1, --zero1, map_convnext_tiny B={TRAIN_BATCH} "
+        f"bf16: {steps} steps, launches a step {a['per_step']}, {a['launches']} in the run "
+        f"(eval forwards {a['eval_forwards']}); loss {a['loss']:.6f}; files {a['files']}; first "
+        f"step against one process: {first['vs_one_process']} (max |param diff| "
+        f"{first['max_param_diff']:.3g}); the one-process step against itself: "
+        f"{first['one_process_vs_itself']}")
+    if not ok:
+        raise AssertionError(f"phase 28a: the entry's run failed its checks: {a}")
+    if not equal(first["vs_one_process"]):
+        raise AssertionError(f"phase 28a: the world-1 ZeRO-1 step is not the one-process step's "
+                             f"bits: {first}")
+    for rank in b:
+        for name, want in (("map_convnext_tiny", {"fwd": blocks, "bwd": blocks}),
+                           ("map_resnet50", {"fwd": 0, "bwd": 0})):
+            got = rank[name]["launches"]
+            if {k: got[k] for k in ("fwd", "bwd")} != want or got["bn_fwd"] or got["bn_bwd"]:
+                raise AssertionError(f"phase 28b: rank {rank['rank']} {name} launches {got}, want "
+                                     f"{want} of kernels 1 and 2 and none of kernels 7 and 8")
+    t = a["timing"]
+    one, repl, nccl = (sum(t["step_ms"][k]) / 2
+                       for k in ("one_process", "nccl_replicated", "nccl_zero1"))
+    log(f"[dp] map_convnext_tiny B={TRAIN_BATCH} bf16 train step, in turns: one process "
+        f"{one:.2f} ms ({t['step_ms']['one_process']}), under NCCL at world 1 replicated "
+        f"{repl:.2f} ms ({t['step_ms']['nccl_replicated']}) and with ZeRO-1 {nccl:.2f} ms "
+        f"({t['step_ms']['nccl_zero1']}); the gradient all-reduce of {t['grad_elements']} fp32 "
+        f"elements {t['all_reduce_ms']:.3f} ms and the owners' broadcast {t['broadcast_ms']:.3f} "
+        f"ms (host wall time a call {t['host_ms']}), {100 * t['reduction_share']:.2f}% of the "
+        f"step; 28b launches per rank "
+        f"{[{n: r[n]['launches'] for n in ('map_convnext_tiny', 'map_resnet50')} for r in b]}; "
+        f"phase {seconds:.1f} s; {card}")
+    return {"entry_world1": a, "gloo_ranks": b, "seconds": seconds}
 
 
 def main() -> int:
@@ -4479,6 +4947,9 @@ def main() -> int:
     # phase 27: the train and validate entries on map_convnext_tiny
     entry_checks = train_entry(card, train_bench["kernel"])
 
+    # phase 28: data parallelism in child processes (NCCL at world 1, gloo at 2)
+    dp = data_parallel(card)
+
     def entry(name, source, replaces, launches, errs, times, weights):
         return {"name": name, "route": "cuda",
                 "source": f"imagenet_models_tpu_torch/csrc/{source}",
@@ -4608,6 +5079,7 @@ def main() -> int:
                             "code": branch_code["summary"], **branch},
         "fp32_dispatch": fp32,
         "train_entry": entry_checks,
+        "data_parallel": dp,
         "kernels": kernels}, indent=2))
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -4617,4 +5089,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase28"]:  # a child process of phase 28
+        sys.exit(phase28_child(sys.argv[2:]))
     sys.exit(main())

@@ -10,6 +10,13 @@ state (the stochastic-depth masks) and the device's default generator state
 uninterrupted one would. `export_pth_tar` writes the reference's
 `{"state_dict": ...}` format, whose keys are the port's own names (the
 weights bridge of `ckpt/convert.py`).
+
+Across processes (ckpt/saver.py:57-75, :117-129) saves are collective: under
+ZeRO-1 each owner's optimizer and EMA leaves reach rank 0 by broadcast, every
+rank's generator states too, rank 0 writes, and every rank waits at a
+barrier. The file is one full state whatever the world size, so a checkpoint
+resumes at any other: each rank takes its own leaves and its own generators
+(a rank the writer did not have keeps its fresh ones).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from imagenet_models_tpu_torch.ckpt.convert import state_dict_from_checkpoint
+from imagenet_models_tpu_torch.parallel import mesh
 
 _logger = logging.getLogger("imagenet_models_tpu_torch")
 
@@ -68,18 +76,44 @@ def set_device_rng_state(device: torch.device, rng_state: torch.Tensor) -> None:
         torch.set_rng_state(rng_state)
 
 
-def snapshot(state, generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
-    """The train state as one dict of host tensors (what `state.pt` holds)."""
+_PER_LEAF = ("mu", "nu", "trace")  # optimizer state entries keyed by parameter
+
+
+def _gathered(state):
+    """(optimizer state, EMA shadow of the parameters) with every leaf: under
+    ZeRO-1 broadcast from the owners (collective), else the state's own."""
+    if getattr(state, "owners", None) is None:
+        return state.opt_state, state.ema_params
+    params = state.params()
+    full = lambda part: mesh.gather_owned(part, params, state.owners, state.group)
+    opt = {k: full(v) if k in _PER_LEAF else v for k, v in state.opt_state.items()}
+    return opt, None if state.ema_params is None else full(state.ema_params)
+
+
+def snapshot(state, generator: Optional[torch.Generator] = None) -> Optional[Dict[str, Any]]:
+    """The train state as one dict of host tensors (what `state.pt` holds).
+    Across processes every rank calls it (collective) and rank 0 gets the
+    dict, with every rank's generator states; the others get None."""
     device = _device_of(state)
-    return _host({
+    opt_state, ema_params = _gathered(state)
+    rngs = (None if generator is None else generator.get_state(), device_rng_state(device))
+    ranks = [mesh.broadcast_object(rngs, src=r) for r in range(mesh.world())] \
+        if mesh.world() > 1 else None
+    if not mesh.is_primary():
+        return None
+    out = {
         "model": state.model.state_dict(),
-        "opt_state": state.opt_state,
-        "ema_params": state.ema_params,
+        "opt_state": opt_state,
+        "ema_params": ema_params,
         "ema_batch_stats": state.ema_batch_stats,
         "step": int(state.step),
-        "generator": None if generator is None else generator.get_state(),
-        "device_rng": device_rng_state(device),
-    })
+        "generator": rngs[0],
+        "device_rng": rngs[1],
+    }
+    if ranks:
+        out["rank_generators"] = [g for g, _ in ranks]
+        out["rank_device_rngs"] = [d for _, d in ranks]
+    return _host(out)
 
 
 class CheckpointSaver:
@@ -93,13 +127,20 @@ class CheckpointSaver:
     pruning run on one write-behind thread, overlapped with the next steps.
     At most one save is in flight: the next save waits for the previous
     write, which bounds host memory to two state copies. `generator` is the
-    train step's generator, whose state each checkpoint carries."""
+    train step's generator, whose state each checkpoint carries. Across
+    processes every rank makes the saver and calls every save (module
+    docstring): rank 0 writes, synchronously, and the others wait for it."""
 
     def __init__(self, checkpoint_dir: str, max_history: int = 10,
                  decreasing: bool = False, args_text: str = "",
                  async_save: bool = False, generator: Optional[torch.Generator] = None):
         self.dir = os.path.abspath(checkpoint_dir)
-        os.makedirs(self.dir, exist_ok=True)
+        self.writer = mesh.is_primary()
+        if async_save and mesh.world() > 1:
+            raise ValueError("async_save is for one process: saves across processes are "
+                             "collective and run on the callers")
+        if self.writer:
+            os.makedirs(self.dir, exist_ok=True)
         self.max_history = max_history
         self.decreasing = decreasing
         self.generator = generator
@@ -111,7 +152,7 @@ class CheckpointSaver:
             from concurrent.futures import ThreadPoolExecutor
 
             self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="imtpu-ckpt")
-        if args_text:
+        if args_text and self.writer:
             with open(os.path.join(self.dir, "args.yaml"), "w") as f:
                 f.write(args_text)
 
@@ -120,9 +161,13 @@ class CheckpointSaver:
 
     def _submit(self, fn):
         """Run fn now (sync mode) or queue it on the single writer thread
-        (submission order is execution order)."""
+        (submission order is execution order); across processes, on rank 0
+        alone, and then every rank waits until it is done."""
         if self._executor is None:
-            fn()
+            if self.writer:
+                fn()
+            if mesh.world() > 1:
+                mesh.barrier()
             return
 
         def logged():
@@ -263,16 +308,28 @@ def resume_checkpoint(path: str, target, use_ema: bool = False,
     if set(saved) != set(state.opt_state):
         raise ValueError(f"checkpoint {path}: its optimizer state does not match this "
                          "optimizer's (another --opt)")
-    state.opt_state = _on(saved, device)
+    # under ZeRO-1 this rank keeps its own leaves of the full saved state
+    state.opt_state = _on({k: state.owned(v) if k in _PER_LEAF else v
+                           for k, v in saved.items()}, device)
     if (ckpt.get("ema_params") is None) != (state.ema_params is None):
         raise ValueError(f"checkpoint {path}: EMA shadow {'absent' if state.ema_params else 'present'}"
                          ", unlike this run's (--model-ema)")
-    state.ema_params = _on(ckpt.get("ema_params"), device)
+    ema = ckpt.get("ema_params")
+    state.ema_params = None if ema is None else _on(state.owned(ema), device)
     state.ema_batch_stats = _on(ckpt.get("ema_batch_stats"), device)
     state.step = int(ckpt["step"])
-    set_device_rng_state(device, ckpt["device_rng"])
-    if generator is not None and ckpt.get("generator") is not None:
-        generator.set_state(ckpt["generator"])
+    # this rank's generators: the writer's rank r, or rank 0's in a
+    # one-process file; a rank the writer did not have keeps its own
+    r = mesh.rank()
+    gens = ckpt.get("rank_generators") or [ckpt.get("generator")]
+    rngs = ckpt.get("rank_device_rngs") or [ckpt["device_rng"]]
+    if r < len(rngs):
+        set_device_rng_state(device, rngs[r])
+        if generator is not None and gens[r] is not None:
+            generator.set_state(gens[r])
+    else:
+        _logger.info("rank %d: %s holds the generators of %d ranks; this rank keeps its own",
+                     r, path, len(rngs))
     return state, epoch
 
 
@@ -290,7 +347,7 @@ def export_pth_tar(source, out_path: str, use_ema: bool = False) -> None:
             raise ValueError("use_ema needs a train state or a saved checkpoint")
         sd = source.state_dict()
     else:
-        sd = _weights({"model": source.model.state_dict(), "ema_params": source.ema_params,
+        sd = _weights({"model": source.model.state_dict(), "ema_params": _gathered(source)[1],
                        "ema_batch_stats": source.ema_batch_stats}, use_ema, "the train state")
     sd = _host(sd)
     torch.save({"state_dict": sd}, out_path)

@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""ImageNet training CLI of the PyTorch port, for one process on one device.
+"""ImageNet training CLI of the PyTorch port, one process per device.
 Port of the JAX package's root `train.py`, with its flag surface:
 
     python -m imagenet_models_tpu_torch.cli.train DATA --model map_convnext_tiny \\
         -b 128 --amp --epochs 300 --output ./output/train
+    torchrun --nproc_per_node 8 -m imagenet_models_tpu_torch.cli.train DATA \\
+        --model map_convnext_tiny -b 128 --amp --dist-coordinator auto [--zero1]
 
 DATA is a dataset folder (root/<split>/<class>/<image>) or
 `synthetic[-cls][:train_len[:val_len]]`. It runs on the GPU; with
@@ -14,11 +16,20 @@ As in the JAX CLI: `--amp` selects bf16 compute over fp32 parameters, and
 fp32 compute without it; `-b` is the microbatch, `-tb`/`--grad-accumulation`
 give the accumulation; the EMA model's eval metrics are THE eval metrics;
 `--channels-last`, `--pin-mem`, `--no-prefetcher` and the other runtime
-flags of the reference are accepted no-ops. Flags of features the port does
-not have yet raise NotImplementedError naming the ROADMAP item that brings
-them: the multi-process and BatchNorm-sync flags (queue 1, item 2) and
-fine-tuning from a checkpoint (item 10). `-c FILE` reads YAML defaults
+flags of the reference are accepted no-ops. Fine-tuning from a checkpoint
+(`-fp`, `-pt`) is not ported yet and raises NotImplementedError naming the
+ROADMAP item that brings it (queue 1, item 10). `-c FILE` reads YAML defaults
 (PyYAML is imported only then).
+
+Data parallelism: each process drives one GPU (NCCL) or, with
+IMTPU_PLATFORM=cpu, the CPU (gloo). `--dist-coordinator host:port` with
+`--dist-num-processes` and `--dist-process-id`, or `auto` under torchrun
+(its environment; a `--local_rank` alone means `auto` too) joins the group.
+`-b` is per process: the global batch is b x processes x accumulation. Every
+rank starts from rank 0's weights, gradients are mean-all-reduced each step,
+and `--zero1` shards the optimizer state and the EMA shadow over the ranks
+with synchronised BatchNorm statistics (train/state.py). Rank 0 writes the
+run directory; checkpoints resume at any world size.
 """
 
 import argparse
@@ -37,7 +48,7 @@ config_parser = argparse.ArgumentParser(description="Training Config", add_help=
 config_parser.add_argument("-c", "--config", default="", type=str, metavar="FILE",
                            help="YAML config file overriding argparse defaults")
 
-parser = argparse.ArgumentParser(description="ImageNet training (PyTorch port, one GPU)")
+parser = argparse.ArgumentParser(description="ImageNet training (PyTorch port, one GPU per process)")
 # Dataset / model
 parser.add_argument("data_dir", metavar="DIR", help="path to dataset (or 'synthetic')")
 parser.add_argument("--dataset", "-d", default="", type=str)
@@ -196,12 +207,14 @@ parser.add_argument("--eval-metric", default="top1", type=str)
 parser.add_argument("--log-wandb", action="store_true", default=False)
 parser.add_argument("--save-images", action="store_true", default=False)
 parser.add_argument("--sync-bn", action="store_true", default=False,
-                    help="cross-device BN statistics; not ported yet (ROADMAP queue 1, item 2)")
+                    help="accepted no-op: BN statistics are synchronised under --zero1 and "
+                         "their running averages all-reduced every step otherwise")
 parser.add_argument("--dist-bn", type=str, default="reduce",
-                    help="accepted no-op: one process holds the only BN statistics")
+                    help="accepted no-op: BN running statistics are all-reduced every step "
+                         "(strictly stronger than per-epoch reduce/broadcast)")
 parser.add_argument("--zero1", action="store_true", default=False,
-                    help="shard optimizer + EMA state over the data-parallel ranks; not "
-                         "ported yet (ROADMAP queue 1, item 2)")
+                    help="shard optimizer + EMA state over the data-parallel ranks, each leaf "
+                         "owned by one rank (ZeRO-1), with synchronised BN statistics")
 parser.add_argument("--early-stop", type=int, default=None)
 parser.add_argument("--eval-epoch", type=int, default=1)
 parser.add_argument("--dis_eval", "--dis-eval", action="store_true", default=False)
@@ -218,11 +231,12 @@ parser.add_argument("--torchscript", action="store_true", default=False,
 parser.add_argument("--fuser", default="", type=str,
                     help="accepted no-op: the port's kernels are written by hand")
 parser.add_argument("--no-ddp-bb", action="store_true", default=False,
-                    help="accepted no-op: one process, no DDP broadcast buffers")
+                    help="accepted no-op: BN buffers are all-reduced by the step, not broadcast")
 parser.add_argument("--use-multi-epochs-loader", action="store_true", default=False,
                     help="accepted no-op: loader workers persist across epochs")
-parser.add_argument("--local_rank", default=0, type=int,
-                    help="accepted no-op: one process on one device")
+parser.add_argument("--local_rank", "--local-rank", default=None, type=int,
+                    help="this process's GPU on its host (torch.distributed.launch); the "
+                         "LOCAL_RANK variable wins; given alone it means --dist-coordinator auto")
 parser.add_argument("--tta", type=int, default=0,
                     help="average eval logits over groups of N consecutive samples "
                          "(MAP/train.py:1009-1012 output.unfold semantics)")
@@ -235,12 +249,12 @@ parser.add_argument("--prog-input", type=float, nargs="+", default=None)
 parser.add_argument("--prog-input-milestones", type=float, nargs="+", default=None)
 parser.add_argument("--head-dropout", type=float, default=None)
 parser.add_argument("--n-devices", type=int, default=None,
-                    help="devices to train on: 1 (more: ROADMAP queue 1, item 2)")
-# multi-process data parallelism (the JAX CLI's multi-host flags); not ported
-# yet (ROADMAP queue 1, item 2)
+                    help="devices in the run: absent or the number of processes (one GPU each)")
+# multi-process data parallelism (the JAX CLI's multi-host flags, the
+# torchrun/init_process_group analog, GA/train.py:374-381)
 parser.add_argument("--dist-coordinator", type=str, default="",
-                    help="multi-process rendezvous address host:port; not ported yet "
-                         "(ROADMAP queue 1, item 2)")
+                    help="rendezvous address host:port, or 'auto' for torchrun's environment "
+                         "(RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT)")
 parser.add_argument("--dist-num-processes", type=int, default=None,
                     help="total process count for --dist-coordinator")
 parser.add_argument("--dist-process-id", type=int, default=None,
@@ -251,8 +265,7 @@ parser.add_argument("--profile-steps", type=int, default=0,
                     help="write a torch.profiler trace of N steps in epoch 0")
 
 
-# ROADMAP queue 1 items that bring the features of these flags
-_ITEM_2 = "multi-GPU training (ROADMAP queue 1, item 2)"
+# the ROADMAP queue 1 item that brings the features of these flags
 _ITEM_10 = "fine-tuning from a checkpoint (ROADMAP queue 1, item 10)"
 
 
@@ -274,12 +287,6 @@ def _refuse_unported(args):
     """NotImplementedError for a flag whose feature the port does not have
     yet, naming the ROADMAP item that brings it."""
     unported = [
-        (args.zero1, "--zero1", _ITEM_2),
-        (args.dist_coordinator or args.dist_num_processes is not None
-         or args.dist_process_id is not None, "--dist-*", _ITEM_2),
-        (args.sync_bn, "--sync-bn", _ITEM_2),
-        (args.split_bn, "--split-bn", _ITEM_2),
-        (args.n_devices is not None and args.n_devices != 1, "--n-devices", _ITEM_2),
         (args.finetuning_checkpoint, "-fp/--finetuning-checkpoint", _ITEM_10),
         (args.in21k_to_in1k, "-pt/--in21k-to-in1k", _ITEM_10),
     ]
@@ -301,7 +308,8 @@ def run(args, args_text: str) -> dict:
     from imagenet_models_tpu_torch.core.reinit import reference_init
     from imagenet_models_tpu_torch.data.dataset import check_dataset_name
     from imagenet_models_tpu_torch.data.mixup import Mixup
-    from imagenet_models_tpu_torch.nn.layers import grouped_weights
+    from imagenet_models_tpu_torch.nn.layers import grouped_weights, set_bn_splits
+    from imagenet_models_tpu_torch.parallel import mesh
     from imagenet_models_tpu_torch.train.engine import (
         NaNWatchdog, Preempted, install_preemption_handler, train_one_epoch, validate)
     from imagenet_models_tpu_torch.train.losses import create_loss_fn
@@ -312,10 +320,22 @@ def run(args, args_text: str) -> dict:
     from imagenet_models_tpu_torch.utils.meters import init_wandb, update_summary
 
     _refuse_unported(args)
-    device = entry_device()
+    coordinator = args.dist_coordinator or ("auto" if args.local_rank is not None else "")
+    device = mesh.init_distributed(coordinator, args.dist_num_processes, args.dist_process_id,
+                                   device=entry_device(), local_rank=args.local_rank)
+    n_proc, proc_id, group = mesh.world(), mesh.rank(), mesh.data_group()
+    if args.n_devices is not None and args.n_devices != n_proc:
+        raise ValueError(f"--n-devices {args.n_devices}: a process drives one GPU and this run "
+                         f"has {n_proc} process(es); N processes come from torchrun or "
+                         "--dist-coordinator/--dist-num-processes/--dist-process-id")
+    if not mesh.is_primary():
+        logging.getLogger().setLevel(logging.WARNING)  # progress is logged by rank 0
+    if n_proc > 1:
+        torch.manual_seed(mesh.rank_seed(args.seed, proc_id))  # each rank its own dropout
     install_preemption_handler()
-    _logger.info("Training on %s (%s)", device,
-                 torch.cuda.get_device_name(device) if device.type == "cuda" else "host CPU")
+    _logger.info("Training on %s (%s), process %d of %d", device,
+                 torch.cuda.get_device_name(device) if device.type == "cuda" else "host CPU",
+                 proc_id, n_proc)
 
     cfg = default_cfg(args.model)
     num_classes = args.num_classes or cfg["num_classes"]
@@ -340,6 +360,14 @@ def run(args, args_text: str) -> dict:
         raise NotImplementedError(
             "--resplit without --aug-splits (timm's erase-second-half-batch "
             "mode) is not supported; none of the reference recipes use it")
+    if args.split_bn:
+        # timm convert_splitbn_model (GA/train.py:439-441): per-split BN
+        # statistics, the clean split feeding the running statistics
+        if num_aug_splits <= 1:
+            raise ValueError("--split-bn requires --aug-splits >= 2 (GA/train.py:439)")
+        if args.sync_bn:
+            raise ValueError("--split-bn and --sync-bn are mutually exclusive "
+                             "(GA/train.py:449 'assert not args.split_bn')")
     if args.apex_amp or args.native_amp:
         args.amp = True  # the reference's AMP selectors; the one AMP here is bf16
     if args.gp is not None:
@@ -369,6 +397,8 @@ def run(args, args_text: str) -> dict:
     # the reference's init of the kaiming/torch-default families (no-op for
     # ConvNeXt and MaxViT): matters for from-scratch training only
     reference_init(args.model, model, seed=args.seed)
+    if args.split_bn:
+        set_bn_splits(model, num_aug_splits)
     if args.pretrained:
         load_pretrained(model, args.model)
         _logger.info("loaded pretrained weights for %s", args.model)
@@ -379,16 +409,17 @@ def run(args, args_text: str) -> dict:
     _logger.info("Model %s created, param count: %d, %s compute", args.model, n_params,
                  "bf16" if args.amp else "fp32")
 
-    # batch geometry (MAP/train.py:406 semantics, one device)
+    # batch geometry (MAP/train.py:406 semantics; a device per process)
     per_dev = args.batch_size
     if args.grad_accumulation:
         grad_accum = args.grad_accumulation
     elif args.total_batch_size:
-        grad_accum = max(1, args.total_batch_size // per_dev)
+        grad_accum = max(1, args.total_batch_size // (per_dev * n_proc))
     else:
         grad_accum = 1
-    global_batch = per_dev * grad_accum
-    _logger.info("global batch %d = %d/dev x 1 dev x %d accum", global_batch, per_dev, grad_accum)
+    global_batch = per_dev * n_proc * grad_accum
+    _logger.info("global batch %d = %d/dev x %d dev x %d accum", global_batch, per_dev, n_proc,
+                 grad_accum)
 
     check_dataset_name(args.dataset)
     dataset_train = create_dataset(args.data_dir, args.train_split,
@@ -419,14 +450,16 @@ def run(args, args_text: str) -> dict:
         reprob=args.reprob, remode=args.remode, recount=args.recount,
         scale=tuple(args.scale), ratio=tuple(args.ratio), mixup_fn=mixup_fn,
         num_workers=args.workers, seed=args.seed, repeats=args.aug_repeats,
-        aug_splits=num_aug_splits, resplit=args.resplit, no_aug=args.no_aug)
-    eval_batch = args.validation_batch_size or per_dev
-    quantum = max(int(args.tta), 1)  # tta groups must tile the batch
+        aug_splits=num_aug_splits, resplit=args.resplit, no_aug=args.no_aug,
+        num_shards=n_proc, shard_id=proc_id)
+    eval_batch = args.validation_batch_size or per_dev * n_proc
+    quantum = n_proc * max(int(args.tta), 1)  # tta groups must tile each process's shard
     eval_batch = max(quantum, eval_batch // quantum * quantum)
     loader_eval = create_loader(dataset_eval, test_size, eval_batch,
                                 is_training=False, interpolation=interpolation,
                                 crop_pct=crop_pct, crop_mode=cfg.get("crop_mode", "center"),
-                                mean=mean, std=std, num_workers=args.workers, seed=args.seed)
+                                mean=mean, std=std, num_workers=args.workers, seed=args.seed,
+                                num_shards=n_proc, shard_id=proc_id)
     decoder = getattr(loader_train, "decoder", "PIL")
     _logger.info("host decoder: %s, %d loader workers", decoder, args.workers)
 
@@ -450,9 +483,11 @@ def run(args, args_text: str) -> dict:
                            clip_mode=args.clip_mode)
 
     ema_decay = args.model_ema_decay if args.model_ema else 0.0
-    state = create_train_state(model, opt, ema_decay=ema_decay, device=device)
-    # the step's generator draws the stochastic-depth masks (JAX's step rng)
-    generator = torch.Generator(device=device).manual_seed(args.seed)
+    state = create_train_state(model, opt, ema_decay=ema_decay, device=device, group=group,
+                               zero1=args.zero1)
+    # the step's generator draws the stochastic-depth masks (JAX's step rng,
+    # folded with the rank)
+    generator = torch.Generator(device=device).manual_seed(mesh.rank_seed(args.seed, proc_id))
     start_epoch = 0
     if args.resume:
         state, last_epoch = resume_checkpoint(args.resume, state, generator=generator)
@@ -460,7 +495,8 @@ def run(args, args_text: str) -> dict:
         if args.no_resume_opt:
             # optimizer state not restored (MAP/train.py:552-553); weights,
             # EMA and epoch are, and the LR schedule goes on from the epoch
-            state.opt_state = opt.init(state.params(), grouped=grouped_weights(model))
+            state.opt_state = opt.init(state.owned(state.params()),
+                                       grouped=grouped_weights(model))
             _logger.info("resumed weights only (--no-resume-opt)")
         # timm steps the LR by epoch, apart from the optimizer: the schedule
         # count follows the resume epoch; the bias-correction count does not
@@ -478,28 +514,35 @@ def run(args, args_text: str) -> dict:
     dec_lam = args.GA_lam if args.GA_lam is not None else args.dec_lam
     step_fn = make_train_step(model, opt, base_loss, dec_lam=dec_lam, ema_decay=ema_decay,
                               grad_accum=grad_accum,
-                              token_distillation=bool(args.token_distillation))
+                              token_distillation=bool(args.token_distillation),
+                              group=group, zero1=args.zero1)
     eval_step = make_eval_step(model, tta=args.tta)
     eval_step_ema = (make_eval_step(model, tta=args.tta, use_ema=True, state=state)
                      if ema_decay else None)
 
     run_name = args.experiment or "-".join([
         datetime.now().strftime("%Y%m%d-%H%M%S"), args.model, str(input_size)])
+    if n_proc > 1:
+        # one run directory: rank 0's name (the clocks may straddle a second)
+        run_name = mesh.broadcast_object(run_name)
     output_dir = os.path.join(args.output or "./output/train", run_name)
     saver = CheckpointSaver(output_dir, max_history=args.checkpoint_hist,
                             decreasing=args.eval_metric == "loss", args_text=args_text,
-                            async_save=True, generator=generator)
+                            # one process: the writes overlap the next steps;
+                            # across processes saves are collective
+                            async_save=n_proc == 1, generator=generator)
     _logger.info("output dir: %s", output_dir)
 
     log_wandb = False
-    if args.log_wandb:
+    if args.log_wandb and mesh.is_primary():
         log_wandb = init_wandb(f"{args.project_name}_{os.path.basename(args.data_dir).lower()}",
                                run_name, vars(args), resume_id=args.resume_id)
 
     # timm: the run is the cosine cycle plus the cooldown epochs, which hold
     # min_lr (timm train.py num_epochs = get_cycle_length() + cooldown_epochs)
     num_epochs = args.epochs + (args.cooldown_epochs if args.sched == "cosine" else 0)
-    result = {"output_dir": output_dir, "device": str(device), "decoder": decoder,
+    result = {"output_dir": output_dir, "device": str(device), "world": n_proc,
+              "decoder": decoder,
               "param_count": n_params, "start_epoch": start_epoch, "epochs": [],
               "best_metric": None, "best_epoch": None, "exit": "done"}
     wrote_header = False
@@ -512,9 +555,9 @@ def run(args, args_text: str) -> dict:
                 generator, device, log_interval=args.log_interval, saver=saver,
                 recovery_interval=args.recovery_interval, lr_fn=lr_fn,
                 mixup_off=mixup_off, steps_per_epoch=steps_per_epoch,
-                profile_steps=args.profile_steps,
+                profile_steps=args.profile_steps if mesh.is_primary() else 0,
                 profile_dir=os.path.join(output_dir, "profile"),
-                save_images_dir=output_dir if args.save_images else "")
+                save_images_dir=output_dir if args.save_images and mesh.is_primary() else "")
             record = {"epoch": epoch, "train": dict(train_metrics), "train_stats": train_stats}
 
             do_eval = not args.dis_eval and (epoch + 1) >= args.eval_epoch
@@ -539,11 +582,12 @@ def run(args, args_text: str) -> dict:
                                     "raw_top5": eval_metrics["top5"]}
             record["eval"] = dict(eval_metrics)
             result["epochs"].append(record)
-            update_summary(epoch, train_metrics, eval_metrics,
-                           os.path.join(output_dir, "summary.csv"),
-                           write_header=not wrote_header,
-                           lr=float(lr_fn(epoch)), log_wandb=log_wandb)
-            wrote_header = True
+            if mesh.is_primary():  # MAP/train.py:724-738
+                update_summary(epoch, train_metrics, eval_metrics,
+                               os.path.join(output_dir, "summary.csv"),
+                               write_header=not wrote_header,
+                               lr=float(lr_fn(epoch)), log_wandb=log_wandb)
+                wrote_header = True
             if do_eval:
                 result["best_metric"], result["best_epoch"] = saver.save_checkpoint(
                     state, epoch, metric=eval_metrics[args.eval_metric])
@@ -575,11 +619,15 @@ def run(args, args_text: str) -> dict:
 
 
 def main(argv=None) -> dict:
+    from imagenet_models_tpu_torch.parallel import mesh
     from imagenet_models_tpu_torch.utils.meters import setup_default_logging
 
     setup_default_logging()
     args, args_text = _parse_args(argv)
-    return run(args, args_text)
+    try:
+        return run(args, args_text)
+    finally:
+        mesh.destroy()  # the process group ends with the run
 
 
 if __name__ == "__main__":

@@ -43,9 +43,9 @@ class DataLoader:
         # GA/train.py:657-658): batch_size is the GLOBAL batch; every process
         # walks the identical epoch index stream and takes its contiguous
         # block of each batch, yielding batch_size//num_shards rows.
-        # num_shards=1 (the one-process engine's setting until the
-        # multi-GPU slice) is the single-process path: same indices, same
-        # per-sample aug seeds, same mixup stream.
+        # num_shards=1 is the single-process path: same indices, same
+        # per-sample aug seeds, same mixup stream. The train entry passes
+        # num_shards=world, shard_id=rank.
         num_shards = max(int(num_shards), 1)
         if batch_size % num_shards:
             raise ValueError(f"batch_size {batch_size} not divisible by "
@@ -152,7 +152,7 @@ class DataLoader:
 
     def _make_batch(self, bi: int, binds) -> Tuple[np.ndarray, np.ndarray]:
         if len(binds) == 0:
-            # multi-host tail batch too short to reach this shard's slice:
+            # a tail batch too short to reach this shard's slice:
             # yield an empty batch (the eval engine pads + masks it) instead
             # of letting np.stack([]) kill the worker thread
             size = int(getattr(self.transform, "size", 0))

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from imagenet_models_tpu_torch.ops import batch_norm as bn_ops
+from imagenet_models_tpu_torch.parallel import mesh
 from imagenet_models_tpu_torch.ops.convnext_block import FastGelu
 
 
@@ -130,6 +131,35 @@ class LayerNorm(nn.Module):
         return y.to(out)
 
 
+_SPLIT_FALLBACK_WARNED: set = set()
+
+
+def _warn_split_fallback(batch: int, splits: int) -> None:
+    """Warn once per geometry that --split-bn falls back to whole-batch
+    statistics because the batch does not divide into the splits (an
+    unexpected tail batch); nn/layers.py:136-148."""
+    if (batch, splits) not in _SPLIT_FALLBACK_WARNED:
+        _SPLIT_FALLBACK_WARNED.add((batch, splits))
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "--split-bn: batch %d not divisible by %d aug-splits; BatchNorm "
+            "falls back to whole-batch statistics for this shape (timm "
+            "convert_splitbn_model would have rejected the layout).",
+            batch, splits)
+
+
+class _Group:
+    """A process group held by a module: a deep copy of the module shares it
+    (a ProcessGroup cannot be copied)."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def __deepcopy__(self, memo):
+        return self
+
+
 class BatchNorm(nn.Module):
     """BatchNorm over every axis but the last (nn/layers.py:BatchNorm).
 
@@ -137,13 +167,27 @@ class BatchNorm(nn.Module):
     cast to `dtype` (or the input dtype). Eval uses the running statistics.
     Training uses the batch's fp32 mean and E[x^2] (var = E[x^2] - mean^2,
     clamped at 0) and updates the running statistics with momentum 0.9 and
-    the unbiased variance (:226-247, the branch without split-BN or SyncBN).
-    With IMTPU_PALLAS_BN on, a training input that passes
-    `ops.batch_norm.use_fused_bn` takes `ops.batch_norm.bn_train` (kernels 7
-    and 8 on CUDA tensors; `use_kernel` as there), as JAX's does (:211-225);
-    otherwise `plain_bn_train`, with autograd's gradient. The parameter and
-    buffer names are torch BatchNorm's; `num_batches_tracked` is not kept,
-    as the JAX export has no such leaf.
+    the unbiased variance (:226-247). With IMTPU_PALLAS_BN on, a training
+    input that passes `ops.batch_norm.use_fused_bn` takes
+    `ops.batch_norm.bn_train` (kernels 7 and 8 on CUDA tensors; `use_kernel`
+    as there), as JAX's does (:211-225); otherwise `plain_bn_train`, with
+    autograd's gradient. The parameter and buffer names are torch
+    BatchNorm's; `num_batches_tracked` is not kept, as the JAX export has no
+    such leaf.
+
+    Two training branches on plain ops, as JAX keeps them, set per model:
+    - split-BN (`set_bn_splits`, --split-bn with --aug-splits, :110-121,
+      :186-210): rows interleaved sample-major, split j = rows j mod s, each
+      split normalised by its own statistics, the affine shared (JAX's
+      documented deviation from timm's aux BNs), and only split 0 feeding
+      the running statistics; a batch that does not divide falls back to
+      whole-batch statistics with a warning;
+    - synchronised statistics (`set_bn_sync`, JAX's `axis_name`, :194-201,
+      :231-238): the fp32 mean and E[x^2] are mean-all-reduced over the
+      group (`parallel.mesh.AllReduceMean`, whose backward averages the
+      statistics' cotangents over the ranks) and the unbiased count is n
+      times the world. The split branch takes the group too.
+    Eval ignores both.
     """
 
     momentum = 0.9
@@ -156,6 +200,15 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(dim))
         self.eps = eps
         self.compute_dtype = dtype
+        self.splits = 1
+        self.sync = _Group(None)
+
+    def _stats(self, xf: torch.Tensor, axes, group):
+        """fp32 (mean, E[x^2]) over `axes`, averaged over `group`'s ranks."""
+        mean, mean2 = xf.mean(dim=axes), xf.square().mean(dim=axes)
+        if group is not None:
+            mean, mean2 = mesh.AllReduceMean.apply(torch.stack([mean, mean2]), group).unbind(0)
+        return mean, mean2
 
     def forward(self, x: torch.Tensor, use_kernel: Optional[bool] = None) -> torch.Tensor:
         out = self.compute_dtype or x.dtype
@@ -163,17 +216,63 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean.float(), self.running_var.float()
             inv = torch.rsqrt(var + self.eps) * self.weight.float()
             return ((x.float() - mean) * inv + self.bias.float()).to(out)
-        if bn_ops.use_fused_bn(x):
-            y, mean, var = bn_ops.bn_train(x, self.weight, self.bias, self.eps, out,
-                                           use_kernel=use_kernel)
+        group, splits = self.sync.group, self.splits
+        if splits > 1 and x.shape[0] % splits:
+            _warn_split_fallback(x.shape[0], splits)
+            splits = 1
+        n_ranks = mesh.world(group) if group is not None else 1
+        if splits > 1:
+            xf = x.float()
+            xr = xf.reshape(x.shape[0] // splits, splits, *x.shape[1:])
+            axes = (0,) + tuple(range(2, xr.dim() - 1))
+            mean, mean2 = self._stats(xr, axes, group)  # (s, C)
+            var = torch.clamp(mean2 - mean.square(), min=0.0)
+            bshape = (1, splits) + (1,) * (xr.dim() - 3) + (x.shape[-1],)
+            inv = torch.rsqrt(var + self.eps) * self.weight.float()
+            y = ((xr - mean.reshape(bshape)) * inv.reshape(bshape) + self.bias.float())
+            y = y.reshape(x.shape).to(out)
+            mean, var = mean[0], var[0]  # only the clean split feeds the running statistics
+            n = math.prod(xr.shape[i] for i in axes) * n_ranks
+        elif group is not None:
+            xf = x.float()
+            mean, mean2 = self._stats(xf, tuple(range(x.dim() - 1)), group)
+            var = torch.clamp(mean2 - mean.square(), min=0.0)
+            inv = torch.rsqrt(var + self.eps) * self.weight.float()
+            y = ((xf - mean) * inv + self.bias.float()).to(out)
+            n = x.numel() // x.shape[-1] * n_ranks
         else:
-            y, mean, var = bn_ops.plain_bn_train(x, self.weight, self.bias, self.eps, out)
-        n = x.numel() // x.shape[-1]
+            if bn_ops.use_fused_bn(x):
+                y, mean, var = bn_ops.bn_train(x, self.weight, self.bias, self.eps, out,
+                                               use_kernel=use_kernel)
+            else:
+                y, mean, var = bn_ops.plain_bn_train(x, self.weight, self.bias, self.eps, out)
+            n = x.numel() // x.shape[-1]
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
             self.running_var.copy_(m * self.running_var + (1 - m) * (var * (n / max(n - 1, 1))))
         return y
+
+
+def set_bn_splits(module: nn.Module, splits: int) -> None:
+    """Split-BN for every BatchNorm of `module`: `splits` interleaved splits
+    in training (1: off); the per-model form of JAX's global set_bn_splits."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.splits = max(int(splits), 1)
+
+
+def bn_splits(module: nn.Module) -> int:
+    """The split count of `module`'s BatchNorms (1 where it has none)."""
+    return next((m.splits for m in module.modules() if isinstance(m, BatchNorm)), 1)
+
+
+def set_bn_sync(module: nn.Module, group) -> None:
+    """Synchronise the training statistics of every BatchNorm of `module`
+    over the process group `group` (None: each process its own)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm):
+            m.sync = _Group(group)
 
 
 class DropPath(nn.Module):

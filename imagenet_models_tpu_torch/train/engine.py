@@ -1,5 +1,6 @@
 """Training and eval engine: the host loop around the train and eval steps.
-Port of imagenet_models_tpu/train/engine.py, for one process on one device.
+Port of imagenet_models_tpu/train/engine.py: one process per device, every
+rank running the same loop over its shard of each batch.
 
 Phase meters (data, step), the NaN watchdog, recovery checkpoints, SIGTERM
 preemption and throughput logging, as the JAX engine has them. CUDA runs
@@ -7,7 +8,9 @@ asynchronously, so the loop never waits for the card between steps: the
 losses stay on the device and are fetched, and checked for NaN/inf, only at
 log intervals and at the last batch. Batches come from the host loader as
 NHWC float32 numpy arrays and reach the device through pinned memory
-(`to_device`), in the NHWC layout the port's models take.
+(`to_device`), in the NHWC layout the port's models take. Across processes
+the ranks agree on preemption at the deterministic sync points, and
+`validate` reduces its meters over the ranks.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from imagenet_models_tpu_torch.parallel import mesh
 from imagenet_models_tpu_torch.utils.meters import AverageMeter
 
 _logger = logging.getLogger("imagenet_models_tpu_torch")
@@ -78,9 +82,17 @@ def install_preemption_handler():
 
 def _preempt_agreed(sync_point: bool) -> bool:
     """Whether to act on a SIGTERM now. One process: the local flag, checked
-    at every step (the JAX engine's multi-host agreement comes with the
-    multi-GPU slice)."""
-    return _PREEMPT["signaled"]
+    every step. Several: the signal can land on the ranks at different steps,
+    and a rank that saved and left alone would leave the others waiting in
+    the next step's collectives; so every rank agrees (an all_reduce MAX of
+    the flag: any rank's signal wins), and only at the deterministic sync
+    points (log intervals and the last batch), where every rank calls this
+    (engine.py:64-83)."""
+    if mesh.world() == 1:
+        return _PREEMPT["signaled"]
+    if not sync_point:
+        return False
+    return mesh.any_rank(_PREEMPT["signaled"])
 
 
 def save_image_grid(images: np.ndarray, path: str, cols: int = 8):
@@ -212,7 +224,11 @@ def validate(eval_step, loader, device: torch.device, log_interval: int = 50,
     (train.state.make_eval_step). The tail batch is padded to the loader's
     batch size with target -1, which no prediction matches, and only its real
     samples are metered. tta > 1: the step returns one flag per group of tta
-    samples. Returns (OrderedDict(top1, top5), LoopStats)."""
+    samples. Across processes each rank meters its shard of every batch
+    (an empty shard is all padding), then [top-1 sum, top-5 sum, count] are
+    all-reduced and divided, so that an uneven tail gives the one-pass
+    metric (engine.py:237-243). Returns (OrderedDict(top1, top5), LoopStats),
+    the stats this rank's."""
     tta = max(int(tta), 1)
     batch_time = AverageMeter()
     top1 = AverageMeter()
@@ -248,4 +264,8 @@ def validate(eval_step, loader, device: torch.device, log_interval: int = 50,
                          log_suffix, batch_idx, len(loader), batch_time.val,
                          batch_time.avg, top1.val, top1.avg, top5.val, top5.avg)
     stats.seconds = time.time() - start
+    if mesh.world() > 1:
+        s1, s5, count = mesh.all_reduce_sum([top1.sum, top5.sum, top1.count])
+        return OrderedDict([("top1", s1 / max(count, 1.0)),
+                            ("top5", s5 / max(count, 1.0))]), stats
     return OrderedDict([("top1", top1.avg), ("top5", top5.avg)]), stats

@@ -13,7 +13,7 @@ small kernels per step and left the card idle for half of it.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Mapping, Optional, Sequence, Union
+from typing import Callable, Collection, Dict, Mapping, Optional, Sequence, Union
 
 import torch
 
@@ -76,6 +76,12 @@ class Optimizer:
     parameters and the state in place (no grad), one optimizer update per
     call. `params` and `grads` are mappings of parameter name to tensor, in
     one order (`dict(model.named_parameters())`).
+
+    Under ZeRO-1 a rank's state covers only the leaves it owns: `init` is
+    given those, and `step(..., owned=names)` updates only those, while the
+    clip and LAMB's global-norm divisor still read every gradient of `grads`
+    (the full, reduced gradients, which every rank holds). With every leaf
+    owned, the update is the one-process update, bit for bit.
     """
 
     def __init__(self, opt: str = "lamb", learning_rate: Schedule = 1e-3,
@@ -128,9 +134,10 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor],
-             state: Dict) -> None:
+             state: Dict, owned: Optional[Collection[str]] = None) -> None:
         grads = self._clip(params, {k: g.float() for k, g in grads.items()},
                            state["grouped"])
+        names = list(params) if owned is None else [k for k in params if k in owned]
         lr = self.learning_rate
         if callable(lr):
             lr = lr(state["schedule_count"])
@@ -140,10 +147,10 @@ class Optimizer:
         decay = wd_mask(params)
         wd = self.weight_decay
         if self.opt == "lamb":
-            self._lamb(params, grads, state, decay, lr, t)
+            self._lamb(params, grads, state, decay, lr, t, names)
             return
-        for k, p in params.items():
-            g = grads[k]
+        for k in names:
+            p, g = params[k], grads[k]
             if self.opt in ("adamw", "adam"):  # optax.scale_by_adam (+ add_decayed_weights)
                 mu = state["mu"][k].mul_(self.b1).add_((1 - self.b1) * g)
                 nu = state["nu"][k].mul_(self.b2).add_((1 - self.b2) * g.square())
@@ -157,16 +164,16 @@ class Optimizer:
                 upd = g + self.momentum * tr if self.opt != "momentum" else tr
             p.sub_((lr * upd).to(p.dtype))
 
-    def _lamb(self, params, grads, state, decay, lr, t) -> None:
+    def _lamb(self, params, grads, state, decay, lr, t, names) -> None:
         """timm 0.9.2 Lamb (optim.py:79-144), which optax.lamb is not:
         gradients pre-divided by max(1, global_norm / 1.0); eps outside the
-        bias-corrected sqrt; the trust ratio only on decayed leaves."""
-        names = list(params)
+        bias-corrected sqrt; the trust ratio only on decayed leaves. The
+        leaves of `names` are updated; the global norm is over all grads."""
         ps = [params[k] for k in names]
         mus = [state["mu"][k] for k in names]
         nus = [state["nu"][k] for k in names]
         gs = [grads[k] for k in names]
-        clip = torch.clamp(global_norm(gs) / _LAMB_MAX_GRAD_NORM, min=1.0)
+        clip = torch.clamp(global_norm(list(grads.values())) / _LAMB_MAX_GRAD_NORM, min=1.0)
         gs = torch._foreach_div(gs, clip)
         torch._foreach_mul_(mus, self.b1)
         torch._foreach_add_(mus, gs, alpha=1.0 - self.b1)

@@ -1,8 +1,9 @@
 """The port's train and validate entries on the CPU (IMTPU_PLATFORM=cpu):
 one tiny subprocess run of `python -m imagenet_models_tpu_torch.cli.train`
 (the JAX dry run's CLI smoke, `__graft_entry__._dryrun_train_cli`, on the
-port), and in-process runs that check resume, the checkpoints and the
-validate entry. mobilenet_v1 at 64 px with batches of 2 keeps each run to
+port) and a two-process one over gloo, and in-process runs that check
+resume, the checkpoints, the validate entry, the split-BN and device-count
+flags and a one-rank process group. mobilenet_v1 at 64 px with batches of 2 keeps each run to
 seconds."""
 
 import csv
@@ -18,6 +19,7 @@ import torch
 from imagenet_models_tpu_torch.ckpt.saver import export_pth_tar
 from imagenet_models_tpu_torch.cli import train as cli_train
 from imagenet_models_tpu_torch.cli import validate as cli_validate
+from torch_parity import free_port
 
 REPO = Path(__file__).resolve().parent.parent
 SMOKE = ["synthetic:64", "--model", "mobilenet_v1", "--input-size", "3", "64", "64", "-b", "2",
@@ -66,15 +68,96 @@ def test_cli_needs_the_gpu_unless_asked_for_the_cpu(monkeypatch, tmp_path):
         cli_validate.main(VALIDATE)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--zero1"], "item 2"), (["--dist-coordinator", "127.0.0.1:1"], "item 2"),
-    (["--sync-bn"], "item 2"), (["--split-bn", "--aug-splits", "2"], "item 2"),
-    (["-fp", "x.pth.tar"], "item 10"), (["-pt"], "item 10")])
+@pytest.mark.parametrize("flags,item", [(["-fp", "x.pth.tar"], "item 10"), (["-pt"], "item 10")])
 def test_unported_flags_raise(flags, item, monkeypatch, tmp_path):
     """A flag whose feature is not ported raises, naming its ROADMAP item."""
     monkeypatch.setenv("IMTPU_PLATFORM", "cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
         cli_train.main([*SMOKE, *flags, "--output", str(tmp_path)])
+
+
+def test_two_process_cli_smoke(tmp_path):
+    """Two processes of `python -m imagenet_models_tpu_torch.cli.train` on
+    gloo (--dist-coordinator, --zero1, global batch 2 x 2) exit 0 and write
+    one run directory: rank 0's name, its summary.csv and checkpoints."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), IMTPU_PLATFORM="cpu", OMP_NUM_THREADS="1")
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "imagenet_models_tpu_torch.cli.train", *SMOKE, "--epochs", "1",
+         "--zero1", "--model-ema", "--dist-coordinator", f"127.0.0.1:{port}",
+         "--dist-num-processes", "2", "--dist-process-id", str(rank), "--output", str(tmp_path)],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in (0, 1)]
+    logs = [p.communicate(timeout=300)[1] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], [log[-3000:] for log in logs]
+    [run] = os.listdir(tmp_path)
+    with open(tmp_path / run / "summary.csv") as f:
+        assert [r["epoch"] for r in csv.DictReader(f)] == ["0"]
+    assert {"checkpoint-0", "last", "model_best", "args.yaml"} <= set(os.listdir(tmp_path / run))
+    assert "global batch 4 = 2/dev x 2 dev x 1 accum" in logs[0]
+    assert "Train:" in logs[0] and "Train:" not in logs[1]  # progress on rank 0 alone
+
+
+def _in_process(monkeypatch, argv):
+    monkeypatch.setenv("IMTPU_PLATFORM", "cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return cli_train.main(argv)
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_split_bn_runs_at_one_process(monkeypatch, tmp_path):
+    """--split-bn with --aug-splits 2 (and the JSD loss) trains and evaluates."""
+    result = _in_process(monkeypatch, [*SMOKE, "--epochs", "1", "--split-bn", "--aug-splits", "2",
+                                       "--jsd-loss", "--output", str(tmp_path)])
+    assert result["exit"] == "done" and len(result["epochs"]) == 1
+    assert result["epochs"][0]["train"]["loss"] == result["epochs"][0]["train"]["loss"]
+
+
+@pytest.mark.parametrize("flags,message", [
+    (["--split-bn"], "--aug-splits >= 2"),
+    (["--split-bn", "--aug-splits", "2", "--sync-bn"], "mutually exclusive")])
+def test_split_bn_flag_rules(flags, message, monkeypatch, tmp_path):
+    """--split-bn needs --aug-splits >= 2 and excludes --sync-bn, with the
+    JAX CLI's messages."""
+    with pytest.raises(ValueError, match=message):
+        _in_process(monkeypatch, [*SMOKE, *flags, "--output", str(tmp_path)])
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_n_devices_is_the_number_of_processes(n, monkeypatch, tmp_path):
+    """--n-devices must be absent or the world size: one process runs with
+    1 and refuses 2, since a process drives one device."""
+    argv = [*SMOKE, "--epochs", "1", "--n-devices", str(n), "--output", str(tmp_path)]
+    if n == 1:
+        assert _in_process(monkeypatch, argv)["exit"] == "done"
+    else:
+        with pytest.raises(ValueError, match="a process drives one GPU"):
+            _in_process(monkeypatch, argv)
+
+
+def test_world_1_group_run_equals_the_one_process_run(monkeypatch, tmp_path):
+    """The entry over a gloo group of one rank, --zero1 (with --sync-bn and
+    --dist-bn, accepted) writes the one-process run's checkpoint bit for bit:
+    weights, BatchNorm statistics, LAMB moments, EMA shadow, step."""
+    base = [*RESUME, "--epochs", "1", "--output", str(tmp_path)]
+    _in_process(monkeypatch, [*base, "--experiment", "one"])
+    dist_run = _in_process(monkeypatch, [
+        *base, "--experiment", "group", "--zero1", "--sync-bn", "--dist-bn", "reduce",
+        "--dist-coordinator", f"127.0.0.1:{free_port()}", "--dist-num-processes", "1",
+        "--dist-process-id", "0"])
+    assert dist_run["world"] == 1 and dist_run["exit"] == "done"
+    a = torch.load(tmp_path / "one" / "last" / "state.pt", weights_only=True)
+    b = torch.load(tmp_path / "group" / "last" / "state.pt", weights_only=True)
+    assert a["step"] == b["step"] == 2
+    for part in ("model", "ema_params", "ema_batch_stats"):
+        for k in a[part]:
+            assert torch.equal(a[part][k], b[part][k]), (part, k)
+    for moment in ("mu", "nu"):
+        for k in a["opt_state"][moment]:
+            assert torch.equal(a["opt_state"][moment][k], b["opt_state"][moment][k]), (moment, k)
 
 
 @pytest.fixture(scope="module")

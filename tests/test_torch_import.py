@@ -69,7 +69,8 @@ def test_port_imports_without_jax_and_serves_on_cpu():
                  "imagenet_models_tpu_torch.data.loader", "imagenet_models_tpu_torch.core.reinit",
                  "imagenet_models_tpu_torch.train.engine", "imagenet_models_tpu_torch.ckpt.saver",
                  "imagenet_models_tpu_torch.ckpt.pretrained", "imagenet_models_tpu_torch.cli.train",
-                 "imagenet_models_tpu_torch.cli.validate"):
+                 "imagenet_models_tpu_torch.cli.validate",
+                 "imagenet_models_tpu_torch.parallel", "imagenet_models_tpu_torch.parallel.mesh"):
         assert name in out["modules"]
     assert out["after_import"] == []   # every module, the converter included
     assert out["after_forward"] == []

@@ -8,6 +8,7 @@ layer scale or BN mean 0 / var 1 would hide whole blocks from a comparison.
 """
 
 import os
+import socket
 
 import numpy as np
 import torch
@@ -130,3 +131,23 @@ def grads_match_jax(jm, variables, tm, x, model_name: str, prefix: str, apply_kw
     for k, p in named.items():
         assert p.grad is not None, k
         np.testing.assert_allclose(p.grad.numpy(), grads[k].numpy(), err_msg=k, **tol)
+
+
+def free_port() -> int:
+    """A TCP port of localhost that no process listens on now."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn(workdir, tasks, world: int = 2) -> dict:
+    """Run `tasks` (names of entries of workdir/inputs.pt) on `world` gloo
+    ranks of tests/_torch_dp_child.py, spawned by torch.multiprocessing;
+    their results by task, a list over the ranks."""
+    import _torch_dp_child
+
+    torch.multiprocessing.spawn(_torch_dp_child.main,
+                                args=(world, free_port(), str(workdir), list(tasks)),
+                                nprocs=world, join=True)
+    return {t: [torch.load(workdir / f"{t}.{r}.pt", weights_only=False) for r in range(world)]
+            for t in tasks}
