@@ -19,7 +19,10 @@ and ga_cswin_tiny again on the JAX package's opt-in routes, the flash
 attention switch (kernels 12 and 13) and the transformer LN+MLP switch
 (kernels 1 and 2 on their MLPs); then map_convnext_tiny again with its
 blocks on the JAX package's fused-branch entry `convnext_branch_apply`
-(kernels 10 and 11). Phases:
+(kernels 10 and 11); then the train and validate entries and data
+parallelism; then map_pit_s on kernels 1 and 2 (the transformer LN+MLP
+switch) with the heads that came with it, and map_faster_vit_3_224 on
+kernels 7 and 8 (the BatchNorm switch). Phases:
 
 1. device: the card's name and power limit;
 2. build: compile every CUDA kernel from `csrc/`, one nvcc per source, all
@@ -33,7 +36,12 @@ blocks on the JAX package's fused-branch entry `convnext_branch_apply`
    kernel 1 at B=64 and B=256 with the exact GELU and at B=64 and B=128
    with the fast one, kernel 2 at B=128, each also stage by stage and
    beside its products as torch.matmul calls; kernel 1's registers and
-   SASS counts (HGMMA in its GEMM stages);
+   SASS counts (HGMMA in its GEMM stages); then at map_pit_s's widths (C =
+   144, 288, 576, hidden 4C) and stage token counts at B=128 and B=256,
+   kernels 1 and 2 with both GELUs against their twins by the same gates,
+   kernel 1 timed at B=256 (exact) and B=128 (fast), kernel 2 at B=128,
+   beside the bound and the products as torch.matmul calls
+   (`check_pit_widths`);
 4. ConvNeXt serving: four uint8 requests of 32 images through the kernel
    path, with launch counts per request, logits checked against the plain
    path, and one eval step;
@@ -236,7 +244,32 @@ blocks on the JAX package's fused-branch entry `convnext_branch_apply`
    to one process on the global batch (for the replicated step, with two
    microbatches of 64: per-rank statistics are its semantics; the distances
    to whole-batch statistics are printed), each rank's launches of kernels 1
-   and 2 counted (none of 7 and 8: synchronised statistics take plain ops).
+   and 2 counted (none of 7 and 8: synchronised statistics take plain ops);
+29. map_pit_s (36,147,424 params) with IMTPU_TLNMLP at "1" (the phase sets
+   `ops.convnext_block._TLNMLP` and puts it back): serving with 12 launches
+   of kernel 1 per request (one per block), logits against the plain path
+   and an fp32 model, one eval step, eval img/s at B=256 at "1" and "0" in
+   turns; at B=256 one eval forward at each arm (12 launches and none, the
+   logits within LOGITS_RTOL of each other); two train steps of the GA
+   recipe at B=128 with 12 + 12 launches each, the first against the plain
+   path and an fp32 model by `compare_grads`' default gates; train img/s
+   at "1" and "0" in turns; then the heads that raised until this slice:
+   map_convnext_tiny with split_norm=True and drop_rate 0.1 (SplitNormHeads)
+   and map_maxvit_tiny_tf_224 with drop_rate 0.1 (its heads' fc dropout),
+   one eval forward (18 launches of kernel 1; MaxViT's eval none of kernel
+   3) and one train step at B=64 each (18 + 18 launches of kernels 1 and 2;
+   of 3 and 4), finite logits and losses;
+30. map_faster_vit_3_224 (187,338,000 params) with IMTPU_PALLAS_BN at
+   "full": serving as phase 15 (no launch at eval; eval img/s at "full"
+   and "0" in turns); three train steps of the faster_vit_3 recipe
+   (train_with_script.py:23) at B=128 with kernels 7 and 8 launched once
+   per training BatchNorm of the model's census (20 a forward), the first
+   step against the plain path and an fp32 model by phase 16's gates (the
+   conv blocks' conv biases, whose true gradient is zero, checked as such
+   against their stage's groups); two bf16 steps from one state with
+   bit-equal gradients; train img/s at "full" and "0" in turns; kernels 7
+   and 8 against their twins, float64 sums and timed per launch at the
+   census's shapes, with their sums per step.
 
 Any failure raises and exits non-zero. The last lines are a JSON summary of
 the kernels, the card's name and power limit, and
@@ -536,6 +569,32 @@ BRANCH_FP32_LOGITS_RTOL = 0.25
 DW_ARMS = (("1", "kernel"), ("0", "kernel"), ("0", "plain"))
 # the switch's arms timed in phase 16: (IMTPU_PALLAS_BN, path)
 BN_ARMS = (("full", "kernel"), ("full", "plain"), ("bwd", "kernel"), ("0", "kernel"))
+# map_pit_s at 224 px, phases 3 and 29: (token map side, C, blocks) of its
+# three stages; with IMTPU_TLNMLP at "1" each block's norm2 + MLP is one
+# launch of kernel 1 in a forward and of kernel 2 in a backward, at C = 144,
+# 288 and 576
+PIT = "map_pit_s"
+PIT_STAGES = ((27, 144, 2), (14, 288, 6), (7, 576, 4))
+PIT_DEPTHS = tuple(n for *_, n in PIT_STAGES)
+PIT_MLPS = sum(PIT_DEPTHS)
+# the key third of every qkv bias has a true gradient of zero (softmax
+# ignores a shift of the keys), as in GA-CSWin
+PIT_ZERO_GRAD = ("attn.qkv.bias_k",)
+# map_faster_vit_3_224, phase 30: the faster_vit_3 row of
+# train_with_script.py:23 (LAMB lr 5e-3 wd 0.05, clip 5.0 by norm, soft-target
+# cross-entropy on mixup's dense targets, drop-path 0.3, dec_lam -0.8 as
+# train.py's default)
+FASTERVIT = "map_faster_vit_3_224"
+FASTERVIT_RECIPE = {"opt": dict(learning_rate=5e-3, weight_decay=0.05, clip_grad=5.0),
+                    "loss": dict(bce_loss=False, smoothing=0.1, mixup_active=True)}
+FASTERVIT_DROPS = dict(drop_path_rate=0.3)
+FASTERVIT_STEPS = 3
+# the conv blocks' conv biases feed a train-mode BatchNorm, which removes the
+# constant they add: their true gradient is zero
+FASTERVIT_ZERO_GRAD = ("conv1.bias", "conv2.bias")
+# phase 29's heads item: map_convnext_tiny with SplitNormHeads and
+# map_maxvit_tiny_tf_224 with the fc dropout, one train step each at this batch
+HEADS_BATCH = 64
 # the device kernels of kernels 1 and 2 (csrc/ln_mlp_fwd.cu, csrc/ln_mlp_bwd.cu)
 LN_MLP_KERNEL_NAMES = ("ln_mlp_fwd_prologue_kernel", "ln_mlp_fwd_gemm_kernel",
                        "ln_mlp_bwd_prologue_kernel", "ln_mlp_bwd_gemm_kernel",
@@ -982,8 +1041,10 @@ def grad_group(name: str):
     `gram_layer.<k>.blocks.0.<kind>` (stage "gram") and the other head
     leaves by module and parameter (stage "head");
     `layer<s>.<j>.<kind>` and `stem.<j>.<kind>` (ResNet), `layers.<s>.<j>.<kind>`
-    (MobileNet)."""
+    (MobileNet), `transformers.<s>.blocks.<j>.<kind>` (PiT) and
+    `levels.<s>.blocks.<j>.<kind>` (FasterViT)."""
     for pattern in (r"^stages\.(\d+)\.(?:blocks\.)?\d+\.(.+)$", r"^stage([1-4])\.\d+\.(.+)$",
+                    r"^(?:transformers|levels)\.(\d+)\.blocks\.\d+\.(.+)$",
                     r"^stage(5)\.2\.(.+)$", r"^(gram)_layer\.\d+\.(?:blocks\.\d+|1)\.(.+)$",
                     r"^stages\.(4)\.(.+)$",
                     r"^layer([1-4])\.\d+\.(.+)$", r"^(stem)\.\d+\.(.+)$",
@@ -1006,15 +1067,17 @@ def grad_groups(names) -> dict:
 
 
 def compare_grads(kernel, plain, fp32=None, tag: str = "", zero_kinds=(), noisy=(),
-                  gates=("apart", "ratio")) -> dict:
+                  gates=("apart", "ratio"), zero_by_stage: bool = False) -> dict:
     """The first step's gradients by (stage, block parameter) group: kernel
     path against plain path, and both against the fp32 gradients (if given);
     raises past TRAIN_GRAD_RTOL (gate "apart") or TRAIN_GRAD_ACC (gate
     "ratio"). Groups of `zero_kinds` (a block parameter, or a (stage, block
     parameter) pair) have a true gradient of zero, or one far below the bf16
     paths' rounding noise: they are not gated, but their fp32 gradient must
-    be below 1e-3 of the median group's. Groups of the stages in `noisy` are
-    held by the "apart" gate only."""
+    be below 1e-3 of the median group's (with `zero_by_stage`, of the median
+    gated group's of the same stage: where layer scales make whole stages'
+    gradients small, as FasterViT's 1e-5). Groups of the stages in `noisy`
+    are held by the "apart" gate only."""
     import torch
 
     ref = plain if fp32 is None else fp32
@@ -1035,13 +1098,19 @@ def compare_grads(kernel, plain, fp32=None, tag: str = "", zero_kinds=(), noisy=
     is_zero = lambda g: g["kind"] in zero_kinds or (g["stage"], g["kind"]) in zero_kinds
     zero = [g for g in groups if is_zero(g)]
     groups_gated = [g for g in groups if not is_zero(g)]
-    median = sorted(g["fp32_norm"] for g in groups_gated)[len(groups_gated) // 2]
+    def median_of(stage=None):
+        norms = sorted(g["fp32_norm"] for g in groups_gated if stage in (None, g["stage"]))
+        return norms[len(norms) // 2]
+
+    median = median_of()
     if zero:
-        worst = max(g["fp32_norm"] for g in zero)
+        scale = {g["stage"]: median_of(g["stage"]) if zero_by_stage else median for g in zero}
+        worst = max(zero, key=lambda g: g["fp32_norm"] / scale[g["stage"]])
         log(f"[{tag}train] {len(zero)} groups with a true gradient of (nearly) zero "
-            f"({', '.join(map(str, zero_kinds))}) not gated: fp32 norm at most {worst:.3g} "
-            f"against a median group's {median:.3g}")
-        if not worst <= 1e-3 * median:
+            f"({', '.join(map(str, zero_kinds))}) not gated: fp32 norm at most "
+            f"{worst['fp32_norm']:.3g} against a median group's {scale[worst['stage']]:.3g}"
+            + (f" (stage {worst['stage']})" if zero_by_stage else ""))
+        if not all(g["fp32_norm"] <= 1e-3 * scale[g["stage"]] for g in zero):
             raise AssertionError(f"a group taken for zero-gradient is not: {zero}")
     apart = max(groups_gated, key=lambda g: g["kernel_vs_plain"])
     msg = (f"[{tag}train] first step's gradients, {len(groups_gated)} (stage, block parameter) "
@@ -2175,12 +2244,15 @@ def split_qkv_bias(grads):
 
 
 def train_cswin(counters=None, steps: int = TRAIN_STEPS, tag: str = "cswin-",
-                gates=("apart", "ratio")):
-    """`steps` kernel-path steps of the benchkit recipe with launch counts
-    (of `counters`, (kernel wrapper, launches per step) pairs; by default
-    kernels 5 and 6), and one plain-path step from a deep copy of the first
-    state, whose loss, grad norm and gradients must agree with the kernel
-    path's first step and an fp32 model's (`compare_grads` by `gates`)."""
+                gates=("apart", "ratio"), name: str = GA_CSWIN, zero_grad=CSWIN_ZERO_GRAD,
+                noisy=CSWIN_NOISY_STAGES):
+    """`steps` kernel-path steps of the benchkit recipe on `name` (by default
+    ga_cswin_tiny) with launch counts (of `counters`, (kernel wrapper,
+    launches per step) pairs; by default kernels 5 and 6), and one plain-path
+    step from a deep copy of the first state, whose loss, grad norm and
+    gradients must agree with the kernel path's first step and an fp32
+    model's (`compare_grads` by `gates`, with `zero_grad` and `noisy` as
+    there)."""
     import torch
 
     from imagenet_models_tpu_torch.ops import stripe_attention as sa
@@ -2191,7 +2263,7 @@ def train_cswin(counters=None, steps: int = TRAIN_STEPS, tag: str = "cswin-",
                     (sa.fused_stripe_attention_bwd, CSWIN_LAUNCHES))
 
     torch.cuda.reset_peak_memory_stats()
-    state, kernel_opt, loss_fn = ga_trainer(GA_CSWIN, torch.bfloat16)
+    state, kernel_opt, loss_fn = ga_trainer(name, torch.bfloat16)
     plain_state = copy.deepcopy(state)
     plain_opt = FirstGrads(kernel_opt.opt)
     first = {k: p.detach().clone() for k, p in state.params().items()}
@@ -2206,6 +2278,7 @@ def train_cswin(counters=None, steps: int = TRAIN_STEPS, tag: str = "cswin-",
     metrics, per_step = [], []
     t0 = time.perf_counter()
     for i in range(steps):
+        torch.manual_seed(SEED + 10 + i)  # the head's dropout masks
         before = counter_launches(counters)
         state, m = step(state, images, targets, gen.manual_seed(SEED + 10 + i))
         metrics.append({k: v.item() for k, v in m.items()})
@@ -2228,22 +2301,26 @@ def train_cswin(counters=None, steps: int = TRAIN_STEPS, tag: str = "cswin-",
     if not 0.0 < ema_moved < moved:
         raise AssertionError("the EMA shadow did not move, or moved as far as the params")
 
+    torch.manual_seed(SEED + 10)
     plain_state, pm = plain_step(plain_state, images, targets, gen.manual_seed(SEED + 10))
     pm = {k: v.item() for k, v in pm.items()}
     loss_rel = abs(metrics[0]["loss"] - pm["loss"]) / abs(pm["loss"])
     gnorm_rel = abs(metrics[0]["grad_norm"] - pm["grad_norm"]) / abs(pm["grad_norm"])
+    fp32_state, fp32_opt, _ = ga_trainer(name, torch.float32)
+    fp32_step = make_train_step(fp32_state.model, fp32_opt, loss_fn, use_kernel=False, **kw)
+    torch.manual_seed(SEED + 10)
+    _, fm = fp32_step(fp32_state, images, targets, gen.manual_seed(SEED + 10))
+    fm = {k: v.item() for k, v in fm.items()}
+    del fp32_state
     log(f"[{tag}train] first step, kernel vs plain path: loss {metrics[0]['loss']:.6f} vs "
         f"{pm['loss']:.6f} (rel {loss_rel:.3g}, tol {TRAIN_LOSS_RTOL}); grad_norm "
         f"{metrics[0]['grad_norm']:.6f} vs {pm['grad_norm']:.6f} (rel {gnorm_rel:.3g}, tol "
-        f"{TRAIN_GNORM_RTOL})")
+        f"{TRAIN_GNORM_RTOL}); the fp32 model's loss {fm['loss']:.6f}, grad_norm "
+        f"{fm['grad_norm']:.6f}")
+    grads = compare_grads(*(split_qkv_bias(o.grads) for o in (kernel_opt, plain_opt, fp32_opt)),
+                          tag, zero_grad, noisy, gates=gates)
     if not (loss_rel <= TRAIN_LOSS_RTOL and gnorm_rel <= TRAIN_GNORM_RTOL):
         raise AssertionError("the kernel-path train step disagrees with the plain path")
-    fp32_state, fp32_opt, _ = ga_trainer(GA_CSWIN, torch.float32)
-    fp32_step = make_train_step(fp32_state.model, fp32_opt, loss_fn, use_kernel=False, **kw)
-    fp32_step(fp32_state, images, targets, gen.manual_seed(SEED + 10))
-    del fp32_state
-    grads = compare_grads(*(split_qkv_bias(o.grads) for o in (kernel_opt, plain_opt, fp32_opt)),
-                          tag, CSWIN_ZERO_GRAD, CSWIN_NOISY_STAGES, gates=gates)
     kernel_opt.grads = plain_opt.grads = fp32_opt.grads = {}
     torch.cuda.empty_cache()
     check = {"losses": [m["loss"] for m in metrics], "grad_norms": [m["grad_norm"] for m in metrics],
@@ -2365,32 +2442,19 @@ def compare_bn(a, b, tag: str) -> dict:
     return {"tag": tag, **checks}
 
 
-def check_bn(card: str):
-    """Phase 14: kernels 7 and 8 against their twins and float64 sums at
-    every BatchNorm shape that takes them in map_resnet50's B=128, 224 px
-    train step (found by a census of one training forward), in bf16 as the
-    path gives them and in fp32, and at an odd row count, C = 40 and mixed
-    operand types; per launch in turns (twin, kernel, kernel, twin) at the
-    path's bf16 shapes, beside the bound and one PyTorch call per kernel
-    (`torch.batch_norm_stats`, `torch.batch_norm_backward_reduce` on the
-    NCHW channels_last view), never called by the port; each kernel's
-    device time per launch from the profiler, and its time launched back to
-    back through the C entry point alone (`bn_bare_ms`), beside them, so
-    that host and device time stand apart."""
+def bn_shape_times(census, gen, card: str):
+    """Kernels 7 and 8 at each (shape, dtype) of a BatchNorm census: held to
+    their twins and float64 sums in bf16 and fp32 (`compare_bn`), then per
+    launch in turns (twin, kernel, kernel, twin) in bf16 beside the bound,
+    one PyTorch call per kernel (`torch.batch_norm_stats`,
+    `torch.batch_norm_backward_reduce` on the NCHW channels_last view, never
+    called by the port), each kernel's device time per launch from the
+    profiler, and its time launched back to back through the C entry point
+    alone (`bn_bare_ms`); (check rows, {"fwd": rows, "bwd": rows})."""
     import torch
 
-    from imagenet_models_tpu_torch import create_model
     from imagenet_models_tpu_torch.ops import batch_norm as bn_ops
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
-    model = create_model(RESNET, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED))
-    images = torch.randn(TRAIN_BATCH, IMG, IMG, 3, generator=gen, device="cuda")
-    census = bn_census(model, images)
-    del model, images
-    torch.cuda.empty_cache()
-    log(f"[kernels] {RESNET} B={TRAIN_BATCH} {IMG}px: {sum(census.values())} BatchNorms per "
-        f"forward take kernels 7 and 8, at {len(census)} shapes: "
-        + ", ".join(f"{s}x{n}" for (s, _), n in census.items()))
     rows, times = [], {"fwd": [], "bwd": []}
     for (shape, dt), count in census.items():
         n, c = shape[0] * shape[1] * shape[2], shape[3]
@@ -2432,6 +2496,36 @@ def check_bn(card: str):
                 f"(twin,kernel,kernel,twin: {t['plain'][0]:.4f},{t['kernel'][0]:.4f},"
                 f"{t['kernel'][1]:.4f},{t['plain'][1]:.4f}) on {card}")
         del a, b, an, bn
+    return rows, times
+
+
+def check_bn(card: str):
+    """Phase 14: kernels 7 and 8 against their twins and float64 sums at
+    every BatchNorm shape that takes them in map_resnet50's B=128, 224 px
+    train step (found by a census of one training forward), in bf16 as the
+    path gives them and in fp32, and at an odd row count, C = 40 and mixed
+    operand types; per launch in turns (twin, kernel, kernel, twin) at the
+    path's bf16 shapes, beside the bound and one PyTorch call per kernel
+    (`torch.batch_norm_stats`, `torch.batch_norm_backward_reduce` on the
+    NCHW channels_last view), never called by the port; each kernel's
+    device time per launch from the profiler, and its time launched back to
+    back through the C entry point alone (`bn_bare_ms`), beside them, so
+    that host and device time stand apart."""
+    import torch
+
+    from imagenet_models_tpu_torch import create_model
+    from imagenet_models_tpu_torch.ops import batch_norm as bn_ops
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    model = create_model(RESNET, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED))
+    images = torch.randn(TRAIN_BATCH, IMG, IMG, 3, generator=gen, device="cuda")
+    census = bn_census(model, images)
+    del model, images
+    torch.cuda.empty_cache()
+    log(f"[kernels] {RESNET} B={TRAIN_BATCH} {IMG}px: {sum(census.values())} BatchNorms per "
+        f"forward take kernels 7 and 8, at {len(census)} shapes: "
+        + ", ".join(f"{s}x{n}" for (s, _), n in census.items()))
+    rows, times = bn_shape_times(census, gen, card)
     # an odd row count, C not a multiple of 8, mixed operand types, a channel
     # slice (rows 3C apart, 2 bytes off a 16-byte boundary)
     for shape, (ta, tb) in (((3, 37, 41, 40), ("bfloat16", "float32")),
@@ -2452,11 +2546,12 @@ def check_bn(card: str):
     return census, rows, times, totals
 
 
-def serve_bn(name: str, card: str, tag: str) -> dict:
-    """Phases 15 and 17: four uint8 requests through `make_serving_fn` with
-    the switch on: eval reads the running statistics, so kernels 7 and 8 are
-    not launched; logits against the plain path and, loosely, an fp32 model
-    with the same weights; one eval step; eval img/s at B=256 in two runs."""
+def serve_bn(name: str, card: str, tag: str, arms=None) -> dict:
+    """Phases 15, 17 and 30: four uint8 requests through `make_serving_fn`
+    with the switch on: eval reads the running statistics, so kernels 7 and
+    8 are not launched; logits against the plain path and, loosely, an fp32
+    model with the same weights; one eval step; eval img/s at B=256 in two
+    runs, or with the switch `arms` at "1" and "0" in turns."""
     import torch
 
     from imagenet_models_tpu_torch import create_model, default_cfg
@@ -2511,15 +2606,20 @@ def serve_bn(name: str, card: str, tag: str) -> dict:
         raise AssertionError("eval step logits differ from the serving logits on the same images")
     if not (top1 <= top5).all() or top1.shape != (REQUEST_BATCH,):
         raise AssertionError("eval step top-1/top-5 flags are malformed")
-    x = torch.randn(BENCH_BATCH, IMG, IMG, 3, generator=gen, device="cuda")
-    with torch.inference_mode():
-        runs = [BENCH_BATCH * 1000.0 / cuda_ms(lambda: model(x), BENCH_ITERS) for _ in range(2)]
-    log(f"[throughput] {name} eval B={BENCH_BATCH} {IMG}px bf16: {sum(runs) / 2:.1f} img/s (runs "
-        f"{runs[0]:.1f}, {runs[1]:.1f}; no kernel at eval) on {card}")
+    if arms is not None:
+        bench, runs = eval_arms(model, arms, card, name)
+    else:
+        x = torch.randn(BENCH_BATCH, IMG, IMG, 3, generator=gen, device="cuda")
+        with torch.inference_mode():
+            runs = [BENCH_BATCH * 1000.0 / cuda_ms(lambda: model(x), BENCH_ITERS)
+                    for _ in range(2)]
+        bench = sum(runs) / 2
+        log(f"[throughput] {name} eval B={BENCH_BATCH} {IMG}px bf16: {bench:.1f} img/s (runs "
+            f"{runs[0]:.1f}, {runs[1]:.1f}; no kernel at eval) on {card}")
     del model
     torch.cuda.empty_cache()
     return {"launches": launches, "max_abs_err": err, "max_abs_plain": scale, "fp32_rel": err32,
-            "fp32_top1": agree, "eval_img_s": sum(runs) / 2, "eval_img_s_runs": runs}
+            "fp32_top1": agree, "eval_img_s": bench, "eval_img_s_runs": runs}
 
 
 def bn_trainer(name: str, dtype, recipe: dict, **model_kw):
@@ -2560,7 +2660,8 @@ def bf16_drift(name: str, images) -> dict:
         def keep(mod, args, out, seen=seen):
             seen[mod.drift_name] = torch.cat(tensors(out))
         for mod_name, mod in model.named_modules():
-            if re.fullmatch(r"stem\.\d+|layer[1-4]\.\d+|layers\.\d+\.\d+|head|fc", mod_name):
+            if re.fullmatch(r"stem\.\d+|layer[1-4]\.\d+|layers\.\d+\.\d+|patch_embed|"
+                            r"levels\.\d+\.blocks\.\d+|head|fc", mod_name):
                 mod.drift_name = mod_name
                 mod.register_forward_hook(keep)
         with torch.no_grad():
@@ -2573,16 +2674,19 @@ def bf16_drift(name: str, images) -> dict:
     return drift
 
 
-def train_bn(name: str, recipe: dict, steps: int, img: int, tag: str, **model_kw):
-    """Phases 16 and 17: `steps` kernel-path steps of `recipe` with the switch
-    at "full" (launches of kernels 7 and 8 per step, finite metrics; with
+def train_bn(name: str, recipe: dict, steps: int, img: int, tag: str, batch: int = TRAIN_BATCH,
+             zero_kinds=(), **model_kw):
+    """Phases 16, 17 and 30: `steps` kernel-path steps of `recipe` at `batch`
+    with the switch at "full" (launches of kernels 7 and 8 per step, finite
+    metrics; with
     more than one step, a falling loss on a fixed batch), then the first
     step again on the plain path (use_kernel=False: no launch) from a deep
     copy of the first state with the same drop-path and dropout draws, and
     both paths' first step of an fp32 model with the same weights; checked
     by `compare_grads`, the fp32 pair by group and the bf16 pair by its
-    distance to fp32 (see `bf16_drift`), and the loss and grad norm within
-    TRAIN_LOSS_RTOL (fp32; the loss in bf16)."""
+    distance to fp32 (see `bf16_drift`), the groups of `zero_kinds` held
+    there as having a true gradient of zero, and the loss and grad norm
+    within TRAIN_LOSS_RTOL (fp32; the loss in bf16)."""
     import torch
 
     from imagenet_models_tpu_torch.ops import batch_norm as bn_ops
@@ -2596,8 +2700,10 @@ def train_bn(name: str, recipe: dict, steps: int, img: int, tag: str, **model_kw
     plain_step = make_train_step(plain_state.model, plain_opt, loss_fn, dec_lam=-0.8,
                                  use_kernel=False)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
-    images = torch.randn(TRAIN_BATCH, img, img, 3, generator=gen, device="cuda")
-    targets = torch.rand(TRAIN_BATCH, 1000, generator=gen, device="cuda")
+    images = torch.randn(batch, img, img, 3, generator=gen, device="cuda")
+    targets = torch.rand(batch, 1000, generator=gen, device="cuda")
+    if not recipe["loss"].get("bce_loss"):  # a cross-entropy takes mixup's distributions
+        targets = targets / targets.sum(-1, keepdim=True)
     census = bn_census(state.model, images)
     per_forward = sum(census.values())
 
@@ -2614,7 +2720,7 @@ def train_bn(name: str, recipe: dict, steps: int, img: int, tag: str, **model_kw
     torch.cuda.synchronize()
     launches = {"fwd": bn_ops.fused_channel_moments.launches,
                 "bwd": bn_ops.fused_channel_dot_sums.launches}
-    log(f"[{tag}-train] {steps} steps of B={TRAIN_BATCH} {img}px in {time.perf_counter() - t0:.2f} s "
+    log(f"[{tag}-train] {steps} steps of B={batch} {img}px in {time.perf_counter() - t0:.2f} s "
         f"(first includes warm-up), switch 'full'; (kernel 7, kernel 8) launches per step: "
         f"{per_step}")
     log(f"[{tag}-train] loss per step: " + ", ".join(f"{m['loss']:.6f}" for m in metrics)
@@ -2666,9 +2772,10 @@ def train_bn(name: str, recipe: dict, steps: int, img: int, tag: str, **model_kw
     if not (rel["fp32"]["loss"] <= TRAIN_LOSS_RTOL and rel["fp32"]["grad_norm"] <= TRAIN_GNORM_RTOL
             and rel["bf16"]["loss"] <= TRAIN_LOSS_RTOL):
         raise AssertionError("the kernel-path train step disagrees with the plain path")
-    grads = {"fp32": compare_grads(k32[1], p32[1], None, f"{tag}-fp32-", gates=("apart",)),
+    grads = {"fp32": compare_grads(k32[1], p32[1], None, f"{tag}-fp32-", zero_kinds,
+                                   gates=("apart",), zero_by_stage=True),
              "bf16": compare_grads(kernel_opt.grads, plain_opt.grads, p32[1], f"{tag}-bf16-",
-                                   gates=("ratio",))}
+                                   zero_kinds, gates=("ratio",), zero_by_stage=True)}
     kernel_opt.grads = plain_opt.grads = {}
     torch.cuda.empty_cache()
     check = {"census": {f"{s}": n for (s, _), n in census.items()},
@@ -4803,6 +4910,321 @@ def data_parallel(card: str) -> dict:
     return {"entry_world1": a, "gloo_ranks": b, "seconds": seconds}
 
 
+# ---------------------------------------------------------------- PiT and FasterViT
+
+def pit_shapes(batch: int):
+    """(tokens, C) of map_pit_s's three stages at `batch`."""
+    return [(batch * s * s, c) for s, c, _ in PIT_STAGES]
+
+
+def time_ln_mlp(args, g, gelu_impl: str, card: str, tag: str) -> dict:
+    """Kernel 1 (`g` None) or kernel 2 per launch in turns with its twin
+    (twin, kernel, kernel, twin), beside the bound and, as a yardstick of the
+    tensor cores and not the same function, its products as torch.matmul
+    calls at the same shapes (which the port never calls)."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops.convnext_block import (
+        fused_ln_mlp, fused_ln_mlp_bwd, plain_ln_mlp, plain_ln_mlp_bwd)
+
+    n, c = args[0].shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    h, w1, w2 = args[0], args[3], args[5]
+    mid = torch.randn(n, 4 * c, generator=gen, device="cuda").to(torch.bfloat16)
+    if g is None:
+        fns = {"kernel": lambda: fused_ln_mlp(*args, gelu_impl=gelu_impl),
+               "plain": lambda: plain_ln_mlp(*args, gelu_impl=gelu_impl)}
+        products = (lambda: h @ w1.t(), lambda: mid @ w2.t())
+        iters = max(3, min(50, 2_000_000 // n))
+    else:
+        fns = {"kernel": lambda: fused_ln_mlp_bwd(args[0], g, *args[1:], gelu_impl=gelu_impl),
+               "plain": lambda: plain_ln_mlp_bwd(args[0], g, *args[1:], gelu_impl=gelu_impl)}
+        products = (lambda: h @ w1.t(), lambda: g @ w2, lambda: mid @ w1, lambda: mid.t() @ h,
+                    lambda: g.t() @ mid)
+        iters = max(3, min(30, 1_000_000 // n))
+    with torch.no_grad():
+        t = in_turns(fns, iters)
+        matmul_ms = cuda_ms(lambda: [p() for p in products], iters)
+    bound, by = bound_ms(n, c, backward=g is not None)
+    row = {"n": n, "c": c, "gelu": gelu_impl, "ms": sum(t["kernel"]) / 2,
+           "plain_ms": sum(t["plain"]) / 2, "matmul_ms": matmul_ms, "bound_ms": bound,
+           "bound_by": by, "library_ms": None, "turns": t}
+    log(f"[kernels] ln_mlp_{'fwd' if g is None else 'bwd'}[{gelu_impl}] {tag}N={n} C={c}: kernel "
+        f"{row['ms']:.4f} ms, twin {row['plain_ms']:.4f} ms, {len(products)} torch.matmul "
+        f"products {matmul_ms:.4f} ms, bound {bound:.4f} ms ({by}) (twin,kernel,kernel,twin: "
+        f"{t['plain'][0]:.4f},{t['kernel'][0]:.4f},{t['kernel'][1]:.4f},{t['plain'][1]:.4f}) "
+        f"on {card}")
+    return row
+
+
+def check_pit_widths(card: str):
+    """Phase 3 at map_pit_s's widths (C = 144, 288, 576; hidden 4C) and its
+    stage token counts at B=128 and B=256: kernel 1 with both GELUs and
+    kernel 2 with both against their twins by phase 3's gates (KERNEL_RTOL,
+    bit-equal across two runs); kernel 1 timed at B=256 with the exact GELU
+    (the eval batch) and at B=128 with the fast one, kernel 2 at B=128 with
+    the fast one (the train batch), each summed over one PiT forward or
+    step (2, 6 and 4 launches a stage)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 28)
+    rows, times = [], {"fwd_b256": [], "fwd_b128": [], "bwd_b128": []}
+    for batch in (TRAIN_BATCH, BENCH_BATCH):
+        for n, c in pit_shapes(batch):
+            args = ln_mlp_args(n, c, gen)
+            g = torch.randn(n, c, generator=gen, device="cuda").to(torch.bfloat16)
+            for gelu_impl in ("exact", "fast"):
+                rows.append({"kernel": 1, **compare_forward(args, gelu_impl, f"PiT B={batch} ")})
+                rows.append({"kernel": 2, **compare_backward(args, g, gelu_impl,
+                                                            f"PiT B={batch} ")})
+            tag = f"PiT B={batch} "
+            if batch == BENCH_BATCH:
+                times["fwd_b256"].append(time_ln_mlp(args, None, "exact", card, tag))
+            else:
+                times["fwd_b128"].append(time_ln_mlp(args, None, "fast", card, tag))
+                times["bwd_b128"].append(time_ln_mlp(args, g, "fast", card, tag))
+            del args, g
+    per = {k: {m: weighted(v, m, PIT_DEPTHS) for m in ("ms", "plain_ms", "matmul_ms", "bound_ms")}
+           for k, v in times.items()}
+    for k, v in per.items():
+        log(f"[kernels] {k} per {PIT} forward or step ({PIT_MLPS} launches): kernel "
+            f"{v['ms']:.4f} ms, twin {v['plain_ms']:.4f} ms, torch.matmul products "
+            f"{v['matmul_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms on {card}")
+    torch.cuda.empty_cache()
+    return rows, times, per
+
+
+def pit_b256_arms(card: str) -> dict:
+    """map_pit_s serving at B=256 at both IMTPU_TLNMLP arms: one eval forward
+    each with 12 launches of kernel 1 at "1" and none at "0", the logits of
+    the two within LOGITS_RTOL (the "0" arm's MLPs are the plain modules)."""
+    import torch
+
+    from imagenet_models_tpu_torch import create_model
+    from imagenet_models_tpu_torch.ops import convnext_block as cb
+    from imagenet_models_tpu_torch.serving import make_serving_fn
+
+    model = create_model(PIT, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED))
+    serve_fn = make_serving_fn(model)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    images = torch.randint(0, 256, (BENCH_BATCH, IMG, IMG, 3), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+    logits, launches = {}, {}
+    for mode in ("1", "0"):
+        cb._TLNMLP = mode
+        before = cb.fused_ln_mlp.launches
+        logits[mode] = serve_fn(images)
+        torch.cuda.synchronize()
+        launches[mode] = cb.fused_ln_mlp.launches - before
+    cb._TLNMLP = "1"
+    scale = logits["0"].abs().max().item()
+    err = (logits["1"] - logits["0"]).abs().max().item()
+    finite = all(bool(torch.isfinite(v).all()) and v.shape == (BENCH_BATCH, 1000)
+                 for v in logits.values())
+    log(f"[pit-serving] B={BENCH_BATCH}: kernel 1 launches at IMTPU_TLNMLP 1 / 0: "
+        f"{launches['1']} / {launches['0']}; logits 1 vs 0 max|diff| {err:.4g} (tol "
+        f"{LOGITS_RTOL * scale:.4g}, max|logit| {scale:.4g}); finite {finite}")
+    if launches != {"1": PIT_MLPS, "0": 0} or not finite or not err <= LOGITS_RTOL * scale:
+        raise AssertionError(f"{PIT} B={BENCH_BATCH} serving: launches {launches}, logits apart "
+                             f"{err}, finite {finite}")
+    del model
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": err, "max_abs_logit": scale}
+
+
+def heads_item(card: str) -> dict:
+    """Phase 29(c), the heads that raised until this slice: map_convnext_tiny
+    with `split_norm=True, drop_rate=0.1` (SplitNormHeads) and
+    map_maxvit_tiny_tf_224 with `drop_rate=0.1` (the fc dropout of its org
+    and self-distill heads), bf16: one eval forward each (18 launches of
+    kernel 1 in ConvNeXt's, none of kernel 3 in MaxViT's: its eval takes the
+    composition) and one train step at B=HEADS_BATCH of the GA recipe (18 +
+    18 launches of kernels 1 and 2, of kernels 3 and 4), finite logits and
+    losses."""
+    import torch
+
+    from imagenet_models_tpu_torch import create_model
+    from imagenet_models_tpu_torch.nn.heads import SplitNormHead
+    from imagenet_models_tpu_torch.ops import convnext_block as cb
+    from imagenet_models_tpu_torch.ops import partition_attention as pa
+    from imagenet_models_tpu_torch.train.losses import create_loss_fn
+    from imagenet_models_tpu_torch.train.optim import create_optimizer
+    from imagenet_models_tpu_torch.train.state import create_train_state, make_train_step
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    images = torch.randn(HEADS_BATCH, IMG, IMG, 3, generator=gen, device="cuda")
+    targets = torch.rand(HEADS_BATCH, 1000, generator=gen, device="cuda")
+    out = {}
+    for name, kw, (fwd, bwd), eval_launches, launches in (
+            ("map_convnext_tiny", dict(split_norm=True, drop_rate=0.1, ls_init_value=1.0),
+             (cb.fused_ln_mlp, cb.fused_ln_mlp_bwd), sum(STAGE_DEPTHS), sum(STAGE_DEPTHS)),
+            (MAXVIT, dict(drop_rate=0.1),
+             (pa.fused_partition_attention, pa.fused_partition_attention_bwd), 0,
+             MAXVIT_LAUNCHES)):
+        model = create_model(name, dtype=torch.bfloat16,
+                             generator=torch.Generator().manual_seed(SEED), **kw)
+        heads = model.head.heads
+        if name == MAXVIT:
+            drops = {heads[0].drop.p, model.head.self_dt_heads[0].drop.p}
+            if drops != {0.1}:
+                raise AssertionError(f"{name}: the heads' fc dropout is {drops}, not 0.1")
+        elif not all(isinstance(h, SplitNormHead) for h in heads):
+            raise AssertionError(f"{name} with split_norm built no SplitNormHeads")
+        opt = create_optimizer("lamb", **GA_RECIPE)
+        state = create_train_state(model, opt)
+        step = make_train_step(model, opt, create_loss_fn(bce_loss=True, smoothing=0.1,
+                                                          mixup_active=True), dec_lam=-0.8)
+        fwd.launches = bwd.launches = 0
+        with torch.inference_mode():
+            logits = model(images)
+        got_eval = fwd.launches
+        finite = all(bool(torch.isfinite(t).all()) for t in logits)
+        fwd.launches = bwd.launches = 0
+        torch.manual_seed(SEED + 31)  # the heads' dropout masks
+        state, m = step(state, images, targets, gen)
+        got = (fwd.launches, bwd.launches)
+        loss, gnorm = m["loss"].item(), m["grad_norm"].item()
+        log(f"[heads] {name} {kw}: {type(heads[0]).__name__} heads; eval forward "
+            f"{got_eval} launches of {fwd.__name__}, finite logits {finite}; one train step at "
+            f"B={HEADS_BATCH}: ({fwd.__name__}, {bwd.__name__}) launches {got}, loss {loss:.6f}, "
+            f"grad norm {gnorm:.6f}")
+        if not (got_eval == eval_launches and got == (launches, launches) and finite
+                and loss == loss and abs(loss) != float("inf") and gnorm == gnorm):
+            raise AssertionError(f"{name}: eval launches {got_eval} (want {eval_launches}), step "
+                                 f"launches {got} (want {launches} each), finite logits "
+                                 f"{finite}, loss {loss}, grad norm {gnorm}")
+        out[name] = {"eval_launches": got_eval, "step_launches": got, "loss": loss,
+                     "grad_norm": gnorm}
+        del model, state, step, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def pit_path(card: str) -> dict:
+    """Phase 29: map_pit_s (full width and depth, random weights from SEED,
+    bf16, 224 px) with IMTPU_TLNMLP at "1" (`ops.convnext_block._TLNMLP`; the
+    phase sets it and puts it back at "0"): serving (four requests with 12
+    launches of kernel 1 each, none of kernel 2; logits against the plain
+    path and an fp32 model; one eval step; eval img/s at B=256 at "1" and
+    "0" in turns), B=256 serving at both arms (`pit_b256_arms`); two train
+    steps of the GA recipe at B=128 with 12 + 12 launches of kernels 1 and 2
+    a step, the first against the plain path and an fp32 model by
+    `compare_grads`' default gates ("apart" and "ratio"); train img/s at
+    "1" and "0" in turns; then the
+    heads item (`heads_item`). "launches" are kernels 1 and 2's counts over
+    the PiT runs, set to 0 before them."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import convnext_block as cb
+
+    fwd, bwd = cb.fused_ln_mlp, cb.fused_ln_mlp_bwd
+    t0 = time.perf_counter()
+    cb._TLNMLP = "1"
+    served, serve = serve_branches(card, PIT, (fwd, bwd), PIT_MLPS, "pit-", arms="IMTPU_TLNMLP")
+    served_bwd = bwd.launches
+    b256 = pit_b256_arms(card)
+    served += b256["launches"]["1"]
+    kernel, plain, images, targets, launches, check = train_cswin(
+        ((fwd, PIT_MLPS), (bwd, PIT_MLPS)), steps=2, tag="pit-", name=PIT,
+        zero_grad=PIT_ZERO_GRAD, noisy=())
+    del plain
+    arms = switch_arms("IMTPU_TLNMLP", kernel, None, images, targets, card, f"{PIT} (GA recipe)",
+                       (("1", "kernel"), ("0", "kernel")))
+    total = {"fwd": served + launches[fwd.__name__], "bwd": served_bwd + launches[bwd.__name__]}
+    del kernel, images, targets
+    cb._TLNMLP = "0"
+    torch.cuda.empty_cache()
+    heads = heads_item(card)
+    log(f"[pit] phase 29 in {time.perf_counter() - t0:.1f} s; kernel 1 and 2 launches on "
+        f"{PIT}: {total}")
+    return {"serving": serve, "serving_b256": b256, "train": check, "train_launches": launches,
+            "train_arms": arms, "heads": heads, "launches": total}
+
+
+def fastervit_repeat(images, targets) -> dict:
+    """Two bf16 train steps of FasterViT from one state (a deep copy), with
+    the same drop-path and dropout draws, at IMTPU_PALLAS_BN "full": every
+    gradient must be bit-equal (no step of the path adds by atomics: the
+    TokenInitializer's average pool, the bias gather's one-hot product,
+    kernels 7 and 8)."""
+    import torch
+
+    from imagenet_models_tpu_torch.train.state import make_train_step
+
+    state, opt, loss_fn = bn_trainer(FASTERVIT, torch.bfloat16, FASTERVIT_RECIPE,
+                                     **FASTERVIT_DROPS)
+    runs = [(state, opt), (copy.deepcopy(state), FirstGrads(opt.opt))]
+    grads = []
+    for st, o in runs:
+        step = make_train_step(st.model, o, loss_fn, dec_lam=-0.8)
+        torch.manual_seed(SEED + 10)
+        step(st, images, targets, torch.Generator(device="cuda").manual_seed(SEED + 10))
+        grads.append(o.grads)
+    leaves = len(grads[0])
+    differ = sorted(k for k in grads[0] if not torch.equal(grads[0][k], grads[1][k]))
+    log(f"[fastervit-train] two bf16 steps from one state: {leaves - len(differ)} of {leaves} "
+        f"gradients bit-equal" + (f"; differ: {differ[:8]}" if differ else ""))
+    if differ:
+        raise AssertionError(f"{FASTERVIT}: {len(differ)} gradients differ between two steps "
+                             f"from the same state: {differ[:8]}")
+    del runs, grads, state
+    torch.cuda.empty_cache()
+    return {"leaves": leaves, "differ": differ}
+
+
+def fastervit_path(card: str) -> dict:
+    """Phase 30: map_faster_vit_3_224 (full width and depth, random weights
+    from SEED, bf16, 224 px) with IMTPU_PALLAS_BN at "full"
+    (`ops.batch_norm._PALLAS_BN_MODE`; the phase sets it and puts it back at
+    "0"): serving as phase 15 (no launch at eval; logits against the plain
+    path and an fp32 model; eval img/s at B=256 at "full" and "0" in turns);
+    FASTERVIT_STEPS train steps of the faster_vit_3 recipe at B=128 with
+    kernels 7 and 8 launched once per training BatchNorm (a census of the
+    model), the first against the plain path and an fp32 model by phase 16's
+    gates (`train_bn`); two steps from one state with bit-equal gradients
+    (`fastervit_repeat`); train img/s at "full" and "0" in turns; kernels 7
+    and 8 against their twins and timed per launch at the census's shapes
+    (`bn_shape_times`). "launches" are kernels 7 and 8's counts over the
+    train steps."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import batch_norm as bn_ops
+
+    t0 = time.perf_counter()
+    bn_ops._PALLAS_BN_MODE = "full"
+    serve = serve_bn(FASTERVIT, card, "fastervit", arms="IMTPU_PALLAS_BN")
+    bn_ops._PALLAS_BN_MODE = "full"
+    kernel, plain, images, targets, launches, check = train_bn(
+        FASTERVIT, FASTERVIT_RECIPE, FASTERVIT_STEPS, IMG, "fastervit",
+        zero_kinds=FASTERVIT_ZERO_GRAD, **FASTERVIT_DROPS)
+    del plain
+    census = bn_census(kernel[0].model, images)
+    arms = switch_arms("IMTPU_PALLAS_BN", kernel, None, images, targets, card,
+                       f"{FASTERVIT} (LAMB, clip 5.0, drop-path 0.3)",
+                       (("full", "kernel"), ("0", "kernel")))
+    del kernel
+    torch.cuda.empty_cache()
+    bn_ops._PALLAS_BN_MODE = "full"
+    repeat = fastervit_repeat(images, targets)
+    del images, targets
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    rows, times = bn_shape_times(census, gen, card)
+    totals = {w: {k: (sum(r["count"] * r[k] for r in times[w])
+                      if all(r[k] is not None for r in times[w]) else None)
+                  for k in ("ms", "device_ms", "bare_ms", "plain_ms", "library_ms", "bound_ms")}
+              for w in times}
+    log(f"[kernels] per {FASTERVIT} train step (ms, weighted by launches): kernel 7 "
+        f"{totals['fwd']}; kernel 8 {totals['bwd']} on {card}")
+    bn_ops._PALLAS_BN_MODE = "0"
+    torch.cuda.empty_cache()
+    log(f"[fastervit] phase 30 in {time.perf_counter() - t0:.1f} s; census "
+        + ", ".join(f"{s}x{n}" for (s, _), n in census.items()))
+    return {"serving": serve, "train": check, "train_launches": launches, "train_arms": arms,
+            "repeat": repeat, "census": {f"{s}": n for (s, _), n in census.items()},
+            "checks": rows, "times": times, "per_step_ms": totals, "launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -4813,6 +5235,15 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    started = time.perf_counter()
+    laps = {}
+
+    def lap(phases: str) -> None:
+        """Logs the seconds since the previous lap under `phases`."""
+        now = time.perf_counter()
+        laps[phases] = now - started - sum(laps.values())
+        log(f"[time] phases {phases}: {laps[phases]:.1f} s")
+
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     log(f"[device] {kind}; nvidia-smi: {card}; torch {torch.__version__}, "
@@ -4828,12 +5259,15 @@ def main() -> int:
         for line in b.log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {name}: {line.strip()}")
+    lap("1-2")
 
     # map_convnext_tiny: kernels 1 and 2, serving and the train step
     fwd_rows, fwd_times = check_forward("exact", (64, BENCH_BATCH))
     fast_rows, fast_times = check_forward("fast", (64, TRAIN_BATCH))
     fwd_code = check_forward_code(builds["ln_mlp_fwd"])
     bwd_rows, bwd_times = check_backward()
+    pit_rows, pit_times, pit_per = check_pit_widths(card)
+    lap("3")
     model, serve_launches, logits_check = serve()
     bench, runs = throughput(model, card)
     del model
@@ -4844,6 +5278,7 @@ def main() -> int:
     prof = profile_step(kernel, images, targets, "map_convnext_tiny")
     del kernel, images, targets
     torch.cuda.empty_cache()
+    lap("4-7")
 
     # map_maxvit_tiny_tf_224: kernels 3 and 4, serving and the train step
     attn_rows, attn_times, attn_evals, attn_extra = check_attention(card, builds)
@@ -4857,6 +5292,7 @@ def main() -> int:
     mv_batch = (images, targets)  # phase 17 times MaxViT with the BatchNorm switch on
     del images, targets
     torch.cuda.empty_cache()
+    lap("8-10")
 
     # ga_cswin_tiny: kernels 5 and 6, serving and the train step
     from imagenet_models_tpu_torch.ops import stripe_attention as sa
@@ -4874,6 +5310,7 @@ def main() -> int:
     cs_prof["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     del cs_kernel, images, targets
     torch.cuda.empty_cache()
+    lap("11-13")
 
     # map_resnet50 and map_mobilenet_v1: kernels 7 and 8, with the switch at "full"
     from imagenet_models_tpu_torch.ops import batch_norm as bn_ops
@@ -4901,6 +5338,7 @@ def main() -> int:
     bn_ops._PALLAS_BN_MODE = "0"
     del mv_kernel, mv_batch
     torch.cuda.empty_cache()
+    lap("14-17")
 
     # ga_convnext_tiny: kernels 1 and 2 in 23 blocks, kernel 9 with IMTPU_DW_WGRAD at "1"
     from imagenet_models_tpu_torch.ops import dw_conv as dw_ops
@@ -4920,6 +5358,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     cx_dw_arms = convnext_dw_arms(card)
     dw_ops._DW_WGRAD = "0"
+    lap("18-20")
 
     # the opt-in routes: kernels 12 and 13 with IMTPU_FLASH_ATTN at "1", and
     # kernels 1 and 2 on the transformers' MLPs with IMTPU_TLNMLP at "1"
@@ -4934,21 +5373,34 @@ def main() -> int:
     cb_ops._TLNMLP = "1"
     tlnmlp = tlnmlp_arms(card)
     cb_ops._TLNMLP = "0"
+    lap("21-24")
 
     # the fused ConvNeXt branch: kernels 10 and 11 on map_convnext_tiny's 18
     # blocks through convnext_branch_apply, phase 25
     branch_rows, branch_times_b128, branch_totals = check_branch(card)
     branch_code = check_branch_code(builds)
     branch = branch_path(card)
+    lap("25")
 
     # phase 26: fp32 models of the families of kernels 1-6 under the default dispatch
     fp32 = fp32_dispatch(card)
+    lap("26")
 
     # phase 27: the train and validate entries on map_convnext_tiny
     entry_checks = train_entry(card, train_bench["kernel"])
+    lap("27")
 
     # phase 28: data parallelism in child processes (NCCL at world 1, gloo at 2)
     dp = data_parallel(card)
+    lap("28")
+
+    # phase 29: map_pit_s with kernels 1 and 2 on its blocks' MLPs, and the heads
+    pit = pit_path(card)
+    lap("29")
+
+    # phase 30: map_faster_vit_3_224 with kernels 7 and 8 on its training BatchNorms
+    fastervit = fastervit_path(card)
+    lap("30")
 
     def entry(name, source, replaces, launches, errs, times, weights):
         return {"name": name, "route": "cuda",
@@ -5020,6 +5472,27 @@ def main() -> int:
         entry("convnext_branch_bwd", "convnext_branch_bwd.cu", "convnext_branch.py:242",
               branch["launches"]["bwd"], [r["max_abs_err"]["bwd"] for r in branch_rows],
               branch_times_b128["bwd"], STAGE_DEPTHS),
+        # per map_pit_s eval forward at B=256 (exact GELU), train step's
+        # forward and backward at B=128 (fast); launches over phase 29
+        entry("ln_mlp_fwd_pit_b256", "ln_mlp_fwd.cu", "convnext_block.py:341",
+              pit["launches"]["fwd"],
+              errs(r for r in pit_rows if r["kernel"] == 1 and r["gelu"] == "exact"),
+              pit_times["fwd_b256"], PIT_DEPTHS),
+        entry("ln_mlp_fwd_fast_pit", "ln_mlp_fwd.cu", "convnext_block.py:341",
+              pit["launches"]["fwd"],
+              errs(r for r in pit_rows if r["kernel"] == 1 and r["gelu"] == "fast"),
+              pit_times["fwd_b128"], PIT_DEPTHS),
+        entry("ln_mlp_bwd_pit", "ln_mlp_bwd.cu", "convnext_block.py:474", pit["launches"]["bwd"],
+              errs(r for r in pit_rows if r["kernel"] == 2), pit_times["bwd_b128"], PIT_DEPTHS),
+        # per map_faster_vit_3_224 train step at B=128; launches over phase 30's steps
+        entry("bn_moments_fastervit", "bn_moments.cu", "batch_norm.py:115",
+              fastervit["launches"]["fwd"],
+              [r["moments"]["max_abs_err"] for r in fastervit["checks"]],
+              fastervit["times"]["fwd"], [r["count"] for r in fastervit["times"]["fwd"]]),
+        entry("bn_dot_sums_fastervit", "bn_dot_sums.cu", "batch_norm.py:133",
+              fastervit["launches"]["bwd"],
+              [r["dot_sums"]["max_abs_err"] for r in fastervit["checks"]],
+              fastervit["times"]["bwd"], [r["count"] for r in fastervit["times"]["bwd"]]),
     ]
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel of the paths was never launched: "
@@ -5034,8 +5507,11 @@ def main() -> int:
     if leaked or "imagenet_models_tpu_torch.ckpt.convert" not in sys.modules:
         raise AssertionError(f"the port imported JAX-side modules: {leaked[:5]}")
 
+    seconds = time.perf_counter() - started
+    log(f"[time] every phase, the build included, in {seconds:.1f} s")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
+        "seconds": seconds, "seconds_by_phases": laps,
         "device": kind, "card": card, "torch": torch.__version__,
         "build_seconds": {n: b.seconds for n, b in builds.items()},
         "forward_checks": fwd_rows, "forward_times": fwd_times,
@@ -5080,6 +5556,9 @@ def main() -> int:
         "fp32_dispatch": fp32,
         "train_entry": entry_checks,
         "data_parallel": dp,
+        "pit": {"kernel_checks": pit_rows, "kernel_times": pit_times, "per_forward_or_step_ms":
+                pit_per, **pit},
+        "fastervit": fastervit,
         "kernels": kernels}, indent=2))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,19 +4,19 @@ The port keeps its own copy of the JAX package's torch exporter
 (`ckpt/torch_convert.py`: the pytree flatten, the Flax -> torch tensor
 transform, `export_torch_state_dict`, `load_torch_checkpoint`) and of the
 reverse name rules of the ported families (`ckpt/reverse_rules.py`:
-`convnext_*`, `map_convnext_*`, `ga_convnext_*`, `*resnet50`, `*mobilenet_v1`;
-`models/maxvit.py`: `*maxvit_*`;
-`models/ga_cswin.py`: `ga_cswin*`, `ga_CSWin*`). It imports
-nothing of the JAX package. Port modules use the reference's torch names and
-layouts, so the exported state_dict loads into them with `strict=True`. The
-rules of families not yet ported come with their slices.
+`convnext_*`, `map_convnext_*`, `ga_convnext_*`, `*resnet50`, `*mobilenet_v1`,
+`*pit_s`; `models/maxvit.py`: `*maxvit_*`; `models/ga_cswin.py`: `ga_cswin*`,
+`ga_CSWin*`; `models/fastervit.py`: `*faster_vit*`, with its alias). It
+imports nothing of the JAX package. Port modules use the reference's torch
+names and layouts, so the exported state_dict loads into them with
+`strict=True`.
 """
 
 from __future__ import annotations
 
 import fnmatch
 import re
-from typing import Any, Callable, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,16 +47,28 @@ def unflatten_dict(flat: Dict[str, Any]) -> Dict[str, Any]:
 
 
 class ReverseTranslator:
-    """Ordered regex rewrites from a Flax module path to a torch dotted key."""
+    """Ordered regex rewrites from a Flax module path to a torch dotted key.
 
-    def __init__(self, rules: Sequence[Tuple[str, str]]):
+    `aliases` rewrite a torch key to the second key of a module that the
+    reference registers under two parents (FasterViT's
+    `global_tokenizer.pos_embed`, also `global_tokenizer.to_global_feature.
+    pos`): a reference state_dict carries both, so the export writes both
+    (ckpt/reverse_rules.py:13-35)."""
+
+    def __init__(self, rules: Sequence[Tuple[str, str]],
+                 aliases: Sequence[Tuple[str, str]] = ()):
         self.rules = [(re.compile(p), r) for p, r in rules]
+        self.aliases = [(re.compile(p), r) for p, r in aliases]
 
     def __call__(self, path: str) -> str:
         path = path.replace("/", ".")
         for pat, rep in self.rules:
             path = pat.sub(rep, path)
         return path
+
+    def alias_keys(self, tkey: str) -> List[str]:
+        """The other torch keys that `tkey` must also be written under."""
+        return [pat.sub(rep, tkey) for pat, rep in self.aliases if pat.search(tkey)]
 
 
 # the MAP head library's Flax names -> torch names (inverse of the JAX
@@ -172,6 +184,30 @@ MOBILENET_REVERSE: List[Tuple[str, str]] = [
     (r"^fc$", "fc.2"),
 ] + MAP_HEAD_REVERSE
 
+# ckpt/reverse_rules.py:98-102
+PIT_REVERSE: List[Tuple[str, str]] = [
+    (r"^transformers_(\d+)_blocks_(\d+)\.", r"transformers.\1.blocks.\2."),
+    (r"^pools_(\d+)", r"pools.\1.conv"),
+    (r"^patch_embed$", "patch_embed.conv"),
+] + MAP_HEAD_REVERSE
+
+# models/fastervit.py:428-445
+FASTERVIT_REVERSE: List[Tuple[str, str]] = [
+    (r"^patch_embed_conv0", "patch_embed.conv_down.0"),
+    (r"^patch_embed_bn0", "patch_embed.conv_down.1"),
+    (r"^patch_embed_conv1", "patch_embed.conv_down.3"),
+    (r"^patch_embed_bn1", "patch_embed.conv_down.4"),
+    (r"^levels_(\d)_blocks_(\d+)\.", r"levels.\1.blocks.\2."),
+    (r"^levels_(\d)_downsample_norm", r"levels.\1.downsample.norm"),
+    (r"^levels_(\d)_downsample_conv", r"levels.\1.downsample.reduction.0"),
+    (r"^levels_(\d)_global_tokenizer\.pos_embed", r"levels.\1.global_tokenizer.pos_embed"),
+    (r"cpb_mlp\.fc1", "cpb_mlp.0"),
+    (r"cpb_mlp\.fc2", "cpb_mlp.2"),
+] + MAP_HEAD_REVERSE
+FASTERVIT_ALIASES: List[Tuple[str, str]] = [
+    (r"(global_tokenizer)\.pos_embed\.", r"\1.to_global_feature.pos."),
+]
+
 _REVERSE: Dict[str, List[Tuple[str, str]]] = {
     "convnext_*": CONVNEXT_REVERSE,
     "map_convnext_*": CONVNEXT_REVERSE,
@@ -181,13 +217,16 @@ _REVERSE: Dict[str, List[Tuple[str, str]]] = {
     "*maxvit_*": MAXVIT_REVERSE,
     "ga_cswin*": GA_CSWIN_BOTTLENECK_REVERSE + GA_CSWIN_REVERSE,
     "ga_CSWin*": GA_CSWIN_BOTTLENECK_REVERSE + GA_CSWIN_REVERSE,
+    "*pit_s": PIT_REVERSE,
+    "*faster_vit*": FASTERVIT_REVERSE,
 }
+_ALIASES: Dict[str, List[Tuple[str, str]]] = {"*faster_vit*": FASTERVIT_ALIASES}
 
 
 def reverse_translator(model_name: str) -> ReverseTranslator:
     for pattern, rules in _REVERSE.items():
         if fnmatch.fnmatch(model_name, pattern):
-            return ReverseTranslator(rules)
+            return ReverseTranslator(rules, _ALIASES.get(pattern, ()))
     raise KeyError(f"no reverse conversion rules for {model_name}")
 
 
@@ -213,7 +252,7 @@ _LEAF_TO_SUFFIX = {"kernel": "weight", "scale": "weight", "bias": "bias",
 
 
 def export_torch_state_dict(variables: Dict[str, Any],
-                            translate_back: Callable[[str], str]) -> Dict[str, np.ndarray]:
+                            translate_back: ReverseTranslator) -> Dict[str, np.ndarray]:
     """Flax variables ({'params': ..., 'batch_stats': ...}) -> torch-layout
     state_dict with numpy values."""
     out: Dict[str, np.ndarray] = {}
@@ -222,7 +261,10 @@ def export_torch_state_dict(variables: Dict[str, Any],
             parts = path.split("/")
             suffix = _LEAF_TO_SUFFIX.get(parts[-1])
             tbase = translate_back("/".join(parts[:-1]) if suffix else path)
-            out[f"{tbase}.{suffix}" if suffix else tbase] = _to_torch(np.asarray(val), path)
+            tkey = f"{tbase}.{suffix}" if suffix else tbase
+            out[tkey] = _to_torch(np.asarray(val), path)
+            for dup in translate_back.alias_keys(tkey):
+                out[dup] = out[tkey]
     return out
 
 
@@ -246,8 +288,12 @@ def load_torch_checkpoint(path: str, use_ema: bool = False) -> Dict[str, np.ndar
 
 
 # Reference keys with no counterpart in the port's state_dict: torch BN's
-# step counter, and the triu-index buffer the port keeps non-persistent.
-_NOT_LOADED = ("num_batches_tracked", "bp_index")
+# step counter, the triu-index buffer the port keeps non-persistent, and
+# FasterViT's coordinate tables, bias index and bias cache, which the port
+# keeps as constants (the JAX package drops them on import too,
+# models/fastervit.py:423-426).
+_NOT_LOADED = ("num_batches_tracked", "bp_index", "relative_coords_table",
+               "relative_position_index", "relative_bias")
 
 
 def _tensors(sd: Dict[str, Any]) -> Dict[str, torch.Tensor]:

@@ -4,7 +4,8 @@
 A checkpoint is a directory (`checkpoint-N`, `last`, `model_best`,
 `recovery`) holding `state.pt` and `meta.json` ({"epoch", "metric"}).
 `state.pt` holds the whole train state on the host: the model's state_dict,
-the optimizer state, the EMA shadow, the step, the step's `torch.Generator`
+the optimizer state, the EMA shadow (with the state_dict keys that
+name one tensor twice), the step, the step's `torch.Generator`
 state (the stochastic-depth masks) and the device's default generator state
 (the MAP head's dropouts draw from it), so that a resumed run draws what an
 uninterrupted one would. `export_pth_tar` writes the reference's
@@ -90,6 +91,19 @@ def _gathered(state):
     return opt, None if state.ema_params is None else full(state.ema_params)
 
 
+def aliases(model: torch.nn.Module) -> Dict[str, str]:
+    """{second key: first key} of every state_dict entry that `model`
+    registers under two names (FasterViT's TokenInitializer conv, also
+    `to_global_feature.pos`). The EMA shadow, keyed as `named_parameters()`,
+    holds the first key alone; `_weights` copies it to the second."""
+    first: Dict[int, str] = {}
+    out = {}
+    for key, t in model.state_dict(keep_vars=True).items():
+        if first.setdefault(id(t), key) != key:
+            out[key] = first[id(t)]
+    return out
+
+
 def snapshot(state, generator: Optional[torch.Generator] = None) -> Optional[Dict[str, Any]]:
     """The train state as one dict of host tensors (what `state.pt` holds).
     Across processes every rank calls it (collective) and rank 0 gets the
@@ -106,6 +120,7 @@ def snapshot(state, generator: Optional[torch.Generator] = None) -> Optional[Dic
         "opt_state": opt_state,
         "ema_params": ema_params,
         "ema_batch_stats": state.ema_batch_stats,
+        "aliases": aliases(state.model),
         "step": int(state.step),
         "generator": rngs[0],
         "device_rng": rngs[1],
@@ -269,13 +284,16 @@ def _read(path: str) -> Tuple[Dict[str, Any], int]:
 
 def _weights(ckpt: Dict[str, Any], use_ema: bool, path: str) -> Dict[str, torch.Tensor]:
     """The model's state_dict from a saved train state; with use_ema its
-    parameters and BN statistics replaced by the EMA shadow's."""
+    parameters and BN statistics replaced by the EMA shadow's, under every
+    key that names them (`ckpt["aliases"]`)."""
     sd = dict(ckpt["model"])
     if use_ema:
         if not ckpt.get("ema_params"):
             raise ValueError(f"--use-ema: checkpoint {path} has no EMA weights")
         sd.update(ckpt["ema_params"])
         sd.update(ckpt.get("ema_batch_stats") or {})
+        for alias, key in (ckpt.get("aliases") or {}).items():
+            sd[alias] = sd[key]
     return sd
 
 
@@ -348,7 +366,8 @@ def export_pth_tar(source, out_path: str, use_ema: bool = False) -> None:
         sd = source.state_dict()
     else:
         sd = _weights({"model": source.model.state_dict(), "ema_params": _gathered(source)[1],
-                       "ema_batch_stats": source.ema_batch_stats}, use_ema, "the train state")
+                       "ema_batch_stats": source.ema_batch_stats,
+                       "aliases": aliases(source.model)}, use_ema, "the train state")
     sd = _host(sd)
     torch.save({"state_dict": sd}, out_path)
     _logger.info("exported %d tensors to %s", len(sd), out_path)

@@ -230,7 +230,11 @@ class DataLoader:
                     raise RuntimeError(f"loader worker out of order: batch {item[0]}, not {bi}")
                 yield finish(item[1], item[2])
         finally:
+            # the workers see `stop` within one put timeout (or one batch);
+            # joining them here leaves no thread of this epoch behind
             stop.set()
+            for t in threads:
+                t.join()
 
 
 def create_loader(dataset, input_size: int, batch_size: int, is_training: bool,

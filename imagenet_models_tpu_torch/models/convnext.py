@@ -78,8 +78,6 @@ class ConvNeXt(nn.Module):
                  dtype: Optional[torch.dtype] = None, in_chans: int = 3,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if split_norm:
-            raise NotImplementedError("split_norm (the MAP head's SplitNormHead) is not ported yet")
         self.global_pool = global_pool
         # the avg head's dropout in training (models/convnext.py:152); the
         # mmcap head ignores it, as JAX's passes fc_drop=0.0 (:143)
@@ -104,7 +102,8 @@ class ConvNeXt(nn.Module):
             self.head = MAPHead(
                 multi_scale_level=3, channels=[dims[0]] + list(dims), last_dim=last_dim,
                 n_tokens=n_tokens, n_groups=n_groups, self_distill_token=self_distill_token,
-                distill_tokens=distill_tokens, mlp_ratio=4, mlp_groups=2, head_fn="norm",
+                distill_tokens=distill_tokens, mlp_ratio=4, mlp_groups=2,
+                head_fn="split_norm" if split_norm else "norm",
                 num_classes=num_classes, non_linearity=gelu, gram=gram, bp_dim=bp_dim,
                 bp_groups=bp_groups, gram_group=gram_group, gram_dim=gram_dim,
                 ca_dim=ca_dim, num_heads=num_heads, dtype=dtype)

@@ -284,13 +284,11 @@ class MaxxVit(nn.Module):
                 dim = out
             self.stages.append(MaxxVitStage(blocks))
         if global_pool == "mmcap":
-            if drop_rate or split_norm:
-                raise NotImplementedError("the MAP head's fc dropout and split-norm heads are "
-                                          "not ported yet")
             self.head = MAPHead(
                 multi_scale_level=3, channels=[stem_width] + list(embed_dim),
                 last_dim=last_dim or embed_dim[-1], n_tokens=n_tokens, n_groups=n_groups,
-                self_distill_token=True, mlp_ratio=4, mlp_groups=2, head_fn="norm",
+                self_distill_token=True, mlp_ratio=4, mlp_groups=2,
+                head_fn="split_norm" if split_norm else "norm", fc_drop=drop_rate,
                 num_classes=num_classes, non_linearity=gelu, gram=True, bp_dim=bp_dim,
                 bp_groups=bp_groups, gram_group=gram_group, gram_dim=gram_dim, ca_dim=ca_dim,
                 num_heads=num_heads, dtype=dtype)

@@ -86,8 +86,6 @@ class MAP_ResNet(nn.Module):
                  split_norm: bool = False, dtype: Optional[torch.dtype] = None,
                  in_chans: int = 3, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if split_norm:
-            raise NotImplementedError("split_norm (the SplitNormHead) is not ported yet")
         self.pool_type = pool_type
         if stem_type == "deep":
             self.stem = nn.ModuleList([
@@ -116,7 +114,8 @@ class MAP_ResNet(nn.Module):
                 multi_scale_level=multi_scale_level,
                 channels=[channels[0]] + [c * 4 for c in channels], last_dim=last_dim,
                 n_tokens=n_tokens, n_groups=n_groups, self_distill_token=token_distill,
-                mlp_ratio=4, mlp_groups=2, head_fn="norm", num_classes=num_classes,
+                mlp_ratio=4, mlp_groups=2, head_fn="split_norm" if split_norm else "norm",
+                num_classes=num_classes,
                 non_linearity=gelu, gram=True, bp_dim=last_dim, bp_groups=1,
                 gram_group=gram_group, gram_dim=last_dim, ca_dim=384, num_heads=12,
                 light=light, dropout=dropout, interactive=True, dtype=dtype)

@@ -6,8 +6,9 @@ are the reference's torch names (`mmcap.mmcap.0.gram_token_extraction...`),
 so a state_dict exported from the JAX package loads with `strict=True`.
 Under `module.train()` the head runs as JAX's `training=True`: batch
 statistics in its BatchNorms, its dropouts, the fast GELU, and `MAPHead`
-returns (org, avg) logit pairs. `Head`, `SplitNormHead` and `NormMlpHead`
-come with later slices. `use_kernel` reaches every BatchNorm of the head.
+returns (org, avg) logit pairs. `use_kernel` reaches every BatchNorm of the
+head. The heads' dropouts (`fc_drop`, `dropout`) draw from the device's
+default generator, not from a step's explicit one.
 """
 
 from __future__ import annotations
@@ -343,23 +344,39 @@ class MAP(nn.Module):
         return [cap(x, use_kernel=use_kernel) for cap in self.mmcap]
 
 
+class Head(nn.Module):
+    """Dropout + Linear (nn/heads.py:411-423)."""
+
+    def __init__(self, in_dim: int, num_classes: int, drop: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.drop = nn.Dropout(drop)
+        self.head = Dense(in_dim, num_classes, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, pre_logits: bool = False) -> torch.Tensor:
+        if pre_logits:
+            return x
+        return self.head(self.drop(x))
+
+
 class NormHead(nn.Module):
-    """LayerNorm + Linear (nn/heads.py:426-459).
+    """LayerNorm + Dropout + Linear (nn/heads.py:426-459).
 
     pre_logits=True returns PER-TOKEN logits (B, nt, num_classes): the
     normalized features split into nt chunks, each multiplied by its slice of
     the fc weight, with no bias."""
 
-    def __init__(self, in_dim: int, num_classes: int, nt: int = 1,
+    def __init__(self, in_dim: int, num_classes: int, drop: float = 0.0, nt: int = 1,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.nt = nt
         self.compute_dtype = dtype
         self.norm = LayerNorm(in_dim, dtype=dtype)
+        self.drop = nn.Dropout(drop)
         self.head = nn.Linear(in_dim, num_classes)
 
     def forward(self, x: torch.Tensor, pre_logits: bool = False) -> torch.Tensor:
-        x = self.norm(x)
+        x = self.drop(self.norm(x))
         w, bias = self.head.weight, self.head.bias
         if self.compute_dtype is not None:
             x, w, bias = x.to(self.compute_dtype), w.to(self.compute_dtype), bias.to(self.compute_dtype)
@@ -371,15 +388,60 @@ class NormHead(nn.Module):
         return torch.nn.functional.linear(x, w, bias)
 
 
+class SplitNormHead(nn.Module):
+    """One LayerNorm + Dropout + Linear per token, the logits summed
+    (nn/heads.py:462-480). It has no per-token form: pre_logits returns the
+    logits too, as JAX's."""
+
+    def __init__(self, in_dim: int, num_classes: int, drop: float = 0.0, nt: int = 1,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.nt = nt
+        self.norm = nn.ModuleList(LayerNorm(in_dim // nt, dtype=dtype) for _ in range(nt))
+        self.head = nn.ModuleList(Dense(in_dim // nt, num_classes, dtype=dtype)
+                                  for _ in range(nt))
+        self.drop = nn.Dropout(drop)
+
+    def forward(self, x: torch.Tensor, pre_logits: bool = False) -> torch.Tensor:
+        xs = x.reshape(x.shape[0], self.nt, -1)
+        out = 0
+        for i in range(self.nt):
+            out = out + self.head[i](self.drop(self.norm[i](xs[:, i])))
+        return out
+
+
+class NormMlpHead(nn.Module):
+    """LayerNorm + Linear + tanh + Dropout + Linear (nn/heads.py:483-498);
+    pre_logits returns the tanh features."""
+
+    def __init__(self, in_dim: int, num_classes: int, drop: float = 0.0,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.norm = LayerNorm(in_dim, dtype=dtype)
+        self.pre_logits = Dense(in_dim, in_dim, dtype=dtype)
+        self.drop = nn.Dropout(drop)
+        self.head = Dense(in_dim, num_classes, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, pre_logits: bool = False) -> torch.Tensor:
+        x = torch.tanh(self.pre_logits(self.norm(x)))
+        if pre_logits:
+            return x
+        return self.head(self.drop(x))
+
+
 class MAPHead(nn.Module):
     """MAP + per-group heads (+ per-group self-distill heads) (nn/heads.py:501-611).
 
     Eval output: a tuple of `n_groups` logits, from the org heads, or from the
     self-distill heads in `light` mode. Training output with self-distill: a
     tuple of (org, avg) logit pairs, the org pool through `dropout` first.
-    `head_fn` is "norm" (LayerNorm + Linear) or "linear" (a Linear; with
-    pre_logits it returns the pool). `use_kernel` goes to the head's
-    BatchNorms."""
+    `head_fn` is "norm" (`NormHead`), "split_norm" (`SplitNormHead`),
+    "norm_mlp" (`NormMlpHead`) or "linear" (a Linear; with pre_logits it
+    returns the pool). `fc_drop` goes where JAX sends it (:538-554, :589,
+    :599): to the "norm" and "split_norm" org heads and to every self-distill
+    and distill head; not to "norm_mlp" (built with drop 0, as the
+    reference's head construction does) nor to "linear". `use_kernel` goes
+    to the head's BatchNorms."""
 
     def __init__(self, channels: Sequence[int] = (64, 256, 512, 1024, 2048),
                  last_dim: int = 512, num_heads: int = 8, multi_scale_level: int = 3,
@@ -387,13 +449,14 @@ class MAPHead(nn.Module):
                  distill_tokens: int = 0, attn_drop: float = 0.05, gram: bool = False,
                  gram_group: int = 8,
                  bp_groups: int = 1, bp_dim: int = 192, gram_dim: Optional[int] = None,
-                 mlp_ratio: float = 4.0, mlp_groups: int = 2, num_classes: int = 1000,
-                 head_fn: str = "norm", act: Callable = relu, non_linearity: Callable = relu,
-                 ca_dim: Optional[int] = None, light: bool = False, dropout: float = 0.0,
-                 interactive: bool = False, dtype: Optional[torch.dtype] = None):
+                 mlp_ratio: float = 4.0, mlp_groups: int = 2, fc_drop: float = 0.0,
+                 num_classes: int = 1000, head_fn: str = "norm", act: Callable = relu,
+                 non_linearity: Callable = relu, ca_dim: Optional[int] = None,
+                 light: bool = False, dropout: float = 0.0, interactive: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if head_fn not in ("norm", "linear"):
-            raise NotImplementedError(f"head_fn={head_fn!r} is not ported yet")
+        if head_fn not in ("norm", "split_norm", "norm_mlp", "linear"):
+            raise ValueError(f"unknown head_fn {head_fn}")
         self.head_fn = head_fn
         self.n_groups, self.light = n_groups, light
         self.self_distill_token = self_distill_token
@@ -409,19 +472,20 @@ class MAPHead(nn.Module):
                          interactive=interactive, dtype=dtype)
         # without self-distill the org head reads the whole pool
         head_in = self.out_ch if self_distill_token else last_dim * (n_tokens + distill_tokens)
-        if head_fn == "linear":
-            self.heads = nn.ModuleList(
-                Dense(head_in, num_classes, dtype=dtype) for _ in range(n_groups))
-        else:
-            self.heads = nn.ModuleList(
-                NormHead(head_in, num_classes, nt=n_tokens, dtype=dtype) for _ in range(n_groups))
+        make_head = {
+            "norm": lambda: NormHead(head_in, num_classes, fc_drop, nt=n_tokens, dtype=dtype),
+            "split_norm": lambda: SplitNormHead(head_in, num_classes, fc_drop, nt=n_tokens,
+                                                dtype=dtype),
+            "norm_mlp": lambda: NormMlpHead(head_in, num_classes, 0.0, dtype=dtype),
+            "linear": lambda: Dense(head_in, num_classes, dtype=dtype)}[head_fn]
+        self.heads = nn.ModuleList(make_head() for _ in range(n_groups))
         self.dropout = nn.Dropout(dropout)
         if self_distill_token:
             self.self_dt_heads = nn.ModuleList(
-                NormHead(last_dim, num_classes, dtype=dtype) for _ in range(n_groups))
+                NormHead(last_dim, num_classes, fc_drop, dtype=dtype) for _ in range(n_groups))
             if distill_tokens > 0:
                 self.distill_heads = nn.ModuleList(
-                    NormHead(self.dst_ch, num_classes, nt=distill_tokens, dtype=dtype)
+                    NormHead(self.dst_ch, num_classes, fc_drop, nt=distill_tokens, dtype=dtype)
                     for _ in range(n_groups))
 
     def _org(self, i: int, pool: torch.Tensor, pre_logits: bool) -> torch.Tensor:

@@ -169,13 +169,18 @@ def test_eval_step_matches_jax(tta):
 
 def test_convnext_takes_drop_rate_and_refuses_split_norm():
     """train.py passes drop_rate to every model (train.py:369-371): both
-    heads build with it; split_norm (the MAP head's SplitNormHead) raises
-    until it is ported."""
+    heads build with it. split_norm, which raised until the MAP head's
+    SplitNormHead was ported, builds one per group, as JAX's
+    (models/convnext.py:143); the avg head ignores it."""
+    from imagenet_models_tpu_torch.nn.heads import SplitNormHead
+
     for name in ("map_convnext_tiny", "convnext_tiny"):
         m = create_model(name, device="cpu", drop_rate=0.1, num_classes=10)
         assert m.drop_rate == 0.1
-        with pytest.raises(NotImplementedError, match="split_norm"):
-            create_model(name, device="cpu", split_norm=True, num_classes=10)
+        split = create_model(name, device="cpu", split_norm=True, num_classes=10)
+        if name.startswith("map_"):
+            assert all(isinstance(h, SplitNormHead) for h in split.head.heads)
+            assert "head.heads.0.norm.1.weight" in split.state_dict()
 
 
 def test_avg_head_dropout_matches_jax(monkeypatch):

@@ -90,18 +90,20 @@ def test_loader_stops_its_workers_when_the_consumer_stops(jpeg_root):
     generator; its workers end instead of blocking on a full queue, and a
     worker's error reaches the consumer."""
     import threading
-    import time
 
     ds = tdataset.create_dataset("synthetic:64", "validation", num_classes=5, image_size=16)
-    before = threading.active_count()
+    before = set(threading.enumerate())
     loader = tloader.create_loader(ds, 16, 2, is_training=False, num_workers=3)
     it = iter(loader)
     next(it)
+    started = [t for t in threading.enumerate() if t not in before]
+    assert started  # the loader's workers
     it.close()
-    deadline = time.time() + 10
-    while threading.active_count() > before and time.time() < deadline:
-        time.sleep(0.05)
-    assert threading.active_count() == before
+    # the loader joins its workers when the consumer stops: none of the
+    # threads that were not there before is alive now (a global count would
+    # also see threads of earlier tests ending meanwhile)
+    assert [t for t in threading.enumerate() if t not in before] == []
+    assert not any(t.is_alive() for t in started)
 
     class Broken(tdataset.SyntheticDataset):
         def load(self, index):

@@ -196,3 +196,148 @@ def test_map_head_eval_tuple(light, pre_logits):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)
     avg = th.average_head_logits(got)
     np.testing.assert_allclose(avg.numpy(), np.asarray(jh.average_head_logits(ref)), **TOL)
+
+
+# ---------------------------------------------------------------- the heads of every head_fn
+
+_HEAD_KINDS = {
+    "Head": (lambda: jh.Head(11, drop=0.3), lambda: th.Head(12, 11, drop=0.3)),
+    "NormHead": (lambda: jh.NormHead(11, drop=0.3, nt=3), lambda: th.NormHead(12, 11, 0.3, nt=3)),
+    "SplitNormHead": (lambda: jh.SplitNormHead(11, drop=0.3, nt=3),
+                      lambda: th.SplitNormHead(12, 11, 0.3, nt=3)),
+    "NormMlpHead": (lambda: jh.NormMlpHead(11, drop=0.3), lambda: th.NormMlpHead(12, 11, 0.3)),
+}
+
+
+@pytest.mark.parametrize("pre_logits", [False, True])
+@pytest.mark.parametrize("kind", sorted(_HEAD_KINDS))
+def test_head_modules_match_jax(kind, pre_logits):
+    """Each head at eval (its dropout idle), logits and pre_logits: Head
+    returns its input, NormHead per-token logits without the bias,
+    SplitNormHead its summed logits (it has no per-token form), NormMlpHead
+    the tanh features."""
+    jm, tm = (make() for make in _HEAD_KINDS[kind])
+    x = _x(5, 12, seed=4)
+    variables = random_variables(init_shapes(jm, jnp.asarray(x)), seed=4)
+    with highest():
+        ref = jm.apply(variables, jnp.asarray(x), pre_logits=pre_logits)
+    load_port(tm, variables, prefix="m")
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x), pre_logits=pre_logits)
+    assert tuple(got.shape) == tuple(ref.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("pre_logits", [False, True])
+@pytest.mark.parametrize("head_fn", ["norm", "split_norm", "norm_mlp", "linear"])
+def test_map_head_each_head_fn_matches_jax(head_fn, pre_logits):
+    """MAPHead with each head_fn and fc_drop 0.3 (idle at eval), the
+    interactive class attention of FasterViT's head with "linear"."""
+    feats = [_x(2, hw, hw, c, seed=i) for i, (hw, c) in enumerate(zip(_HW, _CHANNELS))]
+    kw = _map_head_kwargs(head_fn=head_fn, fc_drop=0.3, n_tokens=3, last_dim=12, bp_dim=6,
+                          gram_group=3, interactive=head_fn == "linear")
+    jm = jh.MAPHead(channels=_CHANNELS, non_linearity=jl.gelu, **kw)
+    tm = th.MAPHead(channels=_CHANNELS, non_linearity=tl.gelu, **kw)
+    jfeats = [jnp.asarray(f) for f in feats]
+    variables = random_variables(init_shapes(jm, jfeats, training=False), seed=5)
+    with highest():
+        ref = jm.apply(variables, jfeats, training=False, pre_logits=pre_logits)
+    load_port(tm, variables, prefix="m")
+    with torch.no_grad():
+        got = tm([torch.from_numpy(f) for f in feats], pre_logits=pre_logits)
+    assert len(got) == len(ref) == 2
+    for r, g in zip(ref, got):
+        assert tuple(g.shape) == tuple(r.shape)
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), **TOL)
+
+
+@pytest.mark.parametrize("head_fn", ["norm", "split_norm", "norm_mlp", "linear"])
+def test_map_head_fc_drop_goes_where_jax_sends_it(head_fn, monkeypatch):
+    """In training with fc_drop 0.5 (and a distill token), the heads that
+    apply a dropout of that rate are JAX's: the "norm" and "split_norm" org
+    heads and every self-distill and distill head, never a "norm_mlp" (built
+    with drop 0) or "linear" org head. Each side's dropouts are recorded by
+    the head they sit in."""
+    import jax
+    from flax import linen as fnn
+
+    jax_heads = set()
+
+    def record(self, x, *a, **k):
+        if self.rate == 0.5:
+            jax_heads.add(self.scope.path[0])
+        return x
+
+    monkeypatch.setattr(fnn.Dropout, "__call__", record)
+    feats = [_x(2, hw, hw, c, seed=i) for i, (hw, c) in enumerate(zip(_HW, _CHANNELS))]
+    kw = _map_head_kwargs(head_fn=head_fn, fc_drop=0.5, distill_tokens=1)
+    jm = jh.MAPHead(channels=_CHANNELS, non_linearity=jl.gelu, **kw)
+    jfeats = [jnp.asarray(f) for f in feats]
+    # JAX's dropouts are recorded as it traces the training forward
+    jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jfeats, training=True))
+    # the routing needs no common weights (and the JAX package's reverse
+    # rules leave the distill heads' names as Flax's)
+    tm = th.MAPHead(channels=_CHANNELS, non_linearity=tl.gelu, **kw).train()
+    port_heads = set()
+    for name, mod in tm.named_modules():
+        if isinstance(mod, torch.nn.Dropout):
+            def hook(m, args, out, name=name):
+                if m.training and m.p == 0.5:
+                    port_heads.add("_".join(name.split(".")[:2]))
+            mod.register_forward_hook(hook)
+    out = tm([torch.from_numpy(f) for f in feats])
+    assert all(len(o) == 3 for o in out)  # (org, distill, avg) per group
+    expect = {f"{h}_{i}" for i in range(2) for h in ("self_dt_heads", "distill_heads")}
+    if head_fn in ("norm", "split_norm"):
+        expect |= {"heads_0", "heads_1"}
+    assert jax_heads == port_heads == expect
+
+
+_SPLIT_NORM_MODELS = {
+    # (JAX module, port module, model name of the reverse rules, input side)
+    "convnext": ("imagenet_models_tpu.models.convnext:ConvNeXt",
+                 "imagenet_models_tpu_torch.models.convnext:ConvNeXt", "map_convnext_tiny",
+                 dict(depths=(1, 1, 1, 1), dims=(8, 8, 16, 16), global_pool="mmcap",
+                      last_dim=16, n_groups=2, n_tokens=2, gram_group=2, bp_dim=16, ca_dim=16,
+                      num_heads=2), 32),
+    "resnet": ("imagenet_models_tpu.models.resnet:MAP_ResNet",
+               "imagenet_models_tpu_torch.models.resnet:MAP_ResNet", "map_resnet50",
+               dict(nblock=(1, 1, 1, 1), channels=(16, 16, 32, 32), last_dim=32, n_groups=2,
+                    n_tokens=2, gram_group=16), 32),
+    "maxvit": ("imagenet_models_tpu.models.maxvit:MaxxVit",
+               "imagenet_models_tpu_torch.models.maxvit:MaxxVit", "map_maxvit_tiny_tf_224",
+               dict(embed_dim=(32, 32, 64, 64), depths=(1, 1, 1, 1), stem_width=16,
+                    global_pool="mmcap", last_dim=16, n_groups=2, n_tokens=2, gram_group=2,
+                    bp_dim=16, gram_dim=16, ca_dim=16, num_heads=2, drop_rate=0.1), 64),
+}
+
+
+@pytest.mark.parametrize("family", sorted(_SPLIT_NORM_MODELS))
+def test_models_build_split_norm_heads_as_jax(family):
+    """split_norm=True (and MaxViT's drop_rate, JAX's fc_drop there), which
+    raised until the heads were ported: a narrow model's eval logits against
+    JAX's on the same weights, its per-token `heads.<i>.norm.<t>` keys
+    loading with strict=True; MaxViT's fc dropout sits in its org and
+    self-distill heads (models/maxvit.py:272)."""
+    import importlib
+
+    import jax
+
+    jpath, tpath, name, kw, side = _SPLIT_NORM_MODELS[family]
+    jcls, tcls = (getattr(importlib.import_module(p.split(":")[0]), p.split(":")[1])
+                  for p in (jpath, tpath))
+    kw = dict(kw, num_classes=7, split_norm=True)
+    jm = jcls(**kw)
+    tkw = dict(kw, img_size=side) if family == "maxvit" else kw
+    x = _x(2, side, side, 3, seed=7)
+    variables = random_variables(init_shapes(jm, jnp.asarray(x), training=False), seed=7)
+    with highest():
+        ref = jax.jit(lambda v, x: jm.apply(v, x, training=False))(variables, jnp.asarray(x))
+    tm = load_port(tcls(**tkw), variables, name)
+    assert all(isinstance(h, th.SplitNormHead) for h in tm.head.heads)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(x))
+    for r, g in zip(ref, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-4, atol=1e-4)
+    if family == "maxvit":
+        assert {tm.head.heads[0].drop.p, tm.head.self_dt_heads[0].drop.p} == {0.1}

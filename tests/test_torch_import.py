@@ -70,7 +70,9 @@ def test_port_imports_without_jax_and_serves_on_cpu():
                  "imagenet_models_tpu_torch.train.engine", "imagenet_models_tpu_torch.ckpt.saver",
                  "imagenet_models_tpu_torch.ckpt.pretrained", "imagenet_models_tpu_torch.cli.train",
                  "imagenet_models_tpu_torch.cli.validate",
-                 "imagenet_models_tpu_torch.parallel", "imagenet_models_tpu_torch.parallel.mesh"):
+                 "imagenet_models_tpu_torch.parallel", "imagenet_models_tpu_torch.parallel.mesh",
+                 "imagenet_models_tpu_torch.nn.vit", "imagenet_models_tpu_torch.models.pit",
+                 "imagenet_models_tpu_torch.models.fastervit"):
         assert name in out["modules"]
     assert out["after_import"] == []   # every module, the converter included
     assert out["after_forward"] == []

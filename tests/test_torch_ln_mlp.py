@@ -119,7 +119,9 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                                  (768, 49 * 3 + 5),
                                  # the GA ConvNeXt widths outside ConvNeXt-T's
                                  (128, 1000), (256, 333), (512, 77), (688, 77), (976, 77),
-                                 (1024, 77)])
+                                 (1024, 77),
+                                 # PiT's three stages (27x27, 14x14, 7x7 maps) at B=2
+                                 (144, 2 * 729), (288, 2 * 196), (576, 2 * 49)])
 def test_kernel_matches_twin_on_cuda(c, n):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU; the kernel has no CPU mode")

@@ -151,7 +151,9 @@ def _assert_kernel_close(got, ref):
 @pytest.mark.parametrize("gelu_impl", ["exact", "fast"])
 @pytest.mark.parametrize("c,n", [(96, 64 * 56 * 3 + 7), (192, 64 * 28 * 2 + 5), (384, 4 * 196 + 5),
                                  (768, 49 * 3 + 5), (128, 1000), (256, 333), (512, 77),
-                                 (688, 77), (976, 77), (1024, 77)])
+                                 (688, 77), (976, 77), (1024, 77),
+                                 # PiT's three stages (27x27, 14x14, 7x7 maps) at B=2
+                                 (144, 2 * 729), (288, 2 * 196), (576, 2 * 49)])
 def test_backward_kernel_matches_twin_on_cuda(c, n, gelu_impl):
     args, g = _cuda_args(c, n, seed=6)
     got = tcb.fused_ln_mlp_bwd(args[0], g, *args[1:], gelu_impl=gelu_impl)
