@@ -22,7 +22,9 @@ blocks on the JAX package's fused-branch entry `convnext_branch_apply`
 (kernels 10 and 11); then the train and validate entries and data
 parallelism; then map_pit_s on kernels 1 and 2 (the transformer LN+MLP
 switch) with the heads that came with it, and map_faster_vit_3_224 on
-kernels 7 and 8 (the BatchNorm switch). Phases:
+kernels 7 and 8 (the BatchNorm switch); then maxvit_tiny_tf_384 fine-tuned
+from a 224 px checkpoint, with and without gradient checkpointing, and the
+partition- and stripe-attention switches. Phases:
 
 1. device: the card's name and power limit;
 2. build: compile every CUDA kernel from `csrc/`, one nvcc per source, all
@@ -163,14 +165,14 @@ kernels 7 and 8 (the BatchNorm switch). Phases:
 22. map_maxvit_tiny_tf_224 with IMTPU_FLASH_ATTN at "1" (phases 22-23 set
    it through `ops.flash_attention._FLASH_ATTN`): serving with 22 launches
    of kernel 13 per request, logits against the plain path and an fp32
-   model, one eval step, eval img/s at "1" and "0" in turns; six train steps
+   model, one eval step, eval img/s at "1" and "0" in turns; three train steps
    of phase 10's recipe with 4 launches of kernel 13 per step (stage 3; the
    other stages keep kernels 3 and 4, 18 each), one plain-path step checked
    as in phase 10, train img/s at "1" and "0" in turns;
 23. ga_cswin_tiny with the switch at "1": serving with one launch of kernel
    12 per LePEAttention call (61, counted from the model) and none of kernel
    5, logits against the plain path and an fp32 model, one eval step, eval
-   img/s at "1" and "0"; six train steps of phase 13's recipe with 61
+   img/s at "1" and "0"; three train steps of phase 13's recipe with 61
    launches of kernel 12 per step, one plain-path step checked as in phase
    13, train img/s at "1" and "0";
 24. IMTPU_TLNMLP at "1" (`ops.convnext_block._TLNMLP`) on both models: two
@@ -207,7 +209,13 @@ kernels 7 and 8 (the BatchNorm switch). Phases:
    kernels 1-6: each instance against its twin at the models' shapes (B=2),
    then one serving call and one train step per model beside the plain
    path's, logits and loss checked against it, and each model's kernels
-   launched;
+   launched; then, in a child process of this script (`--phase26`, with
+   CUBLAS_WORKSPACE_CONFIG set before cuBLAS starts), a trace of the fp32
+   step's run-to-run difference: two fp32 map_convnext_tiny steps (B=8)
+   from one state, which gradients differ and by how much, then the same
+   pair under `torch.use_deterministic_algorithms(True)`: the op it
+   refuses first, the ops it warns of, and whether the pair is bit-equal;
+   the port's own pair must be bit-equal and no op refused;
 27. the port's train and validate entries (`python -m
    imagenet_models_tpu_torch.cli.train` / `.cli.validate`), called in this
    process through their `main(argv)` so the launch counts can be read:
@@ -270,6 +278,30 @@ kernels 7 and 8 (the BatchNorm switch). Phases:
    bit-equal gradients; train img/s at "full" and "0" in turns; kernels 7
    and 8 against their twins, float64 sums and timed per launch at the
    census's shapes, with their sums per step.
+31. fine-tuning at 384 px, all bf16: kernels 3 and 4 against their twins
+   (and float64) and timed at maxvit_tiny_tf_384's T = 144 stage shapes at
+   B=32; a maxvit_tiny_tf_224 `.pth.tar` written by the port from seed-0
+   weights (its rel-pos tables drawn from a seed), loaded into
+   maxvit_tiny_tf_384 with every table re-resolved 13x13 -> 23x23; (a) one
+   train step of the maxvit_tiny recipe at B=32 from one state, with
+   `grad_checkpointing` off and on: loss, grad norm, every gradient, every
+   BatchNorm running statistic and the next DropPath draw bit-equal, kernel
+   3 launched 18 times a step without and 36 with (the recompute), kernel 4
+   18 in both, each arm's peak memory and img/s in turns; (b) the train
+   entry with `-fp` on that file (synthetic:64, B=16, one epoch of two
+   steps, `--amp`): exit 0, its fc keys dropped as JAX drops them, 18 + 18
+   launches a step, then the validate entry with `--extract-logits` on the
+   run's checkpoint (two batches, finite logits of the heads' shape); (c)
+   map_maxvit_tiny_tf_224's eval at B=256 with IMTPU_PART_ATTN at "all"
+   against "fused" (`ops.window_attention._PART_ATTN`): 18 launches of
+   kernel 3 a forward and none, the logits within LOGITS_RTOL of the plain
+   path and of "fused", img/s in turns, kernel 3 against its twin and timed
+   at the B=256 shapes; (d) ga_cswin_tiny with IMTPU_STRIPE_MAXH at 56
+   against 16 (`ops.stripe_attention._STRIPE_MAXH`): eval at B=256 (30
+   launches of kernel 5 a forward and 27, logits within LOGITS_RTOL of the
+   plain path), two train steps at B=128 at 56 held to phase 13's gates,
+   kernels 5 and 6 counted a step at both, train img/s in turns, and kernels
+   5 and 6 timed at the stage-1 and stage-2 shapes that 56 admits.
 
 Any failure raises and exits non-zero. The last lines are a JSON summary of
 the kernels, the card's name and power limit, and
@@ -283,6 +315,7 @@ from __future__ import annotations
 import copy
 import importlib
 import json
+import logging
 import pkgutil
 import re
 import subprocess
@@ -338,6 +371,11 @@ REQUESTS, REQUEST_BATCH, IMG = 4, 32, 224
 BENCH_BATCH, BENCH_ITERS = 256, 10
 TRAIN_BATCH, TRAIN_STEPS = 128, 6
 TRAIN_WARMUP, TRAIN_ITERS = 2, 5
+# the opt-in routes (phases 22-24) since phase 31 came: three train steps
+# (not six) and turns of three steps after one warm-up step (not five after
+# two), so that the script keeps inside its clock
+OPT_IN_STEPS = 3
+OPT_IN_TURNS = dict(iters=3, warmup=1)
 MAXVIT = "map_maxvit_tiny_tf_224"
 PS = (7, 7)  # its windows and grid at 224 px
 # (map side, C, heads) of the stages that take kernels 3 and 4 at 224 px (the
@@ -1534,6 +1572,55 @@ def library_fns(args, part, ps, nh):
     }
 
 
+def attn_stage_times(args, side: int, c: int, nh: int, ps, kinds=("fwd", "bwd")) -> dict:
+    """Kernels 3 and 4 (`kinds`) per launch at one stage's shape, block and
+    grid, in turns with the twin (twin, kernel, kernel, twin), with the
+    device time by the profiler, the bound and the library call (SDPA on
+    windows partitioned beforehand; the copies timed apart); returns {kind:
+    the mean of the block and the grid launch, with the rows}."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import partition_attention as pa
+
+    qkv, bias, g = args
+    b = qkv.shape[0]
+    iters = max(5, min(50, 4_000_000 // (b * side * side)))
+    stage = {which: [] for which in kinds}
+    for part in ("block", "grid"):
+        lib = library_fns(args, part, ps, nh)
+        fns = {"fwd": (lambda: pa.fused_partition_attention(qkv, bias, part, ps, nh),
+                       lambda: pa.plain_partition_attention(qkv, bias, part, ps, nh)),
+               "bwd": (lambda: pa.fused_partition_attention_bwd(qkv, bias, g, part, ps, nh),
+                       lambda: pa.plain_partition_attention_bwd(qkv, bias, g, part, ps, nh))}
+        for which in kinds:
+            kern, plain = fns[which]
+            with torch.inference_mode(which == "fwd"):
+                t = in_turns({"kernel": kern, "plain": plain}, iters)
+                device = device_ms_by_kernel(kern, calls=10, per_launch=True)
+            bound, by = attn_bound_ms(b, side, side, nh, ps, which == "bwd")
+            row = {"side": side, "c": c, "heads": nh, "part": part, "batch": b,
+                   "window": list(ps), "ms": sum(t["kernel"]) / 2, "plain_ms": sum(t["plain"]) / 2,
+                   "device_ms": sum(v for k, v in device.items()
+                                    if k.startswith("partition_attn")),
+                   "library_ms": cuda_ms(lib[which], iters),
+                   "copies_ms": cuda_ms(lib[which + "_copies"], iters),
+                   "bound_ms": bound, "bound_by": by, "turns": t}
+            stage[which].append(row)
+            log(f"[kernels] partition_attn_{which}[{part}] B={b} {side}x{side} C={c} "
+                f"T={ps[0] * ps[1]}: kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f} ms "
+                f"by the profiler), twin {row['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}), "
+                f"SDPA {row['library_ms']:.4f} ms + partition copies {row['copies_ms']:.4f} ms "
+                f"(twin,kernel,kernel,twin: {t['plain'][0]:.4f},{t['kernel'][0]:.4f},"
+                f"{t['kernel'][1]:.4f},{t['plain'][1]:.4f})")
+        del lib
+    # block and grid: one launch of each per block
+    return {which: {**{k: sum(r[k] for r in rows) / 2
+                       for k in ("ms", "device_ms", "plain_ms", "library_ms", "copies_ms",
+                                 "bound_ms")},
+                    "bound_by": rows[0]["bound_by"], "rows": rows}
+            for which, rows in stage.items()}
+
+
 def check_attention(card: str, builds):
     """Kernels 3 and 4 against their twins (and in bf16 against float64) at
     the three B=128 stage shapes of the train step (block and grid), at T =
@@ -1565,43 +1652,11 @@ def check_attention(card: str, builds):
     times = {"fwd": [], "bwd": []}
     for side, c, nh in MAXVIT_STAGES:
         args = attn_args(TRAIN_BATCH, side, side, nh, PS, gen)
-        stage = {"fwd": [], "bwd": []}
         for part in ("block", "grid"):
             rows.append(compare_attention(args, part, PS, nh, f"B={TRAIN_BATCH} {side}x{side} "
                                                               f"C={c}"))
-            qkv, bias, g = args
-            iters = max(5, min(50, 4_000_000 // (TRAIN_BATCH * side * side)))
-            lib = library_fns(args, part, PS, nh)
-            for which, kern, plain in (
-                    ("fwd", lambda: pa.fused_partition_attention(qkv, bias, part, PS, nh),
-                     lambda: pa.plain_partition_attention(qkv, bias, part, PS, nh)),
-                    ("bwd", lambda: pa.fused_partition_attention_bwd(qkv, bias, g, part, PS, nh),
-                     lambda: pa.plain_partition_attention_bwd(qkv, bias, g, part, PS, nh))):
-                with torch.inference_mode(which == "fwd"):
-                    t = in_turns({"kernel": kern, "plain": plain}, iters)
-                    device = device_ms_by_kernel(kern, calls=10, per_launch=True)
-                bound, by = attn_bound_ms(TRAIN_BATCH, side, side, nh, PS, which == "bwd")
-                row = {"side": side, "c": c, "heads": nh, "part": part,
-                       "ms": sum(t["kernel"]) / 2, "plain_ms": sum(t["plain"]) / 2,
-                       "device_ms": sum(v for k, v in device.items()
-                                        if k.startswith("partition_attn")),
-                       "library_ms": cuda_ms(lib[which], iters),
-                       "copies_ms": cuda_ms(lib[which + "_copies"], iters),
-                       "bound_ms": bound, "bound_by": by, "turns": t}
-                stage[which].append(row)
-                log(f"[kernels] partition_attn_{which}[{part}] B={TRAIN_BATCH} {side}x{side} C={c}: "
-                    f"kernel {row['ms']:.4f} ms (device {row['device_ms']:.4f} ms by the "
-                    f"profiler), twin {row['plain_ms']:.4f} ms, bound "
-                    f"{bound:.4f} ms ({by}), SDPA {row['library_ms']:.4f} ms + partition copies "
-                    f"{row['copies_ms']:.4f} ms (twin,kernel,kernel,twin: {t['plain'][0]:.4f},"
-                    f"{t['kernel'][0]:.4f},{t['kernel'][1]:.4f},{t['plain'][1]:.4f})")
-            del lib
-        for which in ("fwd", "bwd"):  # block and grid: one launch of each per block
-            mean = {k: sum(r[k] for r in stage[which]) / 2
-                    for k in ("ms", "device_ms", "plain_ms", "library_ms", "copies_ms",
-                              "bound_ms")}
-            times[which].append({**mean, "bound_by": stage[which][0]["bound_by"],
-                                 "rows": stage[which]})
+        for which, row in attn_stage_times(args, side, c, nh, PS).items():
+            times[which].append(row)
         del args
     for which, what in (("fwd", "kernel 3"), ("bwd", "kernel 4")):
         log(f"[kernels] {what} per {MAXVIT} train step, B={TRAIN_BATCH}: " + ", ".join(
@@ -1994,7 +2049,7 @@ def stripe_library_fns(args, ws, nh):
 
 def gate_composition(args, ws, nh, card, tag) -> dict:
     """Kernel 5 (with kernel 6 for the backward) against the route the gate
-    gives an idx=0 branch taller than MAX_STRIPE_H: the composition of
+    gives an idx=0 branch taller than IMTPU_STRIPE_MAXH: the composition of
     `LePEAttention` (partition, bf16 scores, the LePE conv in bf16, reverse),
     with the same taps, forward and forward + backward, in turns."""
     import torch
@@ -2046,6 +2101,48 @@ def check_stripe_code(builds) -> dict:
     return codes
 
 
+def stripe_stage_times(args, name: str, side: int, ws: int, c: int, nh: int, tag: str) -> dict:
+    """Kernels 5 and 6 per launch at one stripe shape, in turns with the twin
+    (twin, kernel, kernel, twin), with the device time by the profiler, the
+    bound and the library calls (SDPA and a depthwise conv on stripes
+    partitioned beforehand; the copies timed apart); returns {kind: row}."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import stripe_attention as sa
+
+    q, k, v, w9, wb, g = args
+    b = q.shape[0]
+    scale = (c // nh) ** -0.5
+    iters = max(5, min(50, 4_000_000 // (b * side * side)))
+    lib = stripe_library_fns(args, ws, nh)
+    out = {}
+    for which, kern, plain in (
+            ("fwd", lambda: sa.fused_stripe_attention(q, k, v, w9, wb, ws, nh, scale),
+             lambda: sa.plain_stripe_attention(q, k, v, w9, wb, ws=ws, nh=nh, scale=scale)),
+            ("bwd", lambda: sa.fused_stripe_attention_bwd(q, k, v, w9, wb, g, ws, nh, scale),
+             lambda: sa.plain_stripe_attention_bwd(q, k, v, w9, wb, g, ws=ws, nh=nh,
+                                                   scale=scale))):
+        with torch.inference_mode(which == "fwd"):
+            t = in_turns({"kernel": kern, "plain": plain}, iters)
+            device = device_ms_by_kernel(kern, calls=10, per_launch=True)
+        bound, by = stripe_bound_ms(b, side, side, c, nh, ws, which == "bwd")
+        row = {"stage": name, "side": side, "c": c, "heads": nh, "ws": ws, "batch": b,
+               "ms": sum(t["kernel"]) / 2, "plain_ms": sum(t["plain"]) / 2,
+               "device_ms": sum(v for k, v in device.items() if k.startswith("stripe_attn")),
+               "library_ms": cuda_ms(lib[which], iters),
+               "copies_ms": cuda_ms(lib[which + "_copies"], iters),
+               "bound_ms": bound, "bound_by": by, "turns": t}
+        out[which] = row
+        log(f"[kernels] stripe_attn_{which} {tag}: kernel {row['ms']:.4f} ms (device "
+            f"{row['device_ms']:.4f} ms by the profiler), twin "
+            f"{row['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}), SDPA + depthwise conv "
+            f"{row['library_ms']:.4f} ms + partition copies {row['copies_ms']:.4f} ms "
+            f"(twin,kernel,kernel,twin: {t['plain'][0]:.4f},{t['kernel'][0]:.4f},"
+            f"{t['kernel'][1]:.4f},{t['plain'][1]:.4f})")
+    del lib
+    return out
+
+
 def check_stripe(card: str):
     """Kernels 5 and 6 against their twins at the five idx=0 stripe shapes of
     ga_cswin_tiny at B=128 (stages 1-3, the stage-5 block, a gram layer),
@@ -2072,35 +2169,9 @@ def check_stripe(card: str):
             gate.append(gate_composition(args, ws, nh, card, tag))
             del args
             continue
-        q, k, v, w9, wb, g = args
-        scale = (c // nh) ** -0.5
-        iters = max(5, min(50, 4_000_000 // (TRAIN_BATCH * side * side)))
-        lib = stripe_library_fns(args, ws, nh)
-        for which, kern, plain in (
-                ("fwd", lambda: sa.fused_stripe_attention(q, k, v, w9, wb, ws, nh, scale),
-                 lambda: sa.plain_stripe_attention(q, k, v, w9, wb, ws=ws, nh=nh, scale=scale)),
-                ("bwd", lambda: sa.fused_stripe_attention_bwd(q, k, v, w9, wb, g, ws, nh, scale),
-                 lambda: sa.plain_stripe_attention_bwd(q, k, v, w9, wb, g, ws=ws, nh=nh,
-                                                       scale=scale))):
-            with torch.inference_mode(which == "fwd"):
-                t = in_turns({"kernel": kern, "plain": plain}, iters)
-            bound, by = stripe_bound_ms(TRAIN_BATCH, side, side, c, nh, ws, which == "bwd")
-            with torch.inference_mode(which == "fwd"):
-                device = device_ms_by_kernel(kern, calls=10, per_launch=True)
-            row = {"stage": name, "side": side, "c": c, "heads": nh, "ws": ws,
-                   "ms": sum(t["kernel"]) / 2, "plain_ms": sum(t["plain"]) / 2,
-                   "device_ms": sum(v for k, v in device.items() if k.startswith("stripe_attn")),
-                   "library_ms": cuda_ms(lib[which], iters),
-                   "copies_ms": cuda_ms(lib[which + "_copies"], iters),
-                   "bound_ms": bound, "bound_by": by, "turns": t}
+        for which, row in stripe_stage_times(args, name, side, ws, c, nh, tag).items():
             times[which].append(row)
-            log(f"[kernels] stripe_attn_{which} {tag}: kernel {row['ms']:.4f} ms (device "
-                f"{row['device_ms']:.4f} ms by the profiler), twin "
-                f"{row['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by}), SDPA + depthwise conv "
-                f"{row['library_ms']:.4f} ms + partition copies {row['copies_ms']:.4f} ms "
-                f"(twin,kernel,kernel,twin: {t['plain'][0]:.4f},{t['kernel'][0]:.4f},"
-                f"{t['kernel'][1]:.4f},{t['plain'][1]:.4f})")
-        del lib, args, q, k, v, g
+        del args
     for which, what in (("fwd", "forward"), ("bwd", "train step")):
         log(f"[kernels] stripe_attn_{which} per {GA_CSWIN} {what}, B={TRAIN_BATCH}: " + ", ".join(
             f"{key} {weighted(times[which], key, CSWIN_PATH_LAUNCHES):.4f}"
@@ -2801,12 +2872,12 @@ def switch_attr(switch: str):
 
 
 def switch_arms(switch: str, kernel, plain, images, targets, card: str, what: str,
-                arms) -> dict:
-    """Train img/s of the arms of a switch in turns, after TRAIN_WARMUP steps
-    each: `switch` names one of `switch_attr`'s; `arms` lists (value,
-    "kernel" or "plain" path). The arms share one model and batch of each
-    path; each sets the switch before its step, which is left at the first
-    arm's value."""
+                arms, iters: int = TRAIN_ITERS, warmup: int = TRAIN_WARMUP) -> dict:
+    """Train img/s of the arms of a switch in turns of `iters` steps, after
+    `warmup` steps each: `switch` names one of `switch_attr`'s; `arms` lists
+    (value, "kernel" or "plain" path). The arms share one model and batch of
+    each path; each sets the switch before its step, which is left at the
+    first arm's value."""
     import torch
 
     module, attr = switch_attr(switch)
@@ -2821,9 +2892,9 @@ def switch_arms(switch: str, kernel, plain, images, targets, card: str, what: st
             step(st, images, targets, gen)
         fns[f"{mode}/{which}"] = run
     for fn in fns.values():
-        for _ in range(TRAIN_WARMUP):
+        for _ in range(warmup):
             fn()
-    t = in_turns(fns, TRAIN_ITERS, order=tuple(fns))
+    t = in_turns(fns, iters, order=tuple(fns))
     setattr(module, attr, arms[0][0])
     batch = images.shape[0]
     runs = {k: [batch * 1000.0 / ms for ms in v] for k, v in t.items()}
@@ -3384,8 +3455,8 @@ def flash_maxvit(card: str) -> dict:
     """Phase 22: map_maxvit_tiny_tf_224 with IMTPU_FLASH_ATTN at "1" (the
     caller sets it): serving with 22 launches of kernel 13 per request (and
     none of kernels 3, 4 and 12), logits against the plain path and an fp32
-    model, one eval step, eval img/s at "1" and "0" in turns; six train
-    steps of the maxvit recipe with 4 launches of kernel 13 per step beside
+    model, one eval step, eval img/s at "1" and "0" in turns; three train
+    steps (OPT_IN_STEPS) of the maxvit recipe with 4 launches of kernel 13 per step beside
     the 18 each of kernels 3 and 4, one plain-path step checked as in phase
     10; train img/s at "1" and "0" in turns. "launches" is kernel 13's count
     over the whole phase, set to 0 before it."""
@@ -3404,10 +3475,11 @@ def flash_maxvit(card: str) -> dict:
     kernel, plain, images, targets, launches, check = train_maxvit(
         ((pa.fused_partition_attention, MAXVIT_LAUNCHES),
          (pa.fused_partition_attention_bwd, MAXVIT_LAUNCHES),
-         (heads, MAXVIT_FLASH_TRAIN_LAUNCHES)), tag="maxvit-flash-")
+         (heads, MAXVIT_FLASH_TRAIN_LAUNCHES)), steps=OPT_IN_STEPS, tag="maxvit-flash-")
     del plain
     arms = switch_arms("IMTPU_FLASH_ATTN", kernel, None, images, targets, card,
-                       f"{MAXVIT} (LAMB, clip 1.0, drop-path 0.2)", (("1", "kernel"), ("0", "kernel")))
+                       f"{MAXVIT} (LAMB, clip 1.0, drop-path 0.2)", (("1", "kernel"), ("0", "kernel")),
+                       **OPT_IN_TURNS)
     del kernel, images, targets
     torch.cuda.empty_cache()
     return {"serving": serve, "serving_launches": served, "train": check,
@@ -3420,8 +3492,8 @@ def flash_cswin(card: str) -> dict:
     it): serving with one launch of kernel 12 per LePEAttention call (61,
     counted from the model) and none of kernels 5, 6 and 13, logits against
     the plain path and an fp32 model, one eval step, eval img/s at "1" and
-    "0" in turns; six train steps of the benchkit recipe with 61 launches of
-    kernel 12 per step and none of kernels 5 and 6, one plain-path step
+    "0" in turns; three train steps (OPT_IN_STEPS) of the benchkit recipe
+    with 61 launches of kernel 12 per step and none of kernels 5 and 6, one plain-path step
     checked as in phase 13; train img/s at "1" and "0" in turns. "launches"
     is kernel 12's count over the whole phase, set to 0 before it."""
     import torch
@@ -3439,10 +3511,11 @@ def flash_cswin(card: str) -> dict:
     phase_launches = window.launches  # the trainer sets the counts to 0
     kernel, plain, images, targets, launches, check = train_cswin(
         ((sa.fused_stripe_attention, 0), (sa.fused_stripe_attention_bwd, 0),
-         (window, CSWIN_FLASH_LAUNCHES)), tag="cswin-flash-")
+         (window, CSWIN_FLASH_LAUNCHES)), steps=OPT_IN_STEPS, tag="cswin-flash-")
     del plain
     arms = switch_arms("IMTPU_FLASH_ATTN", kernel, None, images, targets, card,
-                       f"{GA_CSWIN} (LAMB, EMA)", (("1", "kernel"), ("0", "kernel")))
+                       f"{GA_CSWIN} (LAMB, EMA)", (("1", "kernel"), ("0", "kernel")),
+                       **OPT_IN_TURNS)
     del kernel, images, targets
     torch.cuda.empty_cache()
     return {"serving": serve, "serving_launches": served, "train": check,
@@ -3497,7 +3570,7 @@ def tlnmlp_arms(card: str) -> dict:
             raise AssertionError(f"{name}: {found} eligible MLPs, {eval_launches} launches of "
                                  f"kernel 1 in an eval forward, {mlps} expected")
         arms = switch_arms("IMTPU_TLNMLP", kernel, None, images, targets, card, f"{name} {what}",
-                           (("1", "kernel"), ("0", "kernel")))
+                           (("1", "kernel"), ("0", "kernel")), **OPT_IN_TURNS)
         profiles = {}
         for mode in ("1", "0"):
             cb._TLNMLP = mode
@@ -4300,16 +4373,17 @@ class ResidentLoader:
             yield self.images, self.targets
 
 
-def bind_resident_loader(mods, tag: str) -> dict:
+def bind_resident_loader(mods, tag: str, images: int = ENTRY_IMAGES) -> dict:
     """Bind `create_dataset`/`create_loader` of the entry modules `mods` to
-    ResidentLoader (where Pillow is absent); returns what to put back."""
+    ResidentLoader (where Pillow is absent), `images` in each split; returns
+    what to put back."""
     from imagenet_models_tpu_torch.data.dataset import SyntheticDataset
 
     bound = {}
     for mod in mods:
         bound[mod] = (mod.create_dataset, mod.create_loader)
         mod.create_dataset = lambda name, split="train", num_classes=1000, image_size=224, \
-            class_map=None: SyntheticDataset(ENTRY_IMAGES, num_classes, image_size)
+            class_map=None: SyntheticDataset(images, num_classes, image_size)
         mod.create_loader = ResidentLoader
     log(f"[{tag}] Pillow is absent: create_dataset/create_loader of the entries bound to "
         "ResidentLoader (random batches made once, the same geometry) for this phase")
@@ -5225,6 +5299,648 @@ def fastervit_path(card: str) -> dict:
             "checks": rows, "times": times, "per_step_ms": totals, "launches": launches}
 
 
+# ---------------------------------------------------------------- fine-tuning at 384 px
+
+# phase 31: the fine-tune flow (module docstring). (a) and (b) start
+# maxvit_tiny_tf_384 from a maxvit_tiny_tf_224 .pth.tar that the port writes
+FT_SOURCE, FT_MODEL = "maxvit_tiny_tf_224", "maxvit_tiny_tf_384"
+FT_IMG, FT_BATCH = 384, 32
+FT_PS = (12, 12)
+# maxvit_tiny_tf_384's stages that take kernels 3 and 4 (map side, C, heads):
+# 12x12 windows of T = 144 on the 96, 48 and 24 px maps of stages 0-2 (2, 2
+# and 5 blocks, a block and a grid attention each: 18 launches a step); stage
+# 3's 12x12 map is one window
+FT_STAGES = ((96, 64, 2), (48, 128, 4), (24, 256, 8))
+FT_LAUNCHES_STEP = sum(MAXVIT_STAGE_LAUNCHES)
+FT_ENTRY_IMAGES, FT_ENTRY_BATCH, FT_ENTRY_STEPS = 64, 16, 2
+FT_DIR = Path("output") / "chip_smoke_finetune"
+# (c) MaxViT's eval forward with IMTPU_PART_ATTN at "all": kernel 3 on the
+# B=256 stage shapes of phase 8, once per block and grid attention
+# (d) ga_cswin_tiny with IMTPU_STRIPE_MAXH at 56: stage 1 (56 rows, ws = 1,
+# one block) and stage 2 (28 rows, ws = 2, two blocks) take kernels 5 and 6
+# too
+STRIPE_MAXH_WIDE = 56
+WIDE_STRIPES = tuple(s for s in CSWIN_STRIPES if not s[-1])
+WIDE_LAUNCHES = (1, 2)
+MAXH_LAUNCHES = CSWIN_LAUNCHES + sum(WIDE_LAUNCHES)
+
+
+def write_source_checkpoint(path: Path) -> dict:
+    """The 224 px checkpoint of phase 31: a maxvit_tiny_tf_224 `.pth.tar`
+    from seed-0 weights, written by `ckpt.saver.export_pth_tar`. Its TF
+    rel-pos tables start at zero, so they are drawn trunc-normal from a seed
+    first, or their re-resolution would move nothing."""
+    import torch
+
+    from imagenet_models_tpu_torch import create_model
+    from imagenet_models_tpu_torch.ckpt.saver import export_pth_tar
+    from imagenet_models_tpu_torch.nn.layers import trunc_normal_
+
+    model = create_model(FT_SOURCE, device="cpu", generator=torch.Generator().manual_seed(SEED))
+    gen = torch.Generator().manual_seed(SEED + 31)
+    tables = {}
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("relative_position_bias_table"):
+                tables[name] = trunc_normal_(p, generator=gen).clone()
+    path.parent.mkdir(parents=True, exist_ok=True)
+    export_pth_tar(model, str(path))
+    return tables
+
+
+def finetune_trainer(path: Path, tables: dict):
+    """maxvit_tiny_tf_384 in bf16 with the maxvit_tiny recipe
+    (`maxvit_trainer`'s), its weights from the 224 px `.pth.tar` through the
+    reference-file load, which re-resolves each rel-pos table 13x13 -> 23x23;
+    the loaded tables checked against `convert.resize_rel_pos_table` of the
+    written ones."""
+    import torch
+
+    from imagenet_models_tpu_torch import create_model
+    from imagenet_models_tpu_torch.ckpt.convert import resize_rel_pos_table
+    from imagenet_models_tpu_torch.ckpt.saver import resume_checkpoint
+    from imagenet_models_tpu_torch.train.losses import create_loss_fn
+    from imagenet_models_tpu_torch.train.optim import create_optimizer
+    from imagenet_models_tpu_torch.train.state import create_train_state
+
+    model = create_model(FT_MODEL, dtype=torch.bfloat16, drop_path_rate=MAXVIT_DROP_PATH,
+                         generator=torch.Generator().manual_seed(SEED + 1))
+    resume_checkpoint(str(path), model)
+    own = model.state_dict()
+    errs = []
+    for k, t in tables.items():
+        want = resize_rel_pos_table(t, own[k].shape, k)
+        errs.append((own[k].cpu() - want).abs().max().item())
+    shapes = sorted({tuple(own[k].shape[1:]) for k in tables})
+    log(f"[finetune] {FT_MODEL} loaded from {path.name} ({FT_SOURCE}): {len(tables)} rel-pos "
+        f"tables re-resolved {sorted({tuple(t.shape[1:]) for t in tables.values()})} -> {shapes}, "
+        f"largest |diff| from resize_rel_pos_table {max(errs):.3g}")
+    if shapes != [(23, 23)] or max(errs) != 0.0:
+        raise AssertionError(f"phase 31: the rel-pos tables were not re-resolved on load: "
+                             f"{shapes}, {max(errs)}")
+    opt = FirstGrads(create_optimizer("lamb", **MAXVIT_RECIPE))
+    return create_train_state(model, opt), opt, create_loss_fn(bce_loss=True, smoothing=0.1,
+                                                               mixup_active=True)
+
+
+def finetune_checkpointing(path: Path, tables: dict, card: str) -> dict:
+    """31a: one B=32 train step of maxvit_tiny_tf_384 from one state, with
+    grad_checkpointing off and on: loss, grad norm, every gradient, every
+    BatchNorm running statistic and the next DropPath draw bit-equal; kernel
+    3 launched 18 times a step without checkpointing and 36 with (the
+    recompute), kernel 4 18 times in both; each arm's peak memory, and its
+    img/s in turns."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import partition_attention as pa
+    from imagenet_models_tpu_torch.train.state import make_train_step
+
+    state, opt, loss_fn = finetune_trainer(path, tables)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    images = torch.randn(FT_BATCH, FT_IMG, FT_IMG, 3, generator=gen, device="cuda")
+    targets = torch.rand(FT_BATCH, 1000, generator=gen, device="cuda")
+    arms = {}
+    for name, on in (("plain", False), ("checkpointed", True)):
+        st = copy.deepcopy(state)
+        st.model.grad_checkpointing = on
+        arm_opt = FirstGrads(opt.opt)
+        arms[name] = {"state": st, "opt": arm_opt,
+                      "step": make_train_step(st.model, arm_opt, loss_fn, dec_lam=-0.8)}
+    del state
+    torch.cuda.empty_cache()
+    out = {}
+    for name, arm in arms.items():
+        pa.fused_partition_attention.launches = pa.fused_partition_attention_bwd.launches = 0
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.manual_seed(SEED + 31)
+        gen.manual_seed(SEED + 32)
+        arm["state"], m = arm["step"](arm["state"], images, targets, gen)
+        torch.cuda.synchronize()
+        out[name] = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                     "launches": [pa.fused_partition_attention.launches,
+                                  pa.fused_partition_attention_bwd.launches],
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "step_peak_gib": (torch.cuda.max_memory_allocated() - start) / 2 ** 30,
+                     "next_draw": torch.rand(8, generator=gen, device="cuda")}
+    p, c = arms["plain"], arms["checkpointed"]
+    grads = [k for k in p["opt"].grads if not torch.equal(p["opt"].grads[k], c["opt"].grads[k])]
+    stats_p, stats_c = p["state"].batch_stats(), c["state"].batch_stats()
+    stats = [k for k in stats_p if not torch.equal(stats_p[k], stats_c[k])]
+    differ = {"loss": out["plain"]["loss"] != out["checkpointed"]["loss"],
+              "grad_norm": out["plain"]["grad_norm"] != out["checkpointed"]["grad_norm"],
+              "gradients": grads, "batch_stats": stats,
+              "next_draw": not torch.equal(out["plain"]["next_draw"],
+                                           out["checkpointed"]["next_draw"])}
+    bad = {k: v for k, v in differ.items() if v}
+    log(f"[finetune] 31a {FT_MODEL} B={FT_BATCH} {FT_IMG}px bf16, one step from one state, "
+        f"grad_checkpointing off / on: loss {out['plain']['loss']:.6f} / "
+        f"{out['checkpointed']['loss']:.6f}, grad_norm {out['plain']['grad_norm']:.6f} / "
+        f"{out['checkpointed']['grad_norm']:.6f}; {len(p['opt'].grads)} gradients, "
+        f"{len(stats_p)} BatchNorm statistics and the next DropPath draw "
+        + ("bit-equal" if not bad else f"NOT bit-equal: {bad}")
+        + f"; kernels 3, 4 launches {out['plain']['launches']} / {out['checkpointed']['launches']}"
+        f"; peak memory {out['plain']['peak_gib']:.2f} / {out['checkpointed']['peak_gib']:.2f} "
+        f"GiB ({out['plain']['step_peak_gib']:.2f} / {out['checkpointed']['step_peak_gib']:.2f} "
+        f"GiB over the step's start) on {card}")
+    if bad:
+        raise AssertionError(f"phase 31a: the checkpointed step differs from the plain one in {bad}")
+    if out["plain"]["launches"] != [FT_LAUNCHES_STEP, FT_LAUNCHES_STEP] or \
+            out["checkpointed"]["launches"] != [2 * FT_LAUNCHES_STEP, FT_LAUNCHES_STEP]:
+        raise AssertionError(f"phase 31a: kernel 3 and 4 launches {out}, want 18, 18 without "
+                             f"checkpointing and 36, 18 with")
+    for arm in arms.values():
+        arm["opt"].grads = {}
+    fns = {name: (lambda arm=arm: arm["step"](arm["state"], images, targets, gen))
+           for name, arm in arms.items()}
+    for fn in fns.values():
+        fn()
+    t = in_turns(fns, 2, order=("plain", "checkpointed"))
+    img_s = {k: [FT_BATCH * 1000.0 / ms for ms in v] for k, v in t.items()}
+    log(f"[finetune] 31a train img/s in turns (plain,checkpointed,checkpointed,plain): "
+        f"{img_s['plain'][0]:.1f},{img_s['checkpointed'][0]:.1f},{img_s['checkpointed'][1]:.1f},"
+        f"{img_s['plain'][1]:.1f} on {card}")
+    segments = {name: memory_segments(arm["state"].model, fns[name]) for name, arm in arms.items()}
+    del arms, fns
+    torch.cuda.empty_cache()
+    for arm in out.values():
+        arm.pop("next_draw")
+    return {"arms": out, "img_s": img_s, "memory_segments": segments,
+            "launches": {"fwd": out["plain"]["launches"][0] + out["checkpointed"]["launches"][0],
+                         "bwd": out["plain"]["launches"][1] + out["checkpointed"]["launches"][1]}}
+
+
+
+def memory_segments(model, run) -> dict:
+    """Where one train step (`run()`) reaches its peak memory: a mark at the
+    start, at the stem's and the head's ends and at each block's start and
+    end, each mark the bytes allocated there and the peak since the mark
+    before (the peak statistic is reset at each). A checkpointed block's
+    start fires again when the backward recomputes it, so in the backward
+    the segment from one recompute's start to the next is that block's
+    recompute and backward. Logged: the step's largest segment, the bytes
+    the forward keeps for the backward, and the block whose forward takes
+    the most over its start."""
+    import torch
+
+    marks = []
+
+    def mark(label):
+        marks.append({"at": label, "allocated": torch.cuda.memory_allocated(),
+                      "peak_since_last": torch.cuda.max_memory_allocated()})
+        torch.cuda.reset_peak_memory_stats()
+
+    seen = {}
+
+    def starts(name):
+        def hook(module, args):
+            seen[name] = seen.get(name, 0) + 1
+            mark(f"{name} {'recompute' if seen[name] > 1 else 'forward'} start")
+        return hook
+
+    handles = []
+    for name, m in model.named_modules():
+        if name.count(".") == 3 and name.startswith("stages.") and ".blocks." in name:
+            handles += [m.register_forward_pre_hook(starts(name)),
+                        m.register_forward_hook(lambda m, a, o, name=name: mark(f"{name} end"))]
+    handles += [model.stem.register_forward_hook(lambda m, a, o: mark("stem end")),
+                model.head.register_forward_hook(lambda m, a, o: mark("head end"))]
+    try:
+        torch.cuda.synchronize()
+        mark("step start")
+        run()
+        torch.cuda.synchronize()
+        mark("step end")
+    finally:
+        for h in handles:
+            h.remove()
+    base = marks[0]["allocated"]
+    gib = 2 ** 30
+    # segment i: from mark i-1 to mark i, named by both
+    segs = [{"from": a["at"], "to": b["at"], "start_gib": (a["allocated"] - base) / gib,
+             "peak_gib": (b["peak_since_last"] - base) / gib} for a, b in zip(marks, marks[1:])]
+    top = max(segs, key=lambda g: g["peak_gib"])
+    kept = next(m for m in marks if m["at"] == "head end")["allocated"] - base
+    fwd = [g for g in segs if g["from"].endswith("forward start")]
+    widest = max(fwd, key=lambda g: g["peak_gib"] - g["start_gib"])
+    log(f"[finetune] 31a memory, {'checkpointed' if seen and max(seen.values()) > 1 else 'plain'}"
+        f" step, over the step's start: peak {top['peak_gib']:.2f} GiB from '{top['from']}' to "
+        f"'{top['to']}' (held at its start {top['start_gib']:.2f}); kept by the forward for the "
+        f"backward {kept / gib:.2f}; the widest block forward {widest['from'].split()[0]}, "
+        f"{widest['peak_gib'] - widest['start_gib']:.2f} over its start")
+    return {"segments": segs, "peak": top, "kept_gib": kept / gib, "widest_forward": widest}
+
+
+class _Records(logging.Handler):
+    """The messages of one logger, kept."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def finetune_entry(path: Path, card: str) -> dict:
+    """31b: the train entry with -fp on maxvit_tiny_tf_384 (synthetic:64,
+    B=16, one epoch of two steps, --amp, the maxvit_tiny recipe): it exits
+    0, drops the fc keys as JAX does (its log line), and launches kernels 3
+    and 4 18 times a step; then the validate entry with --extract-logits on
+    the run's checkpoint, two batches: finite logits of the heads' shape."""
+    import importlib.util
+    import os
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from imagenet_models_tpu_torch.cli import train as cli_train
+    from imagenet_models_tpu_torch.cli import validate as cli_validate
+    from imagenet_models_tpu_torch.ops import partition_attention as pa
+
+    workers = min(8, os.cpu_count() or 1)
+    bound = ({} if importlib.util.find_spec("PIL") else
+             bind_resident_loader((cli_train, cli_validate), "finetune", FT_ENTRY_IMAGES))
+    shutil.rmtree(FT_DIR, ignore_errors=True)
+    records = _Records()
+    logging.getLogger("train").addHandler(records)
+    npz = OUT_DIR / "phase31_logits.npz"
+    try:
+        pa.fused_partition_attention.launches = pa.fused_partition_attention_bwd.launches = 0
+        torch.cuda.synchronize()
+        result = cli_train.main([
+            f"synthetic:{FT_ENTRY_IMAGES}", "--model", FT_MODEL, "-b", str(FT_ENTRY_BATCH),
+            "--epochs", "1", "--cooldown-epochs", "0", "--max-steps-per-epoch",
+            str(FT_ENTRY_STEPS), "--amp", "--opt", "lamb", "--lr", "8e-3", "--weight-decay",
+            "0.05", "--clip-grad", "1.0", "--smoothing", "0.1", "--bce-loss", "--drop-path",
+            str(MAXVIT_DROP_PATH), "-fp", str(path), "-j", str(workers), "--output", str(FT_DIR),
+            "--experiment", "finetune"])
+        torch.cuda.synchronize()
+        launches = [pa.fused_partition_attention.launches, pa.fused_partition_attention_bwd.launches]
+        said = [m for m in records.messages if m.startswith("fine-tuning from")]
+        steps = sum(e["train_stats"].steps for e in result["epochs"])
+        losses = [e["train"]["loss"] for e in result["epochs"]]
+        log(f"[finetune] 31b train entry -fp {path.name} on {FT_MODEL}, B={FT_ENTRY_BATCH} "
+            f"{FT_IMG}px bf16: exit {result['exit']}, {steps} steps, losses {losses}, kernels 3 "
+            f"and 4 launches {launches}; the entry said {said}")
+        ok = (result["exit"] == "done" and steps == FT_ENTRY_STEPS
+              and said == [f"fine-tuning from {path} (2 fc keys dropped)"]
+              and launches == [FT_LAUNCHES_STEP * steps] * 2 and finite(losses))
+        if not ok:
+            raise AssertionError(f"phase 31b: the fine-tune run failed its checks: {result}, "
+                                 f"{said}, {launches}")
+        run = Path(result["output_dir"])
+        [res] = cli_validate.main([
+            f"synthetic:{FT_ENTRY_IMAGES}", "--model", FT_MODEL, "--amp", "-b",
+            str(FT_ENTRY_BATCH), "--max-batches", "2", "-j", str(workers), "--checkpoint",
+            str(run / "last"), "--extract-logits", str(npz)])
+        data = np.load(npz)
+        shape = tuple(data["logits"].shape)
+        log(f"[finetune] 31b validate entry --extract-logits on {run.name}/last: top-1 "
+            f"{res['top1']}, npz logits {shape} per_token {bool(data['per_token'])}, "
+            f"finite {bool(np.isfinite(data['logits']).all())}, bias entries "
+            f"{sorted(k for k in data.files if k.startswith('bias::'))}")
+        if shape != (2 * FT_ENTRY_BATCH, 1, 1000) or not np.isfinite(data["logits"]).all():
+            raise AssertionError(f"phase 31b: --extract-logits wrote {shape}")
+    finally:
+        logging.getLogger("train").removeHandler(records)
+        for mod, (ds, ld) in bound.items():
+            mod.create_dataset, mod.create_loader = ds, ld
+        shutil.rmtree(FT_DIR, ignore_errors=True)
+        npz.unlink(missing_ok=True)
+    torch.cuda.empty_cache()
+    return {"exit": result["exit"], "steps": steps, "losses": losses, "launches": launches,
+            "said": said, "validate": res, "logits_shape": list(shape)}
+
+
+def part_attn_all(card: str) -> dict:
+    """31c: map_maxvit_tiny_tf_224's eval forward at B=256 with
+    IMTPU_PART_ATTN at "all" (`ops.window_attention._PART_ATTN`) against
+    "fused": 18 launches of kernel 3 a forward at "all", none at "fused";
+    the logits at "all" within phase 9's gate of the plain path (the twin)
+    and of "fused"'s composition; eval img/s of both in turns; kernel 3 at
+    these B=256 shapes against its twin, timed beside it, the bound and SDPA."""
+    import torch
+
+    from imagenet_models_tpu_torch import create_model
+    from imagenet_models_tpu_torch.nn.heads import average_head_logits
+    from imagenet_models_tpu_torch.ops import partition_attention as pa
+    from imagenet_models_tpu_torch.ops import window_attention as wa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 33)
+    errs, times = [], []
+    for side, c, nh in MAXVIT_STAGES:
+        args = attn_args(BENCH_BATCH, side, side, nh, PS, gen)
+        qkv, bias, _ = args
+        with torch.no_grad():
+            for part in ("block", "grid"):
+                got = pa.fused_partition_attention(qkv, bias, part, PS, nh)
+                ref = pa.plain_partition_attention(qkv, bias, part, PS, nh)
+                errs.append((got.float() - ref.float()).abs().max().item())
+                ratio = rel_err(got, ref)
+                log(f"[finetune] 31c kernel 3 B={BENCH_BATCH} {side}x{side} [{part}]: "
+                    f"max|kernel-twin|/max|twin| {ratio:.3g} (tol {KERNEL_RTOL})")
+                if not ratio <= KERNEL_RTOL:
+                    raise AssertionError(f"phase 31c: kernel 3 disagrees with its twin at "
+                                         f"B={BENCH_BATCH} {side}x{side} [{part}]")
+                del got, ref
+        times.append(attn_stage_times(args, side, c, nh, PS, kinds=("fwd",))["fwd"])
+        del qkv, bias, args
+    model = create_model(MAXVIT, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED))
+    x = torch.randn(BENCH_BATCH, IMG, IMG, 3, generator=gen, device="cuda")
+    out = {}
+    with torch.inference_mode():
+        for mode in ("all", "fused"):
+            wa._PART_ATTN = mode
+            pa.fused_partition_attention.launches = 0
+            logits = average_head_logits(model(x))
+            torch.cuda.synchronize()
+            out[mode] = (logits, pa.fused_partition_attention.launches)
+        wa._PART_ATTN = "all"
+        plain = average_head_logits(model(x, use_kernel=False))
+        scale = plain.abs().max().item()
+        err = (out["all"][0] - plain).abs().max().item()
+        err_fused = (out["all"][0] - out["fused"][0]).abs().max().item()
+
+        def arm(mode):
+            def run():
+                wa._PART_ATTN = mode
+                model(x)
+            return run
+
+        t = in_turns({"fused": arm("fused"), "all": arm("all")}, BENCH_ITERS,
+                     order=("fused", "all"))
+    wa._PART_ATTN = "fused"
+    img_s = {k: [BENCH_BATCH * 1000.0 / ms for ms in v] for k, v in t.items()}
+    launches = {k: v[1] for k, v in out.items()}
+    log(f"[finetune] 31c {MAXVIT} eval B={BENCH_BATCH} bf16: kernel 3 launches a forward "
+        f"{launches}; logits at 'all' vs the plain path max|diff| {err:.4g}, vs 'fused' "
+        f"{err_fused:.4g} (tol {LOGITS_RTOL * scale:.4g}); img/s in turns (fused,all,all,fused) "
+        f"{img_s['fused'][0]:.1f},{img_s['all'][0]:.1f},{img_s['all'][1]:.1f},"
+        f"{img_s['fused'][1]:.1f} on {card}")
+    if launches != {"all": FT_LAUNCHES_STEP, "fused": 0}:
+        raise AssertionError(f"phase 31c: kernel 3 launches {launches}, want 18 at 'all', 0 at "
+                             "'fused'")
+    if not (err <= LOGITS_RTOL * scale and err_fused <= LOGITS_RTOL * scale):
+        raise AssertionError("phase 31c: the logits at 'all' disagree with the plain path")
+    del model, x
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": err, "vs_fused": err_fused, "max_abs_plain": scale,
+            "img_s": img_s, "kernel_errs": errs, "times": times}
+
+
+def stripe_maxh(card: str, stripe_rows) -> dict:
+    """31d: ga_cswin_tiny with IMTPU_STRIPE_MAXH at 56 against 16
+    (`ops.stripe_attention._STRIPE_MAXH`): eval at B=256 in turns, kernel 5
+    launched 30 and 27 times a forward, the logits of each arm within phase
+    12's gate of the plain path; a first train step at B=128 at 56 held to
+    phase 13's gates (`train_cswin`, two steps), and kernels 5 and 6 counted
+    per step at both; train img/s in turns; kernels 5 and 6 timed at the
+    stage-1 and stage-2 shapes that 56 admits (phase 11 held them to their
+    twins there)."""
+    import torch
+
+    from imagenet_models_tpu_torch import create_model
+    from imagenet_models_tpu_torch.nn.heads import average_head_logits
+    from imagenet_models_tpu_torch.ops import stripe_attention as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 34)
+    times = {"fwd": [], "bwd": []}
+    for name, side, ws, c, nh, _ in WIDE_STRIPES:
+        args = stripe_args(TRAIN_BATCH, side, side, c, gen)
+        tag = f"{name} B={TRAIN_BATCH} {side}x{side} ws={ws} C={c} heads={nh}"
+        for which, row in stripe_stage_times(args, name, side, ws, c, nh, tag).items():
+            times[which].append(row)
+        del args
+    errs = {"fwd": [r["max_abs_err"]["out"] for r in stripe_rows
+                    if r["tag"].split()[0] in ("stage1", "stage2")],
+            "bwd": [max(r["max_abs_err"][k] for k in STRIPE_OUTPUTS[1:]) for r in stripe_rows
+                    if r["tag"].split()[0] in ("stage1", "stage2")]}
+    model = create_model(GA_CSWIN, dtype=torch.bfloat16, generator=torch.Generator().manual_seed(SEED))
+    x = torch.randn(BENCH_BATCH, IMG, IMG, 3, generator=gen, device="cuda")
+    evals = {}
+    with torch.inference_mode():
+        for maxh in (STRIPE_MAXH_WIDE, 16):
+            sa._STRIPE_MAXH = maxh
+            sa.fused_stripe_attention.launches = 0
+            logits = average_head_logits(model(x))
+            torch.cuda.synchronize()
+            launches = sa.fused_stripe_attention.launches
+            plain = average_head_logits(model(x, use_kernel=False))
+            scale = plain.abs().max().item()
+            evals[maxh] = {"launches": launches, "max_abs_err": (logits - plain).abs().max().item(),
+                           "max_abs_plain": scale, "logits": logits}
+
+        def arm(maxh):
+            def run():
+                sa._STRIPE_MAXH = maxh
+                model(x)
+            return run
+
+        t = in_turns({"16": arm(16), "56": arm(STRIPE_MAXH_WIDE)}, BENCH_ITERS, order=("16", "56"))
+    sa._STRIPE_MAXH = 16
+    apart = (evals[16]["logits"] - evals[STRIPE_MAXH_WIDE]["logits"]).abs().max().item()
+    for e in evals.values():
+        e.pop("logits")
+    eval_img_s = {k: [BENCH_BATCH * 1000.0 / ms for ms in v] for k, v in t.items()}
+    log(f"[finetune] 31d {GA_CSWIN} eval B={BENCH_BATCH} bf16, IMTPU_STRIPE_MAXH 56 / 16: "
+        f"kernel 5 launches a forward {evals[STRIPE_MAXH_WIDE]['launches']} / "
+        f"{evals[16]['launches']}; logits vs the plain path max|diff| "
+        f"{evals[STRIPE_MAXH_WIDE]['max_abs_err']:.4g} / {evals[16]['max_abs_err']:.4g} (tol "
+        f"{LOGITS_RTOL} of max|plain|), 56 vs 16 {apart:.4g}; img/s in turns (16,56,56,16) "
+        f"{eval_img_s['16'][0]:.1f},{eval_img_s['56'][0]:.1f},{eval_img_s['56'][1]:.1f},"
+        f"{eval_img_s['16'][1]:.1f} on {card}")
+    if {k: e["launches"] for k, e in evals.items()} != {STRIPE_MAXH_WIDE: MAXH_LAUNCHES,
+                                                         16: CSWIN_LAUNCHES}:
+        raise AssertionError(f"phase 31d: kernel 5 launches {evals}")
+    if not all(e["max_abs_err"] <= LOGITS_RTOL * e["max_abs_plain"] for e in evals.values()):
+        raise AssertionError(f"phase 31d: the eval logits disagree with the plain path: {evals}")
+    del model, x
+    torch.cuda.empty_cache()
+
+    sa._STRIPE_MAXH = STRIPE_MAXH_WIDE
+    try:
+        kernel, plain, images, targets, launches, check = train_cswin(
+            ((sa.fused_stripe_attention, MAXH_LAUNCHES),
+             (sa.fused_stripe_attention_bwd, MAXH_LAUNCHES)), steps=2, tag="maxh56-")
+        del plain
+        st, step = kernel
+        per_step = {}
+        for maxh in (16, STRIPE_MAXH_WIDE):
+            sa._STRIPE_MAXH = maxh
+            sa.fused_stripe_attention.launches = sa.fused_stripe_attention_bwd.launches = 0
+            step(st, images, targets, gen)
+            torch.cuda.synchronize()
+            per_step[maxh] = [sa.fused_stripe_attention.launches,
+                              sa.fused_stripe_attention_bwd.launches]
+
+        def train_arm(maxh):
+            def run():
+                sa._STRIPE_MAXH = maxh
+                step(st, images, targets, gen)
+            return run
+
+        t = in_turns({"16": train_arm(16), "56": train_arm(STRIPE_MAXH_WIDE)}, 2,
+                     order=("16", "56"))
+    finally:
+        sa._STRIPE_MAXH = 16
+    train_img_s = {k: [TRAIN_BATCH * 1000.0 / ms for ms in v] for k, v in t.items()}
+    log(f"[finetune] 31d {GA_CSWIN} train B={TRAIN_BATCH}: kernels 5, 6 launches a step at 16 "
+        f"{per_step[16]}, at 56 {per_step[STRIPE_MAXH_WIDE]}; img/s in turns (16,56,56,16) "
+        f"{train_img_s['16'][0]:.1f},{train_img_s['56'][0]:.1f},{train_img_s['56'][1]:.1f},"
+        f"{train_img_s['16'][1]:.1f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+        f"GiB on {card}")
+    if per_step != {16: [CSWIN_LAUNCHES] * 2, STRIPE_MAXH_WIDE: [MAXH_LAUNCHES] * 2}:
+        raise AssertionError(f"phase 31d: kernels 5 and 6 launches a step {per_step}")
+    del kernel, st, step, images, targets
+    torch.cuda.empty_cache()
+    # the wide stripes' launches: the counted eval forward and the counted
+    # step at 56, less the same runs at 16
+    wide = {"fwd": evals[STRIPE_MAXH_WIDE]["launches"] - evals[16]["launches"]
+            + per_step[STRIPE_MAXH_WIDE][0] - per_step[16][0],
+            "bwd": per_step[STRIPE_MAXH_WIDE][1] - per_step[16][1]}
+    return {"eval": evals, "eval_56_vs_16": apart, "eval_img_s": eval_img_s, "train": check,
+            "train_launches": launches, "per_step": per_step, "train_img_s": train_img_s,
+            "times": times, "errs": errs, "launches": wide}
+
+
+def finetune_path(card: str, stripe_rows) -> dict:
+    """Phase 31 (module docstring): 31a-31d, and kernels 3 and 4 against
+    their twins and timed at maxvit_tiny_tf_384's T = 144 stage shapes."""
+    import torch
+
+    t0 = time.perf_counter()
+    path = OUT_DIR / "phase31" / f"{FT_SOURCE}.pth.tar"
+    tables = write_source_checkpoint(path)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 35)
+    rows, times = [], {"fwd": [], "bwd": []}
+    for side, c, nh in FT_STAGES:
+        args = attn_args(FT_BATCH, side, side, nh, FT_PS, gen)
+        for part in ("block", "grid"):
+            rows.append(compare_attention(args, part, FT_PS, nh, f"B={FT_BATCH} {side}x{side} "
+                                                                 f"C={c} T=144"))
+        for which, row in attn_stage_times(args, side, c, nh, FT_PS).items():
+            times[which].append(row)
+        del args
+    try:
+        ckpt = finetune_checkpointing(path, tables, card)
+        entry = finetune_entry(path, card)
+    finally:
+        path.unlink(missing_ok=True)
+    evals = part_attn_all(card)
+    maxh = stripe_maxh(card, stripe_rows)
+    seconds = time.perf_counter() - t0
+    log(f"[finetune] phase 31 in {seconds:.1f} s")
+    return {"checks_384": rows, "times_384": times, "checkpointing": ckpt, "entry": entry,
+            "part_attn_all": evals, "stripe_maxh": maxh, "seconds": seconds}
+
+
+# ---------------------------------------------------------------- phase 26's trace
+
+DET_BATCH = 8
+DET_OUT = OUT_DIR / "phase26"
+
+
+def det_child(out: str) -> None:
+    """`chip_smoke.py --phase26 <out>`: two fp32 map_convnext_tiny train
+    steps (the GA recipe, B=8) from one state as the port runs them, which
+    gradients differ between the two and by how much; then the same pair
+    under `torch.use_deterministic_algorithms(True)`: the first op it
+    refuses (its error), every op it warns of (warn_only), and whether the
+    pair is then bit-equal. Runs in its own process, so that cuBLAS reads
+    CUBLAS_WORKSPACE_CONFIG before its first handle. Writes JSON to `out`."""
+    import warnings
+
+    import torch
+
+    from imagenet_models_tpu_torch import create_model
+    from imagenet_models_tpu_torch.train.losses import create_loss_fn
+    from imagenet_models_tpu_torch.train.optim import create_optimizer
+    from imagenet_models_tpu_torch.train.state import create_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = create_model("map_convnext_tiny", ls_init_value=1.0,
+                         generator=torch.Generator().manual_seed(SEED))
+    opt = create_optimizer("lamb", **GA_RECIPE)
+    state0 = create_train_state(model, opt, ema_decay=GA_EMA)
+    loss_fn = create_loss_fn(bce_loss=True, smoothing=0.1, mixup_active=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    images = torch.randn(DET_BATCH, IMG, IMG, 3, generator=gen, device="cuda")
+    targets = torch.rand(DET_BATCH, 1000, generator=gen, device="cuda")
+
+    def one_step():
+        st = copy.deepcopy(state0)
+        keep = FirstGrads(opt)
+        step = make_train_step(st.model, keep, loss_fn, dec_lam=-0.8, ema_decay=GA_EMA)
+        torch.manual_seed(SEED + 26)
+        st, m = step(st, images, targets, torch.Generator(device="cuda").manual_seed(SEED + 26))
+        torch.cuda.synchronize()
+        return keep.grads, {k: v.item() for k, v in m.items()}, st.batch_stats()
+
+    def pair():
+        (g1, m1, b1), (g2, m2, b2) = one_step(), one_step()
+        diff = {k: (g1[k] - g2[k]).abs().max().item() / max(g1[k].abs().max().item(), 1e-30)
+                for k in g1 if not torch.equal(g1[k], g2[k])}
+        return {"metrics": [m1, m2], "gradients": len(g1),
+                "differing": dict(sorted(diff.items(), key=lambda kv: -kv[1])),
+                "batch_stats_differing": [k for k in b1 if not torch.equal(b1[k], b2[k])]}
+
+    result = {"default": pair()}
+    torch.use_deterministic_algorithms(True)
+    try:
+        one_step()
+        result["raised"] = None
+    except RuntimeError as e:
+        result["raised"] = " ".join(str(e).split())[:600]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        result["deterministic"] = pair()
+    result["warned"] = sorted({" ".join(str(w.message).split())[:300] for w in caught
+                               if "deterministic" in str(w.message)})
+    Path(out).write_text(json.dumps(result))
+
+
+def det_trace(card: str) -> dict:
+    """Phase 26's trace (`det_child` in a child process): logs which
+    gradients of two fp32 steps from one state differ, and what the
+    deterministic mode names. It fails if the port's own pair differs (the
+    fp32 convolutions' backward takes cuDNN's deterministic algorithms,
+    `nn.layers._Fp32Conv`), or the deterministic mode refuses an op."""
+    import os
+
+    DET_OUT.mkdir(parents=True, exist_ok=True)
+    out = DET_OUT / "trace.json"
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--phase26", str(out)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
+                          timeout=DP_TIMEOUT)
+    for line in proc.stdout.splitlines()[-40:]:
+        log(f"  [phase26 trace] {line}")
+    if proc.returncode:
+        raise AssertionError(f"phase 26: the trace's child process failed ({proc.returncode})")
+    r = json.loads(out.read_text())
+    for mode in ("default", "deterministic"):
+        d = r[mode]
+        top = list(d["differing"].items())[:8]
+        log(f"[fp32] trace, map_convnext_tiny fp32 B={DET_BATCH}, two steps from one state, "
+            f"{mode} algorithms: losses {[m['loss'] for m in d['metrics']]}, grad norms "
+            f"{[m['grad_norm'] for m in d['metrics']]}; {len(d['differing'])} of {d['gradients']} "
+            f"gradients differ (largest |diff|/max|g|: {top}); BatchNorm statistics differing "
+            f"{d['batch_stats_differing']} on {card}")
+    log(f"[fp32] trace: torch.use_deterministic_algorithms(True) raised: {r['raised']}; warned "
+        f"of: {r['warned']}")
+    if r["default"]["differing"] or r["default"]["batch_stats_differing"] or r["raised"]:
+        raise AssertionError("phase 26: two fp32 steps from one state differ, or the "
+                             f"deterministic mode refused an op: {r}")
+    return r
+
+
+def main() -> int:
+    import torch
 def main() -> int:
     import torch
 
@@ -5382,8 +6098,10 @@ def main() -> int:
     branch = branch_path(card)
     lap("25")
 
-    # phase 26: fp32 models of the families of kernels 1-6 under the default dispatch
+    # phase 26: fp32 models of the families of kernels 1-6 under the default
+    # dispatch, and the trace of the fp32 step's run-to-run difference
     fp32 = fp32_dispatch(card)
+    fp32["trace"] = det_trace(card)
     lap("26")
 
     # phase 27: the train and validate entries on map_convnext_tiny
@@ -5401,6 +6119,11 @@ def main() -> int:
     # phase 30: map_faster_vit_3_224 with kernels 7 and 8 on its training BatchNorms
     fastervit = fastervit_path(card)
     lap("30")
+
+    # phase 31: fine-tuning maxvit_tiny_tf_384 from a 224 px checkpoint,
+    # gradient checkpointing, and the IMTPU_PART_ATTN / IMTPU_STRIPE_MAXH arms
+    finetune = finetune_path(card, stripe_rows)
+    lap("31")
 
     def entry(name, source, replaces, launches, errs, times, weights):
         return {"name": name, "route": "cuda",
@@ -5493,6 +6216,32 @@ def main() -> int:
               fastervit["launches"]["bwd"],
               [r["dot_sums"]["max_abs_err"] for r in fastervit["checks"]],
               fastervit["times"]["bwd"], [r["count"] for r in fastervit["times"]["bwd"]]),
+        # phase 31: kernels 3 and 4 at T = 144 per maxvit_tiny_tf_384 train
+        # step at B=32, launches over 31a's two steps (18 + 36 and 18 + 18);
+        # kernel 3 per map_maxvit_tiny_tf_224 eval forward at B=256 with
+        # IMTPU_PART_ATTN "all" (31c's counted forward); kernels 5 and 6 on
+        # the stripes past 16 rows (ga_cswin_tiny's stages 1 and 2, B=128)
+        # with IMTPU_STRIPE_MAXH 56, per forward and step, launches those of
+        # 31d's counted forward and step at 56 less the same runs at 16
+        entry("partition_attn_fwd_384", "partition_attn_fwd.cu", "partition_attention.py:286",
+              finetune["checkpointing"]["launches"]["fwd"],
+              [r["max_abs_err"]["out"] for r in finetune["checks_384"]],
+              finetune["times_384"]["fwd"], MAXVIT_STAGE_LAUNCHES),
+        entry("partition_attn_bwd_384", "partition_attn_bwd.cu", "partition_attention.py:310",
+              finetune["checkpointing"]["launches"]["bwd"],
+              [max(r["max_abs_err"]["dqkv"], r["max_abs_err"]["dbias"])
+               for r in finetune["checks_384"]],
+              finetune["times_384"]["bwd"], MAXVIT_STAGE_LAUNCHES),
+        entry("partition_attn_fwd_eval", "partition_attn_fwd.cu", "partition_attention.py:286",
+              finetune["part_attn_all"]["launches"]["all"],
+              finetune["part_attn_all"]["kernel_errs"], finetune["part_attn_all"]["times"],
+              MAXVIT_STAGE_LAUNCHES),
+        entry("stripe_attn_fwd_maxh56", "stripe_attn_fwd.cu", "stripe_attention.py:264",
+              finetune["stripe_maxh"]["launches"]["fwd"], finetune["stripe_maxh"]["errs"]["fwd"],
+              finetune["stripe_maxh"]["times"]["fwd"], WIDE_LAUNCHES),
+        entry("stripe_attn_bwd_maxh56", "stripe_attn_bwd.cu", "stripe_attention.py:284",
+              finetune["stripe_maxh"]["launches"]["bwd"], finetune["stripe_maxh"]["errs"]["bwd"],
+              finetune["stripe_maxh"]["times"]["bwd"], WIDE_LAUNCHES),
     ]
     if not all(k["launches"] > 0 for k in kernels):
         raise AssertionError(f"a kernel of the paths was never launched: "
@@ -5559,6 +6308,7 @@ def main() -> int:
         "pit": {"kernel_checks": pit_rows, "kernel_times": pit_times, "per_forward_or_step_ms":
                 pit_per, **pit},
         "fastervit": fastervit,
+        "finetune": finetune,
         "kernels": kernels}, indent=2))
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -5570,4 +6320,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase28"]:  # a child process of phase 28
         sys.exit(phase28_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--phase26"]:  # the child process of phase 26's trace
+        det_child(sys.argv[2])
+        sys.exit(0)
     sys.exit(main())

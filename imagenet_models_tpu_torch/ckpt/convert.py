@@ -10,6 +10,12 @@ reverse name rules of the ported families (`ckpt/reverse_rules.py`:
 imports nothing of the JAX package. Port modules use the reference's torch
 names and layouts, so the exported state_dict loads into them with
 `strict=True`.
+
+Every load of a reference-format file goes through `load_reference_weights`,
+which re-resolves each relative-position bias table whose shape differs from
+the model's (a 224 px MaxViT checkpoint into `maxvit_tiny_tf_384`), as the
+JAX converter does on every torch-format load (`_to_flax`,
+ckpt/torch_convert.py:106-141); every other key keeps its strict check.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from imagenet_models_tpu_torch.nn.layers import resize_bilinear
 
 
 def flatten_dict(d: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -94,9 +102,7 @@ CONVNEXT_REVERSE: List[Tuple[str, str]] = [
     (r"stages_(\d+)_blocks_(\d+)\.", r"stages.\1.\2."),
 ] + MAP_HEAD_REVERSE
 
-# models/maxvit.py:306-317. The TF rel-pos table (heads, 2H-1, 2W-1) passes
-# through as it is; re-resolving it for another input size on load
-# (ckpt/torch_convert.py:106-134) is not ported yet.
+# models/maxvit.py:306-317
 MAXVIT_REVERSE: List[Tuple[str, str]] = [
     (r"^stem_conv(\d)", r"stem.conv\1"),
     (r"^stem_norm1\.bn", "stem.norm1"),
@@ -110,7 +116,9 @@ MAXVIT_REVERSE: List[Tuple[str, str]] = [
     (r"^head_fc", "head.fc"),
 ] + MAP_HEAD_REVERSE
 
-# models/ga_cswin.py:244-267; the `_bn` suffixes rewrite before their prefixes
+# models/ga_cswin.py:244-267; the `_bn` suffixes rewrite before their prefixes.
+# The 7x7 stem of `deep_stem=False` (`stem_conv0` with its bias, `stem_norm0`)
+# is the reference's `stage1_conv_embed.0` and `.2`: the deep stem's first rules.
 GA_CSWIN_REVERSE: List[Tuple[str, str]] = [
     (r"^stem_conv0", "stage1_conv_embed.0"),
     (r"^stem_norm0", "stage1_conv_embed.2"),
@@ -310,3 +318,36 @@ def state_dict_from_jax(variables: Dict[str, Any], model_name: str) -> Dict[str,
 def state_dict_from_checkpoint(path: str, use_ema: bool = False) -> Dict[str, torch.Tensor]:
     """A reference `.pth.tar` / `.pth` file -> a state_dict for the port."""
     return _tensors(load_torch_checkpoint(path, use_ema=use_ema))
+
+
+def resize_rel_pos_table(table: torch.Tensor, shape: Sequence[int], key: str) -> torch.Tensor:
+    """A relative-position bias table re-resolved to another window size
+    (ckpt/torch_convert.py:106-134): the (2H-1, 2W-1) lattice bilinearly
+    interpolated, half-pixel centers, no antialias (timm
+    resize_rel_pos_bias_table semantics), in fp32, cast back. Layouts: TF
+    (heads, 2H-1, 2W-1) and ((2H-1)*(2W-1), heads), the latter square only."""
+    shape = tuple(shape)
+    t = table.detach().cpu()
+    if t.dim() == 3 and len(shape) == 3:  # (heads, h, w)
+        x = t.permute(1, 2, 0).float()[None]
+        return resize_bilinear(x, shape[1:3])[0].permute(2, 0, 1).to(t.dtype).contiguous()
+    if t.dim() == 2 and len(shape) == 2:  # (L, heads), L = (2H-1)^2
+        sl, tl = int(round(float(np.sqrt(t.shape[0])))), int(round(float(np.sqrt(shape[0]))))
+        if sl * sl != t.shape[0] or tl * tl != shape[0]:
+            raise ValueError(f"non-square rel-pos table at {key}: {tuple(t.shape)} -> {shape}")
+        x = t.reshape(sl, sl, -1).float()[None]
+        return resize_bilinear(x, (tl, tl))[0].reshape(tl * tl, -1).to(t.dtype).contiguous()
+    raise ValueError(f"cannot re-resolve rel-pos table at {key}: {tuple(t.shape)} -> {shape}")
+
+
+def load_reference_weights(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
+                           strict: bool = True):
+    """Load a reference-format state_dict into `model` (`strict` as
+    `load_state_dict`), each `relative_position_bias_table` whose shape
+    differs from the model's re-resolved to it first. Returns
+    `load_state_dict`'s result."""
+    own = model.state_dict()
+    sd = {k: resize_rel_pos_table(v, own[k].shape, k)
+          if "relative_position_bias_table" in k and k in own and v.shape != own[k].shape else v
+          for k, v in sd.items()}
+    return model.load_state_dict(sd, strict=strict)

@@ -2,7 +2,8 @@
 
 The reference downloads release `.pth.tar` files; the port resolves
 `--pretrained` against local directories only, and loads a reference file as
-it is (the port's modules carry the reference's names), with strict=True.
+it is (the port's modules carry the reference's names), with strict=True;
+relative-position tables are re-resolved to the model's input size first.
 """
 
 from __future__ import annotations
@@ -12,7 +13,8 @@ from typing import Optional
 
 import torch
 
-from imagenet_models_tpu_torch.ckpt.convert import state_dict_from_checkpoint
+from imagenet_models_tpu_torch.ckpt.convert import (load_reference_weights,
+                                                    state_dict_from_checkpoint)
 
 
 def find_local_pretrained(model_name: str) -> Optional[str]:
@@ -47,7 +49,8 @@ def require_local_pretrained(model_name: str) -> str:
 def load_pretrained(model: torch.nn.Module, model_name: str, checkpoint_path: str = "",
                     use_ema: bool = False) -> torch.nn.Module:
     """Load a reference checkpoint into `model` with strict=True:
-    `checkpoint_path`, or the local released file of `model_name`."""
+    `checkpoint_path`, or the local released file of `model_name`; its
+    rel-pos tables re-resolved to the model's input size."""
     path = checkpoint_path or require_local_pretrained(model_name)
-    model.load_state_dict(state_dict_from_checkpoint(path, use_ema=use_ema), strict=True)
+    load_reference_weights(model, state_dict_from_checkpoint(path, use_ema=use_ema))
     return model

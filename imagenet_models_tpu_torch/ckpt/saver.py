@@ -31,7 +31,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from imagenet_models_tpu_torch.ckpt.convert import state_dict_from_checkpoint
+from imagenet_models_tpu_torch.ckpt.convert import (load_reference_weights,
+                                                    state_dict_from_checkpoint)
 from imagenet_models_tpu_torch.parallel import mesh
 
 _logger = logging.getLogger("imagenet_models_tpu_torch")
@@ -307,11 +308,12 @@ def resume_checkpoint(path: str, target, use_ema: bool = False,
     where `generator` is given, the step generator's. An `nn.Module` target
     (validate's --checkpoint, --initial-checkpoint) gets the weights only,
     the EMA shadow's with `use_ema` (timm load_checkpoint(use_ema=...)), and
-    a reference `.pth`/`.pth.tar`/`.pt` file loads into it as it is; epoch
-    is then -1. Every load is strict."""
+    a reference `.pth`/`.pth.tar`/`.pt` file loads into it as it is, its
+    rel-pos tables re-resolved to the model's input size; epoch is then -1.
+    Every load is strict."""
     if isinstance(target, torch.nn.Module):
         if path.endswith(_REFERENCE_SUFFIXES) and not path.endswith(STATE_FILE):
-            target.load_state_dict(state_dict_from_checkpoint(path, use_ema=use_ema), strict=True)
+            load_reference_weights(target, state_dict_from_checkpoint(path, use_ema=use_ema))
             return target, -1
         ckpt, epoch = _read(path)
         target.load_state_dict(_weights(ckpt, use_ema, path), strict=True)

@@ -16,10 +16,14 @@ As in the JAX CLI: `--amp` selects bf16 compute over fp32 parameters, and
 fp32 compute without it; `-b` is the microbatch, `-tb`/`--grad-accumulation`
 give the accumulation; the EMA model's eval metrics are THE eval metrics;
 `--channels-last`, `--pin-mem`, `--no-prefetcher` and the other runtime
-flags of the reference are accepted no-ops. Fine-tuning from a checkpoint
-(`-fp`, `-pt`) is not ported yet and raises NotImplementedError naming the
-ROADMAP item that brings it (queue 1, item 10). `-c FILE` reads YAML defaults
+flags of the reference are accepted no-ops. `-c FILE` reads YAML defaults
 (PyYAML is imported only then).
+
+Fine-tuning: `-fp FILE.pth.tar` loads a reference checkpoint after
+`--pretrained` and `--initial-checkpoint`, with the classifier fc dropped,
+or with `-pt` remapped from 21k classes to 1k through `--in21k-1k-map`
+(`ckpt.finetune`); relative-position tables are re-resolved to the model's
+input size, so a 224 px MaxViT checkpoint fine-tunes `maxvit_tiny_tf_384`.
 
 Data parallelism: each process drives one GPU (NCCL) or, with
 IMTPU_PLATFORM=cpu, the CPU (gloo). `--dist-coordinator host:port` with
@@ -63,11 +67,12 @@ parser.add_argument("--resume", default="", type=str,
 parser.add_argument("-ri", "--resume-id", default=None, type=str,
                     help="wandb run id to resume logging into (MAP/train.py:412-416)")
 parser.add_argument("-fp", "--finetuning-checkpoint", default="", type=str,
-                    help="torch .pth.tar to fine-tune from; not ported yet (ROADMAP queue 1, item 10)")
+                    help="reference .pth.tar to fine-tune from: its classifier fc is dropped "
+                         "(or remapped with -pt), the rest loads with strict=False")
 parser.add_argument("-pt", "--in21k-to-in1k", action="store_true", default=False,
-                    help="remap a 21k-class head to 1k classes (MAP/train.py:462-475); not "
-                         "ported yet (ROADMAP queue 1, item 10)")
-parser.add_argument("--in21k-1k-map", "--in21k_1k_map", default="in21k_1k_map.json", type=str)
+                    help="remap a 21k-class head to 1k classes (MAP/train.py:462-475)")
+parser.add_argument("--in21k-1k-map", "--in21k_1k_map", default="in21k_1k_map.json", type=str,
+                    help='class-map JSON {"in1k_idx": [...], "in21k_idx": [...]} for -pt')
 parser.add_argument("--class-map", default="", type=str, metavar="FILENAME",
                     help="class-to-idx mapping file: one class name per line, "
                          "index = line number (timm load_class_map semantics)")
@@ -265,10 +270,6 @@ parser.add_argument("--profile-steps", type=int, default=0,
                     help="write a torch.profiler trace of N steps in epoch 0")
 
 
-# the ROADMAP queue 1 item that brings the features of these flags
-_ITEM_10 = "fine-tuning from a checkpoint (ROADMAP queue 1, item 10)"
-
-
 def _parse_args(args_list=None):
     args_config, remaining = config_parser.parse_known_args(args_list)
     if args_config.config:
@@ -281,18 +282,6 @@ def _parse_args(args_list=None):
     # args.yaml as JSON values, which are YAML too: no PyYAML needed to write it
     args_text = "".join(f"{k}: {json.dumps(v)}\n" for k, v in sorted(vars(args).items()))
     return args, args_text
-
-
-def _refuse_unported(args):
-    """NotImplementedError for a flag whose feature the port does not have
-    yet, naming the ROADMAP item that brings it."""
-    unported = [
-        (args.finetuning_checkpoint, "-fp/--finetuning-checkpoint", _ITEM_10),
-        (args.in21k_to_in1k, "-pt/--in21k-to-in1k", _ITEM_10),
-    ]
-    for given, flag, item in unported:
-        if given:
-            raise NotImplementedError(f"{flag}: not ported yet; it comes with {item}")
 
 
 def run(args, args_text: str) -> dict:
@@ -319,7 +308,6 @@ def run(args, args_text: str) -> dict:
         create_train_state, make_eval_step, make_train_step)
     from imagenet_models_tpu_torch.utils.meters import init_wandb, update_summary
 
-    _refuse_unported(args)
     coordinator = args.dist_coordinator or ("auto" if args.local_rank is not None else "")
     device = mesh.init_distributed(coordinator, args.dist_num_processes, args.dist_process_id,
                                    device=entry_device(), local_rank=args.local_rank)
@@ -405,6 +393,14 @@ def run(args, args_text: str) -> dict:
     if args.initial_checkpoint:
         resume_checkpoint(args.initial_checkpoint, model)
         _logger.info("loaded initial checkpoint %s", args.initial_checkpoint)
+    if args.finetuning_checkpoint:
+        from imagenet_models_tpu_torch.ckpt.finetune import apply_finetune_checkpoint
+
+        _, n_fc = apply_finetune_checkpoint(model, args.finetuning_checkpoint,
+                                            in21k_to_in1k=args.in21k_to_in1k,
+                                            map_path=args.in21k_1k_map)
+        _logger.info("fine-tuning from %s (%d fc keys %s)", args.finetuning_checkpoint,
+                     n_fc, "remapped" if args.in21k_to_in1k else "dropped")
     n_params = sum(p.numel() for p in model.parameters())
     _logger.info("Model %s created, param count: %d, %s compute", args.model, n_params,
                  "bf16" if args.amp else "fp32")

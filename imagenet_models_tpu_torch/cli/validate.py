@@ -12,8 +12,19 @@ files validates each. The heads' logits are averaged (the MAP/GA models'
 eval output), and the top-1/top-5 flags come from the same eval step the
 train engine uses (`train.state.make_eval_step`), so a checkpoint validates
 to the engine's numbers. It runs on the GPU; IMTPU_PLATFORM=cpu runs it on
-the CPU. `--extract-logits`/`--logit-extract` are not ported yet (ROADMAP
-queue 1, item 10) and raise.
+the CPU.
+
+`--extract-logits PATH` (or `--logit-extract`, which writes
+`output/logit/<model>.npz`) saves every head's logits to an npz, as the JAX
+CLI does (its validate.py:131-134, :194-212, :314-334): `logits` (N, heads,
+classes), or for heads with a per-token `pre_logits` form (`NormHead`)
+(N, heads, tokens, classes) partial logits without bias; `per_token`; the
+per-head fc biases in head order as `head_biases` where the heads have the
+per-token form; and `bias::<key>` for each classifier bias (keys under
+`heads.N.`, GA's `fc.N.bias`, or ending in `head.bias`). The JAX CLI names
+the `bias::` entries by flax path; the port names them by its (the
+reference's) state_dict key. Top-1/top-5 then come from those logits
+(token sums plus biases, averaged over the heads).
 """
 
 import argparse
@@ -22,6 +33,7 @@ import glob
 import json
 import logging
 import os
+import re
 import time
 
 import numpy as np
@@ -66,9 +78,9 @@ parser.add_argument("--results-file", default="", type=str)
 parser.add_argument("--max-batches", default=None, type=int,
                     help="truncate (subset evals)")
 parser.add_argument("--extract-logits", default="", type=str,
-                    help="save per-head logits; not ported yet (ROADMAP queue 1, item 10)")
+                    help="save per-head logits (and per-token partials) to this .npz")
 parser.add_argument("--logit-extract", action="store_true", default=False,
-                    help="reference boolean form of --extract-logits; not ported yet")
+                    help="reference boolean form of --extract-logits: output/logit/<model>.npz")
 parser.add_argument("--real-labels", default="", type=str,
                     help="JSON {filename: [valid class ids]} (ReaL labels)")
 parser.add_argument("--valid-labels", default="", type=str,
@@ -125,9 +137,10 @@ def validate_once(args) -> dict:
         raise NotImplementedError(
             "--test-pool/--tf-preprocessing are timm-substrate features the "
             "reference never exercises; not supported")
-    if args.extract_logits or args.logit_extract:
-        raise NotImplementedError("--extract-logits/--logit-extract: not ported yet; they "
-                                  "come with ROADMAP queue 1, item 10")
+    if args.logit_extract and not args.extract_logits:
+        # the reference's layout: output/logit/<model> (MAP/validate.py:328-338)
+        os.makedirs(os.path.join("output", "logit"), exist_ok=True)
+        args.extract_logits = os.path.join("output", "logit", f"{args.model}.npz")
     device = entry_device()
 
     cfg = default_cfg(args.model)
@@ -188,10 +201,12 @@ def validate_once(args) -> dict:
         with open(args.real_labels) as f:
             real_map = json.load(f)
         real = [set(real_map.get(os.path.basename(p), [])) for p in dataset.filenames]
-    if tta > 1 and (real is not None or valid_idx is not None):
-        raise ValueError("--tta does not combine with --real-labels/--valid-labels")
+    if tta > 1 and (real is not None or valid_idx is not None or args.extract_logits):
+        raise ValueError("--tta does not combine with --real-labels/--valid-labels/"
+                         "--extract-logits")
 
     eval_step = make_eval_step(model, tta=tta)
+    extract = _LogitExtractor(model) if args.extract_logits else None
     top1, top5 = AverageMeter(), AverageMeter()
     batch_time = AverageMeter()
     seen = 0
@@ -204,10 +219,14 @@ def validate_once(args) -> dict:
             images = np.concatenate([images, np.zeros((pad,) + images.shape[1:], images.dtype)])
             targets = np.concatenate([targets, np.full((pad,), -1, targets.dtype)])
         x, t = to_device(images, targets, device)
-        logits, c1, c5 = eval_step(x, t)
+        if extract is not None:
+            logits = extract(x, n)
+        else:
+            logits, c1, c5 = eval_step(x, t)
         n_eff = n // tta
-        if real is not None or valid_idx is not None:
-            logits = logits[:n].float().cpu().numpy()
+        if extract is not None or real is not None or valid_idx is not None:
+            if extract is None:
+                logits = logits[:n].float().cpu().numpy()
             if valid_idx is not None:
                 masked = np.full_like(logits, -np.inf)
                 masked[:, valid_idx] = logits[:, valid_idx]
@@ -236,6 +255,10 @@ def validate_once(args) -> dict:
                          n / max(batch_time.avg, 1e-9), top1.val, top1.avg,
                          top5.val, top5.avg)
 
+    if extract is not None:
+        extract.save(args.extract_logits)
+        _logger.info("wrote logits for %d images to %s", seen, args.extract_logits)
+
     dt = time.time() - t_start
     return {
         "model": args.model,
@@ -245,6 +268,69 @@ def validate_once(args) -> dict:
         "img_size": img_size, "cropt_pct": crop_pct, "interpolation": interpolation,
         "images_per_sec": round(seen / dt, 2),
     }
+
+
+class _LogitExtractor:
+    """Per-head logits of each batch (JAX validate.py:194-212, :267-276),
+    kept for the npz (:314-334). Heads with a per-token `pre_logits` form
+    (every output (B, tokens, classes)) give their partial logits without
+    bias, and the full logits are the token sums plus the fc biases; other
+    models give their logits. Whether the heads have the form is decided on
+    the first batch."""
+
+    def __init__(self, model):
+        import inspect
+
+        import torch
+
+        self.model, self.parts = model, []
+        self.per_token = "pre_logits" in inspect.signature(type(model).forward).parameters
+        self.head_biases = None
+        found = {}
+        for k, v in model.state_dict().items():
+            m = re.search(r"(?:^|\.)heads\.(\d+)\.", k)
+            if m and k.endswith("head.bias"):
+                found[int(m.group(1))] = v.float().cpu().numpy()
+        if found:
+            self.head_biases = np.stack([found[i] for i in sorted(found)])
+        # every classifier bias (:318-323): JAX's flax paths holding
+        # `heads_`, `fc_` or ending in `head/bias`, by the port's keys
+        ga_fc = isinstance(getattr(model, "fc", None), torch.nn.ModuleList)
+        self.biases = {k: v.float().cpu().numpy() for k, v in model.state_dict().items()
+                       if k.endswith(".bias") and (re.search(r"heads\.\d+\.", k)
+                                                   or k.endswith("head.bias")
+                                                   or (ga_fc and re.match(r"fc\.\d+\.bias$", k)))}
+        self.decided = False
+
+    def __call__(self, x, n: int) -> np.ndarray:
+        """The (n, classes) fp32 logits of the first n rows of batch `x`."""
+        import torch
+
+        self.model.eval()
+        with torch.inference_mode():
+            out = self.model(x, pre_logits=True) if self.per_token else None
+            if not self.decided:
+                self.per_token = (isinstance(out, (tuple, list))
+                                  and all(o.dim() == 3 for o in out))
+                self.decided = True
+            if not self.per_token:
+                out = self.model(x)
+            out = out if isinstance(out, (tuple, list)) else (out,)
+            heads = torch.stack([o.float() for o in out], dim=1)[:n].cpu().numpy()
+        self.parts.append(heads)
+        if self.per_token:
+            per_head = heads.sum(axis=2)
+            if self.head_biases is not None:
+                per_head = per_head + self.head_biases
+            return per_head.mean(axis=1)
+        return heads.mean(axis=1)
+
+    def save(self, path: str) -> None:
+        extra = {f"bias::{k}": v for k, v in self.biases.items()}
+        if self.per_token and self.head_biases is not None:
+            extra["head_biases"] = self.head_biases
+        np.savez(path, logits=np.concatenate(self.parts), per_token=np.asarray(self.per_token),
+                 **extra)
 
 
 def _try_run(args) -> dict:

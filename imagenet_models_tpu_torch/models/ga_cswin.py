@@ -1,10 +1,12 @@
 """GA-CSWin: a 5-stage CSWin transformer with Gramian-Attention branch heads.
 Port of imagenet_models_tpu/models/ga_cswin.py.
 
-Deep 3-conv stem; four CSWin stages joined by `MergeBlock` (3x3 stride-2
-conv + LayerNorm); the stage-3 taps every depth//(stage3_naggre+1) blocks;
-the multi-scale concat on the 1/16 grid (stages 1-2 average-pooled, stage 4
-resized bilinearly); stage 5 = `MergeBlockLCF` (1x1 conv + LayerNorm) and one
+Deep 3-conv stem (with `deep_stem=False`, one 7x7 stride-4 conv with bias and
+a LayerNorm, keyed `stage1_conv_embed.{0,2}` as the reference's); four CSWin
+stages joined by `MergeBlock` (3x3 stride-2 conv + LayerNorm); the stage-3
+taps every depth//(stage3_naggre+1) blocks; the multi-scale concat on the
+1/16 grid (stages 1-2 average-pooled, stage 4 resized bilinearly); stage 5 =
+`MergeBlockLCF` (1x1 conv + LayerNorm) and one
 CSWinBlock, or with `stage5="bottleneck"` the SE `Bottleneck` of GA-ConvNeXt
 (`stage5.2.`); then `branches` heads, each a grouped projection, train-mode
 BatchNorm, a CSWin `gram_layer`, the normalized upper triangle of the Gram
@@ -20,9 +22,9 @@ NHWC end to end.
 
 A CSWinBlock's form depends on its map (one full window where the map is one
 stripe high), so the model is built for `img_size` and runs at that input
-size only. The idx=0 stripes of maps at most 16 high take the stripe
-kernels (at 224 px: the 14x14 stage 3, the stage-5 block and the gram
-layers), in eval and in training; stages 1 and 2 and the idx=1 stripes take
+size only. The idx=0 stripes of maps at most 16 high (IMTPU_STRIPE_MAXH) take
+the stripe kernels (at 224 px: the 14x14 stage 3, the stage-5 block and the
+gram layers), in eval and in training; stages 1 and 2 and the idx=1 stripes take
 the composition (`ops.cswin_attention`).
 
 Modes: a built model is in eval mode, as the JAX forward's default
@@ -39,6 +41,7 @@ import torch
 from torch import nn
 
 from imagenet_models_tpu_torch.core.registry import register_default_cfg, register_model
+from imagenet_models_tpu_torch.nn.checkpoint import checkpoint_call
 from imagenet_models_tpu_torch.nn.ga_head import Bottleneck, LayerScaleBlockClassAttn
 from imagenet_models_tpu_torch.nn.heads import gram_triu_normalize, triu_gather_tables
 from imagenet_models_tpu_torch.nn.layers import (
@@ -105,21 +108,24 @@ class GA_CSWinTransformer(nn.Module):
                  use_chk: bool = False, dtype: Optional[torch.dtype] = None, in_chans: int = 3,
                  img_size: int = 224, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if not deep_stem:
-            raise NotImplementedError("deep_stem=False (the 7x7 stride-4 stem) is not ported yet")
         self.img_size, self.use_chk = img_size, use_chk
         self.branches, self.gram_dim = branches, gram_dim
         self.compute_dtype = dtype
         dpr = np.linspace(0, drop_path_rate, sum(depth))
-        # the deep stem (ga_cswin.py:107-119), keys of the reference's Sequential
-        self.stage1_conv_embed = nn.ModuleDict({
-            "0": nn.Conv2d(in_chans, embed_dim, 3, stride=2, padding=1, bias=False),
-            "2": LayerNorm(embed_dim, dtype=dtype),
-            "5": nn.Conv2d(embed_dim, embed_dim, 3, padding=1, bias=False),
-            "7": LayerNorm(embed_dim, dtype=dtype),
-            "10": nn.Conv2d(embed_dim, dims[0], 3, stride=2, padding=1, bias=False),
-            "12": LayerNorm(dims[0], dtype=dtype)})
-        side = _conv_out(_conv_out(img_size, 3, 2, 1), 3, 2, 1)
+        if deep_stem:  # ga_cswin.py:107-119, keys of the reference's Sequential
+            self.stage1_conv_embed = nn.ModuleDict({
+                "0": nn.Conv2d(in_chans, embed_dim, 3, stride=2, padding=1, bias=False),
+                "2": LayerNorm(embed_dim, dtype=dtype),
+                "5": nn.Conv2d(embed_dim, embed_dim, 3, padding=1, bias=False),
+                "7": LayerNorm(embed_dim, dtype=dtype),
+                "10": nn.Conv2d(embed_dim, dims[0], 3, stride=2, padding=1, bias=False),
+                "12": LayerNorm(dims[0], dtype=dtype)})
+            side = _conv_out(_conv_out(img_size, 3, 2, 1), 3, 2, 1)
+        else:  # a 7x7 stride-4 conv with bias, then LayerNorm (ga_cswin.py:120-123)
+            self.stage1_conv_embed = nn.ModuleDict({
+                "0": nn.Conv2d(in_chans, dims[0], 7, stride=4, padding=2),
+                "2": LayerNorm(dims[0], dtype=dtype)})
+            side = _conv_out(img_size, 7, 4, 2)
 
         def stage(n, dim, nh, ss, ratio, off, side, last=False):
             return nn.ModuleList(
@@ -188,6 +194,9 @@ class GA_CSWinTransformer(nn.Module):
 
     def _stem(self, x: torch.Tensor) -> torch.Tensor:
         st, dt = self.stage1_conv_embed, self.compute_dtype
+        if "5" not in st:  # deep_stem=False
+            conv = st["0"]
+            return st["2"](conv2d_nhwc(x, conv.weight, conv.bias, stride=4, padding=2, dtype=dt))
         act = resolve_act(gelu, not self.training)
         for conv, norm, last in ((st["0"], st["2"], False), (st["5"], st["7"], False),
                                  (st["10"], st["12"], True)):
@@ -205,33 +214,38 @@ class GA_CSWinTransformer(nn.Module):
         `use_kernel` is the dispatch of the stripe attention and of the
         gram BatchNorms (with IMTPU_PALLAS_BN on; None: the kernels for CUDA
         tensors); `generator` (on x's device) draws the stochastic-depth
-        masks."""
+        masks. With `use_chk`, each block of stages 1-4 is recomputed in the
+        backward of a training forward (JAX's per-block `nn.remat`, with the
+        forward's masks: `nn.checkpoint.checkpoint_call`)."""
         if tuple(x.shape[1:3]) != (self.img_size, self.img_size):
             raise ValueError(f"this GA-CSWin is built for {self.img_size} px input (each block's "
                              f"form follows its map), got {tuple(x.shape[1:3])}")
-        if self.use_chk and self.training:
-            # torch.utils.checkpoint would redraw the DropPath masks from an
-            # explicit generator in its recompute, unlike the first pass
-            raise NotImplementedError("use_chk (per-block gradient checkpointing) is not ported yet")
         kw = dict(use_kernel=use_kernel, generator=generator)
+        remat = self.use_chk and self.training
+
+        def stage_block(blk, x):
+            if remat:
+                return checkpoint_call(blk, x, rng=generator, **kw)
+            return blk(x, **kw)
+
         x = self._stem(x)
         xs = []
         for blk in self.stage1:
-            x = blk(x, **kw)
+            x = stage_block(blk, x)
         xs.append(x)
         x = self.merge1(x)
         for blk in self.stage2:
-            x = blk(x, **kw)
+            x = stage_block(blk, x)
         xs.append(x)
         x = self.merge2(x)
         for i, blk in enumerate(self.stage3):
-            x = blk(x, **kw)
+            x = stage_block(blk, x)
             if self.tap_interval and (i + 1) % self.tap_interval == 0 and len(xs) < 2 + self.n_taps:
                 xs.append(x)
         xs.append(x)
         x = self.merge3(x)
         for blk in self.stage4:
-            x = blk(x, **kw)
+            x = stage_block(blk, x)
         xs.append(x)
 
         # the multi-scale concat on the 1/16 grid (ga_cswin.py:165-171)

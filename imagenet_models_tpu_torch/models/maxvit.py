@@ -12,7 +12,8 @@ norm1`, `...attn_block.attn.rel_pos.relative_position_bias_table`,
 
 The attention blocks take the window / grid attention kernels in training and
 the partition -> AttentionCl -> reverse composition at eval, by the gate
-`ops.window_attention.use_fused_partition_attn`; with IMTPU_FLASH_ATTN at "1"
+`ops.window_attention.use_fused_partition_attn` (IMTPU_PART_ATTN: "all" puts
+eval on the kernels too, "xla" keeps training off them); with IMTPU_FLASH_ATTN at "1"
 the composition's attention is kernel 13 (`ops.flash_attention`), and with
 IMTPU_TLNMLP at "1" each norm2 + MLP pair is kernels 1 and 2
 (`ops.convnext_block.ln_mlp_apply`). Both switches default to "0", as in
@@ -34,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from imagenet_models_tpu_torch.core.registry import register_default_cfg, register_model
+from imagenet_models_tpu_torch.nn.checkpoint import checkpoint_call
 from imagenet_models_tpu_torch.nn.ga_head import SEModule, make_divisible
 from imagenet_models_tpu_torch.nn.heads import MAPHead
 from imagenet_models_tpu_torch.nn.layers import (
@@ -312,19 +314,24 @@ class MaxxVit(nn.Module):
         in training the mmcap head gives (org, avg) pairs. `use_kernel` is the
         dispatch of the partition attention and of the BatchNorms (with
         IMTPU_PALLAS_BN on; None: the kernels for CUDA tensors);
-        `generator` (on x's device) draws the stochastic-depth masks."""
+        `generator` (on x's device) draws the stochastic-depth masks. With
+        `grad_checkpointing`, each block's activations are recomputed in the
+        backward of a training forward (JAX's per-block `nn.remat`), with
+        the forward's masks and one update of the BatchNorm statistics
+        (`nn.checkpoint.checkpoint_call`)."""
         if tuple(x.shape[1:3]) != self.img_size:
             raise ValueError(f"this MaxViT's rel-pos tables are sized for {self.img_size} "
                              f"input, got {tuple(x.shape[1:3])}")
-        if self.grad_checkpointing and self.training:
-            # torch.utils.checkpoint would redraw the DropPath masks from an
-            # explicit generator in its recompute, unlike the first pass
-            raise NotImplementedError("grad_checkpointing is not ported yet")
+        remat = self.grad_checkpointing and self.training
         x = self.stem(x, use_kernel=use_kernel)
         features = [x]
         for stage in self.stages:
             for blk in stage.blocks:
-                x = blk(x, use_kernel=use_kernel, generator=generator)
+                if remat:
+                    x = checkpoint_call(blk, x, rng=generator, use_kernel=use_kernel,
+                                        generator=generator)
+                else:
+                    x = blk(x, use_kernel=use_kernel, generator=generator)
             features.append(x)
         if self.global_pool == "mmcap":
             return self.head(features, pre_logits=pre_logits, use_kernel=use_kernel)

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from imagenet_models_tpu_torch.nn import checkpoint as checkpointing
 from imagenet_models_tpu_torch.ops import batch_norm as bn_ops
 from imagenet_models_tpu_torch.parallel import mesh
 from imagenet_models_tpu_torch.ops.convnext_block import FastGelu
@@ -91,9 +92,43 @@ def conv2d_nhwc(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tens
         if any(pads):
             xn = F.pad(xn, pads)
         padding = 0
-    y = F.conv2d(xn, weight.to(dt), None if bias is None else bias.to(dt),
-                 stride=stride, padding=padding, groups=groups)
+    b = None if bias is None else bias.to(dt)
+    if xn.is_cuda and dt == torch.float32:
+        y = _Fp32Conv.apply(xn, weight.to(dt), b, stride, padding, groups)
+    else:
+        y = F.conv2d(xn, weight.to(dt), b, stride=stride, padding=padding, groups=groups)
     return y.permute(0, 2, 3, 1)
+
+
+class _Fp32Conv(torch.autograd.Function):
+    """`F.conv2d` of fp32 CUDA tensors whose backward runs with cuDNN's
+    deterministic algorithms (the convolution's own backward,
+    `aten.convolution_backward`, under `cudnn.flags(deterministic=True)`).
+    cuDNN's default fp32 weight-gradient algorithms add by atomics, so two
+    fp32 train steps from one state gave weight gradients up to 3e-7 of
+    their largest value apart (the stem and downsample convs and the head's
+    1x1 convs of map_convnext_tiny; bf16 steps repeat bit for bit), where
+    JAX's step repeats. The other dtypes keep `F.conv2d` under autograd."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride: int, padding: int, groups: int):
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (stride, padding, groups, bias is not None)
+        return F.conv2d(x, weight, bias, stride=stride, padding=padding, groups=groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        stride, padding, groups, has_bias = ctx.conf
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=True, benchmark=cudnn.benchmark, deterministic=True,
+                         allow_tf32=cudnn.allow_tf32):
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                g, x, weight, [weight.shape[0]] if has_bias else None, [stride] * 2,
+                [padding] * 2, [1, 1], False, [0, 0], groups,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                 has_bias and ctx.needs_input_grad[2]])
+        return gx, gw, gb, None, None, None
 
 
 class Dense(nn.Linear):
@@ -187,7 +222,9 @@ class BatchNorm(nn.Module):
       group (`parallel.mesh.AllReduceMean`, whose backward averages the
       statistics' cotangents over the ranks) and the unbiased count is n
       times the world. The split branch takes the group too.
-    Eval ignores both.
+    Eval ignores both. In the recompute of a checkpointed block
+    (`nn.checkpoint.checkpoint_call`) the running statistics are left as the
+    forward set them, as under JAX's remat.
     """
 
     momentum = 0.9
@@ -247,6 +284,8 @@ class BatchNorm(nn.Module):
             else:
                 y, mean, var = bn_ops.plain_bn_train(x, self.weight, self.bias, self.eps, out)
             n = x.numel() // x.shape[-1]
+        if checkpointing.recomputing():
+            return y  # the forward of a checkpointed block has updated them
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

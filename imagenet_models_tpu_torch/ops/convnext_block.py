@@ -36,6 +36,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from imagenet_models_tpu_torch.nn.checkpoint import checkpoint_call
 from imagenet_models_tpu_torch.ops import dw_conv as dw_ops
 from imagenet_models_tpu_torch.ops.dw_conv import DwConv7Function, dw_conv7
 
@@ -46,6 +47,17 @@ GELU_IMPLS = ("exact", "fast")
 # layer scale, through `ln_mlp_apply`; "0" = LayerNorm and Mlp modules: the
 # default, as in the JAX package.
 _TLNMLP = os.environ.get("IMTPU_TLNMLP", "0")
+
+# The three switches of the JAX block (ops/convnext_block.py:533-541,
+# :590-602, :621-630), read once at import with JAX's defaults:
+# IMTPU_FUSED_BWD "0" = the LN+MLP backward is the plain VJP (autograd of
+# `plain_ln_mlp`) by the user's choice, kernel 2 otherwise; IMTPU_PALLAS_MIN_C
+# = blocks with fewer channels take the plain path (0: none);
+# IMTPU_BLOCK_REMAT non-"0" = the plain path's block is recomputed in the
+# backward (a memory knob, `convnext_block_apply`'s `remat`).
+_FUSED_BWD = os.environ.get("IMTPU_FUSED_BWD", "1") != "0"
+_PALLAS_MIN_C = int(os.environ.get("IMTPU_PALLAS_MIN_C", "0"))
+_REMAT = os.environ.get("IMTPU_BLOCK_REMAT", "0") != "0"
 
 
 def _horner(t: torch.Tensor, coefs) -> torch.Tensor:
@@ -451,9 +463,21 @@ class LnMlpFunction(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        h, ln_s, ln_b, w1, b1, w2, b2, gamma = ctx.saved_tensors
-        return fused_ln_mlp_bwd(h, g.contiguous(), ln_s, ln_b, w1, b1, w2, b2, gamma,
-                                ctx.eps, ctx.gelu_impl) + (None, None)
+        return tuple(ln_mlp_backward(ctx.saved_tensors, g, ctx.eps, ctx.gelu_impl)) + (None, None)
+
+
+def ln_mlp_backward(residuals, g: torch.Tensor, eps: float, gelu_impl: str) -> Tuple:
+    """The LN+MLP's gradients from its inputs `residuals` (h, ln_s, ln_b, w1,
+    b1, w2, b2, gamma) and the cotangent `g` (ops/convnext_block.py:536-545):
+    kernel 2, or with IMTPU_FUSED_BWD at "0" (`_FUSED_BWD` False) the plain
+    VJP, autograd of `plain_ln_mlp` recomputed from the inputs, on the device
+    the tensors are on."""
+    if _FUSED_BWD:
+        return fused_ln_mlp_bwd(residuals[0], g.contiguous(), *residuals[1:], eps, gelu_impl)
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in residuals]
+        out = plain_ln_mlp(*leaves, eps, gelu_impl)
+        return torch.autograd.grad(out, leaves, g)
 
 
 def ln_mlp(h: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma, eps: float = 1e-6,
@@ -470,10 +494,15 @@ def ln_mlp(h: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma, eps: float = 1e-6
     return out.reshape(shape)
 
 
+def _plain_block(x, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, gelu_impl):
+    """The plain path's branch: `dw_conv7`, then `plain_ln_mlp`."""
+    return plain_ln_mlp(dw_conv7(x, dw_w, dw_b), ln_s, ln_b, w1, b1, w2, b2, gamma, eps, gelu_impl)
+
+
 def convnext_block_apply(x: torch.Tensor, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2,
                          gamma: Optional[torch.Tensor], eps: float = 1e-6,
                          use_kernel: Optional[bool] = None,
-                         training: bool = False) -> torch.Tensor:
+                         training: bool = False, remat: Optional[bool] = None) -> torch.Tensor:
     """The pre-residual ConvNeXt branch on NHWC `x` (ops/convnext_block.py:605-638):
     depthwise 7x7, then LN+MLP+scale by the dispatch rule of `ln_mlp`, with
     the GELU of `resolve_gelu_impl(training)`. With IMTPU_DW_WGRAD at "1"
@@ -481,9 +510,21 @@ def convnext_block_apply(x: torch.Tensor, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2
     gradient is kernel 9 on CUDA tensors and its twin on CPU tensors
     (:557-566); at "0", and on the plain path (`use_kernel=False`, as JAX's
     `use_pallas=False` takes the plain conv), it is `F.conv2d` under
-    autograd."""
+    autograd.
+
+    The switches of JAX's dispatch (:621-638): with `use_kernel` None, a
+    block of fewer channels than IMTPU_PALLAS_MIN_C (`_PALLAS_MIN_C`) takes
+    the plain path; on the plain path asked for by `use_kernel=False` (or
+    by that switch), `remat` (None: IMTPU_BLOCK_REMAT, `_REMAT`) recomputes
+    the block in the backward instead of keeping its (N, 4C) activations
+    (`nn.checkpoint.checkpoint_call`)."""
     if gamma is None:
         gamma = torch.ones(x.shape[-1], device=x.device)
+    if use_kernel is None and x.shape[-1] < _PALLAS_MIN_C:
+        use_kernel = False
+    if use_kernel is False and (remat if remat is not None else _REMAT):
+        return checkpoint_call(_plain_block, x, dw_w, dw_b, ln_s, ln_b, w1, b1, w2, b2, gamma,
+                               eps, resolve_gelu_impl(training))
     if dw_ops._DW_WGRAD == "1" and use_kernel is not False:
         h = DwConv7Function.apply(x, dw_w, dw_b)
     else:

@@ -27,7 +27,9 @@ the JAX package. `CSWinBlock`'s norm2 + MLP pair takes `ln_mlp_apply`
 (kernels 1 and 2 on the card) with IMTPU_TLNMLP at "1" where
 `use_transformer_lnmlp` allows it and the MLP is not grouped
 (cswin_attention.py:341-354). The other opt-in routes (`IMTPU_CSWIN_FUSED`,
-`IMTPU_CSWIN_DIRECT`, `IMTPU_CSWIN_INNER`) are not ported.
+`IMTPU_CSWIN_DIRECT`, `IMTPU_CSWIN_INNER`) are XLA formulations of the same
+function, kept in JAX as receipts of slower TPU timings; the port has no
+counterpart of them.
 """
 
 from __future__ import annotations
@@ -112,7 +114,8 @@ class LePEAttention(nn.Module):
         scale = (c // self.num_heads) ** -0.5
         flash = flash_ops._FLASH_ATTN == "1"
         if self.idx == 0 and not flash and use_fused_stripe_attn(
-                q.shape, self.split_size, self.attn_drop_rate, self.training):
+                q.shape, self.split_size, self.attn_drop_rate, self.training,
+                head_dim=c // self.num_heads):
             # taps t = 3*kh + kw of the (C, 1, 3, 3) weight: w9 = (9, C)
             w9 = self.get_v.weight.reshape(c, 9).t().float()
             wb = self.get_v.bias.reshape(1, c).float()

@@ -43,6 +43,7 @@ fp32 scale), as the TPU kernels run fp32 operands.
 from __future__ import annotations
 
 import functools
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -52,11 +53,14 @@ HEAD_DIMS = (24, 32)  # the kernels' head widths (GA-CSWin-T/S: 32; -B: 24)
 MAX_TOKENS = 256      # the kernels' longest stripe (H * ws)
 # the maps' dtypes the kernels take, and the suffix of each instance's C entry
 KERNEL_DTYPES = {torch.bfloat16: "bf16", torch.float32: "f32"}
-# The gate's tallest stripe. The JAX package engages its kernel only for
-# h <= 16 (its IMTPU_STRIPE_MAXH default): at ga_cswin 224 px that is the
-# 14x14 stage 3, the stage-5 block and the gram layers, while the 56x56 and
-# 28x28 stages take the composition. The port has no environment knobs.
-MAX_STRIPE_H = 16
+# The stripe switches of the JAX gate (stripe_attention.py:361-374), read
+# once at import: IMTPU_STRIPE_ATTN "xla" = never the kernels ("fused", the
+# default, = the gate below); IMTPU_STRIPE_MAXH = the gate's tallest stripe,
+# 16 by default as in JAX: at ga_cswin 224 px that is the 14x14 stage 3, the
+# stage-5 block and the gram layers, while the 56x56 and 28x28 stages take
+# the composition.
+_STRIPE_ATTN = os.environ.get("IMTPU_STRIPE_ATTN", "fused")
+_STRIPE_MAXH = int(os.environ.get("IMTPU_STRIPE_MAXH", "16"))
 
 
 def _check_geometry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ws: int,
@@ -360,17 +364,29 @@ def stripe_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w9: torc
                                          num_heads, scale)
 
 
-def use_fused_stripe_attn(x_shape, ws: int, attn_drop: float, training: bool) -> bool:
+def use_fused_stripe_attn(x_shape, ws: int, attn_drop: float, training: bool,
+                          head_dim: int) -> bool:
     """Whether an idx=0 `LePEAttention` takes `stripe_attention` (the JAX
-    gate's shape conditions, stripe_attention.py:355-379): not while softmax
-    dropout is live (the kernels draw no random numbers); not when the width
-    does not split into stripes, nor for the single-window map h == w == ws
-    (the idx=-1 stage); only for stripes of at most MAX_STRIPE_H rows. The
-    JAX gate's last test, a 4 MB bound on one block of q, k and v, is the
-    TPU's VMEM block size and has no counterpart here."""
+    gate, stripe_attention.py:355-379): never at IMTPU_STRIPE_ATTN "xla"
+    (`_STRIPE_ATTN`); not while softmax dropout is live (the kernels draw no
+    random numbers); not when the width does not split into stripes, nor for
+    the single-window map h == w == ws (the idx=-1 stage); only for stripes
+    of at most `_STRIPE_MAXH` rows (IMTPU_STRIPE_MAXH). The JAX gate's last
+    tests, its tile geometry and a 4 MB bound on one block of q, k and v,
+    are the TPU's VMEM block; their counterpart here is the kernels' own
+    limits: stripes of at most MAX_TOKENS tokens and heads of a width
+    `head_dim` in HEAD_DIMS. A stripe past them takes the
+    composition (with MAXH raised: ga_cswin_base_384's stage 3, h = 24 and
+    ws = 12, T = 288). Both switches are read once, when this module is
+    imported; the attributes set afterwards take effect from the next
+    forward."""
+    if _STRIPE_ATTN == "xla":
+        return False
     if attn_drop > 0 and training:
         return False
     h, w = x_shape[1], x_shape[2]
     if w % ws or (h == ws and w == ws):
         return False
-    return h <= MAX_STRIPE_H
+    if h > _STRIPE_MAXH or h * ws > MAX_TOKENS:
+        return False
+    return head_dim in HEAD_DIMS

@@ -20,11 +20,13 @@ its two routes:
   12), then `proj` (window_attention.py:248-280).
 
 The JAX package's other opt-in routes (`IMTPU_QKV_SPLIT=stack`,
-`IMTPU_RELPOS_MATMUL`) are not ported; they give the same results.
+`IMTPU_RELPOS_MATMUL`) are XLA formulations of the same function, kept in JAX
+as receipts of slower TPU timings; the port has no counterpart of them.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -113,18 +115,33 @@ class RelPosBias(nn.Module):
         return bias.reshape(self.area, self.area, self.num_heads).permute(2, 0, 1)
 
 
+# IMTPU_PART_ATTN (window_attention.py:136-155), read once at import:
+# "fused" (the default) = the kernels in training; "xla" = never the
+# kernels; "block" = block windows only, in training; "all" = the kernels at
+# eval too. Any other value reads as "fused", as in JAX.
+_PART_ATTN = os.environ.get("IMTPU_PART_ATTN", "fused")
+
+
 def use_fused_partition_attn(x_shape, ps, part_type: str, attn_drop: float,
                              deterministic: bool) -> bool:
     """Whether `PartitionAttention` takes the partition-attention kernels
-    (window_attention.py:126-155, its default mode): never at eval, which
-    takes the partition -> AttentionCl -> reverse composition; in training
-    unless attention dropout is on (the kernels draw no random numbers), or
-    H or W does not divide by the window, or the map is a single window
-    (whose partition is a view). The JAX gate's last test, a 4 MB bound on
-    one window-row strip of qkv, is the TPU's VMEM block size: the CUDA
-    kernels stage one window at a time, so it has no counterpart here."""
-    del part_type  # both partition types take the kernels
-    if deterministic or attn_drop > 0:
+    (window_attention.py:126-155), by `_PART_ATTN`: at "xla" never, at
+    "block" for block windows only; never while attention dropout is live in
+    training (the kernels draw no random numbers); at eval only at "all"
+    (otherwise eval takes the partition -> AttentionCl -> reverse
+    composition); and never where H or W does not divide by the window or
+    the map is a single window (whose partition is a view). The JAX gate's
+    last test, a 4 MB bound on one window-row strip of qkv, is the TPU's
+    VMEM block size: the CUDA kernels stage one window at a time, so it has
+    no counterpart here. IMTPU_PART_ATTN is read once, when this module is
+    imported; `_PART_ATTN` set afterwards takes effect from the next
+    forward."""
+    mode = _PART_ATTN
+    if mode == "xla" or (mode == "block" and part_type != "block"):
+        return False
+    if attn_drop > 0 and not deterministic:
+        return False
+    if deterministic and mode != "all":
         return False
     h, w = x_shape[1], x_shape[2]
     return not (h % ps[0] or w % ps[1] or (h == ps[0] and w == ps[1]))

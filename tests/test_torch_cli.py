@@ -68,14 +68,6 @@ def test_cli_needs_the_gpu_unless_asked_for_the_cpu(monkeypatch, tmp_path):
         cli_validate.main(VALIDATE)
 
 
-@pytest.mark.parametrize("flags,item", [(["-fp", "x.pth.tar"], "item 10"), (["-pt"], "item 10")])
-def test_unported_flags_raise(flags, item, monkeypatch, tmp_path):
-    """A flag whose feature is not ported raises, naming its ROADMAP item."""
-    monkeypatch.setenv("IMTPU_PLATFORM", "cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
-        cli_train.main([*SMOKE, *flags, "--output", str(tmp_path)])
-
-
 def test_two_process_cli_smoke(tmp_path):
     """Two processes of `python -m imagenet_models_tpu_torch.cli.train` on
     gloo (--dist-coordinator, --zero1, global batch 2 x 2) exit 0 and write

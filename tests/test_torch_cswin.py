@@ -110,7 +110,7 @@ def test_lepe_attention_matches_jax(idx, side, dim, nh, ws):
     args = [jnp.asarray(a) for a in (q, k, v)]
     variables = random_variables(init_shapes(jm, *args), seed=1)
     tm = load_port(tca.LePEAttention(dim, nh, idx, ws), variables, NAME, prefix="attns_0")
-    assert (idx == 0 and tsa.use_fused_stripe_attn(q.shape, ws, 0.0, False)) == \
+    assert (idx == 0 and tsa.use_fused_stripe_attn(q.shape, ws, 0.0, False, head_dim=dim // nh)) == \
         (idx == 0 and side <= 16)
     with highest():
         ref = jm.apply(variables, *args)
@@ -299,7 +299,7 @@ def test_ga_cswin_tiny_structure():
     assert tuple(exported["stage3.0.attns.0.get_v.weight"].shape) == (128, 1, 3, 3)
     # the stripe route at 224 px: the 21 stage-3 blocks, the stage-5 block
     # and the 5 gram layers, 27 in all (stages 1 and 2 are taller than 16)
-    routes = [tsa.use_fused_stripe_attn((1, s, s, 1), ws, 0.0, True)
+    routes = [tsa.use_fused_stripe_attn((1, s, s, 1), ws, 0.0, True, head_dim=32)
               for s, ws, n in ((56, 1, 1), (28, 2, 2), (14, 7, 21), (14, 7, 1), (14, 7, 5))
               for _ in range(n)]
     assert sum(routes) == 27
@@ -321,10 +321,15 @@ def test_pre_logits_wrong_size_and_use_chk():
     assert len(feats) == 2 and tuple(feats[0].shape) == (2, 128)
     with pytest.raises(ValueError, match="built for 64"):
         m(torch.zeros(1, 96, 96, 3))
-    with pytest.raises(NotImplementedError, match="use_chk"):
-        m.train()(torch.zeros(2, 64, 64, 3))
-    with pytest.raises(NotImplementedError, match="stem"):
-        tgc.GA_CSWinTransformer(**NARROW, deep_stem=False)
+    # use_chk's training step runs (tests/test_torch_checkpointing.py holds
+    # it bit-equal to the plain step), and deep_stem=False builds
+    # (tests/test_torch_finetune.py holds it to JAX)
+    outs = m.train()(torch.zeros(2, 64, 64, 3))
+    sum(o.square().mean() for o in outs).backward()
+    assert m.stage1[0].qkv.weight.grad is not None
+    shallow = tgc.GA_CSWinTransformer(**NARROW, split_size=SPLITS[64], img_size=64,
+                                      deep_stem=False)
+    assert tuple(shallow(torch.zeros(1, 64, 64, 3))[0].shape) == (1, 7)
     # stage5="bottleneck" builds (tests/test_torch_ga_convnext.py holds it to JAX)
     m5 = tgc.GA_CSWinTransformer(**NARROW, split_size=SPLITS[64], img_size=64, stage5="bottleneck")
     assert "1" not in m5.stage5 and tuple(m5(torch.zeros(1, 64, 64, 3))[0].shape) == (1, 7)

@@ -393,12 +393,16 @@ def test_factories_and_default_cfgs_match_jax():
 
 
 def test_wrong_input_size_and_grad_checkpointing_raise():
+    """A wrong input size raises; with grad_checkpointing the eval forward
+    and the training step run (tests/test_torch_checkpointing.py holds the
+    checkpointed step bit-equal to the plain one)."""
     m = tmv.MaxxVit(**TINY, global_pool="avg", img_size=64, grad_checkpointing=True)
     with pytest.raises(ValueError, match="sized for"):
         m(torch.zeros(1, 96, 96, 3))
     m(torch.zeros(1, 64, 64, 3))  # eval is unaffected
-    with pytest.raises(NotImplementedError, match="grad_checkpointing"):
-        m.train()(torch.zeros(2, 64, 64, 3))
+    out = m.train()(torch.zeros(2, 64, 64, 3))
+    out.square().mean().backward()
+    assert tuple(out.shape) == (2, 11) and all(p.grad is not None for p in m.parameters())
 
 
 # ---------------------------------------------------------------- the train step

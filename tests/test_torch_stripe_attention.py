@@ -180,7 +180,7 @@ def test_gate_matches_jax_on_ga_cswin_shapes():
     """The port's gate against JAX's on the idx=0 branch shapes of
     ga_cswin_tiny at 224 px (stages 1-3, the single-window stage 4, the
     stage-5 block and the gram layers), at 112 px, and with softmax dropout
-    in both modes."""
+    in both modes; heads 32 wide, ga_cswin_tiny's."""
     from imagenet_models_tpu.ops import stripe_attention as jsa
 
     shapes = [((2, 56, 56, 32), 1), ((2, 28, 28, 64), 2), ((2, 14, 14, 128), 7),
@@ -190,7 +190,7 @@ def test_gate_matches_jax_on_ga_cswin_shapes():
     seen = set()
     for shape, ws in shapes:
         for drop, training in ((0.0, False), (0.0, True), (0.1, False), (0.1, True)):
-            got = tsa.use_fused_stripe_attn(shape, ws, drop, training)
+            got = tsa.use_fused_stripe_attn(shape, ws, drop, training, head_dim=32)
             assert got == jsa.use_fused_stripe_attn(shape, ws, drop, not training), \
                 (shape, ws, drop, training)
             seen.add(got)
