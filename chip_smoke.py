@@ -74,7 +74,7 @@ partition- and stripe-attention switches. Phases:
 9. MaxViT serving: four requests (eval takes the composition: no kernel
    launch), logits against the plain path and an fp32 model, one eval step,
    eval img/s at B=256;
-10. MaxViT train: six steps at B=128 on the kernel path (18 launches of each
+10. MaxViT train: three steps at B=128 on the kernel path (18 launches of each
    kernel per step, finite metrics, the loss falls on a fixed batch), one
    plain-path step from a deep copy of the first state with the same
    drop-path and dropout draws, checked as in phase 6; train img/s of both
@@ -301,7 +301,27 @@ partition- and stripe-attention switches. Phases:
    launches of kernel 5 a forward and 27, logits within LOGITS_RTOL of the
    plain path), two train steps at B=128 at 56 held to phase 13's gates,
    kernels 5 and 6 counted a step at both, train img/s in turns, and kernels
-   5 and 6 timed at the stage-1 and stage-2 shapes that 56 admits.
+   5 and 6 timed at the stage-1 and stage-2 shapes that 56 admits;
+32. the serving export (`serving.export_serving`), whose programs call
+   kernels 1, 3, 5, 12 and 13 through their `imtpu::` custom ops: (a)
+   map_convnext_tiny as phase 4 builds it, (b) ga_cswin_tiny, (c)
+   map_maxvit_tiny_tf_224 with IMTPU_PART_ATTN at "all", and
+   map_maxvit_tiny_tf_224 and ga_cswin_tiny with IMTPU_FLASH_ATTN at "1",
+   each exported at B=8 on the card and written to a temporary directory,
+   its program listing only its kernel's op, the live serving function's
+   launches a call counted (18 of kernel 1, 27 of 5, 18 of 3, 22 of 13, 61
+   of 12); a child process (`--phase32`) that imports torch and the op
+   library alone, and no model code, reloads every program and runs it
+   twice on the same uint8 images: its logits within EXPORT_ATOL of the
+   live ones (bit-equal expected: the same kernels on the same inputs), the
+   same launches a call; then (a) and (b) exported at B=256, reloaded, and
+   their eval img/s timed against the live eager model in turns; (d)
+   map_convnext_tiny's train step at B=128 with IMTPU_GELU and
+   IMTPU_XLA_GELU at "exact": 18 + 18 launches of kernels 1 and 2, all on
+   their exact instances, the step against the plain path and an fp32
+   model (also exact) by phase 7's gates, and train img/s at "exact" and
+   at the default (fast) in turns of its own (GELU_TURNS), with the device
+   time a step of both.
 
 Any failure raises and exits non-zero. The last lines are a JSON summary of
 the kernels, the card's name and power limit, and
@@ -312,6 +332,7 @@ exits with status 2.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import importlib
 import json
@@ -368,14 +389,23 @@ TRAIN_GNORM_RTOL = 1e-3
 TRAIN_GRAD_RTOL = 0.08
 TRAIN_GRAD_ACC = 1.25
 REQUESTS, REQUEST_BATCH, IMG = 4, 32, 224
-BENCH_BATCH, BENCH_ITERS = 256, 10
+# eval img/s from turns of six forwards, train img/s from turns of three
+# steps after one warm-up step: short turns, so that the script with all its
+# phases keeps inside its clock
+BENCH_BATCH, BENCH_ITERS = 256, 6
 TRAIN_BATCH, TRAIN_STEPS = 128, 6
-TRAIN_WARMUP, TRAIN_ITERS = 2, 5
-# the opt-in routes (phases 22-24) since phase 31 came: three train steps
-# (not six) and turns of three steps after one warm-up step (not five after
-# two), so that the script keeps inside its clock
+TRAIN_WARMUP, TRAIN_ITERS = 1, 3
+# the opt-in routes (phases 22-24) and MaxViT's train step (phase 10), for
+# the same clock: three train steps, and the opt-in routes' turns of two
+# steps after one warm-up step
 OPT_IN_STEPS = 3
-OPT_IN_TURNS = dict(iters=3, warmup=1)
+OPT_IN_TURNS = dict(iters=2, warmup=1)
+# phase 32d's train img/s at "exact" against the fast fit: turns of its own,
+# ten steps each after three warm-up steps of each arm, in three rounds
+# (fast, exact, exact, fast, three times), since the two arms of this
+# host-bound step differ by a few per cent and turns of two steps spread by
+# tens of per cent; beside them the device time a step of each arm
+GELU_TURNS = dict(iters=10, warmup=3, rounds=3)
 MAXVIT = "map_maxvit_tiny_tf_224"
 PS = (7, 7)  # its windows and grid at 224 px
 # (map side, C, heads) of the stages that take kernels 3 and 4 at 224 px (the
@@ -5939,8 +5969,350 @@ def det_trace(card: str) -> dict:
     return r
 
 
-def main() -> int:
+# ---------------------------------------------------------------- the serving export
+
+EXPORT_BATCH = 8
+# a reloaded program against the live serving function on the same images:
+# the bound of the export entry's --selftest, JAX's; the same kernels on the
+# same inputs give the same bits, which the log reports
+EXPORT_ATOL = 1e-3
+# phase 32's exports: (tag, model, switch, its value, the op it is counted
+# by, that op's launches a call). The switch is a module attribute the trace
+# reads (`switched`): IMTPU_PART_ATTN "all" takes kernel 3 at eval,
+# IMTPU_FLASH_ATTN "1" kernels 12 and 13
+EXPORTS = (("32a", "map_convnext_tiny", None, None, "ln_mlp_fwd", sum(STAGE_DEPTHS)),
+           ("32b", GA_CSWIN, None, None, "stripe_attn_fwd", CSWIN_LAUNCHES),
+           ("32c", MAXVIT, "IMTPU_PART_ATTN", "all", "partition_attn_fwd", MAXVIT_LAUNCHES),
+           ("32c", MAXVIT, "IMTPU_FLASH_ATTN", "1", "window_attn_heads_fwd",
+            MAXVIT_FLASH_LAUNCHES),
+           ("32c", GA_CSWIN, "IMTPU_FLASH_ATTN", "1", "window_attn_fwd", CSWIN_FLASH_LAUNCHES))
+# the phase-4 build of each model: map_convnext_tiny with unit layer scales
+EXPORT_MODEL_KW = {"map_convnext_tiny": dict(ls_init_value=1.0)}
+# what the child that loads the programs must not import: the model code
+MODEL_CODE = ("imagenet_models_tpu_torch.models", "imagenet_models_tpu_torch.nn.layers",
+              "imagenet_models_tpu_torch.nn.heads", "imagenet_models_tpu_torch.nn.ga_head",
+              "imagenet_models_tpu_torch.nn.vit")
+
+
+def op_counters() -> dict:
+    """The wrapper of each `imtpu::` op by op name; each counts its launches."""
+    from imagenet_models_tpu_torch.ops import convnext_block as cb
+    from imagenet_models_tpu_torch.ops import flash_attention as fa
+    from imagenet_models_tpu_torch.ops import partition_attention as pa
+    from imagenet_models_tpu_torch.ops import stripe_attention as sa
+
+    return {"ln_mlp_fwd": cb.fused_ln_mlp, "partition_attn_fwd": pa.fused_partition_attention,
+            "stripe_attn_fwd": sa.fused_stripe_attention,
+            "window_attn_fwd": fa.fused_window_attention,
+            "window_attn_heads_fwd": fa.fused_window_attention_heads}
+
+
+@contextlib.contextmanager
+def switched(switch, value):
+    """A switch of `switch_attr`'s, or IMTPU_PART_ATTN
+    (`ops.window_attention._PART_ATTN`), at `value` inside the block and put
+    back after it; nothing where `switch` is None."""
+    if switch is None:
+        yield
+        return
+    if switch == "IMTPU_PART_ATTN":
+        from imagenet_models_tpu_torch.ops import window_attention as wa_ops
+
+        module, attr = wa_ops, "_PART_ATTN"
+    else:
+        module, attr = switch_attr(switch)
+    old = getattr(module, attr)
+    setattr(module, attr, value)
+    try:
+        yield
+    finally:
+        setattr(module, attr, old)
+
+
+def export_model(model, name: str, switch, value, batch: int, path: str) -> tuple:
+    """The serving function of `model` (`name`) exported on the card at
+    `batch` with `switch` at `value` (put back after), written to `path`
+    with a sidecar that lists its ops. Returns (seconds to export, the
+    program's imtpu ops)."""
+    from imagenet_models_tpu_torch import default_cfg
+    from imagenet_models_tpu_torch.ops.library import program_ops
+    from imagenet_models_tpu_torch.serving import export_serving, write_artifact
+
+    cfg = default_cfg(name)
+    with switched(switch, value):
+        t0 = time.perf_counter()
+        exported = export_serving(model, batch, IMG, cfg["mean"], cfg["std"])
+        seconds = time.perf_counter() - t0
+    ops = program_ops(exported)
+    write_artifact(exported, path, {"model": name, "batch_size": batch, "img_size": IMG,
+                                    "switch": switch, "value": value, "ops": ops})
+    return seconds, ops
+
+
+def serving_export(card: str) -> dict:
+    """Phase 32a-c: each of EXPORTS exported at B=8 on the card (each model
+    built once, as the serving phases build it: bf16, seed SEED), its live
+    serving function's logits and launches a call recorded on fixed uint8
+    images; one child process (`--phase32`) loads every program with torch
+    and the op library alone and holds each to its live function and
+    launches, while map_convnext_tiny's and ga_cswin_tiny's programs are
+    exported at B=256; those are then reloaded and timed against their
+    live eager models in turns."""
+    import tempfile
+
     import torch
+
+    from imagenet_models_tpu_torch import create_model, default_cfg
+    from imagenet_models_tpu_torch.serving import load_artifact, make_serving_fn
+
+    counters = op_counters()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 32)
+    images = torch.randint(0, 256, (EXPORT_BATCH, IMG, IMG, 3), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+    rows, models = [], {}
+    timed = ("map_convnext_tiny", GA_CSWIN)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export-") as tmp:
+        for i, (tag, name, switch, value, op, per_call) in enumerate(EXPORTS):
+            if name not in models:
+                models[name] = create_model(name, dtype=torch.bfloat16,
+                                            generator=torch.Generator().manual_seed(SEED),
+                                            **EXPORT_MODEL_KW.get(name, {}))
+            model = models[name]
+            path = str(Path(tmp) / f"{i}.pt2")
+            seconds, ops = export_model(model, name, switch, value, EXPORT_BATCH, path)
+            for c in counters.values():
+                c.launches = 0
+            cfg = default_cfg(name)
+            with switched(switch, value):
+                live = make_serving_fn(model, cfg["mean"], cfg["std"])(images)
+            torch.cuda.synchronize()
+            launches = {k: c.launches for k, c in counters.items()}
+            torch.save({"images": images.cpu(), "logits": live.cpu()}, path + ".ref")
+            rows.append({"tag": tag, "model": name, "switch": switch, "value": value, "op": op,
+                         "export_s": seconds, "ops": ops, "live_launches": launches})
+            log(f"[export] {tag} {name}" + (f" ({switch}={value})" if switch else "")
+                + f": exported at B={EXPORT_BATCH} in {seconds:.1f} s, ops {ops}; live "
+                f"launches a call {({k: v for k, v in launches.items() if v})}")
+            if ops != [f"imtpu::{op}"] or launches[op] != per_call:
+                raise AssertionError(f"phase {tag}: {name} exported {ops} and launched {launches} "
+                                     f"live, not imtpu::{op} {per_call} times")
+        for name in set(models) - set(timed):
+            del models[name]
+        torch.cuda.empty_cache()
+
+        # the loader runs while the programs to time are exported
+        t0 = time.perf_counter()
+        child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--phase32", tmp],
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            bench_paths = {}
+            for name in timed:
+                bench_paths[name] = str(Path(tmp) / f"{name}-b{BENCH_BATCH}.pt2")
+                export_model(models[name], name, None, None, BENCH_BATCH, bench_paths[name])
+            out, err = child.communicate(timeout=900)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        if child.returncode != 0:
+            raise AssertionError(f"phase 32's loader exited {child.returncode}:\n{out[-3000:]}\n"
+                                 f"{err[-3000:]}")
+        loaded = json.loads(out.strip().splitlines()[-1])
+        log(f"[export] the loader (torch and the op library alone): {loaded['seconds']:.1f} s "
+            f"in the child, {time.perf_counter() - t0:.1f} s with the B={BENCH_BATCH} exports "
+            f"beside it; model code it imported: {loaded['model_code']}")
+        if loaded["model_code"]:
+            raise AssertionError(f"loading a program imported model code: {loaded['model_code']}")
+        for row, got in zip(rows, loaded["programs"], strict=True):
+            row.update(got)
+            want = row["live_launches"]
+            log(f"[export] {row['tag']} {row['model']} reloaded in {got['load_s']:.1f} s (first "
+                f"call {got['first_call_s']:.1f} s): max|program - live| {got['max_abs_err']:.4g} "
+                f"(tol {EXPORT_ATOL}; bit-equal {got['bit_equal']}), launches a call "
+                f"{[{k: v for k, v in n.items() if v} for n in got['launches']]}")
+            if not (got["finite"] and got["max_abs_err"] <= EXPORT_ATOL
+                    and got["launches"] == [want, want]):
+                raise AssertionError(f"phase {row['tag']}: the reloaded {row['model']} disagrees "
+                                     f"with its live function: {got}")
+
+        timing = {}
+        for name in timed:
+            program = load_artifact(bench_paths[name])[0].module()
+            cfg = default_cfg(name)
+            live = make_serving_fn(models[name], cfg["mean"], cfg["std"])
+            x = torch.randint(0, 256, (BENCH_BATCH, IMG, IMG, 3), generator=gen, device="cuda",
+                              dtype=torch.uint8)
+
+            def exported(program=program, x=x):
+                with torch.inference_mode():
+                    program(x)
+            t = in_turns({"eager": lambda: live(x), "exported": exported}, BENCH_ITERS,
+                         order=("eager", "exported"))
+            runs = {k: [BENCH_BATCH * 1000.0 / ms for ms in v] for k, v in t.items()}
+            timing[name] = {"img_s": {k: sum(v) / 2 for k, v in runs.items()}, "turns": runs}
+            log(f"[throughput] {name} eval B={BENCH_BATCH} {IMG}px bf16: reloaded program "
+                f"{timing[name]['img_s']['exported']:.1f} img/s, live eager model "
+                f"{timing[name]['img_s']['eager']:.1f} (turns eager,exported,exported,eager: "
+                + ",".join(f"{r:.1f}" for r in (runs["eager"][0], runs["exported"][0],
+                                                runs["exported"][1], runs["eager"][1]))
+                + f") on {card}")
+            del program, live, exported, models[name]
+            torch.cuda.empty_cache()
+    return {"programs": rows, "loader_s": loaded["seconds"], "eval_b256": timing}
+
+
+def phase32_child(directory: str) -> int:
+    """Phase 32's loader: every `*.pt2` program in `directory` reloaded with
+    torch and the op library alone (`serving.load_artifact`), run twice on
+    its `.ref` images with each op's launches counted, its logits held to
+    the `.ref` ones; one JSON line, with the model code that reached
+    sys.modules (none is expected)."""
+    import torch
+
+    from imagenet_models_tpu_torch.serving import load_artifact
+
+    started = time.perf_counter()
+    counters = op_counters()
+    programs = []
+    for path in sorted(Path(directory).glob("[0-9]*.pt2"), key=lambda p: int(p.stem)):
+        t0 = time.perf_counter()
+        program, _ = load_artifact(str(path))
+        ref = torch.load(str(path) + ".ref")
+        run = program.module()
+        images = ref["images"].cuda()
+        load_s = time.perf_counter() - t0
+        launches, calls_s = [], []
+        for _ in range(2):
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                logits = run(images)
+            torch.cuda.synchronize()
+            calls_s.append(time.perf_counter() - t0)
+            launches.append({k: c.launches for k, c in counters.items()})
+        logits = logits.float().cpu()
+        programs.append({"max_abs_err": (logits - ref["logits"]).abs().max().item(),
+                         "bit_equal": torch.equal(logits, ref["logits"]),
+                         "finite": bool(torch.isfinite(logits).all()), "launches": launches,
+                         "load_s": load_s, "first_call_s": calls_s[0]})
+        del program, run
+    model_code = sorted(m for m in sys.modules if m.startswith(MODEL_CODE))
+    print(json.dumps({"programs": programs, "model_code": model_code,
+                      "seconds": time.perf_counter() - started}))
+    return 0
+
+
+def set_gelu(value: str) -> None:
+    """IMTPU_GELU and IMTPU_XLA_GELU both at `value`, through the attributes
+    they are read into (`ops.convnext_block._GELU_ENV`,
+    `nn.layers._XLA_GELU_ENV`)."""
+    from imagenet_models_tpu_torch.nn import layers
+    from imagenet_models_tpu_torch.ops import convnext_block as cb
+
+    cb._GELU_ENV = layers._XLA_GELU_ENV = value
+
+
+def exact_gelu_train(card: str) -> dict:
+    """Phase 32d: map_convnext_tiny's train step at B=128 with IMTPU_GELU and
+    IMTPU_XLA_GELU at "exact": one kernel-path step (18 launches each of
+    kernels 1 and 2, every one on its exact instance) against one plain-path
+    step from a deep copy of the state, by phase 7's gates (loss and grad
+    norm, the gradient groups against each other and against an fp32
+    model's at "exact" too); then train img/s at "exact" and at the default
+    (the fast fit) on the kernel path, in GELU_TURNS's turns, and the device
+    time a step of both (torch.profiler)."""
+    import torch
+
+    from imagenet_models_tpu_torch.ops import convnext_block as cb
+    from imagenet_models_tpu_torch.train.state import make_train_step
+
+    n_blocks = sum(STAGE_DEPTHS)
+    state, opt, loss_fn = make_trainer()
+    plain_state = copy.deepcopy(state)
+    kernel_opt, plain_opt = FirstGrads(opt), FirstGrads(opt)
+    step = make_train_step(state.model, kernel_opt, loss_fn, dec_lam=-0.8, ema_decay=0.9999)
+    plain_step = make_train_step(plain_state.model, plain_opt, loss_fn, dec_lam=-0.8,
+                                 ema_decay=0.9999, use_kernel=False)
+    images, targets = train_batch()
+    gen = torch.Generator(device="cuda")
+    impls = {"fwd": [], "bwd": []}
+    inits = cb._Fwd.__init__, cb._Bwd.__init__
+
+    def fwd_init(self, *a, _init=inits[0]):
+        impls["fwd"].append(a[-1])
+        _init(self, *a)
+
+    def bwd_init(self, *a, _init=inits[1]):
+        impls["bwd"].append(a[-1])
+        _init(self, *a)
+
+    set_gelu("exact")
+    try:
+        cb._Fwd.__init__, cb._Bwd.__init__ = fwd_init, bwd_init
+        cb.fused_ln_mlp.launches = cb.fused_ln_mlp_bwd.launches = 0
+        torch.manual_seed(SEED + 10)
+        state, m = step(state, images, targets, gen.manual_seed(SEED + 10))
+        torch.cuda.synchronize()
+        cb._Fwd.__init__, cb._Bwd.__init__ = inits
+        launches = {"fwd": cb.fused_ln_mlp.launches, "bwd": cb.fused_ln_mlp_bwd.launches}
+        log(f"[exact-gelu-train] one kernel-path step at B={TRAIN_BATCH}: launches {launches}, "
+            f"GELU of kernel 1's calls {sorted(set(impls['fwd']))}, of kernel 2's "
+            f"{sorted(set(impls['bwd']))}")
+        if (launches != {"fwd": n_blocks, "bwd": n_blocks}
+                or set(impls["fwd"]) != {"exact"} or set(impls["bwd"]) != {"exact"}):
+            raise AssertionError(f"phase 32d: expected {n_blocks} launches of kernels 1 and 2 "
+                                 f"on their exact instances, got {launches}, {impls}")
+        m = {k: v.item() for k, v in m.items()}
+        torch.manual_seed(SEED + 10)
+        plain_state, pm = plain_step(plain_state, images, targets, gen.manual_seed(SEED + 10))
+        pm = {k: v.item() for k, v in pm.items()}
+        loss_rel = abs(m["loss"] - pm["loss"]) / abs(pm["loss"])
+        gnorm_rel = abs(m["grad_norm"] - pm["grad_norm"]) / abs(pm["grad_norm"])
+        log(f"[exact-gelu-train] first step, kernel vs plain path: loss {m['loss']:.6f} vs "
+            f"{pm['loss']:.6f} (rel {loss_rel:.3g}, tol {TRAIN_LOSS_RTOL}); grad_norm "
+            f"{m['grad_norm']:.6f} vs {pm['grad_norm']:.6f} (rel {gnorm_rel:.3g}, tol "
+            f"{TRAIN_GNORM_RTOL})")
+        if not (loss_rel <= TRAIN_LOSS_RTOL and gnorm_rel <= TRAIN_GNORM_RTOL):
+            raise AssertionError("phase 32d: the exact-GELU kernel step disagrees with the plain "
+                                 "path")
+        grads = compare_grads(kernel_opt.grads, plain_opt.grads,
+                              fp32_grads(loss_fn, images, targets), tag="exact-gelu-")
+        kernel_opt.grads = plain_opt.grads = {}
+        del plain_state, plain_step
+        torch.cuda.empty_cache()
+
+        def arm(value):
+            def run():
+                set_gelu(value)
+                step(state, images, targets, gen)
+            return run
+        fns = {"exact": arm("exact"), "fast": arm("")}
+        for fn in fns.values():
+            for _ in range(GELU_TURNS["warmup"]):
+                fn()
+        t, sequence = {"fast": [], "exact": []}, []
+        for _ in range(GELU_TURNS["rounds"]):
+            for k in ("fast", "exact", "exact", "fast"):
+                t[k].append(cuda_ms(fns[k], GELU_TURNS["iters"]))
+                sequence.append(TRAIN_BATCH * 1000.0 / t[k][-1])
+        device = {k: sum(device_ms_by_kernel(fns[k], calls=2).values()) for k in ("fast", "exact")}
+    finally:
+        cb._Fwd.__init__, cb._Bwd.__init__ = inits
+        set_gelu("")
+    runs = {k: [TRAIN_BATCH * 1000.0 / ms for ms in v] for k, v in t.items()}
+    img_s = {k: sum(v) / len(v) for k, v in runs.items()}
+    log(f"[train-throughput] map_convnext_tiny (LAMB, EMA) train B={TRAIN_BATCH} {IMG}px bf16 "
+        f"on the kernel path: IMTPU_GELU/IMTPU_XLA_GELU exact {img_s['exact']:.1f} img/s, "
+        f"default (fast) {img_s['fast']:.1f} ({GELU_TURNS['iters']} steps a turn; turns "
+        f"fast,exact,exact,fast x{GELU_TURNS['rounds']}: "
+        + ",".join(f"{r:.1f}" for r in sequence) + f"); device time a step (profiler) exact "
+        f"{device['exact']:.3f} ms, fast {device['fast']:.3f} on {card}")
+    return {"launches": launches, "loss": m["loss"], "plain_loss": pm["loss"],
+            "loss_rel": loss_rel, "grad_norm_rel": gnorm_rel, "grads_rel": grads,
+            "train_img_s": img_s, "train_img_s_turns": runs, "device_ms": device}
+
+
 def main() -> int:
     import torch
 
@@ -6000,7 +6372,7 @@ def main() -> int:
     attn_rows, attn_times, attn_evals, attn_extra = check_attention(card, builds)
     mv_serve = serve_maxvit(card)
     torch.cuda.empty_cache()
-    mv_kernel, mv_plain, images, targets, mv_launches, mv_check = train_maxvit()
+    mv_kernel, mv_plain, images, targets, mv_launches, mv_check = train_maxvit(steps=OPT_IN_STEPS)
     mv_bench, mv_runs = train_throughput(mv_kernel, mv_plain, images, targets, card,
                                          f"{MAXVIT} (LAMB, clip 1.0, drop-path 0.2)")
     del mv_plain
@@ -6124,6 +6496,12 @@ def main() -> int:
     # gradient checkpointing, and the IMTPU_PART_ATTN / IMTPU_STRIPE_MAXH arms
     finetune = finetune_path(card, stripe_rows)
     lap("31")
+
+    # phase 32: the serving export through the forward kernels' custom ops,
+    # and the exact-GELU train step
+    export = serving_export(card)
+    export["exact_gelu"] = exact_gelu_train(card)
+    lap("32")
 
     def entry(name, source, replaces, launches, errs, times, weights):
         return {"name": name, "route": "cuda",
@@ -6309,6 +6687,7 @@ def main() -> int:
                 pit_per, **pit},
         "fastervit": fastervit,
         "finetune": finetune,
+        "serving_export": export,
         "kernels": kernels}, indent=2))
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -6318,6 +6697,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase32"]:  # phase 32's loader of the exported programs
+        sys.exit(phase32_child(sys.argv[2]))
     if sys.argv[1:2] == ["--phase28"]:  # a child process of phase 28
         sys.exit(phase28_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--phase26"]:  # the child process of phase 26's trace

@@ -8,14 +8,18 @@ imports `torch` and never `jax`, `flax` or anything of `imagenet_models_tpu`.
 Hot kernels are written by hand for Hopper (`csrc/`) and built at first use on
 a machine with `nvcc`. On CPU tensors every kernel wrapper runs its plain
 PyTorch twin instead, so the package imports and runs on a CPU-only host.
+
+Importing the package imports no model: the registry imports `models`
+(which registers the factories) when it is first asked for one, so a serving
+host that imports only the kernels' custom ops (`serving.load_artifact`)
+loads no model code.
 """
 
 __version__ = "0.1.0"
 
-from imagenet_models_tpu_torch.core.registry import (  # noqa: F401
+from imagenet_models_tpu_torch.core.registry import (  # noqa: F401,E402
     create_model,
     default_cfg,
     list_models,
     register_model,
 )
-from imagenet_models_tpu_torch import models  # noqa: F401,E402  (registers the factories)

@@ -9,7 +9,7 @@ relative-position tables are re-resolved to the model's input size first.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -17,15 +17,18 @@ from imagenet_models_tpu_torch.ckpt.convert import (load_reference_weights,
                                                     state_dict_from_checkpoint)
 
 
-def find_local_pretrained(model_name: str) -> Optional[str]:
-    """Search, in order, $IMTPU_PRETRAINED_DIR, ./pretrained and
-    ~/.cache/imtpu/checkpoints for <model_name>.pth.tar / .pth / .pt;
-    None when absent."""
+def pretrained_dirs() -> List[str]:
+    """Where released weights are looked for, in order: $IMTPU_PRETRAINED_DIR
+    (when set), ./pretrained and ~/.cache/imtpu/checkpoints."""
     dirs = [os.environ.get("IMTPU_PRETRAINED_DIR", ""), "pretrained",
             os.path.expanduser("~/.cache/imtpu/checkpoints")]
-    for d in dirs:
-        if not d:
-            continue
+    return [d for d in dirs if d]
+
+
+def find_local_pretrained(model_name: str) -> Optional[str]:
+    """Search `pretrained_dirs()` for <model_name>.pth.tar / .pth / .pt;
+    None when absent."""
+    for d in pretrained_dirs():
         for ext in (".pth.tar", ".pth", ".pt"):
             p = os.path.join(d, model_name + ext)
             if os.path.isfile(p):

@@ -1,5 +1,7 @@
-"""The port's command-line entries: `python -m imagenet_models_tpu_torch.cli.train`
-and `python -m imagenet_models_tpu_torch.cli.validate`, and what both use."""
+"""The port's command-line entries, each run as `python -m
+imagenet_models_tpu_torch.cli.<entry>`: `train`, `validate`,
+`train_with_script` (the recipe presets), `export_serving` and
+`golden_eval`; and what they share."""
 
 from __future__ import annotations
 

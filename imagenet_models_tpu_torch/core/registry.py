@@ -31,6 +31,14 @@ def register_default_cfg(name: str, cfg: Dict[str, Any]) -> None:
     _DEFAULT_CFGS[name] = dict(cfg)
 
 
+def _registered() -> Dict[str, Callable[..., Any]]:
+    """The registry, after importing `models` (whose modules register their
+    factories and configs) the first time a name is looked up."""
+    import imagenet_models_tpu_torch.models  # noqa: F401
+
+    return _REGISTRY
+
+
 def default_cfg(name: str) -> Dict[str, Any]:
     """Data config for a model: input_size, crop_pct, interpolation, mean/std."""
     base = {
@@ -42,6 +50,7 @@ def default_cfg(name: str) -> Dict[str, Any]:
         "std": IMAGENET_STD,
         "num_classes": 1000,
     }
+    _registered()
     base.update(_DEFAULT_CFGS.get(name, {}))
     return base
 
@@ -65,7 +74,7 @@ def create_model(model_name: str, device: Optional[torch.device | str] = None, *
     initialised on the CPU, so a seeded `generator` gives the same weights on
     every machine, and then moved to `device`.
     """
-    if model_name not in _REGISTRY:
+    if model_name not in _registered():
         raise KeyError(
             f"Unknown model {model_name!r}. Known: {', '.join(sorted(_REGISTRY))}")
     dev = resolve_device(device)
@@ -74,7 +83,7 @@ def create_model(model_name: str, device: Optional[torch.device | str] = None, *
 
 
 def list_models(filter: str = "") -> List[str]:
-    names = sorted(_REGISTRY)
+    names = sorted(_registered())
     if filter:
         names = [n for n in names if fnmatch.fnmatch(n, filter)]
     return names

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -28,7 +29,7 @@ from torch import nn
 from imagenet_models_tpu_torch.nn import checkpoint as checkpointing
 from imagenet_models_tpu_torch.ops import batch_norm as bn_ops
 from imagenet_models_tpu_torch.parallel import mesh
-from imagenet_models_tpu_torch.ops.convnext_block import FastGelu
+from imagenet_models_tpu_torch.ops.convnext_block import FastGelu, check_gelu_env
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -45,13 +46,22 @@ def gelu_fast(x: torch.Tensor) -> torch.Tensor:
     return FastGelu.apply(x.float()).to(x.dtype)
 
 
+# IMTPU_XLA_GELU (nn/layers.py:36-40), read once at import: "exact" or "fast"
+# forces that GELU on the heads' and the transformer MLPs' plain activations
+# for both modes; "" = the fast fit in training, exact erf at eval.
+_XLA_GELU_ENV = os.environ.get("IMTPU_XLA_GELU", "")
+
+
 def resolve_act(act: Callable, deterministic: bool) -> Callable:
-    """The activation for a mode: the exact GELU becomes `gelu_fast` in
-    training (deterministic=False); any other activation is returned as is
-    (nn/layers.py:54-61)."""
-    if act is gelu and not deterministic:
-        return gelu_fast
-    return act
+    """The activation for a mode (nn/layers.py:54-61): the exact GELU becomes
+    `gelu_fast` in training (deterministic=False), or what IMTPU_XLA_GELU
+    (`_XLA_GELU_ENV`) forces for both modes; any other activation is returned
+    as is."""
+    if act is not gelu:
+        return act
+    impl = check_gelu_env("IMTPU_XLA_GELU", _XLA_GELU_ENV) or (
+        "exact" if deterministic else "fast")
+    return gelu_fast if impl == "fast" else gelu
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:

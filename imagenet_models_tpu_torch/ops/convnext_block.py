@@ -14,7 +14,7 @@ stage `ln_mlp_bwd_pipeline`), joined by the autograd function
 
 GELU: "exact" (erf) at eval, "fast" (the single-segment minimax fit of erf,
 and of the GELU derivative in the backward) in training, as
-`resolve_gelu_impl` picks it.
+`resolve_gelu_impl` picks it; IMTPU_GELU forces one of the two for both.
 
 The transformer blocks' norm2 + MLP pair takes the same kernels with a unit
 layer scale through `ln_mlp_apply`, where `use_transformer_lnmlp` allows it
@@ -58,6 +58,11 @@ _TLNMLP = os.environ.get("IMTPU_TLNMLP", "0")
 _FUSED_BWD = os.environ.get("IMTPU_FUSED_BWD", "1") != "0"
 _PALLAS_MIN_C = int(os.environ.get("IMTPU_PALLAS_MIN_C", "0"))
 _REMAT = os.environ.get("IMTPU_BLOCK_REMAT", "0") != "0"
+# IMTPU_GELU (ops/convnext_block.py:141-146), read once at import: "exact" or
+# "fast" forces that GELU for both modes, in training too (JAX's
+# scripts/convergence_gelu_ab.sh sets "exact"); "" = JAX's default, the fast
+# fit in training and exact erf at eval. `resolve_gelu_impl` reads it.
+_GELU_ENV = os.environ.get("IMTPU_GELU", "")
 
 
 def _horner(t: torch.Tensor, coefs) -> torch.Tensor:
@@ -105,9 +110,21 @@ def gelu_grad(x: torch.Tensor) -> torch.Tensor:
 
 
 def resolve_gelu_impl(training: bool) -> str:
-    """The kernels' GELU: the fast fit in training, exact erf at eval
-    (ops/convnext_block.py:145)."""
-    return "fast" if training else "exact"
+    """The kernels' GELU (ops/convnext_block.py:141-146): IMTPU_GELU
+    (`_GELU_ENV`), when set, for both modes; else the fast fit in training
+    and exact erf at eval. It covers kernels 1 and 2 (`gelu_fast` 0 is their
+    exact instance) and the blocks' plain path alike."""
+    return check_gelu_env("IMTPU_GELU", _GELU_ENV) or ("fast" if training else "exact")
+
+
+def check_gelu_env(name: str, value: str) -> str:
+    """`value` of the GELU switch `name` when it is one the port takes ("",
+    or one of GELU_IMPLS); raises on JAX's other values."""
+    if value and value not in GELU_IMPLS:
+        raise ValueError(f"{name}={value!r} is not ported: the port takes {GELU_IMPLS} "
+                         f"(JAX's 'poly' is a slower fit and 'relu' a timing probe with "
+                         f"wrong numerics)")
+    return value
 
 
 class FastGelu(torch.autograd.Function):
@@ -334,9 +351,40 @@ def ln_mlp_fwd_pipeline(h: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma,
     return call
 
 
+@torch.library.custom_op("imtpu::ln_mlp_fwd", mutates_args=())
+def _ln_mlp_fwd_op(h: torch.Tensor, ln_s: torch.Tensor, ln_b: torch.Tensor, w1: torch.Tensor,
+                   b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, gamma: torch.Tensor,
+                   eps: float, gelu_impl: str) -> torch.Tensor:
+    """The op `imtpu::ln_mlp_fwd`: kernel 1's checks, workspace, launch and
+    count (`fused_ln_mlp.launches`). Raises on CPU tensors: there is no CPU
+    registration, the caller picks the twin for those."""
+    call = _Fwd(h, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, gelu_impl)
+    if call.n == 0:
+        return call.out
+    call.run()
+    fused_ln_mlp.launches += 1
+    return call.out
+
+
+@_ln_mlp_fwd_op.register_fake
+def _ln_mlp_fwd_fake(h, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, gelu_impl):
+    """What kernel 1 writes, from shapes alone: contiguous (N, C) tokens of
+    h's dtype."""
+    _check_gelu(gelu_impl)
+    if h.dim() != 2 or w1.shape != (w1.shape[0], h.shape[1]):
+        raise ValueError(f"imtpu::ln_mlp_fwd takes (N, C) tokens and a (hidden, C) w1, got "
+                         f"{tuple(h.shape)} and {tuple(w1.shape)}")
+    return h.new_empty(h.shape)
+
+
+_LN_MLP_FWD = torch.ops.imtpu.ln_mlp_fwd.default
+
+
 def fused_ln_mlp(h: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma,
                  eps: float = 1e-6, gelu_impl: str = "exact") -> torch.Tensor:
-    """Kernel 1, the CUDA LN+MLP forward, on (N, C) bf16 or fp32 tokens.
+    """Kernel 1, the CUDA LN+MLP forward, on (N, C) bf16 or fp32 tokens,
+    through the custom op `imtpu::ln_mlp_fwd`, so that `torch.export`
+    traces it (by its fake function) into one node of the graph.
 
     Replaces `_fused_ln_mlp_pallas` (ops/convnext_block.py:341). Weights in
     torch Linear layout, (4C, C) and (C, 4C), cast to h.dtype here as JAX
@@ -346,12 +394,7 @@ def fused_ln_mlp(h: torch.Tensor, ln_s, ln_b, w1, b1, w2, b2, gamma,
     anything it does not take, including CPU tensors. `fused_ln_mlp.launches`
     counts calls that launched it.
     """
-    call = _Fwd(h, ln_s, ln_b, w1, b1, w2, b2, gamma, eps, gelu_impl)
-    if call.n == 0:
-        return call.out
-    call.run()
-    fused_ln_mlp.launches += 1
-    return call.out
+    return _LN_MLP_FWD(h, ln_s, ln_b, w1, b1, w2, b2, gamma, float(eps), gelu_impl)
 
 
 fused_ln_mlp.launches = 0

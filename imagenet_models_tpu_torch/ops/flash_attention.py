@@ -116,12 +116,8 @@ def _check_operands(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     model's shapes is of the order of the host's."""
     if not q.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors; CPU tensors go to the plain twin")
+    _check_shapes(name, q, k, v, ndim)
     dtype, shape = q.dtype, q.shape
-    if dtype not in _DTYPES:
-        raise TypeError(f"{name} takes bf16 or fp32 q, k, v, got {dtype}")
-    if len(shape) != ndim or k.shape != shape or v.shape != shape:
-        raise ValueError(f"{name} takes q, k, v of one {ndim}-d shape, got "
-                         f"{tuple(shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     dev = q.get_device()
     if k.dtype != dtype or v.dtype != dtype or k.get_device() != dev or v.get_device() != dev:
         raise ValueError(f"{name}: q, k and v must share a dtype and a device")
@@ -130,6 +126,16 @@ def _check_operands(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
             or (ptrs[0] | ptrs[1] | ptrs[2]) % 16):
         raise ValueError(f"{name} takes contiguous, 16-byte aligned q, k, v")
     return dev, ptrs, tuple(shape)
+
+
+def _check_shapes(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  ndim: int) -> None:
+    """The checks of `_check_operands` that read no data (a fake function's)."""
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name} takes bf16 or fp32 q, k, v, got {q.dtype}")
+    if q.dim() != ndim or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{name} takes q, k, v of one {ndim}-d shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
 
 
 def _check_window(name: str, supported: Callable[[int, int], int], n: int, d: int) -> None:
@@ -160,18 +166,12 @@ def _window_supported(n: int, d: int) -> int:
     return _kernels.window_attn_fwd_library().imt_window_attn_fwd_supported(n, d)
 
 
-def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Kernel 12, the CUDA fused window attention, on contiguous bf16 or fp32
-    (BW, N, D) q, k, v (q pre-scaled) and an optional (BW, N, N) bias (used in
-    fp32); returns (BW, N, D) in q's dtype.
-
-    Replaces `fused_window_attention` (ops/flash_attention.py:64). In bf16
-    its products run on the tensor cores, whose fp32 sums take another order
-    than the twin's, so the two may round p or the output to neighbouring
-    bf16 values (fp32 keeps the twin's arithmetic). Raises on anything the
-    kernel does not take, CPU tensors included.
-    `fused_window_attention.launches` counts launches."""
+@torch.library.custom_op("imtpu::window_attn_fwd", mutates_args=())
+def _window_attn_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """The op `imtpu::window_attn_fwd`: kernel 12's checks, launch and count
+    (`fused_window_attention.launches`). Raises on CPU tensors: there is no
+    CPU registration, the caller picks the twin for those."""
     name = "fused_window_attention"
     dev, (pq, pk, pv), (bw, n, d) = _check_operands(name, q, k, v, 3)
     lib = _kernels.window_attn_fwd_library()
@@ -189,21 +189,43 @@ def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+@_window_attn_fwd_op.register_fake
+def _window_attn_fwd_fake(q, k, v, bias):
+    """What kernel 12 writes, from shapes alone: contiguous (BW, N, D) of
+    q's dtype."""
+    _check_shapes("fused_window_attention", q, k, v, 3)
+    return q.new_empty(q.shape)
+
+
+_WINDOW_ATTN_FWD = torch.ops.imtpu.window_attn_fwd.default
+
+
+def fused_window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel 12, the CUDA fused window attention, on contiguous bf16 or fp32
+    (BW, N, D) q, k, v (q pre-scaled) and an optional (BW, N, N) bias (used in
+    fp32); returns (BW, N, D) in q's dtype. Called through the custom op
+    `imtpu::window_attn_fwd`, which `torch.export` traces by its fake
+    function.
+
+    Replaces `fused_window_attention` (ops/flash_attention.py:64). In bf16
+    its products run on the tensor cores, whose fp32 sums take another order
+    than the twin's, so the two may round p or the output to neighbouring
+    bf16 values (fp32 keeps the twin's arithmetic). Raises on anything the
+    kernel does not take, CPU tensors included.
+    `fused_window_attention.launches` counts launches."""
+    return _WINDOW_ATTN_FWD(q, k, v, bias)
+
+
 fused_window_attention.launches = 0
 
 
-def fused_window_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                 bias: torch.Tensor) -> torch.Tensor:
-    """Kernel 13, the CUDA fused window attention with a per-head shared bias,
-    on contiguous bf16 or fp32 (BW, H, N, D) q, k, v (q pre-scaled) and an
-    (H, N, N) bias (used in fp32); returns (BW, H, N, D) in q's dtype.
-
-    Replaces `fused_window_attention_heads` (ops/flash_attention.py:134).
-    In bf16 its products run on the tensor cores, whose fp32 sums take
-    another order than the twin's, so the two may round p or the output to
-    neighbouring bf16 values (fp32 keeps the twin's arithmetic). Raises on
-    anything the kernel does not take, CPU tensors included.
-    `fused_window_attention_heads.launches` counts launches."""
+@torch.library.custom_op("imtpu::window_attn_heads_fwd", mutates_args=())
+def _window_attn_heads_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              bias: torch.Tensor) -> torch.Tensor:
+    """The op `imtpu::window_attn_heads_fwd`: kernel 13's checks, launch and
+    count (`fused_window_attention_heads.launches`). Raises on CPU tensors:
+    there is no CPU registration, the caller picks the twin for those."""
     name = "fused_window_attention_heads"
     dev, (pq, pk, pv), (bw, heads, n, d) = _check_operands(name, q, k, v, 4)
     lib = _kernels.window_attn_heads_fwd_library()
@@ -217,6 +239,34 @@ def fused_window_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     _raise_on(lib, err, "window_attn_heads_fwd")
     fused_window_attention_heads.launches += 1
     return out
+
+
+@_window_attn_heads_fwd_op.register_fake
+def _window_attn_heads_fwd_fake(q, k, v, bias):
+    """What kernel 13 writes, from shapes alone: contiguous (BW, H, N, D) of
+    q's dtype."""
+    _check_shapes("fused_window_attention_heads", q, k, v, 4)
+    return q.new_empty(q.shape)
+
+
+_WINDOW_ATTN_HEADS_FWD = torch.ops.imtpu.window_attn_heads_fwd.default
+
+
+def fused_window_attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 bias: torch.Tensor) -> torch.Tensor:
+    """Kernel 13, the CUDA fused window attention with a per-head shared bias,
+    on contiguous bf16 or fp32 (BW, H, N, D) q, k, v (q pre-scaled) and an
+    (H, N, N) bias (used in fp32); returns (BW, H, N, D) in q's dtype. Called
+    through the custom op `imtpu::window_attn_heads_fwd`, which
+    `torch.export` traces by its fake function.
+
+    Replaces `fused_window_attention_heads` (ops/flash_attention.py:134).
+    In bf16 its products run on the tensor cores, whose fp32 sums take
+    another order than the twin's, so the two may round p or the output to
+    neighbouring bf16 values (fp32 keeps the twin's arithmetic). Raises on
+    anything the kernel does not take, CPU tensors included.
+    `fused_window_attention_heads.launches` counts launches."""
+    return _WINDOW_ATTN_HEADS_FWD(q, k, v, bias)
 
 
 fused_window_attention_heads.launches = 0

@@ -40,7 +40,7 @@ cores with no rounding to bf16, as the TPU kernels run fp32 operands.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -190,15 +190,12 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: {lib.imt_cuda_error_string(err).decode()}")
 
 
-def fused_partition_attention(qkv: torch.Tensor, bias: torch.Tensor, part_type: str, ps,
-                              nh: int) -> torch.Tensor:
-    """Kernel 3, the CUDA partition-attention forward, on a bf16 or fp32
-    (B, H, W, 3C) map and an fp32 (nh, T, T) bias; returns (B, H, W, C) in
-    the map's dtype.
-
-    Replaces `_fwd_pallas` (ops/partition_attention.py:286). Raises on
-    anything the kernel does not take, CPU tensors included.
-    `fused_partition_attention.launches` counts launches."""
+@torch.library.custom_op("imtpu::partition_attn_fwd", mutates_args=())
+def _partition_attn_fwd_op(qkv: torch.Tensor, bias: torch.Tensor, part_type: str,
+                           ps: Sequence[int], nh: int) -> torch.Tensor:
+    """The op `imtpu::partition_attn_fwd`: kernel 3's checks, launch and
+    count (`fused_partition_attention.launches`). Raises on CPU tensors:
+    there is no CPU registration, the caller picks the twin for those."""
     dev, bias, (b, h, w, c, ph, pw), suffix = _check_kernel_operands(
         "fused_partition_attention", qkv, bias, part_type, ps, nh)
     lib = _kernels.partition_attn_fwd_library()
@@ -211,6 +208,31 @@ def fused_partition_attention(qkv: torch.Tensor, bias: torch.Tensor, part_type: 
     _raise_on(lib, err, "partition_attn_fwd")
     fused_partition_attention.launches += 1
     return out
+
+
+@_partition_attn_fwd_op.register_fake
+def _partition_attn_fwd_fake(qkv, bias, part_type, ps, nh):
+    """What kernel 3 writes, from shapes alone: a contiguous (B, H, W, C)
+    map of qkv's dtype."""
+    (b, h, w, c, _, _), _ = _kernel_shape("fused_partition_attention", tuple(qkv.shape),
+                                          qkv.dtype, part_type, tuple(ps), nh, tuple(bias.shape))
+    return qkv.new_empty((b, h, w, c))
+
+
+_PARTITION_ATTN_FWD = torch.ops.imtpu.partition_attn_fwd.default
+
+
+def fused_partition_attention(qkv: torch.Tensor, bias: torch.Tensor, part_type: str, ps,
+                              nh: int) -> torch.Tensor:
+    """Kernel 3, the CUDA partition-attention forward, on a bf16 or fp32
+    (B, H, W, 3C) map and an fp32 (nh, T, T) bias; returns (B, H, W, C) in
+    the map's dtype. Called through the custom op `imtpu::partition_attn_fwd`,
+    which `torch.export` traces by its fake function.
+
+    Replaces `_fwd_pallas` (ops/partition_attention.py:286). Raises on
+    anything the kernel does not take, CPU tensors included.
+    `fused_partition_attention.launches` counts launches."""
+    return _PARTITION_ATTN_FWD(qkv, bias, part_type, ps, nh)
 
 
 fused_partition_attention.launches = 0

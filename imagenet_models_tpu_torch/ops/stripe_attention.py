@@ -245,16 +245,15 @@ def _bf16_scale(scale: float) -> float:
     return _scale_in(scale, torch.bfloat16)
 
 
-def fused_stripe_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w9: torch.Tensor,
-                           wb: torch.Tensor, ws: int, nh: int, scale: float) -> torch.Tensor:
-    """Kernel 5, the CUDA stripe-attention + LePE forward, on bf16 or fp32
-    (B, H, W, C) q, k, v maps (each may be a channel slice of a wider map) and
-    fp32 taps w9 (9, C) and bias wb (1, C); returns the contiguous
-    (B, H, W, C) map in q's dtype.
-
-    Replaces `_vs_fwd_pallas` (ops/stripe_attention.py:264). Raises on
-    anything the kernel does not take, CPU tensors included.
-    `fused_stripe_attention.launches` counts launches."""
+@torch.library.custom_op("imtpu::stripe_attn_fwd", mutates_args=())
+def _stripe_attn_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w9: torch.Tensor,
+                        wb: torch.Tensor, ws: int, nh: int, scale: float) -> torch.Tensor:
+    """The op `imtpu::stripe_attn_fwd`: kernel 5's layout decision (a
+    contiguous copy of a map it cannot read in place, `pixel_rows`), checks,
+    launch and count (`fused_stripe_attention.launches`). Raises on CPU
+    tensors: there is no CPU registration, the caller picks the twin for
+    those."""
+    q, k, v = pixel_rows(q), pixel_rows(k), pixel_rows(v)
     (ldq, ldk, ldv), w9, wb, (b, h, w, c) = _check_kernel_operands(
         "fused_stripe_attention", q, k, v, w9, wb, ws, nh)
     from imagenet_models_tpu_torch.ops._kernels import stripe_attn_fwd_library
@@ -272,6 +271,32 @@ def fused_stripe_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w9
     _raise_on(lib, err, "stripe_attn_fwd")
     fused_stripe_attention.launches += 1
     return out
+
+
+@_stripe_attn_fwd_op.register_fake
+def _stripe_attn_fwd_fake(q, k, v, w9, wb, ws, nh, scale):
+    """What kernel 5 writes, from shapes alone: a contiguous (B, H, W, C)
+    map of q's dtype."""
+    b, h, w, c = _check_geometry(q, k, v, ws, nh)
+    return q.new_empty((b, h, w, c))
+
+
+_STRIPE_ATTN_FWD = torch.ops.imtpu.stripe_attn_fwd.default
+
+
+def fused_stripe_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w9: torch.Tensor,
+                           wb: torch.Tensor, ws: int, nh: int, scale: float) -> torch.Tensor:
+    """Kernel 5, the CUDA stripe-attention + LePE forward, on bf16 or fp32
+    (B, H, W, C) q, k, v maps (each may be a channel slice of a wider map,
+    read in place when its pixel stride allows, else copied) and fp32 taps w9
+    (9, C) and bias wb (1, C); returns the contiguous (B, H, W, C) map in q's
+    dtype. Called through the custom op `imtpu::stripe_attn_fwd`, which
+    `torch.export` traces by its fake function.
+
+    Replaces `_vs_fwd_pallas` (ops/stripe_attention.py:264). Raises on
+    anything the kernel does not take, CPU tensors included.
+    `fused_stripe_attention.launches` counts launches."""
+    return _STRIPE_ATTN_FWD(q, k, v, w9, wb, ws, nh, float(scale))
 
 
 fused_stripe_attention.launches = 0
@@ -343,8 +368,8 @@ class StripeAttentionFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, w9, wb = ctx.saved_tensors
-        dq, dk, dv, dw9, dwb = fused_stripe_attention_bwd(q, k, v, w9, wb, pixel_rows(g),
-                                                          *ctx.geometry)
+        dq, dk, dv, dw9, dwb = fused_stripe_attention_bwd(
+            pixel_rows(q), pixel_rows(k), pixel_rows(v), w9, wb, pixel_rows(g), *ctx.geometry)
         return dq, dk, dv, dw9.to(w9.dtype), dwb.to(wb.dtype), None, None, None
 
 
@@ -360,8 +385,7 @@ def stripe_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w9: torc
         use_kernel = q.is_cuda
     if not use_kernel:
         return plain_stripe_attention(q, k, v, w9, wb, ws=ws, nh=num_heads, scale=scale)
-    return StripeAttentionFunction.apply(pixel_rows(q), pixel_rows(k), pixel_rows(v), w9, wb, ws,
-                                         num_heads, scale)
+    return StripeAttentionFunction.apply(q, k, v, w9, wb, ws, num_heads, scale)
 
 
 def use_fused_stripe_attn(x_shape, ws: int, attn_drop: float, training: bool,
